@@ -1,0 +1,116 @@
+"""Weights carried across: a flax parameter tree -> the port's state_dict.
+
+``from_flax(params, cfg)`` takes the JAX package's Octo parameter tree as
+nested dicts of numpy arrays (with or without the outer ``'params'``) and
+returns a ``state_dict`` for ``models.octo.Octo(cfg)``.  Layouts:
+
+* ``nn.Dense`` kernels (in, out) -> ``weight`` (out, in);
+* attention ``DenseGeneral`` q/k/v kernels (E, H, D) and biases (H, D) ->
+  (H*D, E) and (H*D,); output kernels (H, D, E) -> (E, H*D); the T5 ``qkv``
+  kernel (E, 3, H, D) -> (3*H*D, E);
+* conv kernels HWIO -> OIHW;
+* ``nn.scan``-stacked blocks (``transformer/blocks``,
+  ``text_encoder/t5_encoder/blocks``) split along their leading layer axis;
+* ``output_dense``'s rows are in flattened (h, w, c) order; the port
+  flattens NCHW maps as (c, h, w), so the rows are permuted;
+* ``scale`` and ``embedding`` -> ``weight``; everything else is copied.
+
+The continuous and categorical heads are not ported yet and are skipped.
+Any other key the port does not have, and any key the port needs but the
+tree lacks, raises, as does a shape mismatch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .core.config import OctoConfig
+
+__all__ = ["from_flax", "SKIPPED_SUBTREES"]
+
+SKIPPED_SUBTREES = ("continuous_action_head", "categorical_action_head")
+_SCANNED = (("transformer", "blocks"), ("text_encoder", "t5_encoder", "blocks"))
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _kernel(module: str, k: np.ndarray, cfg: OctoConfig) -> np.ndarray:
+    if module in ("query", "key", "value", "qkv"):
+        return k.reshape(k.shape[0], -1).T
+    if module in ("out", "o"):
+        return k.reshape(-1, k.shape[-1]).T
+    if k.ndim == 4:                                   # conv, HWIO
+        return k.transpose(3, 2, 0, 1)
+    if module == "output_dense":
+        c = cfg.images.resnet.features
+        side = math.isqrt(k.shape[0] // c)
+        if side * side * c != k.shape[0]:
+            raise ValueError(f"output_dense kernel rows {k.shape[0]} are not "
+                             f"a square map of {c} channels")
+        k = k.reshape(side, side, c, -1).transpose(2, 0, 1, 3)
+        return k.reshape(side * side * c, -1).T
+    if k.ndim == 2:
+        return k.T
+    raise ValueError(f"unexpected {k.ndim}-D kernel under {module!r}")
+
+
+def _leaf(path: Tuple[str, ...], arr: np.ndarray, cfg: OctoConfig):
+    *mods, leaf = path
+    module = mods[-1] if mods else ""
+    if leaf == "kernel":
+        return mods + ["weight"], _kernel(module, arr, cfg)
+    if leaf == "bias" and module in ("query", "key", "value"):
+        return mods + ["bias"], arr.reshape(-1)
+    if leaf in ("scale", "embedding"):
+        return mods + ["weight"], arr
+    return mods + [leaf], arr
+
+
+def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
+    """Flax Octo params (numpy) -> ``Octo(cfg).state_dict()``-shaped dict
+    of CPU tensors in ``cfg.param_dtype``."""
+    from .models.octo import Octo
+
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    dtype = cfg.params_dtype
+
+    def put(path, arr):
+        names, value = _leaf(path, arr, cfg)
+        out[".".join(names)] = torch.tensor(
+            np.ascontiguousarray(value, dtype=np.float32)).to(dtype)
+
+    for path, arr in _flatten(params):
+        if path[0] in SKIPPED_SUBTREES:
+            continue
+        for scanned in _SCANNED:
+            n = len(scanned)
+            if path[:n] == scanned:
+                for i in range(arr.shape[0]):
+                    put(scanned + (str(i),) + path[n:], arr[i])
+                break
+        else:
+            put(path, arr)
+
+    expected = Octo(cfg, device="meta", seed=None).state_dict()
+    unknown = sorted(set(out) - set(expected))
+    missing = sorted(set(expected) - set(out))
+    if unknown or missing:
+        raise KeyError(f"flax tree does not match the port: unknown "
+                       f"{unknown}, missing {missing}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(expected[k].shape):
+            raise ValueError(f"{k}: converted shape {tuple(v.shape)}, port "
+                             f"expects {tuple(expected[k].shape)}")
+    return out

@@ -1,0 +1,202 @@
+"""DDPM diffusion action head.
+
+Counterpart of the JAX package's ``heads/diffusion.py``.  The denoiser's
+first layer is split by source (``noisy_proj``, ``time_proj``,
+``readout_proj``), so everything that does not depend on the current sample
+is computed once before the reverse loop: the (T, B, H) per-step contexts
+``time_proj(FourierFeatures(t)) + readout_proj(mean(readouts))``.  The loop
+itself is ``ops.ddpm_sampler``: the CUDA kernel on the card, its plain
+version on the CPU.
+
+Randomness comes from a ``torch.Generator`` or is passed in: ``noisy``
+(B, A) and ``noise`` (T, B, A).  ``sampler_rng_mode='reference'`` keeps
+the reference sampler's semantics: the initial sample's noise is reused at
+every step and noise is still added at t=0.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.config import DiffusionHeadConfig
+from ..modules.attention import MLPBlock
+from ..modules.layers import Dense, init_truncated
+from ..ops.ddpm_sampler import ddpm_sampler
+
+__all__ = ["DiffusionActionHead", "OctoDenoise", "FourierFeatures",
+           "cosine_beta_schedule", "ddim_schedule"]
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    """Cosine noise schedule, in numpy (float64)."""
+    steps = timesteps + 1
+    t = np.linspace(0, timesteps, steps) / timesteps
+    alphas_cumprod = np.cos((t + s) / (1 + s) * np.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
+def ddim_schedule(diffusion_steps: int, ddim_steps: int,
+                  alphas_cumprod: np.ndarray):
+    """Evenly subsampled DDIM (eta=0) schedule over a trained DDPM.
+
+    Returns ``(taus, d1, d2, e1, e2)``: descending timesteps and, per step,
+    ``x0 = clip(d1*x - d2*eps)``, ``x_prev = e1*x0 + e2*eps``."""
+    if not 1 <= ddim_steps <= diffusion_steps:
+        raise ValueError(
+            f"ddim_steps={ddim_steps} must be in [1, {diffusion_steps}]")
+    taus = np.round(
+        np.linspace(diffusion_steps - 1, 0, ddim_steps)).astype(np.int32)
+    alpha = alphas_cumprod[taus]
+    alpha_prev = np.append(alphas_cumprod[taus[1:]], 1.0)
+    d1 = 1.0 / np.sqrt(alpha)
+    d2 = np.sqrt(1.0 - alpha) / np.sqrt(alpha)
+    e1 = np.sqrt(alpha_prev)
+    e2 = np.sqrt(1.0 - alpha_prev)
+    return (taus, d1.astype(np.float32), d2.astype(np.float32),
+            e1.astype(np.float32), e2.astype(np.float32))
+
+
+class FourierFeatures(nn.Module):
+    """Learned Fourier time embedding + MLP."""
+
+    def __init__(self, output_dim: int, mlp_dim: int, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fourier_kernel = nn.Parameter(torch.empty(
+            output_dim // 2, 1, dtype=param_dtype, device=device))
+        self.mlp = MLPBlock(output_dim, mlp_dim, output_dim, dtype=dtype,
+                            param_dtype=param_dtype, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        # flax he_normal on an (output_dim/2, 1) shape: fan_in = output_dim/2
+        init_truncated(self.fourier_kernel,
+                       math.sqrt(2.0 / self.fourier_kernel.shape[0]),
+                       generator)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., 1) float times -> (..., output_dim)."""
+        x = (2 * math.pi * t.to(self.dtype)) @ self.fourier_kernel.T.to(
+            self.dtype)
+        return self.mlp(torch.cat([torch.cos(x), torch.sin(x)], dim=-1))
+
+
+class OctoDenoise(nn.Module):
+    """Denoiser MLP over (noisy action, time embedding, readout embedding)
+    with its first layer split by source.  Only the one-block denoiser of
+    every shipped configuration is ported."""
+
+    def __init__(self, cfg: DiffusionHeadConfig, readout_dim: int, **kw):
+        super().__init__()
+        if cfg.num_blocks != 1:
+            raise ValueError(
+                f"diffusion num_blocks={cfg.num_blocks}: only the one-block "
+                f"denoiser is ported")
+        h = cfg.mlp_dim
+        self.time_encoder = FourierFeatures(cfg.time_dim, cfg.mlp_dim, **kw)
+        self.noisy_proj = Dense(cfg.action_space_dim, h, **kw)
+        self.time_proj = Dense(cfg.time_dim, h, bias=False, **kw)
+        self.readout_proj = Dense(readout_dim, h, bias=False, **kw)
+        self.first_out = Dense(h, cfg.action_space_dim, **kw)
+
+    def contexts(self, times: torch.Tensor, readout_emb: torch.Tensor):
+        """(T,) times, (B, E) readout embedding -> (T, B, H) per-step
+        first-layer contexts in the compute dtype."""
+        time_emb = self.time_encoder(times[:, None].float())
+        return (self.time_proj(time_emb)[:, None, :]
+                + self.readout_proj(readout_emb)[None])
+
+
+class DiffusionActionHead(nn.Module):
+    def __init__(self, cfg: DiffusionHeadConfig, readout_dim: int, **kw):
+        super().__init__()
+        if cfg.sampler_rng_mode not in ("folded", "reference"):
+            raise ValueError(
+                f"unknown sampler_rng_mode {cfg.sampler_rng_mode!r}")
+        if cfg.ddim_eps_mode not in ("raw", "recompute"):
+            raise ValueError(f"unknown ddim_eps_mode {cfg.ddim_eps_mode!r}; "
+                             f"'raw' or 'recompute'")
+        self.cfg = cfg
+        self.denoiser = OctoDenoise(cfg, readout_dim, **kw)
+        betas = cosine_beta_schedule(cfg.diffusion_steps)
+        alphas = 1.0 - betas
+        self._np_alpha_hats = np.cumprod(alphas)
+        device = kw.get("device")
+        self.register_buffer("betas", torch.as_tensor(
+            betas, dtype=torch.float32, device=device), persistent=False)
+        self.register_buffer("alphas", torch.as_tensor(
+            alphas, dtype=torch.float32, device=device), persistent=False)
+        self.register_buffer("alpha_hats", torch.as_tensor(
+            self._np_alpha_hats, dtype=torch.float32, device=device),
+            persistent=False)
+
+    def schedule(self, ddim_steps: Optional[int] = None):
+        """(times (T,), coeffs (T, 3|4) f32) for DDPM or ``ddim_steps``-step
+        DDIM, on the head's device."""
+        cfg = self.cfg
+        device = self.alphas.device
+        if ddim_steps is not None:
+            taus, d1, d2, e1, e2 = ddim_schedule(
+                cfg.diffusion_steps, ddim_steps, self._np_alpha_hats)
+            coeffs = torch.as_tensor(np.stack([d1, d2, e1, e2], axis=-1),
+                                     device=device)
+            return torch.as_tensor(taus, device=device), coeffs
+        times = torch.arange(cfg.diffusion_steps - 1, -1, -1, device=device)
+        c3 = torch.sqrt(self.betas[times])
+        if cfg.sampler_rng_mode != "reference":
+            c3 = torch.where(times > 0, c3, torch.zeros_like(c3))
+        coeffs = torch.stack([
+            1.0 / torch.sqrt(self.alphas[times]),
+            (1.0 - self.alphas[times])
+            / torch.sqrt(1.0 - self.alpha_hats[times]),
+            c3,
+        ], dim=-1)
+        return times, coeffs
+
+    def predict_action(self, readouts: torch.Tensor, *,
+                       noisy: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       ddim_steps: Optional[int] = None) -> torch.Tensor:
+        """(B, R, E) readouts -> (B, A) float32 actions by the full reverse
+        process (DDPM, or DDIM when ``ddim_steps`` or ``cfg.ddim_steps`` is
+        set).
+
+        ``noisy`` (B, A) is the initial sample and ``noise`` (T, B, A) the
+        per-step DDPM noise; whichever is absent is drawn from
+        ``generator`` on the readouts' device."""
+        cfg = self.cfg
+        b = readouts.shape[0]
+        a = cfg.action_space_dim
+        device = readouts.device
+        ddim_steps = ddim_steps if ddim_steps is not None else cfg.ddim_steps
+        times, coeffs = self.schedule(ddim_steps)
+        steps = times.shape[0]
+        if noisy is None:
+            noisy = torch.randn(b, a, generator=generator, device=device)
+        noisy = noisy.to(device=device, dtype=torch.float32)
+        if ddim_steps is None and noise is None:
+            if cfg.sampler_rng_mode == "reference":
+                noise = noisy.expand(steps, b, a)
+            else:
+                noise = torch.randn(steps, b, a, generator=generator,
+                                    device=device)
+        if noise is not None:
+            noise = noise.to(device=device, dtype=torch.float32)
+
+        contexts = self.denoiser.contexts(times, readouts.mean(dim=-2))
+        d = self.denoiser
+        return ddpm_sampler(
+            noisy, contexts, None if ddim_steps is not None else noise,
+            coeffs, d.noisy_proj.weight, d.noisy_proj.bias,
+            d.first_out.weight, d.first_out.bias, clip_value=cfg.clip_value,
+            ddim_x0clip=ddim_steps is not None,
+            ddim_eps_recompute=(ddim_steps is not None
+                                and cfg.ddim_eps_mode == "recompute"))

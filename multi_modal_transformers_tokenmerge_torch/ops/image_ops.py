@@ -1,0 +1,63 @@
+"""Image preprocessing: patchify and the static patch-position tables.
+
+Counterpart of the JAX package's ``ops/image_ops.py``.  Position-interval
+bounds depend only on image geometry, so they are numpy constants; the
+eval-mode position tokens are their midpoints.  The train-mode sampler
+comes with the training port.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["patchify", "position_interval_bounds", "eval_position_tokens"]
+
+
+def patchify(images: torch.Tensor, patch_size: int, normalize: bool,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., H, W, C) uint8/float images -> (..., P, p, p, C) patches.
+
+    ``P = (H/p)*(W/p)`` patches in raster order, optionally normalized to
+    [-1, 1].  Any number of leading batch dims."""
+    *batch, h, w, c = images.shape
+    p = patch_size
+    if h % p or w % p:
+        raise ValueError(f"image ({h}x{w}) not divisible by patch size {p}")
+    x = images.to(dtype)
+    x = x.reshape(*batch, h // p, p, w // p, p, c)
+    x = x.movedim(-4, -3)  # (..., h/p, w/p, p, p, c)
+    x = x.reshape(*batch, (h // p) * (w // p), p, p, c)
+    if normalize:
+        x = 2.0 * (x / 255.0) - 1.0
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def position_interval_bounds(
+    image_dim: int, patch_size: int, position_interval: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Static quantized ``(row_start, row_stop, col_start, col_stop)``
+    bucket bounds per patch, in raster order, each int32 of shape (P,).
+
+    The "row" stream varies fastest along the raster, as in the reference;
+    both streams are learned embeddings, so only agreement matters."""
+    p = patch_size
+    n = image_dim // p
+    edges = np.arange(0, image_dim + p, p, dtype=np.float64)
+    q = np.floor(edges / image_dim * (position_interval - 1)).astype(np.int32)
+    start, stop = q[:-1], q[1:]
+    return (np.tile(start, n), np.tile(stop, n),
+            np.repeat(start, n), np.repeat(stop, n))
+
+
+def eval_position_tokens(
+    image_dim: int, patch_size: int, position_interval: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic (row, col) position tokens: interval midpoints."""
+    rs, rp, cs, cp = position_interval_bounds(image_dim, patch_size,
+                                              position_interval)
+    return (rs + rp) // 2, (cs + cp) // 2

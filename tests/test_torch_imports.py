@@ -1,0 +1,39 @@
+"""The port and chip_smoke.py import neither JAX, flax nor the JAX package,
+checked on the source AST of every module."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "multi_modal_transformers_tokenmerge_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "multi_modal_transformers_tokenmerge_tpu")
+
+
+def _files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert path.exists(), path
+    bad = [m for m in _imported(path)
+           if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
