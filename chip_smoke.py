@@ -5,15 +5,28 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build: compile every kernel under multi_modal_transformers_tokenmerge_torch/csrc
-   with nvcc for sm_90a;
+   with nvcc for sm_90a, one nvcc per source, all at once;
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at octo_base shapes, and time both with CUDA events;
+   at the shapes of the main paths (the sampler at octo_base serving; the
+   flash forward/dq/dk-dv kernels at octo_base training and at the
+   1024-token layout of bench.py's bench_flash, in three dtypes, with
+   dropout 0 and 0.1; the max-pool backward at octo_base training, bit for
+   bit), time kernel, plain version and the PyTorch library call computing
+   the same function, and check that attention_impl='auto' takes the flash
+   kernel at 1024 tokens and not at 74;
 3. serving: the full-width octo_base policy in bfloat16 (random weights
    from a seed) served through PolicyEngine with a cached instruction, at
    batch 1 and batch 8, counting every kernel launch of that run;
 4. reference: octo_base in float32, CUDA (kernels) against CPU (plain
    versions) on the same weights, inputs and noise;
-5. profile: device time by kernel over a few batch-1 requests.
+5. profile: device time by kernel over a few batch-1 requests;
+6. training: octo_base in bfloat16 with attention_impl='flash' and
+   pool_vjp='pallas', through make_optimizer, create_train_state and fit,
+   at batch 32: ms per step and every kernel's launches per step;
+7. training reference: one float32 training step, CUDA (kernels) against
+   CPU (plain versions) on the same weights and draws: loss and gradients,
+   and the same step in bfloat16 as a planted fault the limits must see;
+8. training profile: device time by kernel and the idle share of a step.
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -24,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +147,15 @@ def run_sampler(fn, x, coeffs, clip, mode, dtype=None):
               ddim_x0clip=ddim, ddim_eps_recompute=mode == "ddim_recompute")
 
 
+def bound(nbytes, flops, dtype):
+    """The least time (ms) of moving ``nbytes`` and doing ``flops`` of
+    ``dtype`` on the card, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
 def sampler_bound_ms(batch, steps, hidden, adim, dtype, mode):
     e = torch.tensor([], dtype=dtype).element_size()
     ncoef = 3 if mode == "ddpm" else 4
@@ -140,11 +163,7 @@ def sampler_bound_ms(batch, steps, hidden, adim, dtype, mode):
               + (steps * batch * adim * 4 if mode == "ddpm" else 0)
               + steps * ncoef * 4 + 2 * hidden * adim * e + (hidden + adim) * e
               + batch * adim * 4)
-    flops = steps * batch * 4 * hidden * adim
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return bound(nbytes, steps * batch * 4 * hidden * adim, dtype)
 
 
 def kernel_phase(head):
@@ -218,6 +237,269 @@ def kernel_phase(head):
             f"ms ({by}); no single PyTorch call computes this function")
     log(f"  largest |kernel-plain| / (eps*(1+|plain|)): {low_err}")
     return f32_err, timings
+
+
+# -- phase 2b: flash attention and max-pool backward kernels -----------------
+
+OCTO_SPEC = "[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2"
+# bench.py:1056 bench_flash, the long-context layout where 'auto' picks
+# the flash kernels
+LONG_SPEC = ("[TaskDescriptionPrefix{16}] "
+             "[Image{100};Image{100};Image{100};Image{100};Image{100};"
+             "Readout{4}]*2")
+# name -> (batch, layout, heads, head_dim)
+FLASH_SHAPES = {"octo_base_train": (32, OCTO_SPEC, 3, 256),
+                "long_context": (8, LONG_SPEC, 12, 64)}
+TRAIN_DROPOUT = 0.1     # octo_base's attention.dropout_rate
+
+
+def layout_mask(spec):
+    from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
+        SequenceLayout)
+    return SequenceLayout.from_strings(spec).attention_mask()
+
+
+def rel_gate(got, want, dtype):
+    """(ok, max |got - want|, max |got - want| / (1 + |want|) in units of
+    the tolerance's scale) under the dtype's rule."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = F32_TOL if dtype == torch.float32 else torch.finfo(dtype).eps
+    units = (diff / (scale * (1 + want.abs()))).max().item()
+    limit = 1.0 if dtype == torch.float32 else LOW_ULPS
+    ok = bool(torch.isfinite(got).all()) and units <= limit
+    return ok, diff.max().item(), units
+
+
+def flash_bytes_flops(b, s, h, d, nnz, dtype, kind):
+    """Least bytes and matmul FLOPs of one flash pass: each input read once,
+    each output written once; 2 FLOPs per multiply-add over the live
+    (query, key) pairs of the mask (``nnz`` per batch and head)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    act = b * s * h * d * e
+    stats = b * h * s * 4
+    tensors, nstats, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3),
+                                 "dkv": (6, 2, 4)}[kind]
+    nbytes = tensors * act + nstats * stats + s * s
+    return nbytes, 2 * products * b * h * d * nnz
+
+
+def device_total_ms(fn, iters=20, warmup=3):
+    """Device time of every kernel that one call of ``fn`` runs (ms), and
+    the names of the three longest: the yardstick of a library call."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / iters
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    return total, [e.key[:80] for e in top]
+
+
+def flash_case(fa, spec, b, h, d, dtype, seed):
+    mask = layout_mask(spec)
+    s = mask.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    bq, bk = fa.KERNEL_TILES[d]
+    tables = fa.device_tables(mask, bq, bk, "cuda")
+    return mask, (q, k, v, do), tables, (bq, bk)
+
+
+def flash_check(fa, name, spec, b, h, d):
+    """Every flash kernel against its plain version at one shape, in three
+    dtypes, with dropout 0 and 0.1 on the same seed words."""
+    seed = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64,
+                        device="cuda")
+    owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
+             "dv": "flash_dkv"}
+    f32_err = dict.fromkeys(owner.values(), 0.0)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        mask, qkvd, tables, tiles = flash_case(fa, spec, b, h, d, dtype,
+                                               seed=7)
+        q, k, v, do = qkvd
+        padded, k_hi, q_lo = tables
+        for rate in (0.0, TRAIN_DROPOUT):
+            kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=rate)
+            sw = seed if rate else None
+            out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi,
+                                                      sw, **kw)
+            out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, sw, **kw)
+            delta = fa.attention_delta(do, out_p, padded.shape[0])
+            got = dict(out=out,
+                       dq=fa.flash_dq(q, k, v, do, lse_p, delta, padded,
+                                      k_hi, sw, **kw))
+            got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, lse_p, delta,
+                                                padded, q_lo, sw, **kw)
+            torch.cuda.synchronize()
+            want = dict(out=out_p,
+                        dq=fa.flash_dq_reference(q, k, v, do, lse_p, delta,
+                                                 padded, k_hi, sw, **kw))
+            want["dk"], want["dv"] = fa.flash_dkv_reference(
+                q, k, v, do, lse_p, delta, padded, q_lo, sw, **kw)
+            parts = []
+            ok_all = True
+            for key in ("out", "dq", "dk", "dv"):
+                ok, err, units = rel_gate(got[key], want[key], dtype)
+                ok_all &= ok
+                if dtype == torch.float32:
+                    f32_err[owner[key]] = max(f32_err[owner[key]], err)
+                parts.append(f"{key} {err:.2e} ({units:.3f})")
+            lse_err = ((lse - lse_p).abs() / (1 + lse_p.abs())).max().item()
+            ok_all &= lse_err <= 1e-5
+            parts.append(f"lse rel {lse_err:.1e}")
+            log(f"  flash {name:15s} {str(dtype)[6:]:8s} r={rate:.1f}: "
+                f"|kernel-plain| {', '.join(parts)} "
+                f"{'ok' if ok_all else 'FAIL'}")
+            if not ok_all:
+                fail(f"flash {name} {dtype} r={rate}")
+    return f32_err
+
+
+def flash_timings(fa, name, spec, b, h, d):
+    """bf16 device times of the three kernels with the training dropout,
+    their plain versions, the bounds and SDPA with the boolean mask."""
+    import torch.nn.functional as F
+    dtype = torch.bfloat16
+    mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
+        fa, spec, b, h, d, dtype, seed=9)
+    seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
+    kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=TRAIN_DROPOUT)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+    delta = fa.attention_delta(do, out, padded.shape[0])
+    calls = {
+        "flash_fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, padded, k_hi,
+                                                   seed, **kw),
+                          lambda: fa.flash_fwd_lse_reference(
+                              q, k, v, padded, k_hi, seed, **kw), "fwd"),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, padded,
+                                         k_hi, seed, **kw),
+                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                                   padded, k_hi, seed, **kw),
+                     "dq"),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, padded,
+                                           q_lo, seed, **kw),
+                      lambda: fa.flash_dkv_reference(
+                          q, k, v, do, lse, delta, padded, q_lo, seed, **kw),
+                      "dkv"),
+    }
+    s = mask.shape[0]
+    nnz = int(mask.sum())
+    # the library yardstick: SDPA on (B, H, S, D) with the boolean mask and
+    # the same dropout rate; its backward computes dq, dk and dv together
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    m = torch.as_tensor(mask, device="cuda")
+    sdpa = lambda a, bb, c: F.scaled_dot_product_attention(
+        a, bb, c, attn_mask=m, dropout_p=TRAIN_DROPOUT)
+    lib_fwd, fwd_names = device_total_ms(lambda: sdpa(qh, kh, vh))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    lib_both, both_names = device_total_ms(
+        lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), doh))
+    lib_bwd = max(lib_both - lib_fwd, 0.0)
+    rows = {}
+    for kernel, (call, plain, kind) in calls.items():
+        ms = device_ms(call, f"{kernel}_kernel")
+        call_ms = time_ms(call)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        nbytes, flops = flash_bytes_flops(b, s, h, d, nnz, dtype, kind)
+        bnd, by = bound(nbytes, flops, dtype)
+        lib = lib_fwd if kind == "fwd" else lib_bwd
+        rows[kernel] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=lib)
+        log(f"  {kernel:13s} {name:15s} bf16 B={b} S={s} H={h} D={d} "
+            f"r={TRAIN_DROPOUT}: kernel {ms:.4f} ms on the device "
+            f"({call_ms:.4f} ms a wrapper call), plain {plain_ms:.3f} ms, "
+            f"bound {bnd:.5f} ms ({by}; {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP), SDPA "
+            f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
+            f"{lib:.4f} ms")
+    log(f"  SDPA kernels, forward: {fwd_names}; forward+backward: "
+        f"{both_names}")
+    return rows, {"forward": fwd_names, "forward_backward": both_names}
+
+
+def pool_check_and_time(pool, n):
+    """pool_bwd against its plain version, bit for bit, at the embedder's
+    shape (N, 64, 23, 23) with many ties and a NaN window; bf16 times."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(3)
+    base = (torch.randn(n, 64, 23, 23, generator=g, device="cuda") * 2
+            ).round() / 2
+    base[0, 0, 5, 5] = float("nan")
+    gy32 = torch.randn(n, 64, 21, 21, generator=g, device="cuda")
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x, gy = base.to(dtype), gy32.to(dtype)
+        dx = pool.pool_bwd(x, gy, (3, 3))
+        ref = pool.pool_bwd_reference(x, gy, (3, 3))
+        torch.cuda.synchronize()
+        same = torch.equal(dx, ref)
+        err = max(err, (dx.float() - ref.float()).abs().max().item())
+        log(f"  pool_bwd {str(dtype)[6:]:8s} N={n} C=64 23x23: kernel == "
+            f"plain bit for bit: {same}")
+        if not same:
+            fail(f"pool_bwd {dtype}")
+    dtype = torch.bfloat16
+    x, gy = base.to(dtype), gy32.to(dtype)
+    ms = device_ms(lambda: pool.pool_bwd(x, gy, (3, 3)), "pool_bwd_kernel")
+    call_ms = time_ms(lambda: pool.pool_bwd(x, gy, (3, 3)))
+    plain_ms = time_ms(lambda: pool.pool_bwd_reference(x, gy, (3, 3)),
+                       iters=5, warmup=1)
+    xg = x.detach().requires_grad_(True)
+    y = F.max_pool2d(xg, 3, 1)
+    lib, lib_names = device_total_ms(
+        lambda: torch.autograd.grad(y, xg, gy, retain_graph=True))
+    e = x.element_size()
+    nbytes = (2 * x.numel() + gy.numel()) * e
+    # 9 compares for the max, 9 for the first match, 1 add per window
+    flops = 19 * gy.numel()
+    bnd, by = bound(nbytes, flops, torch.float32)
+    log(f"  pool_bwd bf16 N={n}: kernel {ms:.4f} ms on the device "
+        f"({call_ms:.4f} ms a wrapper call), plain {plain_ms:.3f} ms, bound "
+        f"{bnd:.5f} ms ({by}; {nbytes / 1e6:.1f} MB), autograd backward of "
+        f"F.max_pool2d {lib:.4f} ms ({lib_names})")
+    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=lib)
+
+
+def auto_gate_check(fa):
+    """attention_impl='auto' runs the flash kernel from flash_min_seq
+    (1024) tokens on, and the plain attention below."""
+    from multi_modal_transformers_tokenmerge_torch.core.config import (
+        TransformerConfig, AttentionConfig)
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        MultiHeadAttention, select_attention_fn)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for spec, heads in ((LONG_SPEC, 12), (OCTO_SPEC, 3)):
+        mask = layout_mask(spec)
+        s = mask.shape[0]
+        cfg = TransformerConfig(attention_impl="auto", attention=
+                                AttentionConfig(num_heads=heads))
+        fn = select_attention_fn(cfg, mask, s, "cuda")
+        mha = MultiHeadAttention(cfg.attention, 768, fn,
+                                 dtype=torch.bfloat16, device="cuda")
+        for mod in mha.modules():
+            if mod is not mha and hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(g)
+        before = fa.flash_fwd_lse.launches
+        with torch.no_grad():
+            y = mha(torch.randn(1, s, 768, generator=g, device="cuda"),
+                    torch.as_tensor(mask, device="cuda"))
+        launched = fa.flash_fwd_lse.launches - before
+        log(f"  attention_impl='auto' at S={s}: flash kernel launched "
+            f"{launched} time(s), output finite "
+            f"{bool(torch.isfinite(y).all())}")
+        if launched != (1 if s >= cfg.flash_min_seq else 0) or \
+                not torch.isfinite(y).all():
+            fail(f"'auto' at S={s}")
 
 
 # -- phase 3: serving --------------------------------------------------------
@@ -353,6 +635,310 @@ def profile_phase(model, cfg, request_ms):
                                           row_limit=60))
 
 
+# -- phase 6: training -------------------------------------------------------
+
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 60        # the timed window of fit
+TRAIN_SYNCED = 60       # then steps that each end in a synchronize
+
+
+def train_config(dtype):
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    cfg = octo_base(dtype=dtype)
+    return cfg.replace(
+        transformer=cfg.transformer.replace(attention_impl="flash"),
+        images=cfg.images.replace(resnet=cfg.images.resnet.replace(
+            pool_vjp="pallas")))
+
+
+def device_batches(cfg, batch, count, seed):
+    """``count`` synthetic batches made at once and moved to the card."""
+    from multi_modal_transformers_tokenmerge_torch.utils.data import (
+        synthetic_octo_batches)
+    it = synthetic_octo_batches(
+        batch, image_shape=(cfg.num_observation_blocks,
+                            *cfg.images.image_size),
+        text_length=cfg.text.max_length,
+        action_dim=cfg.heads.diffusion.action_space_dim,
+        vocab_size=cfg.text.vocab_size, seed=seed)
+    return [tuple(torch.as_tensor(a).cuda() for a in next(it))
+            for _ in range(count)]
+
+
+def train_phase(cfg, train_counters):
+    """octo_base bf16 through make_optimizer -> create_train_state -> fit
+    at batch 32: ms/step, finite loss, every kernel's launches per step.
+
+    ms/step is one window of fit timed as fit runs it, with a single
+    synchronize at its end (fit waits for the device only when it logs);
+    the median and p90 of single steps, each ending in a synchronize, are
+    reported beside it."""
+    import itertools
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.train.loop import (
+        fit, to_device)
+    from multi_modal_transformers_tokenmerge_torch.train.optim import (
+        make_optimizer)
+    from multi_modal_transformers_tokenmerge_torch.train.state import (
+        create_train_state)
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    model = Octo(cfg, device="cuda", seed=0)
+    steps = TRAIN_WARMUP + TRAIN_STEPS + TRAIN_SYNCED
+    tx = make_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=steps,
+                        params=model, frozen_prefixes=("text_encoder",))
+    state = create_train_state(model, tx, rngs=0)
+    batches = itertools.cycle(device_batches(cfg, TRAIN_BATCH, 4, seed=1))
+    logged = []
+
+    class Logger:
+        def log(self, metrics, step):
+            logged.append((step, metrics))
+
+    step = make_train_step("diffusion")
+
+    def synced_steps(count):
+        out = []
+        for _ in range(count):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, *to_device(next(batches), "cuda"))
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return np.array(out)
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in train_counters.values():
+        c.launches = 0
+    warm = synced_steps(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = fit(state, batches, "diffusion", TRAIN_STEPS, logger=Logger(),
+                log_every=10)
+    torch.cuda.synchronize()
+    window = (time.perf_counter() - t0) * 1e3
+    synced = synced_steps(TRAIN_SYNCED)
+    launches = {k: c.launches for k, c in train_counters.items()}
+    per_step = {"flash_fwd_lse": cfg.transformer.num_blocks,
+                "flash_dq": cfg.transformer.num_blocks,
+                "flash_dkv": cfg.transformer.num_blocks, "pool_bwd": 1}
+    for k, n in per_step.items():
+        if launches[k] != steps * n:
+            fail(f"training launched {k} {launches[k]} times in {steps} "
+                 f"steps; expected {steps * n}")
+    ms_per_step = window / TRAIN_STEPS
+    mean = float(synced.mean())
+    med = float(np.median(synced))
+    p90 = float(np.percentile(synced, 90))
+    losses = [m["loss"] for _, m in logged]
+    if state.step != steps or not all(np.isfinite(losses)):
+        fail(f"training: {state.step} steps, windowed losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  train octo_base bf16 B={TRAIN_BATCH}: warm-up "
+        f"{[round(float(t), 1) for t in warm]} ms; fit, {TRAIN_STEPS} steps "
+        f"in {window:.2f} ms: {ms_per_step:.4f} ms/step; then "
+        f"{len(synced)} steps each ending in a synchronize: mean "
+        f"{mean:.4f} ms, median {med:.4f}, p90 {p90:.4f}, min "
+        f"{synced.min():.4f}, max "
+        f"{synced.max():.4f}; peak memory {peak:.2f} GiB")
+    log(f"  windowed loss {[round(x, 4) for x in losses]}; grad_norm "
+        f"{[round(m['grad_norm'], 3) for _, m in logged]}")
+    log(f"  launches in {steps} steps: {launches}")
+    return state, dict(ms_per_step=ms_per_step, window_steps=TRAIN_STEPS,
+                       synced_mean_ms=mean, synced_median_ms=med,
+                       synced_p90_ms=p90,
+                       synced_steps=len(synced), peak_gib=peak), launches
+
+
+# -- phase 7: float32 training step, CUDA vs CPU --------------------------------
+
+# |cuda - cpu| of each gradient leaf, in units of the leaf's largest |value|:
+# downstream of the max-pool (flash kernels, heads) the sums only run in
+# another order; the image tower's leaves also see the pool's argmax flip
+# where the conv outputs of the two devices order a near-tie differently
+# (1.3e-3 the most seen).  A planted fault, the same step computed in
+# bfloat16, must read above IMAGE_REF_TOL, or the limit could not see it.
+TRAIN_REF_TOL = 1e-3
+IMAGE_REF_TOL = 3e-3
+
+
+class RecordingOptimizer:
+    """Stands in for the optimizer in phase 7: records the gradients."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, named_params):
+        pass
+
+    def step(self, params, grads):
+        self.grads = {n: None if g is None else g.detach().float().cpu()
+                      for n, g in grads.items()}
+
+
+def train_reference_phase(fa, pool):
+    """One float32 octo_base step with every configured dropout at 0: the
+    CUDA kernels against the CPU plain versions on the same weights and
+    draws (the time encoder's fixed 0.1 dropout gets the same keep masks).
+    The same step in bfloat16 on the card is the planted fault."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.modules import layers
+    from multi_modal_transformers_tokenmerge_torch.ops.image_ops import (
+        position_interval_bounds)
+    from multi_modal_transformers_tokenmerge_torch.train.state import (
+        create_train_state)
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    cfg = train_config("float32")
+    tr = cfg.transformer
+    cfg = cfg.replace(
+        transformer=tr.replace(dropout_rate=0.0, attention=tr.attention
+                               .replace(dropout_rate=0.0)),
+        heads=cfg.heads.replace(diffusion=cfg.heads.diffusion.replace(
+            dropout_rate=0.0)))
+    gpu = Octo(cfg, device="cuda", seed=3)
+    cpu = Octo(cfg, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    fault = Octo(cfg.replace(dtype="bfloat16"), device="cuda", seed=None)
+    fault.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(6)
+    b = 2
+    ids, images, actions = device_batches(cfg, b, 1, seed=6)[0]
+    img, d = cfg.images, cfg.heads.diffusion
+    rs, rp, cs, cp = position_interval_bounds(img.image_size[0],
+                                              img.patch_size,
+                                              img.position_interval)
+    shape = (b, cfg.num_observation_blocks, rs.shape[0])
+    draws = {"positions": tuple(torch.from_numpy(rng.integers(
+                 lo, np.maximum(hi, lo + 1), shape)) for lo, hi in
+                 ((rs, rp), (cs, cp))),
+             "time": torch.from_numpy(rng.integers(0, d.diffusion_steps,
+                                                   (b, 1))),
+             "noise": torch.from_numpy(rng.normal(
+                 size=(b, d.action_space_dim)).astype(np.float32))}
+    masks = [torch.from_numpy(rng.random((b, n)) < 0.9)
+             for n in (d.mlp_dim, d.time_dim)]
+    original = layers.keep_mask
+    results = {}
+    counters = (fa.flash_fwd_lse, fa.flash_dq, fa.flash_dkv, pool.pool_bwd)
+    launched = None
+    try:
+        for name, model in (("cuda", gpu), ("cuda_bf16_fault", fault),
+                            ("cpu", cpu)):
+            queue = list(masks)
+            layers.keep_mask = lambda shape, p, g, device: queue.pop(0).to(
+                device)
+            dev = model.device
+            rec = RecordingOptimizer()
+            state = create_train_state(model, rec, rngs=0)
+            on = lambda t: t.to(dev)
+            step = make_train_step("diffusion")
+            before = [c.launches for c in counters]
+            _, loss = step(state, on(ids), on(images), on(actions),
+                           draws={"positions": tuple(map(
+                               on, draws["positions"])),
+                               "time": on(draws["time"]),
+                               "noise": on(draws["noise"])})
+            if name == "cuda":
+                launched = [c.launches - n for c, n in zip(counters, before)]
+            results[name] = (float(loss), rec.grads)
+    finally:
+        layers.keep_mask = original
+    blocks = cfg.transformer.num_blocks
+    if launched != [blocks, blocks, blocks, 1]:
+        fail(f"the float32 CUDA step launched flash fwd/dq/dkv and pool_bwd "
+             f"{launched} times; expected {[blocks] * 3 + [1]}")
+    l_cpu, g_cpu = results["cpu"]
+    largest = max(float(g.abs().max()) for g in g_cpu.values()
+                  if g is not None)
+
+    def leaf_errors(g_gpu):
+        """gradient name -> max |cuda - cpu| / the leaf's largest |value|"""
+        out = {}
+        for n, want in g_cpu.items():
+            got = g_gpu[n]
+            if want is None or got is None:
+                if (want is None) != (got is None):
+                    fail(f"gradient {n} present on one device only")
+                continue
+            if n.endswith("attention.key.bias"):
+                # mathematically zero: both hold rounding noise
+                out[n] = max(float(want.abs().max()),
+                             float(got.abs().max())) / largest
+            else:
+                out[n] = float((got - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+        return out
+
+    report = {}
+    for name in ("cuda", "cuda_bf16_fault"):
+        l_gpu, g_gpu = results[name]
+        errs = leaf_errors(g_gpu)
+        image = max(v for n, v in errs.items()
+                    if n.startswith("image_encoder."))
+        rest = max(v for n, v in errs.items()
+                   if not n.startswith("image_encoder."))
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        report[name] = dict(loss_rel=loss_rel, image_tower=image,
+                            rest=rest)
+        log(f"  octo_base f32 train step B={b}, {name} vs cpu: loss "
+            f"{l_gpu:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}); largest "
+            f"gradient error of a leaf, relative to its largest |value|: "
+            f"image tower {image:.2e}, the rest {rest:.2e}; worst "
+            f"{[(n, f'{v:.1e}') for n, v in top]}")
+    r = report["cuda"]
+    if not (r["loss_rel"] <= 1e-4 and r["rest"] <= TRAIN_REF_TOL
+            and r["image_tower"] <= IMAGE_REF_TOL):
+        fail("float32 CUDA and CPU training steps disagree")
+    r = report["cuda_bf16_fault"]
+    if not (r["image_tower"] > IMAGE_REF_TOL and r["rest"] > TRAIN_REF_TOL):
+        fail("the planted bfloat16 fault passes the float32 limits")
+    del gpu, cpu, fault
+    return report
+
+
+# -- phase 8: training profile ---------------------------------------------------
+
+def train_profile_phase(state, cfg, step_ms, kernel_names):
+    import itertools
+    from torch.profiler import ProfilerActivity, profile
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    batches = itertools.cycle(device_batches(cfg, TRAIN_BATCH, 2, seed=2))
+    fit(state, batches, "diffusion", 2)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit(state, batches, "diffusion", n)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    idle = max(0.0, 1 - busy / step_ms)
+    ours = {k: sum(e.self_device_time_total for e in events
+                   if f"{k}_kernel" in e.key) / 1e3 / n for k in kernel_names}
+    log(f"  profile octo_base bf16 train step B={TRAIN_BATCH}, {n} steps: "
+        f"device kernels {busy:.4f} ms/step; against the unprofiled fit "
+        f"window's {step_ms:.4f} ms/step the device idle share is "
+        f"{idle:.3f}; "
+        f"{sum(e.count for e in events) / n:.0f} kernel launches per step")
+    log(f"  the port's kernels, ms/step on the device: "
+        f"{ {k: round(v, 4) for k, v in ours.items()} } "
+        f"({sum(ours.values()) / busy:.3f} of device time)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
+            f"x{e.count / n:5.1f}  {e.key[:90]}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=80))
+    return dict(device_ms=busy, idle_share=idle, kernels_ms=ours)
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -361,6 +947,8 @@ def main():
     from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
     from multi_modal_transformers_tokenmerge_torch.models.presets import (
         octo_base)
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa, pool)
     from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
         ddpm_sampler)
 
@@ -374,13 +962,27 @@ def main():
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    for name in _build.sources():
+    reports = _build.build_all()
+    for name in reports:
         _build.load_library(name)
-    log(f"  built {sorted(_build.sources())} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    counters = {"ddpm_sampler": ddpm_sampler}
-    replaces = {"ddpm_sampler": (
-        "multi_modal_transformers_tokenmerge_tpu/ops/ddpm_sampler.py:51")}
+    log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc each, in parallel)")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
+        for name, text in reports.items():
+            f.write(f"== {name}\n{text}\n")
+    for name, text in reports.items():
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
+            f"-{max(regs, default=0)}, largest spill store "
+            f"{max(spills, default=0)} bytes")
+    serve_counters = {"ddpm_sampler": ddpm_sampler}
+    train_counters = {"flash_fwd_lse": fa.flash_fwd_lse,
+                      "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
+                      "pool_bwd": pool.pool_bwd}
+    every_counter = {**serve_counters, **train_counters}
 
     cfg = octo_base(dtype="bfloat16")
     t0 = time.perf_counter()
@@ -391,28 +993,80 @@ def main():
 
     log("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
+    flash_err, flash_rows, sdpa_kernels = {}, {}, {}
+    for name, (b, spec, h, d) in FLASH_SHAPES.items():
+        flash_err[name] = flash_check(fa, name, spec, b, h, d)
+        flash_rows[name], sdpa_kernels[name] = flash_timings(
+            fa, name, spec, b, h, d)
+    pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
+    auto_gate_check(fa)
 
     log("phase 3: serving")
-    serve_ms, launches = serve_phase(model, cfg, counters)
+    serve_ms, serve_launches = serve_phase(model, cfg, every_counter)
 
     log("phase 4: reference")
     reference_phase(octo_base(dtype="float32"))
 
     log("phase 5: profile")
     profile_phase(model, cfg, serve_ms[1]["median_ms"])
+    del model
+    torch.cuda.empty_cache()
 
-    ms, call_ms, plain, bound, by = timings[1]
+    log("phase 6: training")
+    tcfg = train_config("bfloat16")
+    state, train_ms, train_launches = train_phase(tcfg, every_counter)
+
+    log("phase 7: training reference")
+    train_ref = train_reference_phase(fa, pool)
+
+    log("phase 8: training profile")
+    train_prof = train_profile_phase(state, tcfg, train_ms["ms_per_step"],
+                                     list(train_counters))
+
+    ms, call_ms, plain, bnd, by = timings[1]
     kernels = [{
         "name": "ddpm_sampler", "route": "cuda",
         "source": "multi_modal_transformers_tokenmerge_torch/csrc/"
                   "ddpm_sampler.cu",
-        "replaces": replaces["ddpm_sampler"],
-        "launches": launches["ddpm_sampler"], "max_abs_err": f32_err,
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "replaces": "multi_modal_transformers_tokenmerge_tpu/ops/"
+                    "ddpm_sampler.py:51",
+        "launches": serve_launches["ddpm_sampler"], "max_abs_err": f32_err,
+        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None, "call_ms": call_ms,
         "shape": "octo_base bf16 DDPM T=32 H=768 A=8 B=1",
     }]
-    log(json.dumps({"serve_ms_per_request": serve_ms, "card": card}))
+    tpu = "multi_modal_transformers_tokenmerge_tpu/ops/"
+    flash_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
+                 "flash_attention.cu")
+    for kernel, line in (("flash_fwd_lse", 328), ("flash_dq", 383),
+                         ("flash_dkv", 430)):
+        row = flash_rows["octo_base_train"][kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": flash_src,
+            "replaces": f"{tpu}flash_attention.py:{line}",
+            "launches": train_launches[kernel],
+            "max_abs_err": max(e[kernel] for e in flash_err.values()),
+            **row,
+            "library": ("SDPA forward, boolean mask, dropout 0.1"
+                        if kernel == "flash_fwd_lse" else
+                        "SDPA backward (dq, dk and dv together)"),
+            "shape": f"octo_base train bf16 B=32 S=74 H=3 D=256 "
+                     f"r={TRAIN_DROPOUT}",
+            "long_context": flash_rows["long_context"][kernel],
+        })
+    kernels.append({
+        "name": "pool_bwd", "route": "cuda",
+        "source": "multi_modal_transformers_tokenmerge_torch/csrc/"
+                  "pool_bwd.cu",
+        "replaces": f"{tpu}pool.py:65",
+        "launches": train_launches["pool_bwd"], **pool_row, "library": "autograd backward of F.max_pool2d",
+        "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23",
+    })
+    log(json.dumps({"serve_ms_per_request": serve_ms,
+                    "train_ms_per_step": train_ms,
+                    "train_profile": train_prof,
+                    "train_reference": train_ref,
+                    "sdpa_kernels": sdpa_kernels, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which :func:`load_library` opens with
 ``ctypes``.  The build happens at first use, into ``_build/`` beside this
 file, keyed by a hash of the sources and flags, so a changed source builds
-anew and an unchanged one is reused.  A failed build raises; nothing falls
-back.
+anew and an unchanged one is reused.  :func:`build_all` starts one ``nvcc``
+per missing source, all at once, and returns each compiler's report
+(``-Xptxas -v``: registers, shared memory and spills of every kernel).  A
+failed build raises; nothing falls back.
 
 ``nvcc`` is looked for under ``$CUDA_HOME``, then on ``PATH``, then under
 ``/usr/local/cuda``.
@@ -22,13 +24,14 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC", "BUILD_DIR", "KernelBuildError", "load_library",
-           "sources"]
+__all__ = ["CSRC", "BUILD_DIR", "KernelBuildError", "build_all",
+           "load_library", "sources"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -68,20 +71,39 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, target: Path) -> None:
-    """Run nvcc on one source into a temporary file, then move it to
-    ``target`` (atomic, so concurrent builders agree)."""
+def build_all(names=None) -> Dict[str, str]:
+    """Build every kernel of ``names`` (default: all sources) whose library
+    is missing, one ``nvcc`` process each, all started together.  Returns
+    kernel name -> the compiler's output ('' for one already built)."""
+    names = sorted(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(sources()[name])]
-    r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed on {name}.cu "
-                               f"(exit {r.returncode}):\n{r.stdout}")
-    os.replace(tmp, target)
+    running = {}
+    for name in names:
+        if name not in sources():
+            raise KernelBuildError(f"no kernel source csrc/{name}.cu")
+        target = _target(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(sources()[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, target)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, target) in running.items():
+        reports[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {name}.cu (exit "
+                          f"{proc.returncode}):\n{reports[name]}")
+        else:
+            # atomic, so concurrent builds agree
+            os.replace(tmp, target)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return reports
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -93,7 +115,7 @@ def load_library(name: str) -> ctypes.CDLL:
         raise KernelBuildError(f"no kernel source csrc/{name}.cu")
     target = _target(name)
     if not target.exists():
-        _compile(name, target)
+        build_all([name])
     try:
         lib = ctypes.CDLL(str(target))
     except OSError as e:

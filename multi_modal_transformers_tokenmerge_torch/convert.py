@@ -30,10 +30,12 @@ import torch
 
 from .core.config import OctoConfig
 
-__all__ = ["from_flax", "SKIPPED_SUBTREES"]
+__all__ = ["from_flax", "SCANNED_STACKS", "SKIPPED_SUBTREES"]
 
 SKIPPED_SUBTREES = ("continuous_action_head", "categorical_action_head")
-_SCANNED = (("transformer", "blocks"), ("text_encoder", "t5_encoder", "blocks"))
+# block stacks the JAX package runs under nn.scan: leaves with a layer axis
+SCANNED_STACKS = (("transformer", "blocks"),
+                  ("text_encoder", "t5_encoder", "blocks"))
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -94,7 +96,7 @@ def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(params):
         if path[0] in SKIPPED_SUBTREES:
             continue
-        for scanned in _SCANNED:
+        for scanned in SCANNED_STACKS:
             n = len(scanned)
             if path[:n] == scanned:
                 for i in range(arr.shape[0]):

@@ -2,10 +2,13 @@
 
 The same frozen dataclasses and field names as the JAX package's
 ``core/config.py``, so a configuration describes the same model in both
-packages.  Dtype strings map to torch dtypes.  Fields that select a JAX
-implementation (``conv_layout``, ``pool_vjp``, ``attention_impl``,
-``sampler_impl``, ``t5_scan_unroll``) are accepted for compatibility and do
-not change the port's arithmetic.
+packages.  Dtype strings map to torch dtypes.  ``attention_impl``,
+``flash_*`` and ``pool_vjp`` choose between a plain path and a kernel as
+they do in the JAX package (``modules.attention.select_attention_fn``,
+``modules.image_tokenizer``), and raise where the choice is not ported.
+Fields that only select a JAX layout or compilation (``conv_layout``,
+``sampler_impl``, ``t5_scan_unroll``, ``remat``) are accepted and do not
+change the port's arithmetic.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ class ResNetEmbedderConfig(_Replaceable):
     # normalizes each patch on its own.
     norm_stats_scope: str = "image"  # 'image' | 'patch'
     conv_layout: str = "hwcn"  # JAX layout choice; the port is NCHW
-    pool_vjp: str = "xla"  # JAX training option; unused by the port
+    # max-pool backward: 'xla' (= 'auto') torch's own, 'pallas' the kernel
+    pool_vjp: str = "xla"
 
 
 @dataclass(frozen=True)

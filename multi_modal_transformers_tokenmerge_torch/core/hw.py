@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["on_cuda", "KERNEL_CAPABILITY"]
+__all__ = ["on_cuda", "kernel_device", "KERNEL_CAPABILITY"]
 
 # The kernels are compiled for sm_90a (Hopper).
 KERNEL_CAPABILITY = (9, 0)
@@ -20,12 +20,16 @@ KERNEL_CAPABILITY = (9, 0)
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device of compute
     capability 9.0 (H100 / H200)."""
-    if not tensors:
-        return False
     devices = {t.device for t in tensors}
-    if len(devices) != 1:
+    return len(devices) == 1 and kernel_device(devices.pop())
+
+
+def kernel_device(device) -> bool:
+    """True when ``device`` is a CUDA device of compute capability 9.0: the
+    build-time gate of paths that choose a kernel only where it runs (the
+    JAX package's ``on_tpu``)."""
+    if device is None:
         return False
-    (device,) = devices
-    if device.type != "cuda":
-        return False
-    return torch.cuda.get_device_capability(device) == KERNEL_CAPABILITY
+    device = torch.device(device)
+    return (device.type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.get_device_capability(device) == KERNEL_CAPABILITY)

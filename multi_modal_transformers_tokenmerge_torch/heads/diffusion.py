@@ -12,12 +12,19 @@ Randomness comes from a ``torch.Generator`` or is passed in: ``noisy``
 (B, A) and ``noise`` (T, B, A).  ``sampler_rng_mode='reference'`` keeps
 the reference sampler's semantics: the initial sample's noise is reused at
 every step and noise is still added at t=0.
+
+Training: :meth:`DiffusionActionHead.denoise_loss` draws a timestep and
+noise per example (from the ``diffusion`` generator, or passed in) and
+scores the denoiser's noise prediction.  In train mode the denoiser drops
+out after its first layer and after its output (``dropout_rate``), and the
+time encoder's MLP drops out at the fixed rate 0.1 of the JAX package's
+``FourierFeatures``, whatever the configuration says.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,7 +32,7 @@ from torch import nn
 
 from ..core.config import DiffusionHeadConfig
 from ..modules.attention import MLPBlock
-from ..modules.layers import Dense, init_truncated
+from ..modules.layers import Dense, dropout, init_truncated
 from ..ops.ddpm_sampler import ddpm_sampler
 
 __all__ = ["DiffusionActionHead", "OctoDenoise", "FourierFeatures",
@@ -64,15 +71,17 @@ def ddim_schedule(diffusion_steps: int, ddim_steps: int,
 
 
 class FourierFeatures(nn.Module):
-    """Learned Fourier time embedding + MLP."""
+    """Learned Fourier time embedding + MLP (with the MLP's dropout)."""
 
-    def __init__(self, output_dim: int, mlp_dim: int, *, dtype=torch.float32,
+    def __init__(self, output_dim: int, mlp_dim: int, *,
+                 dropout_rate: float = 0.1, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.fourier_kernel = nn.Parameter(torch.empty(
             output_dim // 2, 1, dtype=param_dtype, device=device))
-        self.mlp = MLPBlock(output_dim, mlp_dim, output_dim, dtype=dtype,
+        self.mlp = MLPBlock(output_dim, mlp_dim, output_dim,
+                            dropout_rate=dropout_rate, dtype=dtype,
                             param_dtype=param_dtype, device=device)
 
     def reset_parameters(self, generator) -> None:
@@ -81,11 +90,13 @@ class FourierFeatures(nn.Module):
                        math.sqrt(2.0 / self.fourier_kernel.shape[0]),
                        generator)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """(..., 1) float times -> (..., output_dim)."""
         x = (2 * math.pi * t.to(self.dtype)) @ self.fourier_kernel.T.to(
             self.dtype)
-        return self.mlp(torch.cat([torch.cos(x), torch.sin(x)], dim=-1))
+        return self.mlp(torch.cat([torch.cos(x), torch.sin(x)], dim=-1),
+                        train, rng)
 
 
 class OctoDenoise(nn.Module):
@@ -100,6 +111,7 @@ class OctoDenoise(nn.Module):
                 f"diffusion num_blocks={cfg.num_blocks}: only the one-block "
                 f"denoiser is ported")
         h = cfg.mlp_dim
+        self.dropout_rate = cfg.dropout_rate
         self.time_encoder = FourierFeatures(cfg.time_dim, cfg.mlp_dim, **kw)
         self.noisy_proj = Dense(cfg.action_space_dim, h, **kw)
         self.time_proj = Dense(cfg.time_dim, h, bias=False, **kw)
@@ -112,6 +124,17 @@ class OctoDenoise(nn.Module):
         time_emb = self.time_encoder(times[:, None].float())
         return (self.time_proj(time_emb)[:, None, :]
                 + self.readout_proj(readout_emb)[None])
+
+    def forward(self, noisy_action: torch.Tensor, time: torch.Tensor,
+                readout_emb: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, A) noisy actions, (B, 1) float times, (B, E) readout
+        embedding -> (B, A) noise prediction in the compute dtype."""
+        ctx = (self.time_proj(self.time_encoder(time, train, rng))
+               + self.readout_proj(readout_emb))
+        x = torch.relu(self.noisy_proj(noisy_action) + ctx)
+        x = dropout(x, self.dropout_rate, train, rng)
+        return dropout(self.first_out(x), self.dropout_rate, train, rng)
 
 
 class DiffusionActionHead(nn.Module):
@@ -159,6 +182,48 @@ class DiffusionActionHead(nn.Module):
             c3,
         ], dim=-1)
         return times, coeffs
+
+    def predict_denoise_term(self, readouts: torch.Tensor, time: torch.Tensor,
+                             noisy_actions: torch.Tensor, train: bool = True,
+                             rng: Optional[torch.Generator] = None):
+        """(B, R, E) readouts, (B, 1) time, (B, A) noisy actions -> (B, A);
+        ``rng`` is the ``dropout`` generator of train mode."""
+        return self.denoiser(noisy_actions, time, readouts.mean(dim=-2),
+                             train, rng)
+
+    def denoise_loss(self, readouts: torch.Tensor, actions: torch.Tensor,
+                     train: bool = True, time: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None, *,
+                     rngs: Optional[Mapping[str, torch.Generator]] = None
+                     ) -> torch.Tensor:
+        """Mean over the batch of 0.5 * ||pred - noise||^2 at a random
+        timestep.  ``time`` (B, 1) int and ``noise`` (B, A) float are drawn
+        from ``rngs[cfg.rng_collection]`` unless given; ``rngs['dropout']``
+        drives train-mode dropout."""
+        cfg = self.cfg
+        rngs = rngs or {}
+        b = actions.shape[0]
+        device = actions.device
+        if time is None or noise is None:
+            g = rngs.get(cfg.rng_collection)
+            if g is None:
+                raise ValueError(f"denoise_loss needs a '{cfg.rng_collection}'"
+                                 f" generator or explicit time and noise")
+            if time is None:
+                time = torch.randint(0, cfg.diffusion_steps, (b, 1),
+                                     generator=g, device=device)
+            if noise is None:
+                noise = torch.randn(actions.shape, generator=g,
+                                    device=device)
+        time = time.to(device=device, dtype=torch.long)
+        noise = noise.to(device=device, dtype=torch.float32)
+        alpha_hat = self.alpha_hats[time]
+        noisy = (torch.sqrt(alpha_hat) * actions
+                 + torch.sqrt(1 - alpha_hat) * noise)
+        pred = self.predict_denoise_term(readouts, time.float(), noisy,
+                                         train, rngs.get("dropout"))
+        loss = 0.5 * torch.square(pred.float() - noise)
+        return loss.sum(dim=-1).mean()
 
     def predict_action(self, readouts: torch.Tensor, *,
                        noisy: Optional[torch.Tensor] = None,

@@ -1,13 +1,20 @@
 """Octo: the vision-language-action transformer policy.
 
-Counterpart of the JAX package's ``models/octo.py``, with its serving
-methods: ``encode_text``, the ``generate_readouts*`` backbone,
-``assemble_embeddings`` and the diffusion head's ``predict_diffusion_action``
-with its cached-text (``_with_text``) and external-tower
-(``_with_modalities``) variants.  The sequence layout, the block-causal mask
-and the assembly permutation are static tables built once; assembly is one
-concat and one gather.  The continuous and categorical heads, training and
+Counterpart of the JAX package's ``models/octo.py``: ``encode_text``, the
+``generate_readouts*`` backbone, ``assemble_embeddings``, and the diffusion
+head's serving methods (``predict_diffusion_action`` with its cached-text
+``_with_text`` and external-tower ``_with_modalities`` variants) and
+training methods (``compute_diffusion_denoise_loss[_with_text]``,
+``predict_diffusion_denoise_term``).  The sequence layout, the block-causal
+mask and the assembly permutation are static tables built once; assembly
+is one concat and one gather.  The continuous and categorical heads and
 token merging come with later parts of the port.
+
+``train=True`` runs the stochastic pieces from ``rngs``, a mapping of rng
+collection name to ``torch.Generator`` (``dropout``, ``patch_encoding``,
+``diffusion``); each draw may be passed in instead (``positions``,
+``time``, ``noise``).  The transformer's attention core is chosen when the
+model is built (``modules.attention.select_attention_fn``).
 
 The model is built on ``device`` ('cuda' unless the caller says otherwise)
 and initialized from an explicit seed.
@@ -15,14 +22,14 @@ and initialized from an explicit seed.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..core.config import OctoConfig
 from ..heads.diffusion import DiffusionActionHead
-from ..modules.attention import TransformerStack
+from ..modules.attention import TransformerStack, select_attention_fn
 from ..modules.image_tokenizer import ImageTokenizer
 from ..modules.readout import ReadoutTokens
 from ..modules.text import build_text_encoder
@@ -58,7 +65,9 @@ class Octo(nn.Module):
         self.readout_encoder = ReadoutTokens(
             self.layout.modality_tokens("readouts"), e, **kw)
         self.transformer = TransformerStack(
-            cfg.transformer, self.layout.total_tokens, e, **kw)
+            cfg.transformer, self.layout.total_tokens, e,
+            select_attention_fn(cfg.transformer, self.layout.attention_mask(),
+                                self.layout.total_tokens, device), **kw)
         if cfg.heads.diffusion is None:
             raise ValueError("the port serves the diffusion head; the "
                              "configuration has none")
@@ -95,21 +104,34 @@ class Octo(nn.Module):
         """(B, T) ids -> (B, T, E) text embeddings."""
         return self.text_encoder(text_tokens)
 
-    def generate_readouts(self, text_tokens, images):
-        return self.generate_readouts_with_text(self.encode_text(text_tokens),
-                                                images)
+    def generate_readouts(self, text_tokens, images, train: bool = False,
+                          *, rngs: Optional[Mapping] = None,
+                          positions=None):
+        return self.generate_readouts_with_text(
+            self.encode_text(text_tokens), images, train, rngs=rngs,
+            positions=positions)
 
-    def generate_readouts_with_text(self, text_embeddings, images):
+    def generate_readouts_with_text(self, text_embeddings, images,
+                                    train: bool = False, *,
+                                    rngs: Optional[Mapping] = None,
+                                    positions=None):
+        rngs = rngs or {}
+        image_embeddings = self.image_encoder(
+            images, train, positions,
+            rngs.get(self.config.images.rng_collection))
         return self.generate_readouts_with_modalities(
-            text_embeddings, self.image_encoder(images))
+            text_embeddings, image_embeddings, train, rngs=rngs)
 
     def generate_readouts_with_modalities(self, text_embeddings,
-                                          image_embeddings):
+                                          image_embeddings,
+                                          train: bool = False, *,
+                                          rngs: Optional[Mapping] = None):
         """Both modality streams given -> (B, R, E) readout embeddings."""
         readouts = self.readout_encoder(image_embeddings.shape[0])
         x = self.assemble_embeddings(TokenEmbeddings(
             text=text_embeddings, images=image_embeddings, readouts=readouts))
-        x = self.transformer(x, self.attention_mask)
+        x = self.transformer(x, self.attention_mask, train,
+                             (rngs or {}).get("dropout"))
         return x.index_select(1, self.readout_index)
 
     def assemble_embeddings(self, embeddings: TokenEmbeddings):
@@ -128,6 +150,38 @@ class Octo(nn.Module):
         return combined.index_select(1, self.assembly_permutation)
 
     # -- diffusion head ----------------------------------------------------
+
+    def predict_diffusion_denoise_term(self, text_tokens, images, time,
+                                       noisy_actions, train: bool = False,
+                                       *, rngs: Optional[Mapping] = None,
+                                       positions=None):
+        readouts = self.generate_readouts(text_tokens, images, train,
+                                          rngs=rngs, positions=positions)
+        return self.diffusion_action_head.predict_denoise_term(
+            readouts, time, noisy_actions, train, (rngs or {}).get("dropout"))
+
+    def compute_diffusion_denoise_loss(self, text_tokens, images, actions,
+                                       train: bool = True, *,
+                                       rngs: Optional[Mapping] = None,
+                                       positions=None, time=None,
+                                       noise=None):
+        """Scalar denoising loss; ``positions``, ``time`` and ``noise``
+        replace the draws of the ``patch_encoding`` and ``diffusion``
+        generators."""
+        return self.compute_diffusion_denoise_loss_with_text(
+            self.encode_text(text_tokens), images, actions, train, rngs=rngs,
+            positions=positions, time=time, noise=noise)
+
+    def compute_diffusion_denoise_loss_with_text(
+            self, text_embeddings, images, actions, train: bool = True, *,
+            rngs: Optional[Mapping] = None, positions=None, time=None,
+            noise=None):
+        """As :meth:`compute_diffusion_denoise_loss` with the frozen text
+        tower's embeddings given (``utils.data.cache_text_embeddings``)."""
+        readouts = self.generate_readouts_with_text(
+            text_embeddings, images, train, rngs=rngs, positions=positions)
+        return self.diffusion_action_head.denoise_loss(
+            readouts, actions, train, time, noise, rngs=rngs)
 
     def predict_diffusion_action(self, text_tokens, images, **sample_kw):
         """``sample_kw``: ``noisy``, ``noise``, ``generator``,

@@ -1,80 +1,164 @@
 """Pre-LN transformer encoder blocks under a static boolean mask.
 
-Counterpart of the JAX package's ``modules/attention.py``.  At the
-sequence lengths of this slice the JAX package runs stock XLA attention
-(its flash kernel is gated to ``flash_min_seq`` tokens and more), and so
-does this module: plain masked softmax attention with float32 logits and
-softmax, scaled by 1/sqrt(head_dim).  Dropout is not applied; the port
-serves in eval mode.
+Counterpart of the JAX package's ``modules/attention.py``.  The attention
+core is chosen once, when the stack is built, by
+:func:`select_attention_fn` with the JAX package's semantics: the plain
+masked softmax attention below (float32 logits and softmax, scaled by
+1/sqrt(head_dim)), or the flash attention of ``ops.flash_attention``, whose
+kernels run on an sm_90 card and whose plain versions run on the CPU.
+
+Train mode (``train=True`` with a ``dropout`` generator) applies every
+dropout site of the JAX blocks: after the MLP activation and after its
+output projection, after the attention block, and on the attention weights
+(in the flash kernel through its hook, or on the explicit weights of the
+plain path).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.config import AttentionConfig, TransformerConfig
-from .layers import Dense, LayerNorm, init_normal
+from ..core.hw import kernel_device
+from .layers import Dense, LayerNorm, dropout, init_normal
 
 __all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock",
-           "TransformerStack", "AddPositionEmbedding", "masked_attention"]
+           "TransformerStack", "AddPositionEmbedding", "masked_attention",
+           "select_attention_fn"]
+
+_IMPLS = ("auto", "xla", "flash")
 
 
-def masked_attention(q, k, v, mask: Optional[torch.Tensor]):
+def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
+                        seq_len: int, device=None) -> Optional[Callable]:
+    """The flash-attention hook for this stack, or None for the plain path.
+
+    ``'xla'``: plain.  ``'flash'``: always the flash path (its plain
+    versions on the CPU).  ``'auto'``: flash only when the stack lives on an
+    sm_90 card and ``seq_len >= flash_min_seq``.  Attention-weight dropout
+    needs ``flash_backward='pallas'``: forcing ``'flash'`` with another
+    backward raises, ``'auto'`` falls back to the plain path.
+    ``flash_backward='xla'`` (the TPU's ``_flash_kernel`` with a recompute
+    backward) is not ported yet and raises where it would run."""
+    if cfg.attention_impl not in _IMPLS:
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}; "
+                         f"one of {_IMPLS}")
+    if cfg.flash_backward not in ("pallas", "xla"):
+        raise ValueError(f"unknown flash_backward {cfg.flash_backward!r}")
+    if cfg.attention_impl == "xla":
+        return None
+    dropout_rate = cfg.attention.dropout_rate
+    if dropout_rate > 0.0 and cfg.flash_backward != "pallas":
+        if cfg.attention_impl == "flash":
+            raise ValueError(
+                "attention_impl='flash' with flash_backward='xla' cannot "
+                f"honor attention.dropout_rate={dropout_rate}: the recompute "
+                "backward cannot regenerate the kernel's dropout masks. Use "
+                "flash_backward='pallas', set attention.dropout_rate=0.0, "
+                "or use attention_impl='auto'/'xla'.")
+        return None
+    if cfg.attention_impl == "auto":
+        if seq_len < cfg.flash_min_seq or not kernel_device(device):
+            return None
+    if cfg.flash_backward == "xla":
+        raise NotImplementedError(
+            "flash_backward='xla' runs the TPU's _flash_kernel "
+            "(ops/flash_attention.py:60), which is not ported yet; use "
+            "flash_backward='pallas'")
+    from ..ops.flash_attention import make_attention_fn
+    return make_attention_fn(mask_np, block_q=cfg.flash_block_q or None,
+                             block_k=cfg.flash_block_k or None,
+                             backward=cfg.flash_backward,
+                             dropout_rate=dropout_rate)
+
+
+def masked_attention(q, k, v, mask: Optional[torch.Tensor],
+                     dropout_rate: float = 0.0,
+                     generator: Optional[torch.Generator] = None):
     """q, k, v (B, T, H, D) -> (B, T, H, D).  ``mask`` (T, T) bool, True =
-    attend.  Float32 logits and softmax; the weights return to v's dtype
-    (``jax.nn.dot_product_attention``'s XLA path)."""
+    attend.  Float32 logits and softmax; the weights, dropped at
+    ``dropout_rate`` with a mask from ``generator``, return to v's dtype
+    (``jax.nn.dot_product_attention``'s XLA path, and the explicit weights
+    of the JAX module's dropout path)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         neg = -0.7 * torch.finfo(torch.float32).max
         logits = logits.masked_fill(~mask, neg)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate,
+                    dropout_rate > 0.0, generator)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 class MLPBlock(nn.Module):
-    """Dense -> activation -> Dense."""
+    """Dense -> activation -> Dropout -> Dense -> Dropout."""
 
     def __init__(self, in_dim: int, mlp_dim: int, out_dim: int,
-                 activation: str = "relu", **kw):
+                 activation: str = "relu", dropout_rate: float = 0.1, **kw):
         super().__init__()
         if activation != "relu":
             raise ValueError(f"unsupported mlp activation {activation!r}")
+        self.dropout_rate = dropout_rate
         self.dense_in = Dense(in_dim, mlp_dim, **kw)
         self.dense_out = Dense(mlp_dim, out_dim, **kw)
 
-    def forward(self, x):
-        return self.dense_out(torch.relu(self.dense_in(x)))
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        x = dropout(torch.relu(self.dense_in(x)), self.dropout_rate, train,
+                    rng)
+        return dropout(self.dense_out(x), self.dropout_rate, train, rng)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg: AttentionConfig, features: int, **kw):
+    """Self-attention with a static boolean mask.  ``attention_fn``, when
+    set, replaces the core: ``fn(q, k, v, mask, dropout_generator=None)``
+    on (B, T, H, D), applying attention-weight dropout itself when handed
+    a generator."""
+
+    def __init__(self, cfg: AttentionConfig, features: int,
+                 attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
         if cfg.qkv_features % cfg.num_heads:
             raise ValueError("qkv_features must divide into num_heads")
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.qkv_features // cfg.num_heads
+        self.dropout_rate = cfg.dropout_rate
+        self.attention_fn = attention_fn
         proj = lambda: Dense(features, cfg.qkv_features, bias=cfg.use_bias,
                              **kw)
         self.query, self.key, self.value = proj(), proj(), proj()
         self.out = Dense(cfg.qkv_features, features, bias=cfg.use_bias, **kw)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False,
+                rng: Optional[torch.Generator] = None):
         b, t, _ = x.shape
         split = lambda y: y.reshape(b, t, self.num_heads, self.head_dim)
-        out = masked_attention(split(self.query(x)), split(self.key(x)),
-                               split(self.value(x)), mask)
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        stochastic = train and self.dropout_rate > 0.0
+        if stochastic and rng is None:
+            raise ValueError(f"attention dropout rate {self.dropout_rate} in "
+                             f"train mode needs a 'dropout' generator")
+        if self.attention_fn is not None:
+            out = self.attention_fn(q, k, v, mask,
+                                    dropout_generator=rng if stochastic
+                                    else None)
+        else:
+            out = masked_attention(q, k, v, mask,
+                                   self.dropout_rate if stochastic else 0.0,
+                                   rng)
         return self.out(out.reshape(b, t, -1))
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: x + attn(LN(x)), then x + mlp(LN(x))."""
+    """Pre-LN block: x + Dropout(attn(LN(x))), then x + mlp(LN(x))."""
 
-    def __init__(self, cfg: TransformerConfig, features: int, **kw):
+    def __init__(self, cfg: TransformerConfig, features: int,
+                 attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
         if cfg.mlp_type != "dense":
             raise ValueError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
@@ -85,16 +169,20 @@ class EncoderBlock(nn.Module):
         else:
             raise ValueError(
                 f"unknown layer_norm_reduction {cfg.layer_norm_reduction!r}")
+        self.dropout_rate = cfg.dropout_rate
         ln = lambda: LayerNorm(features, cfg.layer_norm_epsilon, dim, **kw)
         self.ln_attention = ln()
-        self.attention = MultiHeadAttention(cfg.attention, features, **kw)
+        self.attention = MultiHeadAttention(cfg.attention, features,
+                                            attention_fn, **kw)
         self.ln_mlp = ln()
         self.mlp = MLPBlock(features, cfg.mlp_dim, features,
-                            cfg.mlp_activation, **kw)
+                            cfg.mlp_activation, cfg.dropout_rate, **kw)
 
-    def forward(self, x, mask=None):
-        x = x + self.attention(self.ln_attention(x), mask)
-        return x + self.mlp(self.ln_mlp(x))
+    def forward(self, x, mask=None, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        y = self.attention(self.ln_attention(x), mask, train, rng)
+        x = x + dropout(y, self.dropout_rate, train, rng)
+        return x + self.mlp(self.ln_mlp(x), train, rng)
 
 
 class AddPositionEmbedding(nn.Module):
@@ -117,20 +205,22 @@ class TransformerStack(nn.Module):
     """Position embedding + encoder blocks (+ optional final LayerNorm)."""
 
     def __init__(self, cfg: TransformerConfig, seq_len: int, features: int,
-                 **kw):
+                 attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
         if cfg.compression_mode != "none":
             raise ValueError("token merging / pruning is not ported yet")
         self.posembed_input = AddPositionEmbedding(seq_len, features, **kw)
-        self.blocks = nn.ModuleList(EncoderBlock(cfg, features, **kw)
-                                    for _ in range(cfg.num_blocks))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(cfg, features, attention_fn, **kw)
+            for _ in range(cfg.num_blocks))
         self.final_norm = (LayerNorm(features, cfg.layer_norm_epsilon, -1,
                                      **kw) if cfg.final_norm else None)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False,
+                rng: Optional[torch.Generator] = None):
         x = self.posembed_input(x)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x, mask, train, rng)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x

@@ -12,18 +12,26 @@ compute the same function, and this module matches both.
 * flax's ``nn.gelu`` is the tanh approximation.
 * ``output_dense`` flattens each patch's feature map in (c, h, w) order;
   ``convert.from_flax`` permutes the flax kernel's (h, w, c) rows to match.
-* Position tokens are eval mode (interval midpoints); train-mode sampling
-  comes with the training port.
+* ``pool_vjp`` picks the max-pool backward as in the JAX package: 'xla'
+  (and 'auto', which is 'xla') is torch's own, 'pallas' the CUDA kernel of
+  ``ops.pool`` (its plain version on the CPU).
+* Position tokens are interval midpoints in eval mode; in train mode they
+  are drawn within each patch's interval from the ``patch_encoding``
+  generator, or passed in.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import ImageTokenizerConfig, ResNetEmbedderConfig
-from ..ops.image_ops import eval_position_tokens, patchify
+from ..ops.image_ops import (eval_position_tokens, patchify,
+                             sample_position_tokens)
+from ..ops.pool import max_pool_nchw
 from .layers import Conv2d, Dense, Embed
 
 __all__ = ["PatchGroupNorm", "ResNetV2Embedder", "ImageTokenizer"]
@@ -85,6 +93,8 @@ class ResNetV2Embedder(nn.Module):
                  in_channels: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
+        if cfg.pool_vjp not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown pool_vjp {cfg.pool_vjp!r}")
         self.cfg = cfg
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.input_conv = Conv2d(in_channels, cfg.features, cfg.input_kernel,
@@ -112,7 +122,8 @@ class ResNetV2Embedder(nn.Module):
         b, g, p, _, ch = x.shape
         y = x.reshape(b * g, p, p, ch).permute(0, 3, 1, 2)  # NCHW
         y = self.input_conv(y)
-        y = F.max_pool2d(y, c.pool_window, c.pool_stride)
+        y = max_pool_nchw(y, c.pool_window, c.pool_stride,
+                          vjp="pallas" if c.pool_vjp == "pallas" else "xla")
         residual = y
         for i in range(c.num_blocks):
             y = getattr(self, f"block{i}_norm")(y, g)
@@ -151,7 +162,12 @@ class ImageTokenizer(nn.Module):
         self.register_buffer("eval_cols", torch.as_tensor(
             cols, dtype=torch.long, device=device), persistent=False)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, train: bool = False,
+                positions=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``positions``: optional train-mode (rows, cols) tokens, each
+        (B, F, P) or (B, F*P); absent in train mode they are drawn from
+        ``generator``."""
         cfg = self.cfg
         if images.ndim == 4:
             images = images[:, None]
@@ -164,7 +180,19 @@ class ImageTokenizer(nn.Module):
         num_patches = patches.shape[2]
         emb = self.resnet(patches.reshape(b, f * num_patches,
                                           *patches.shape[3:]))
-        rows = self.eval_rows.repeat(f)
-        cols = self.eval_cols.repeat(f)
+        if not train:
+            rows = self.eval_rows.repeat(f)
+            cols = self.eval_cols.repeat(f)
+        else:
+            if positions is None:
+                if generator is None:
+                    raise ValueError("train-mode patch positions need a "
+                                     "'patch_encoding' generator or "
+                                     "explicit positions")
+                positions = sample_position_tokens(
+                    (b, f), h, cfg.patch_size, cfg.position_interval,
+                    generator, images.device)
+            rows, cols = (torch.as_tensor(t, device=images.device).reshape(
+                b, f * num_patches) for t in positions)
         return (emb + self.row_position_embedding(rows)
                 + self.col_position_embedding(cols))

@@ -7,7 +7,8 @@ statistics in float32 and cast the result.  Parameter names follow PyTorch
 (``weight``, ``bias``); ``convert.from_flax`` maps the flax names onto them.
 
 ``reset_parameters(generator)`` draws the flax initializers' distributions
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``; :func:`dropout` draws its keep mask
+from one too.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "init_normal",
+__all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "dropout", "init_normal",
            "init_truncated"]
 
 # std correction of a unit normal truncated to [-2, 2]
@@ -37,6 +38,30 @@ def init_truncated(t: torch.Tensor, std: float, generator) -> None:
     with torch.no_grad():
         nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
                               generator=generator)
+
+
+def keep_mask(shape, keep_prob: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """Bernoulli(keep_prob) bool mask drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in train mode with ``rate`` > 0, kept elements
+    are scaled by 1/(1 - rate) and the rest zeroed; otherwise ``x``.  The
+    mask comes from ``generator``, which train mode then requires."""
+    if not train or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError(f"dropout rate {rate} in train mode needs a "
+                         f"'dropout' generator")
+    keep_prob = 1.0 - rate
+    keep = keep_mask(x.shape, keep_prob, generator, x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 class Dense(nn.Module):

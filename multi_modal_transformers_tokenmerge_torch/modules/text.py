@@ -43,8 +43,11 @@ class FrozenT5TextEncoder(nn.Module):
             rel_pos_max_distance=cfg.t5_rel_pos_max_distance, **kw)
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
-        out = self.t5_encoder(token_ids)
-        return out.detach() if self.frozen else out
+        if self.frozen:
+            # no graph is recorded for a tower that gets no gradient
+            with torch.no_grad():
+                return self.t5_encoder(token_ids)
+        return self.t5_encoder(token_ids)
 
 
 def build_text_encoder(cfg: TextEncoderConfig, **kw) -> nn.Module:

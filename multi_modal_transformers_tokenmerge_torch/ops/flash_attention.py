@@ -1,0 +1,605 @@
+"""Block-sparse masked flash attention with the LSE-saving forward and the
+dq / dk-dv backward: the CUDA kernels' wrappers, their plain PyTorch
+versions and the autograd function that joins them.
+
+Counterpart of the JAX package's ``ops/flash_attention.py`` (Pallas kernels
+``_flash_fwd_lse_kernel``, ``_flash_dq_kernel`` and ``_flash_dkv_kernel``,
+driven by ``_flash_attention_vjp_native``).  The kernels live in
+``csrc/flash_attention.cu``; its source note says what bounds them and how
+the design answers.
+
+* :func:`flash_fwd_lse`, :func:`flash_dq` and :func:`flash_dkv` run their
+  plain versions (``*_reference``, written from the kernel bodies: the same
+  tiles, online softmax and rounding points) for CPU tensors, launch the
+  kernel for tensors on an sm_90 card, and raise for anything else.  Each
+  counts its kernel launches in ``.launches``.
+* The mask and the skip tables are device tensors (``mask_i8`` padded to the
+  tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
+  tiles, device), so the ring-attention path can later pass its own.
+* Dropout of the attention weights is rebuilt, not copied: the TPU kernel
+  re-seeds its hardware PRNG per tile, a stream nothing else reproduces.
+  Here the keep bit of element (b, h, row, col) is word ``col & 3`` of
+  Philox4x32-10 at counter ``(col >> 2, row, b*H + h, 0)`` under the key of
+  two 32-bit seed words; an element is kept when that word is at least
+  :func:`dropout_threshold`.  Forward, dq and dk/dv regenerate the same mask
+  whatever their tile sizes, and :func:`dropout_keep_mask` computes the same
+  bits in torch integer arithmetic.
+* :func:`flash_attention` is the differentiable entry on the JAX layout
+  (B, S, H, D).  ``backward='xla'`` runs the TPU's ``_flash_kernel``, which
+  is not ported yet, and raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..core.hw import on_cuda
+
+__all__ = ["flash_attention", "make_attention_fn", "flash_fwd_lse",
+           "flash_dq", "flash_dkv", "flash_fwd_lse_reference",
+           "flash_dq_reference", "flash_dkv_reference", "attention_delta",
+           "xla_reference_attention", "tile_skip_tables", "mask_tables",
+           "device_tables", "dropout_threshold", "dropout_keep_mask",
+           "KERNEL_TILES"]
+
+NEG_INF = -1e30
+# head_dim -> (block_q, block_k) compiled into csrc/flash_attention.cu
+KERNEL_TILES = {64: (64, 64), 256: (32, 32)}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+# -- tables -------------------------------------------------------------------
+
+def tile_skip_tables(mask: np.ndarray, block_q: int, block_k: int):
+    """(k_hi, q_lo) int32 skip tables of one tile-aligned mask: per q tile
+    the number of key tiles it attends into, per k tile the lowest q tile
+    that attends into it (``num_q`` when none does)."""
+    s_q, s_k = mask.shape
+    if s_q % block_q or s_k % block_k:
+        raise ValueError(f"mask tile {mask.shape} not divisible by blocks "
+                         f"({block_q}, {block_k})")
+    num_q, num_k = s_q // block_q, s_k // block_k
+    m = mask.astype(bool)
+    k_hi = np.zeros((num_q,), np.int32)
+    for qi in range(num_q):
+        cols = np.nonzero(m[qi * block_q:(qi + 1) * block_q].any(axis=0))[0]
+        k_hi[qi] = 0 if cols.size == 0 else (cols.max() // block_k) + 1
+    q_lo = np.zeros((num_k,), np.int32)
+    for ki in range(num_k):
+        rows = np.nonzero(m[:, ki * block_k:(ki + 1) * block_k].any(axis=1))[0]
+        q_lo[ki] = num_q if rows.size == 0 else rows.min() // block_q
+    return k_hi, q_lo
+
+
+def mask_tables(mask: np.ndarray, block_q: int, block_k: int):
+    """(padded int8 mask, k_hi, q_lo) of an (S, S) bool mask, padded with
+    zeros to a multiple of lcm(block_q, block_k)."""
+    s = mask.shape[0]
+    lcm = math.lcm(block_q, block_k)
+    s_pad = lcm * -(-s // lcm)
+    padded = np.zeros((s_pad, s_pad), dtype=np.int8)
+    padded[:s, :s] = mask.astype(np.int8)
+    k_hi, q_lo = tile_skip_tables(padded, block_q, block_k)
+    return padded, k_hi, q_lo
+
+
+def _mask_digest(mask: np.ndarray) -> str:
+    return hashlib.sha1(mask.tobytes()
+                        + repr((mask.shape, mask.dtype.str)).encode()
+                        ).hexdigest()[:20]
+
+
+_TABLE_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_TABLE_CACHE_MAX = 256
+
+
+def device_tables(mask: np.ndarray, block_q: int, block_k: int, device):
+    """:func:`mask_tables` as tensors on ``device`` (int8 mask, int32
+    tables), cached per (mask digest, tiles, device), LRU-bounded."""
+    key = (_mask_digest(mask), block_q, block_k, str(torch.device(device)))
+    hit = _TABLE_CACHE.get(key)
+    if hit is not None:
+        _TABLE_CACHE.move_to_end(key)
+        return hit
+    padded, k_hi, q_lo = mask_tables(mask, block_q, block_k)
+    tables = tuple(torch.from_numpy(a).to(device) for a in (padded, k_hi,
+                                                             q_lo))
+    _TABLE_CACHE[key] = tables
+    while len(_TABLE_CACHE) > _TABLE_CACHE_MAX:
+        _TABLE_CACHE.popitem(last=False)
+    return tables
+
+
+def _auto_blocks(head_dim: int) -> Tuple[int, int]:
+    """The kernel's compiled tiles for this head dim (see the source note
+    of csrc/flash_attention.cu); 64 x 64 for a head dim it lacks, which
+    the plain versions take and the card refuses."""
+    return KERNEL_TILES.get(head_dim, (64, 64))
+
+
+# -- dropout bits ---------------------------------------------------------------
+
+def dropout_threshold(rate: float) -> int:
+    """uint32 threshold t with P(bits < t) = rate."""
+    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit words of m * c for m < 2**32 and int64 c < 2**32,
+    without overflowing int64."""
+    p_lo = (c & 0xFFFF) * m
+    p_hi = (c >> 16) * m
+    t = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def _philox4x32(c0, c1, c2, c3, k0, k1):
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask(seed: torch.Tensor, batch: int, heads: int,
+                      rows: torch.Tensor, cols: torch.Tensor,
+                      rate: float) -> torch.Tensor:
+    """(B, H, len(rows), len(cols)) bool keep mask of the global query
+    ``rows`` and key ``cols``: the kernels' Philox bits, on seed's device."""
+    dev = seed.device
+    k0, k1 = (seed.to(torch.int64) & _MASK32).unbind()
+    bh = torch.arange(batch * heads, device=dev,
+                      dtype=torch.int64).view(batch, heads, 1, 1)
+    r = rows.to(device=dev, dtype=torch.int64).view(1, 1, -1, 1)
+    c = cols.to(device=dev, dtype=torch.int64).view(1, 1, 1, -1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    words = _philox4x32(c >> 2, r, bh, zero, k0, k1)
+    lane = c & 3
+    bits = torch.where(lane == 0, words[0],
+                       torch.where(lane == 1, words[1],
+                                   torch.where(lane == 2, words[2],
+                                               words[3])))
+    return bits >= dropout_threshold(rate)
+
+
+# -- plain versions ---------------------------------------------------------------
+
+def _heads_first(x: torch.Tensor, s_pad: int) -> torch.Tensor:
+    """(B, S, H, D) -> float32 (B, H, S_pad, D), zero-padded rows."""
+    x = x.permute(0, 2, 1, 3).float()
+    return F.pad(x, (0, 0, 0, s_pad - x.shape[2]))
+
+
+def _rows(i: int, block: int, device) -> torch.Tensor:
+    return torch.arange(i * block, (i + 1) * block, device=device)
+
+
+def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
+                            block_q: int, block_k: int,
+                            dropout_rate: float = 0.0):
+    """Plain version of the forward kernel.
+
+    q, k, v (B, S, H, D); ``mask_i8`` (S_pad, S_pad) int8, tile-aligned;
+    ``k_hi`` (S_pad/block_q,) int; ``seed`` (2,) int64 words (dropout only).
+    Logits are float32 products of input-dtype operands times 1/sqrt(D),
+    masked to -1e30; online max and sum in float32 over the key tiles below
+    ``k_hi``; the accumulator takes ``keep * p / (1 - r)`` cast to v's dtype
+    while ``l`` and the LSE use the undropped p.  Returns ``out`` (B, S, H,
+    D) in q's dtype and ``lse`` (B, H, S_pad) float32."""
+    b, s, h, d = q.shape
+    s_pad = mask_i8.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = (_heads_first(x, s_pad) for x in (q, k, v))
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    out = torch.zeros(b, h, s_pad, d, device=q.device)
+    lse = torch.empty(b, h, s_pad, device=q.device)
+    for qi, hi in enumerate(k_hi.tolist()):
+        rq = slice(qi * block_q, (qi + 1) * block_q)
+        m = torch.full((b, h, block_q, 1), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, block_q, 1), device=q.device)
+        acc = torch.zeros((b, h, block_q, d), device=q.device)
+        for ki in range(hi):
+            rk = slice(ki * block_k, (ki + 1) * block_k)
+            sc = (qf[:, :, rq] @ kf[:, :, rk].transpose(-1, -2)) * scale
+            sc = torch.where(mask_i8[rq, rk] != 0, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - torch.clamp_min(m_new, 0.5 * NEG_INF))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if dropout_rate > 0:
+                keep = dropout_keep_mask(seed, b, h,
+                                         _rows(qi, block_q, q.device),
+                                         _rows(ki, block_k, q.device),
+                                         dropout_rate)
+                p = torch.where(keep, p, 0.0) * inv_keep
+            acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, rk]
+            m = m_new
+        l_safe = torch.clamp_min(l, 1e-30)
+        out[:, :, rq] = acc / l_safe
+        lse[:, :, rq] = (m + torch.log(l_safe))[..., 0]
+    return out[:, :, :s].permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def attention_delta(do: torch.Tensor, out: torch.Tensor,
+                    s_pad: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) as float32 (B, H, S_pad), zero-padded; the
+    JAX package computes it outside the kernels too."""
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    return F.pad(delta, (0, s_pad - delta.shape[-1])).contiguous()
+
+
+def _probs(qf, kf, lse, mask_i8, rq, rk, scale):
+    """exp(s - lse) of the live rows, 0 elsewhere (the backward kernels'
+    recomputed weights)."""
+    sc = (qf[:, :, rq] @ kf[:, :, rk].transpose(-1, -2)) * scale
+    sc = torch.where(mask_i8[rq, rk] != 0, sc, NEG_INF)
+    row_lse = lse[:, :, rq, None]
+    return torch.where(row_lse > 0.25 * NEG_INF, torch.exp(sc - row_lse),
+                       0.0)
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
+                       block_q: int, block_k: int,
+                       dropout_rate: float = 0.0):
+    """Plain version of the dq kernel: per q tile over the key tiles below
+    ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
+    rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
+    ``dq = sm_scale * ds K``.  Returns dq (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    s_pad = mask_i8.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (_heads_first(x, s_pad) for x in (q, k, v, do))
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    dq = torch.zeros(b, h, s_pad, d, device=q.device)
+    for qi, hi in enumerate(k_hi.tolist()):
+        rq = slice(qi * block_q, (qi + 1) * block_q)
+        acc = torch.zeros((b, h, block_q, d), device=q.device)
+        for ki in range(hi):
+            rk = slice(ki * block_k, (ki + 1) * block_k)
+            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale)
+            dp = dof[:, :, rq] @ vf[:, :, rk].transpose(-1, -2)
+            if dropout_rate > 0:
+                keep = dropout_keep_mask(seed, b, h,
+                                         _rows(qi, block_q, q.device),
+                                         _rows(ki, block_k, q.device),
+                                         dropout_rate)
+                dp = torch.where(keep, dp, 0.0) * inv_keep
+            ds = (p * (dp - delta[:, :, rq, None])).to(k.dtype).float()
+            acc = acc + ds @ kf[:, :, rk]
+        dq[:, :, rq] = acc * scale
+    return dq[:, :, :s].permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
+                        *, block_q: int, block_k: int,
+                        dropout_rate: float = 0.0):
+    """Plain version of the dk/dv kernel: per key tile over the q tiles
+    from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
+    to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
+    sm_scale.  Returns (dk, dv) (B, S, H, D) in k's and v's dtypes."""
+    b, s, h, d = q.shape
+    s_pad = mask_i8.shape[0]
+    num_q = s_pad // block_q
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (_heads_first(x, s_pad) for x in (q, k, v, do))
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    dk = torch.zeros(b, h, s_pad, d, device=q.device)
+    dv = torch.zeros(b, h, s_pad, d, device=q.device)
+    for ki, lo in enumerate(q_lo.tolist()):
+        rk = slice(ki * block_k, (ki + 1) * block_k)
+        acc_k = torch.zeros((b, h, block_k, d), device=q.device)
+        acc_v = torch.zeros((b, h, block_k, d), device=q.device)
+        for qi in range(lo, num_q):
+            rq = slice(qi * block_q, (qi + 1) * block_q)
+            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale)
+            dp = dof[:, :, rq] @ vf[:, :, rk].transpose(-1, -2)
+            if dropout_rate > 0:
+                keep = dropout_keep_mask(seed, b, h,
+                                         _rows(qi, block_q, q.device),
+                                         _rows(ki, block_k, q.device),
+                                         dropout_rate)
+                p_drop = torch.where(keep, p, 0.0) * inv_keep
+                dp = torch.where(keep, dp, 0.0) * inv_keep
+            else:
+                p_drop = p
+            acc_v = acc_v + (p_drop.to(do.dtype).float().transpose(-1, -2)
+                             @ dof[:, :, rq])
+            ds = (p * (dp - delta[:, :, rq, None])).to(q.dtype).float()
+            acc_k = acc_k + ds.transpose(-1, -2) @ qf[:, :, rq]
+        dk[:, :, rk] = acc_k * scale
+        dv[:, :, rk] = acc_v
+    unflat = lambda x, like: x[:, :, :s].permute(0, 2, 1, 3).to(like.dtype)
+    return unflat(dk, k), unflat(dv, v)
+
+
+def xla_reference_attention(q, k, v, mask_bool: torch.Tensor, *,
+                            dropout_rate: float = 0.0,
+                            dropout_seed: Optional[torch.Tensor] = None):
+    """Plain masked attention with the materialized weights (the JAX
+    package's ``_xla_reference_attention``): float32 logits and softmax,
+    dead rows (no allowed key) give zero weights, the weights return to
+    q's dtype.  With ``dropout_rate`` the kernels' keep mask is applied to
+    the normalized weights, scaled by 1/(1-r).  Differentiable by autograd."""
+    b, s, h, d = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(d))
+    logits = torch.where(mask_bool[None, None], logits, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    live = mask_bool.any(dim=1)[None, None, :, None]
+    weights = torch.where(live, weights, 0.0)
+    if dropout_rate > 0:
+        idx = torch.arange(s, device=q.device)
+        keep = dropout_keep_mask(dropout_seed, b, h, idx, idx, dropout_rate)
+        weights = torch.where(keep, weights, 0.0) * (1.0 / (1.0 - dropout_rate))
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(q.dtype), v)
+
+
+# -- kernel wrappers --------------------------------------------------------------
+
+def _library():
+    """The kernel library with its C signatures declared."""
+    lib = _build.load_library("flash_attention")
+    if not getattr(lib, "_signatures_set", False):
+        vp, ci, cf, cu = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint32)
+        # pointers, then batch, seq, heads, head_dim, s_pad, dtype, scale,
+        # inv_keep, threshold, dropout, stream
+        tail = [ci] * 6 + [cf, cf, cu, ci, vp]
+        lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
+        lib.flash_dq_launch.argtypes = [vp] * 10 + tail
+        lib.flash_dkv_launch.argtypes = [vp] * 11 + tail
+        for fn in (lib.flash_fwd_lse_launch, lib.flash_dq_launch,
+                   lib.flash_dkv_launch):
+            fn.restype = ci
+        lib.flash_error_string.argtypes = [ci]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        lib._signatures_set = True
+    return lib
+
+
+def _prepare(name, q, k, v, others, mask_i8, table, seed, block_q, block_k,
+             dropout_rate):
+    """Check what the kernel takes and return its scalar arguments."""
+    b, s, h, d = q.shape
+    if d not in KERNEL_TILES:
+        raise ValueError(f"{name}: head dim {d} not compiled; the kernel "
+                         f"takes {sorted(KERNEL_TILES)}")
+    if (block_q, block_k) != KERNEL_TILES[d]:
+        raise ValueError(f"{name}: tiles ({block_q}, {block_k}) at head dim "
+                         f"{d}; the kernel is compiled for "
+                         f"{KERNEL_TILES[d]}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    for t in (k, v, *others):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name}: operands must share q's shape "
+                             f"{tuple(q.shape)} and dtype {q.dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    s_pad = mask_i8.shape[0]
+    if (mask_i8.dtype != torch.int8 or tuple(mask_i8.shape) != (s_pad, s_pad)
+            or s_pad < s or s_pad % block_q or s_pad % block_k):
+        raise ValueError(f"{name}: mask {tuple(mask_i8.shape)} "
+                         f"{mask_i8.dtype} is not a tile-aligned int8 square "
+                         f"of side >= {s}")
+    if table.dtype != torch.int32:
+        raise ValueError(f"{name}: skip table must be int32")
+    tensors = [q, k, v, *others, mask_i8, table]
+    if dropout_rate > 0:
+        if seed is None or seed.dtype != torch.int64 or seed.numel() != 2:
+            raise ValueError(f"{name}: dropout needs a (2,) int64 seed")
+        tensors.append(seed)
+    if not on_cuda(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel needs all tensors on one sm_90 CUDA "
+            f"device; got {sorted({str(t.device) for t in tensors})}")
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    return (b, s, h, d, s_pad, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+            inv_keep, dropout_threshold(dropout_rate) if dropout_rate > 0
+            else 0, int(dropout_rate > 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_rc(lib, name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.flash_error_string(rc).decode()}")
+
+
+def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
+                  block_k: int, dropout_rate: float = 0.0):
+    """Forward with LSE; arguments and results as for
+    :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
+    a CUDA device this launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
+                                       block_q=block_q, block_k=block_k,
+                                       dropout_rate=dropout_rate)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
+                    block_q, block_k, dropout_rate)
+    b, _, h, _, s_pad = args[:5]
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s_pad, device=q.device, dtype=torch.float32)
+    lib = _library()
+    _check_rc(lib, "flash_fwd_lse", lib.flash_fwd_lse_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
+        k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(), *args))
+    flash_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
+             block_q: int, block_k: int, dropout_rate: float = 0.0):
+    """dQ; arguments and result as for :func:`flash_dq_reference`."""
+    if q.device.type == "cpu":
+        return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
+                                  seed, block_q=block_q, block_k=block_k,
+                                  dropout_rate=dropout_rate)
+    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
+                    block_q, block_k, dropout_rate)
+    _check_stats(lse, delta, args)
+    dq = torch.empty_like(q)
+    lib = _library()
+    _check_rc(lib, "flash_dq", lib.flash_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
+        k_hi.data_ptr(), _ptr(seed), dq.data_ptr(), *args))
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
+              block_q: int, block_k: int, dropout_rate: float = 0.0):
+    """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
+    if q.device.type == "cpu":
+        return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
+                                   seed, block_q=block_q, block_k=block_k,
+                                   dropout_rate=dropout_rate)
+    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
+                    block_q, block_k, dropout_rate)
+    _check_stats(lse, delta, args)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _library()
+    _check_rc(lib, "flash_dkv", lib.flash_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
+        q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(), *args))
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+def _check_stats(lse, delta, args):
+    b, _, h, _, s_pad = args[:5]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (tuple(t.shape) != (b, h, s_pad) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device.type != "cuda"):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{(b, h, s_pad)} on the card; got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+flash_fwd_lse.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+# -- differentiable entry -----------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward with LSE, backward by the dq and dk/dv kernels (the JAX
+    package's ``_flash_attention_vjp_native``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_i8, k_hi, q_lo, seed, block_q, block_k,
+                dropout_rate):
+        out, lse = flash_fwd_lse(q, k, v, mask_i8, k_hi, seed,
+                                 block_q=block_q, block_k=block_k,
+                                 dropout_rate=dropout_rate)
+        ctx.save_for_backward(q, k, v, out, lse, mask_i8, k_hi, q_lo)
+        ctx.seed = seed
+        ctx.config = (block_q, block_k, dropout_rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, mask_i8, k_hi, q_lo = ctx.saved_tensors
+        block_q, block_k, rate = ctx.config
+        g = g.contiguous()
+        # with dropout O already holds the dropped weights, so delta =
+        # rowsum(dO * O) still equals sum_j P_ij dP_ij
+        delta = attention_delta(g, out, mask_i8.shape[0])
+        kw = dict(block_q=block_q, block_k=block_k, dropout_rate=rate)
+        dq = flash_dq(q, k, v, g, lse, delta, mask_i8, k_hi, ctx.seed, **kw)
+        dk, dv = flash_dkv(q, k, v, g, lse, delta, mask_i8, q_lo, ctx.seed,
+                           **kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, mask: np.ndarray, *,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None, backward: str = "pallas",
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[torch.Tensor] = None):
+    """Masked multi-head attention (B, S, H, D) -> (B, S, H, D) under a
+    static numpy bool (S, S) mask (queries attend to keys where True).
+
+    Differentiable; ``backward='pallas'`` runs the dq and dk/dv kernels on
+    the saved LSE.  ``backward='xla'`` is the JAX package's recompute
+    backward around its ``_flash_kernel``, not ported yet: it raises.
+    ``dropout_rate`` > 0 drops attention weights after the softmax with the
+    Philox mask of ``dropout_seed`` ((2,) int64 words on q's device).
+    Tiles default to the kernel's; CPU tensors take the plain versions at
+    any tiles."""
+    if not isinstance(mask, np.ndarray):
+        raise TypeError("flash_attention requires a static numpy mask")
+    s = q.shape[1]
+    if mask.shape != (s, s):
+        raise ValueError(f"mask shape {mask.shape} != ({s}, {s})")
+    auto_q, auto_k = _auto_blocks(q.shape[-1])
+    block_q = block_q or auto_q
+    block_k = block_k or auto_k
+    dropout_rate = float(dropout_rate)
+    if dropout_rate > 0.0:
+        if backward != "pallas":
+            raise ValueError("flash attention dropout requires "
+                             "backward='pallas'")
+        if not 0.0 < dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate {dropout_rate} not in (0, 1)")
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if backward == "xla":
+        raise NotImplementedError(
+            "flash_backward='xla' runs the TPU's _flash_kernel "
+            "(ops/flash_attention.py:60), which is not ported yet; use "
+            "backward='pallas'")
+    if backward != "pallas":
+        raise ValueError(f"unknown backward {backward!r}")
+    mask_i8, k_hi, q_lo = device_tables(mask, block_q, block_k, q.device)
+    return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo,
+                                 dropout_seed if dropout_rate > 0 else None,
+                                 block_q, block_k, dropout_rate)
+
+
+def draw_dropout_seed(generator: torch.Generator) -> torch.Tensor:
+    """Two 32-bit Philox key words, as a (2,) int64 tensor on the
+    generator's device (no host round trip)."""
+    return torch.randint(0, 2 ** 32, (2,), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+
+
+def make_attention_fn(mask: np.ndarray, *, block_q: Optional[int] = None,
+                      block_k: Optional[int] = None,
+                      backward: str = "pallas", dropout_rate: float = 0.0):
+    """The ``attention_fn`` hook of ``modules.attention.MultiHeadAttention``:
+    ``fn(q, k, v, mask_ignored=None, dropout_generator=None)``.  With a
+    generator and ``dropout_rate`` > 0 it draws the seed words from it and
+    drops weights in the kernel; without one it runs deterministically."""
+    def attention_fn(q, k, v, _mask_ignored=None, dropout_generator=None):
+        rate = dropout_rate if dropout_generator is not None else 0.0
+        seed = draw_dropout_seed(dropout_generator) if rate > 0 else None
+        return flash_attention(q, k, v, mask, block_q=block_q,
+                               block_k=block_k, backward=backward,
+                               dropout_rate=rate, dropout_seed=seed)
+    return attention_fn

@@ -2,19 +2,20 @@
 
 Counterpart of the JAX package's ``ops/image_ops.py``.  Position-interval
 bounds depend only on image geometry, so they are numpy constants; the
-eval-mode position tokens are their midpoints.  The train-mode sampler
-comes with the training port.
+eval-mode position tokens are their midpoints, and the train-mode tokens
+are uniform draws within each patch's interval, from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["patchify", "position_interval_bounds", "eval_position_tokens"]
+__all__ = ["patchify", "position_interval_bounds", "eval_position_tokens",
+           "sample_position_tokens"]
 
 
 def patchify(images: torch.Tensor, patch_size: int, normalize: bool,
@@ -61,3 +62,32 @@ def eval_position_tokens(
     rs, rp, cs, cp = position_interval_bounds(image_dim, patch_size,
                                               position_interval)
     return (rs + rp) // 2, (cs + cp) // 2
+
+
+def sample_position_tokens(
+    batch_shape: Tuple[int, ...], image_dim: int, patch_size: int,
+    position_interval: int, generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode (row, col) tokens, each uniform in its patch's
+    ``[start, stop)`` interval: two int64 tensors of shape
+    ``(*batch_shape, P)`` on ``device``.
+
+    A degenerate interval (start == stop, possible when position_interval
+    - 1 < patches per dim) is widened to ``[start, start + 1)``, so its
+    patches emit their start bucket."""
+    rs, rp, cs, cp = position_interval_bounds(image_dim, patch_size,
+                                              position_interval)
+    rp = np.maximum(rp, rs + 1)
+    cp = np.maximum(cp, cs + 1)
+    shape = (*batch_shape, rs.shape[0])
+
+    def draw(start, stop):
+        lo = torch.as_tensor(start, dtype=torch.int64, device=device)
+        span = torch.as_tensor(stop - start, dtype=torch.int64,
+                               device=device)
+        u = torch.rand(shape, generator=generator, device=device)
+        off = torch.minimum((u * span).long(), span - 1)
+        return lo + off
+
+    return draw(rs, rp), draw(cs, cp)

@@ -1,0 +1,154 @@
+"""Stride-1 VALID max-pool whose backward is a CUDA kernel: the wrapper,
+its plain PyTorch version and the autograd function.
+
+Counterpart of the JAX package's ``ops/pool.py`` (Pallas kernel
+``_pool_bwd_kernel``).  The forward is ``F.max_pool2d``, as the JAX
+forward is XLA's ``reduce_window`` outside Pallas.  The backward routes
+each window's gradient to the FIRST position in raster order equal to the
+window's float32 max (the tie rule of XLA's ``select_and_scatter``); a
+window holding a NaN drops its gradient, as the JAX kernel does.  The
+kernel, ``csrc/pool_bwd.cu``, works on NCHW planes; its source note says
+what bounds it.
+
+:func:`max_pool_nchw` is the core the NCHW image embedder calls;
+:func:`max_pool_hwcn` keeps the JAX signature on (H, W, C, N) operands.
+``vjp='xla'`` (and any stride other than 1, as in the JAX package) takes
+torch's own max-pool backward.  :func:`pool_bwd` runs
+:func:`pool_bwd_reference` for CPU tensors, launches the kernel on an sm_90
+card and raises otherwise; ``pool_bwd.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..core.hw import on_cuda
+
+__all__ = ["max_pool_hwcn", "max_pool_nchw", "pool_bwd",
+           "pool_bwd_reference"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_WINDOW = 8        # kMaxWindow in the kernel
+
+
+def _slots(window, out_hw):
+    """(row slice, col slice) of every window slot, in raster order."""
+    (wh, ww), (oh, ow) = window, out_hw
+    return [(slice(di, di + oh), slice(dj, dj + ow))
+            for di in range(wh) for dj in range(ww)]
+
+
+def pool_bwd_reference(x: torch.Tensor, g: torch.Tensor,
+                       window: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of the kernel on NCHW: x (N, C, H, W), g (N, C, OH,
+    OW) -> dx like x.  The window max is recomputed in float32; slots
+    claim in raster order, a claimed window is poisoned with NaN so no
+    later slot matches, and dx accumulates in x's dtype slot by slot."""
+    h, w = x.shape[-2:]
+    oh, ow = h - window[0] + 1, w - window[1] + 1
+    slots = _slots(window, (oh, ow))
+    y = torch.full(g.shape, -float("inf"), dtype=torch.float32,
+                   device=x.device)
+    for rs, cs in slots:
+        y = torch.maximum(y, x[..., rs, cs].float())
+    dx = torch.zeros_like(x)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    for rs, cs in slots:
+        sel = x[..., rs, cs].float() == y
+        dx[..., rs, cs] = dx[..., rs, cs] + torch.where(sel, g, zero)
+        y = torch.where(sel, float("nan"), y)
+    return dx
+
+
+def _library():
+    lib = _build.load_library("pool_bwd")
+    if not getattr(lib, "_signatures_set", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pool_bwd_launch.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+        lib.pool_bwd_launch.restype = ci
+        lib.pool_bwd_error_string.argtypes = [ci]
+        lib.pool_bwd_error_string.restype = ctypes.c_char_p
+        lib._signatures_set = True
+    return lib
+
+
+def pool_bwd(x: torch.Tensor, g: torch.Tensor,
+             window: Tuple[int, int]) -> torch.Tensor:
+    """Max-pool backward (stride 1, VALID) on NCHW; arguments as for
+    :func:`pool_bwd_reference`.  CPU tensors take the plain version; on a
+    CUDA device this launches the kernel or raises."""
+    wh, ww = (int(v) for v in window)
+    n, c, h, w = x.shape
+    if tuple(g.shape) != (n, c, h - wh + 1, w - ww + 1):
+        raise ValueError(f"pool_bwd: g {tuple(g.shape)} does not match x "
+                         f"{tuple(x.shape)} under window {(wh, ww)}")
+    if x.device.type == "cpu":
+        return pool_bwd_reference(x, g, (wh, ww))
+    if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
+        raise ValueError(f"pool_bwd: dtypes {x.dtype}/{g.dtype}; the kernel "
+                         f"takes one of {sorted(map(str, _DTYPE_CODES))}")
+    if not (1 <= wh <= _MAX_WINDOW and 1 <= ww <= _MAX_WINDOW):
+        raise ValueError(f"pool_bwd: window {(wh, ww)} outside "
+                         f"[1, {_MAX_WINDOW}]^2")
+    if not on_cuda(x, g):
+        raise RuntimeError("pool_bwd: the kernel needs both tensors on one "
+                           f"sm_90 CUDA device; got {x.device}, {g.device}")
+    x, g = x.contiguous(), g.contiguous()
+    dx = torch.empty_like(x)
+    lib = _library()
+    rc = lib.pool_bwd_launch(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n * c, h, w, wh, ww,
+        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("pool_bwd kernel launch failed: "
+                           f"{lib.pool_bwd_error_string(rc).decode()}")
+    pool_bwd.launches += 1
+    return dx
+
+
+pool_bwd.launches = 0
+
+
+class _MaxPool(torch.autograd.Function):
+    """``F.max_pool2d`` forward (stride 1), :func:`pool_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        ctx.save_for_backward(x)
+        ctx.window = window
+        return F.max_pool2d(x, window, stride=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return pool_bwd(x, g, ctx.window), None
+
+
+def max_pool_nchw(x: torch.Tensor, window=(3, 3), strides=(1, 1), *,
+                  vjp: str = "pallas") -> torch.Tensor:
+    """VALID max-pool of an NCHW tensor.  ``vjp='pallas'`` at stride 1
+    differentiates through the kernel; ``'xla'`` or another stride takes
+    torch's own backward."""
+    window = tuple(int(v) for v in window)
+    strides = tuple(int(v) for v in strides)
+    if vjp not in ("pallas", "xla"):
+        raise ValueError(f"unknown pool vjp {vjp!r}")
+    if vjp == "pallas" and strides == (1, 1):
+        return _MaxPool.apply(x, window)
+    return F.max_pool2d(x, window, strides)
+
+
+def max_pool_hwcn(x: torch.Tensor, window=(3, 3), strides=(1, 1), *,
+                  vjp: str = "pallas") -> torch.Tensor:
+    """VALID max-pool over dims (0, 1) of a 4-D (H, W, C, N) tensor, the
+    JAX package's signature: a permute around :func:`max_pool_nchw`."""
+    if x.ndim != 4:
+        raise ValueError(f"max_pool_hwcn expects a 4-D (H, W, C, N) "
+                         f"tensor, got shape {tuple(x.shape)}")
+    y = max_pool_nchw(x.permute(3, 2, 0, 1), window, strides, vjp=vjp)
+    return y.permute(2, 3, 1, 0)

@@ -87,3 +87,101 @@ def test_sampler_kernel_matches_plain_low_precision(card, dtype, batch,
     assert torch.isfinite(out).all()
     assert ((out - ref).abs()
             <= 2 * torch.finfo(dtype).eps * (1 + ref.abs())).all()
+
+
+# -- flash attention and max-pool backward ---------------------------------
+
+FLASH_SHAPES = pytest.mark.parametrize("b,seq,h,d", [
+    (4, 74, 3, 256),      # octo_base training (B cut from 32)
+    (1, 1024, 12, 64),    # long context of bench.py:1056 (B cut from 8)
+])
+
+
+def _flash_case(card, b, seq, h, d, dtype):
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
+        SequenceLayout)
+    spec = ("[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2"
+            if seq == 74 else
+            "[TaskDescriptionPrefix{16}] "
+            "[Image{100};Image{100};Image{100};Image{100};Image{100};"
+            "Readout{4}]*2")
+    mask = SequenceLayout.from_strings(spec).attention_mask()
+    assert mask.shape == (seq, seq)
+    g = torch.Generator(device=card).manual_seed(seq + d)
+    q, k, v, do = (torch.randn(b, seq, h, d, generator=g, device=card)
+                   .to(dtype) for _ in range(4))
+    bq, bk = fa.KERNEL_TILES[d]
+    padded, k_hi, q_lo = fa.device_tables(mask, bq, bk, card)
+    seed = torch.tensor([11, 22], dtype=torch.int64, device=card)
+    return fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk)
+
+
+def _assert_flash_close(got, want, dtype):
+    """float32: 1e-4 (1 + |plain|); 16-bit: 2 eps (1 + |plain|)."""
+    tol = 1e-4 if dtype == torch.float32 else 2 * torch.finfo(dtype).eps
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= tol * (1 + want.abs())).all(), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@FLASH_SHAPES
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
+    fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
+        card, b, seq, h, d, dtype)
+    kw = dict(block_q=bq, block_k=bk, dropout_rate=rate)
+    s = seed if rate else None
+    before = (fa.flash_fwd_lse.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, s, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi, s, **kw)
+    _assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    delta = fa.attention_delta(do, out_p, padded.shape[0])
+    dq = fa.flash_dq(q, k, v, do, lse_p, delta, padded, k_hi, s, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_p, delta, padded, q_lo, s, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_lse.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    dq_p = fa.flash_dq_reference(q, k, v, do, lse_p, delta, padded, k_hi, s,
+                                 **kw)
+    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse_p, delta, padded,
+                                        q_lo, s, **kw)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_auto_selects_kernel_from_flash_min_seq(card):
+    from multi_modal_transformers_tokenmerge_torch.core.config import (
+        TransformerConfig)
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        select_attention_fn)
+    import numpy as np
+    cfg = TransformerConfig(attention_impl="auto")
+    assert select_attention_fn(cfg, np.ones((74, 74), bool), 74,
+                               card) is None
+    assert select_attention_fn(cfg, np.ones((1024, 1024), bool), 1024, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_bwd_kernel_matches_plain_exactly(card, dtype):
+    """x (N, 64, 23, 23), g (N, 64, 21, 21) with many ties: the kernel
+    routes and sums as the plain version does, bit for bit."""
+    from multi_modal_transformers_tokenmerge_torch.ops import pool
+    g = torch.Generator(device=card).manual_seed(0)
+    x = (torch.randn(200, 64, 23, 23, generator=g, device=card) * 2).round()
+    x = (x / 2).to(dtype)
+    x[0, 0, 5, 5] = float("nan")
+    gy = torch.randn(200, 64, 21, 21, generator=g, device=card).to(dtype)
+    before = pool.pool_bwd.launches
+    dx = pool.pool_bwd(x, gy, (3, 3))
+    torch.cuda.synchronize()
+    assert pool.pool_bwd.launches == before + 1
+    assert torch.equal(dx, pool.pool_bwd_reference(x, gy, (3, 3)))

@@ -1,0 +1,254 @@
+"""The port's flash attention on the CPU: the plain versions of the
+forward/LSE, dq and dk/dv kernels and the autograd path against the JAX
+package's Pallas kernels in interpret mode, the skip tables, the Philox
+dropout masks, and the attention-core selection of ``modules.attention``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from micro_configs import octo_micro
+from torch_parity import to_torch_config
+from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+    select_attention_fn,
+)
+from multi_modal_transformers_tokenmerge_torch.ops import flash_attention as tfa
+from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
+    SequenceLayout,
+)
+from multi_modal_transformers_tokenmerge_tpu.ops import flash_attention as jfa
+
+# tests/test_flash_attention.py:47 (forward) and :123 (gradients)
+FWD_TOL = 2e-5
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+OCTO = "[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2"
+
+
+def _mask(kind):
+    if kind == "octo":
+        return SequenceLayout.from_strings(OCTO).attention_mask()
+    rng = np.random.default_rng(0)
+    s = 40
+    mask = rng.random((s, s)) < 0.3
+    mask[np.arange(s), np.arange(s)] = True
+    if kind == "dead_rows":
+        # rows with no allowed key, one of them filling a whole q tile
+        mask[[5, 16, 17, 18, 19, 20, 21, 22, 23]] = False
+    return mask
+
+
+CASES = [("octo", 16, 16), ("octo", 32, 16), ("blocky", 8, 8),
+         ("blocky", 16, 8), ("dead_rows", 8, 8), ("dead_rows", 8, 16)]
+
+
+def _qkv(s, seed, n=4, b=2, h=3, d=16):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, s, h, d)).astype(np.float32)
+            for _ in range(n)]
+
+
+def _close(got, want, rtol, atol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("kind,bq,bk", CASES)
+def test_plain_kernels_match_jax_kernels(kind, bq, bk):
+    """flash_*_reference against the JAX kernels (interpret mode) on the
+    same padded mask and skip tables: out and LSE to 2e-5, dq/dk/dv to
+    rtol 2e-4 / atol 2e-5, dead rows included."""
+    mask = _mask(kind)
+    q, k, v, do = _qkv(mask.shape[0], seed=1)
+    padded, k_hi, q_lo = tfa.mask_tables(mask, bq, bk)
+    out_j, lse_j = jfa.flash_fwd_lse(q, k, v, padded, k_hi, block_q=bq,
+                                     block_k=bk, interpret=True)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    tables = (torch.tensor(padded), torch.tensor(k_hi))
+    out_t, lse_t = tfa.flash_fwd_lse_reference(tq, tk, tv, *tables,
+                                               block_q=bq, block_k=bk)
+    _close(out_t, out_j, FWD_TOL, FWD_TOL)
+    _close(lse_t, lse_j, FWD_TOL, FWD_TOL)
+
+    lse = torch.tensor(np.asarray(lse_j))
+    delta = tfa.attention_delta(tdo, torch.tensor(np.asarray(out_j)),
+                                padded.shape[0])
+    dq_j, dk_j, dv_j = jfa.flash_bwd(q, k, v, do, lse_j,
+                                     jnp.asarray(delta.numpy()), padded,
+                                     k_hi, q_lo, block_q=bq, block_k=bk,
+                                     interpret=True)
+    dq = tfa.flash_dq_reference(tq, tk, tv, tdo, lse, delta, *tables,
+                                block_q=bq, block_k=bk)
+    dk, dv = tfa.flash_dkv_reference(tq, tk, tv, tdo, lse, delta,
+                                     tables[0], torch.tensor(q_lo),
+                                     block_q=bq, block_k=bk)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        _close(got, want, GRAD_RTOL, GRAD_ATOL)
+    if kind == "dead_rows":
+        assert not out_t[:, 5].any() and not dq[:, 5].any()
+
+
+@pytest.mark.parametrize("kind,bq,bk", CASES)
+def test_autograd_matches_jax(kind, bq, bk):
+    """flash_attention (forward + dq/dk-dv backward through
+    autograd.Function) against jax.vjp of the JAX flash_attention with
+    backward='pallas' in interpret mode."""
+    import jax
+    mask = _mask(kind)
+    q, k, v, g = _qkv(mask.shape[0], seed=2)
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, mask, block_q=bq,
+                                            block_k=bk, interpret=True,
+                                            backward="pallas"), q, k, v)
+    grads_j = vjp(g)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out_t = tfa.flash_attention(tq, tk, tv, mask, block_q=bq, block_k=bk)
+    out_t.backward(torch.tensor(g))
+    _close(out_t, out_j, FWD_TOL, FWD_TOL)
+    for t, want in zip((tq, tk, tv), grads_j):
+        _close(t.grad, want, GRAD_RTOL, GRAD_ATOL)
+
+
+@pytest.mark.parametrize("kind,bq,bk", CASES)
+def test_skip_tables_match_jax(kind, bq, bk):
+    mask = _mask(kind)
+    padded, k_hi, q_lo = tfa.mask_tables(mask, bq, bk)
+    s = mask.shape[0]
+    assert padded.shape[0] % bq == 0 and padded.shape[0] % bk == 0
+    assert (padded[:s, :s] == mask).all() and not padded[s:].any()
+    j_hi, j_lo = jfa.tile_skip_tables(padded, bq, bk)
+    np.testing.assert_array_equal(k_hi, j_hi)
+    np.testing.assert_array_equal(q_lo, j_lo)
+    # cached per (mask digest, tiles, device)
+    first = tfa.device_tables(mask, bq, bk, "cpu")
+    assert tfa.device_tables(mask.copy(), bq, bk, "cpu") is first
+    for got, want in zip(first, (padded, k_hi, q_lo)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+@pytest.mark.parametrize("kind", ["octo", "dead_rows"])
+def test_dropout_matches_autograd_through_plain_attention(kind, rate):
+    """With dropout the kernels' backward equals torch autograd through
+    the plain attention under the same regenerated Philox mask, whatever
+    the tiles."""
+    mask = _mask(kind)
+    q, k, v, g = _qkv(mask.shape[0], seed=3)
+    seed = torch.tensor([12345, 987654321], dtype=torch.int64)
+
+    def run(fn):
+        ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+        out = fn(*ts)
+        out.backward(torch.tensor(g))
+        return out.detach(), [t.grad for t in ts]
+
+    ref_out, ref_grads = run(lambda a, b, c: tfa.xla_reference_attention(
+        a, b, c, torch.tensor(mask), dropout_rate=rate, dropout_seed=seed))
+    for bq, bk in ((8, 16), (16, 8)):
+        out, grads = run(lambda a, b, c: tfa.flash_attention(
+            a, b, c, mask, block_q=bq, block_k=bk, dropout_rate=rate,
+            dropout_seed=seed))
+        _close(out, ref_out.numpy(), FWD_TOL, FWD_TOL)
+        for got, want in zip(grads, ref_grads):
+            _close(got, want.numpy(), GRAD_RTOL, GRAD_ATOL)
+    # dropout changes the function
+    plain = tfa.xla_reference_attention(*(torch.tensor(x) for x in (q, k, v)),
+                                        torch.tensor(mask))
+    assert (plain - ref_out).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_keep_rate(rate):
+    """The share of kept elements is within 4 sigma of 1 - r."""
+    seed = torch.tensor([7, 2 ** 32 - 3], dtype=torch.int64)
+    idx = torch.arange(256)
+    keep = tfa.dropout_keep_mask(seed, 4, 4, idx, idx, rate)
+    n = keep.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(keep.float().mean().item() - (1 - rate)) <= 4 * sigma
+    # element masks depend on (b, h, row, col) only, not on the slice asked
+    sub = tfa.dropout_keep_mask(seed, 4, 4, idx[40:72], idx[8:24], rate)
+    assert torch.equal(sub, keep[:, :, 40:72, 8:24])
+
+
+def test_philox_known_answers():
+    """The Philox4x32-10 of the kernels against Random123's known-answer
+    vectors."""
+    t = lambda x: torch.tensor(x, dtype=torch.int64)
+    cases = [
+        ((0, 0, 0, 0), (0, 0),
+         (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+         (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+        ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+         (0xa4093822, 0x299f31d0),
+         (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+    ]
+    for ctr, key, want in cases:
+        got = tfa._philox4x32(*map(t, ctr), *map(t, key))
+        assert tuple(int(w) for w in got) == want
+
+
+def test_entry_checks():
+    mask = _mask("octo")
+    q = torch.zeros(1, 74, 2, 64)
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        tfa.flash_attention(q, q, q, mask, backward="xla")
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, mask, dropout_rate=0.1)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, q, q, torch.tensor(mask))
+    # a tensor neither on the CPU nor on an sm_90 card: raise, never fall
+    # back to the plain version
+    meta = torch.zeros(1, 74, 2, 64, device="meta")
+    padded, k_hi, _ = (torch.tensor(a) for a in tfa.mask_tables(mask, 64,
+                                                                 64))
+    with pytest.raises(RuntimeError, match="sm_90"):
+        tfa.flash_fwd_lse(meta, meta, meta, padded.to("meta"),
+                          k_hi.to("meta"), block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_fwd_lse(meta[..., :16], meta[..., :16], meta[..., :16],
+                          padded.to("meta"), k_hi.to("meta"), block_q=64,
+                          block_k=64)
+
+
+def _tcfg(**transformer):
+    cfg = to_torch_config(octo_micro())
+    return cfg.transformer.replace(**transformer)
+
+
+def test_select_attention_fn():
+    """The JAX package's selection rules (modules/attention.py:39-69)."""
+    mask = _mask("octo")
+    assert select_attention_fn(_tcfg(attention_impl="xla"), mask, 74) is None
+    assert select_attention_fn(_tcfg(attention_impl="flash"), mask, 74)
+    # 'auto' takes the kernel only on an sm_90 card from flash_min_seq on
+    for seq in (74, 4096):
+        assert select_attention_fn(_tcfg(attention_impl="auto"), mask, seq,
+                                   "cpu") is None
+    with pytest.raises(ValueError):
+        select_attention_fn(_tcfg(attention_impl="tpu"), mask, 74)
+    drop = _tcfg(attention_impl="flash", flash_backward="xla")
+    assert drop.attention.dropout_rate > 0
+    with pytest.raises(ValueError, match="flash_backward='pallas'"):
+        select_attention_fn(drop, mask, 74)
+    assert select_attention_fn(drop.replace(attention_impl="auto"), mask,
+                               4096, "cpu") is None
+    no_drop = drop.replace(attention=drop.attention.replace(dropout_rate=0.0))
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        select_attention_fn(no_drop, mask, 74)
+
+
+def test_attention_hook_drops_in_train_mode_only():
+    """The hook runs deterministically without a generator and draws its
+    Philox seed words from the 'dropout' generator in train mode."""
+    mask = _mask("octo")
+    fn = tfa.make_attention_fn(mask, dropout_rate=0.1)
+    q, k, v = (torch.tensor(x) for x in _qkv(74, seed=4, n=3))
+    plain = tfa.xla_reference_attention(q, k, v, torch.tensor(mask))
+    _close(fn(q, k, v), plain.numpy(), FWD_TOL, FWD_TOL)
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    a = fn(q, k, v, dropout_generator=g1)
+    assert torch.equal(a, fn(q, k, v, dropout_generator=g2))
+    assert (a - plain).abs().max() > 1e-3
+    assert not torch.equal(a, fn(q, k, v, dropout_generator=g1))

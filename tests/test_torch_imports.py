@@ -37,3 +37,23 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported(path)
            if m and m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    """Import every module of the port in a fresh interpreter: none of the
+    forbidden packages ends up in sys.modules."""
+    import subprocess
+    import sys
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    assert "multi_modal_transformers_tokenmerge_torch.train.steps" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
