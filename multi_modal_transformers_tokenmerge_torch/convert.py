@@ -9,14 +9,16 @@ returns a ``state_dict`` for ``models.octo.Octo(cfg)``.  Layouts:
   (H*D, E) and (H*D,); output kernels (H, D, E) -> (E, H*D); the T5 ``qkv``
   kernel (E, 3, H, D) -> (3*H*D, E);
 * conv kernels HWIO -> OIHW;
-* ``nn.scan``-stacked blocks (``transformer/blocks``,
-  ``text_encoder/t5_encoder/blocks``) split along their leading layer axis;
+* ``nn.scan``-stacked blocks (:func:`scanned_stacks`: the T5 tower's
+  ``blocks``, and the transformer's ``blocks`` or, in the staged ToMe
+  stack, every ``stage_{i}``) split along their leading layer axis; the
+  per-layer ToMe blocks ``transformer/block_{l}`` are not stacked, and hold
+  ``query`` / ``key`` / ``value`` / ``out`` directly;
 * ``output_dense``'s rows are in flattened (h, w, c) order; the port
   flattens NCHW maps as (c, h, w), so the rows are permuted;
 * ``scale`` and ``embedding`` -> ``weight``; everything else is copied.
 
-The continuous and categorical heads are not ported yet and are skipped.
-Any other key the port does not have, and any key the port needs but the
+Any key the port does not have, and any key the port needs but the
 tree lacks, raises, as does a shape mismatch.
 """
 
@@ -30,12 +32,23 @@ import torch
 
 from .core.config import OctoConfig
 
-__all__ = ["from_flax", "SCANNED_STACKS", "SKIPPED_SUBTREES"]
+__all__ = ["from_flax", "scanned_stacks"]
 
-SKIPPED_SUBTREES = ("continuous_action_head", "categorical_action_head")
-# block stacks the JAX package runs under nn.scan: leaves with a layer axis
-SCANNED_STACKS = (("transformer", "blocks"),
-                  ("text_encoder", "t5_encoder", "blocks"))
+
+def scanned_stacks(cfg: OctoConfig) -> Tuple[Tuple[str, ...], ...]:
+    """The block stacks the JAX package runs under ``nn.scan`` for this
+    configuration: every flax leaf below one carries a leading layer axis."""
+    from .sequence.layout import SequenceLayout
+    stacks = [("text_encoder", "t5_encoder", "blocks")]
+    tr = cfg.transformer
+    layout = SequenceLayout.from_strings(cfg.input_sequence,
+                                         cfg.compression_sequence)
+    if not (layout.compressible and tr.compression_mode != "none"):
+        stacks.append(("transformer", "blocks"))
+    elif tr.tome_merge_every > 1:
+        stages = -(-tr.num_blocks // tr.tome_merge_every)
+        stacks += [("transformer", f"stage_{i}") for i in range(stages)]
+    return tuple(stacks)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -93,10 +106,9 @@ def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
         out[".".join(names)] = torch.tensor(
             np.ascontiguousarray(value, dtype=np.float32)).to(dtype)
 
+    stacks = scanned_stacks(cfg)
     for path, arr in _flatten(params):
-        if path[0] in SKIPPED_SUBTREES:
-            continue
-        for scanned in SCANNED_STACKS:
+        for scanned in stacks:
             n = len(scanned)
             if path[:n] == scanned:
                 for i in range(arr.shape[0]):

@@ -1,11 +1,22 @@
-// Block-sparse masked flash attention for Hopper (sm_90a): the forward that
-// saves the row logsumexp, and the dq and dk/dv backward passes.
+// Block-sparse masked flash attention for Hopper (sm_90a): the plain
+// forward, the forward that saves the row logsumexp, and the dq and dk/dv
+// backward passes.
 //
 // Replaces the Pallas TPU kernels of the JAX package's
-// ops/flash_attention.py: _flash_fwd_lse_kernel (:328), _flash_dq_kernel
-// (:383) and _flash_dkv_kernel (:430).  The plain PyTorch versions
-// (ops/flash_attention.py: flash_*_reference) repeat this arithmetic step
-// for step.
+// ops/flash_attention.py: _flash_kernel (:60), _flash_fwd_lse_kernel (:328),
+// _flash_dq_kernel (:383) and _flash_dkv_kernel (:430).  The plain PyTorch
+// versions (ops/flash_attention.py: flash_*_reference) repeat this
+// arithmetic step for step.
+//
+// flash_fwd_kernel is the forward a server runs, and the forward of the
+// recompute backward: no seed, no Philox bits, no LSE store.  The TPU
+// program handles one (batch, q tile) for ALL heads, because its grid runs
+// in order and fewer, fatter programs win there; here a block per (batch,
+// head, q tile) fills the SMs.  At the ToMe stages of octo_deep (B=1, H=12,
+// D=64, S=224/160/96) a launch is 24-48 blocks of a few key tiles each:
+// the work (under 0.1 GFLOP) and the bytes (under 1 MB) bound it at a
+// fraction of a microsecond, and launch latency plus the serial key-tile
+// loop of one block set its time.
 //
 // What it computes.  q, k, v, dO are (B, S, H, D) in the input dtype; the
 // static mask is an int8 (S_pad, S_pad) tile-aligned square (zero past S)
@@ -203,15 +214,16 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D, int BQ, int BK, int NT>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
-                         const int8_t* __restrict__ mask,
-                         const int32_t* __restrict__ k_hi,
-                         const int64_t* __restrict__ seed, T* __restrict__ out,
-                         float* __restrict__ lse, Args a, uint32_t threshold,
-                         float inv_keep, int dropout) {
+// The forward pass of one (batch, head, q tile) block.  With DROPOUT the
+// kept weights are rescaled and the rest zeroed before P V (l and the LSE
+// use the undropped p); without it no Philox code is compiled in.  lse may
+// be null: then no row statistic is stored.
+template <typename T, int D, int BQ, int BK, int NT, bool DROPOUT>
+__device__ __forceinline__ void forward_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
+    T* __restrict__ out, float* __restrict__ lse, const Args& a,
+    const Dropout& drop) {
   constexpr int LD = D + 4, LP = BK + 4;
   constexpr int RSTEP = NT / BK, NS = BQ / RSTEP;
   constexpr int DSTEP = NT / D, NACC = BQ / DSTEP;
@@ -232,7 +244,6 @@ __global__ void __launch_bounds__(NT)
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
                       static_cast<size_t>(h) * D;
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
 
   load_tile<T, D, BQ, NT>(sQ, q + base, q0, a.seq, row_stride);
   for (int r = threadIdx.x; r < BQ; r += NT) {
@@ -277,7 +288,7 @@ __global__ void __launch_bounds__(NT)
         const float pv = expf(sP[r * LP + cc] - ref);
         sum += pv;
         float pa = pv;
-        if (drop.on)
+        if (DROPOUT && drop.on)
           pa = drop.keep(bh, q0 + r, k0 + cc) ? pv * drop.inv_keep : 0.f;
         sP[r * LP + cc] = round_to<T>(pa);
       }
@@ -319,9 +330,39 @@ __global__ void __launch_bounds__(NT)
           Cvt<T>::from_f(acc[j] / l_safe);
     }
   }
-  for (int r = threadIdx.x; r < BQ; r += NT)
-    lse[static_cast<size_t>(bh) * a.s_pad + q0 + r] =
-        sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < BQ; r += NT)
+      lse[static_cast<size_t>(bh) * a.s_pad + q0 + r] =
+          sM[r] + logf(fmaxf(sL[r], 1e-30f));
+}
+
+template <typename T, int D, int BQ, int BK, int NT>
+__global__ void __launch_bounds__(NT)
+    flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const int8_t* __restrict__ mask,
+                         const int32_t* __restrict__ k_hi,
+                         const int64_t* __restrict__ seed, T* __restrict__ out,
+                         float* __restrict__ lse, Args a, uint32_t threshold,
+                         float inv_keep, int dropout) {
+  forward_block<T, D, BQ, BK, NT, true>(
+      q, k, v, mask, k_hi, out, lse, a,
+      make_dropout(seed, threshold, inv_keep, dropout));
+}
+
+// The forward without LSE and without dropout: what the JAX package's
+// _flash_kernel computes.  A __global__ entry of its own that takes no seed,
+// compiles no Philox code and stores no row statistic; p is rounded to V's
+// dtype before P V, and the reference of the exponent is clamped at -5e29 so
+// a row with no live key keeps p = 0 and emits zeros.
+template <typename T, int D, int BQ, int BK, int NT>
+__global__ void __launch_bounds__(NT)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int8_t* __restrict__ mask,
+                     const int32_t* __restrict__ k_hi, T* __restrict__ out,
+                     Args a) {
+  forward_block<T, D, BQ, BK, NT, false>(q, k, v, mask, k_hi, out, nullptr,
+                                         a, Dropout{});
 }
 
 template <typename T, int D, int BQ, int BK, int NT>
@@ -568,6 +609,23 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
 }
 
 template <typename T, int D>
+int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
+              const int32_t* k_hi, void* out, const Launch& L) {
+  using Tl = Tiles<D>;
+  auto kern = flash_fwd_kernel<T, D, Tl::BQ, Tl::BK, Tl::NT>;
+  const size_t smem = fwd_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
+  kern<<<grid, Tl::NT, smem, L.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, k_hi, static_cast<T*>(out),
+      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale});
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, const int8_t* mask,
        const int32_t* k_hi, const int64_t* seed, void* dqp, const Launch& L) {
@@ -642,7 +700,18 @@ extern "C" {
 // never synchronises.  q, k, v, dout, out, dq, dk, dv are (B, S, H, D)
 // contiguous in the dtype; lse and delta (B, H, S_pad) float32; mask
 // (S_pad, S_pad) int8; k_hi / q_lo int32; seed two int64 words (read only
-// when dropout is set).
+// when dropout is set).  flash_fwd_launch takes no seed and writes no LSE.
+
+int flash_fwd_launch(const void* q, const void* k, const void* v,
+                     const int8_t* mask, const int32_t* k_hi, void* out,
+                     int batch, int seq, int heads, int head_dim, int s_pad,
+                     int dtype, float scale, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{batch, seq, heads, s_pad, scale, 1.f, 0u, 0,
+                 static_cast<cudaStream_t>(stream)};
+  FLASH_DISPATCH(fwd_plain, q, k, v, mask, k_hi, out, L)
+}
 
 int flash_fwd_lse_launch(const void* q, const void* k, const void* v,
                          const int8_t* mask, const int32_t* k_hi,

@@ -25,11 +25,13 @@ from torch import nn
 
 from ..core.config import AttentionConfig, TransformerConfig
 from ..core.hw import kernel_device
-from .layers import Dense, LayerNorm, dropout, init_normal
+from .layers import (Dense, LayerNorm, dropout, init_normal,
+                     init_truncated)
 
 __all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock",
-           "TransformerStack", "AddPositionEmbedding", "masked_attention",
-           "select_attention_fn"]
+           "TransformerStack", "AddPositionEmbedding",
+           "MultiHeadAttentionPooling", "masked_attention",
+           "select_attention_fn", "layer_norm_dim"]
 
 _IMPLS = ("auto", "xla", "flash")
 
@@ -43,8 +45,9 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
     sm_90 card and ``seq_len >= flash_min_seq``.  Attention-weight dropout
     needs ``flash_backward='pallas'``: forcing ``'flash'`` with another
     backward raises, ``'auto'`` falls back to the plain path.
-    ``flash_backward='xla'`` (the TPU's ``_flash_kernel`` with a recompute
-    backward) is not ported yet and raises where it would run."""
+    ``flash_backward='xla'`` runs the forward kernel that saves no LSE and
+    recomputes the gradients through the plain attention.  With a real
+    ``device`` the mask's device tables are built here, once."""
     if cfg.attention_impl not in _IMPLS:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}; "
                          f"one of {_IMPLS}")
@@ -65,16 +68,15 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
     if cfg.attention_impl == "auto":
         if seq_len < cfg.flash_min_seq or not kernel_device(device):
             return None
-    if cfg.flash_backward == "xla":
-        raise NotImplementedError(
-            "flash_backward='xla' runs the TPU's _flash_kernel "
-            "(ops/flash_attention.py:60), which is not ported yet; use "
-            "flash_backward='pallas'")
     from ..ops.flash_attention import make_attention_fn
-    return make_attention_fn(mask_np, block_q=cfg.flash_block_q or None,
-                             block_k=cfg.flash_block_k or None,
-                             backward=cfg.flash_backward,
-                             dropout_rate=dropout_rate)
+    fn = make_attention_fn(mask_np, block_q=cfg.flash_block_q or None,
+                           block_k=cfg.flash_block_k or None,
+                           backward=cfg.flash_backward,
+                           dropout_rate=dropout_rate)
+    if device is not None and torch.device(device).type != "meta":
+        fn.tables_for(cfg.attention.qkv_features // cfg.attention.num_heads,
+                      device)
+    return fn
 
 
 def masked_attention(q, k, v, mask: Optional[torch.Tensor],
@@ -154,6 +156,17 @@ class MultiHeadAttention(nn.Module):
         return self.out(out.reshape(b, t, -1))
 
 
+def layer_norm_dim(cfg: TransformerConfig) -> int:
+    """The axis a block's LayerNorms pool over: the features, or axis 1
+    for the reference's 'sequence_compat' LayerNorm."""
+    if cfg.layer_norm_reduction == "sequence_compat":
+        return 1
+    if cfg.layer_norm_reduction == "features":
+        return -1
+    raise ValueError(
+        f"unknown layer_norm_reduction {cfg.layer_norm_reduction!r}")
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN block: x + Dropout(attn(LN(x))), then x + mlp(LN(x))."""
 
@@ -162,13 +175,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         if cfg.mlp_type != "dense":
             raise ValueError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
-        if cfg.layer_norm_reduction == "sequence_compat":
-            dim = 1
-        elif cfg.layer_norm_reduction == "features":
-            dim = -1
-        else:
-            raise ValueError(
-                f"unknown layer_norm_reduction {cfg.layer_norm_reduction!r}")
+        dim = layer_norm_dim(cfg)
         self.dropout_rate = cfg.dropout_rate
         ln = lambda: LayerNorm(features, cfg.layer_norm_epsilon, dim, **kw)
         self.ln_attention = ln()
@@ -202,13 +209,13 @@ class AddPositionEmbedding(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    """Position embedding + encoder blocks (+ optional final LayerNorm)."""
+    """Position embedding + encoder blocks (+ optional final LayerNorm).
+    ``cfg.compression_mode`` is not read here: the compressed stack is
+    ``modules.tome_stack.CompressedTransformerStack``."""
 
     def __init__(self, cfg: TransformerConfig, seq_len: int, features: int,
                  attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
-        if cfg.compression_mode != "none":
-            raise ValueError("token merging / pruning is not ported yet")
         self.posembed_input = AddPositionEmbedding(seq_len, features, **kw)
         self.blocks = nn.ModuleList(
             EncoderBlock(cfg, features, attention_fn, **kw)
@@ -224,3 +231,47 @@ class TransformerStack(nn.Module):
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x
+
+
+class MultiHeadAttentionPooling(nn.Module):
+    """MAP head: a learned one-token query cross-attends over the sequence
+    (flax ``MultiHeadDotProductAttention``: the query scaled by
+    1/sqrt(head_dim) before the product, no mask), then x + mlp(LN(x)).
+    (B, S, E) -> (B, 1, E)."""
+
+    def __init__(self, features: int, num_heads: int = 3, mlp_dim: int = 768,
+                 dropout_rate: float = 0.1, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError("features must divide into num_heads")
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.dtype = dtype
+        self.num_heads = num_heads
+        self.learnt_q_input = nn.Parameter(torch.empty(
+            1, 1, features, dtype=param_dtype, device=device))
+        self.cross_attention = nn.ModuleDict({
+            name: Dense(features, features, bias_init="zeros", **kw)
+            for name in ("query", "key", "value", "out")})
+        self.ln = LayerNorm(features, 1e-6, -1, **kw)
+        self.mlp = MLPBlock(features, mlp_dim, features,
+                            dropout_rate=dropout_rate, **kw)
+
+    def reset_parameters(self, generator) -> None:
+        # flax he_normal on (1, 1, E): fan_in is 1 * 1 (the receptive field
+        # times the second-to-last dim)
+        init_truncated(self.learnt_q_input, math.sqrt(2.0), generator)
+
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        b, s, e = x.shape
+        h, d = self.num_heads, e // self.num_heads
+        attn = self.cross_attention
+        query = self.learnt_q_input.to(self.dtype).expand(b, 1, e)
+        q = attn["query"](query).reshape(b, 1, h, d) / math.sqrt(d)
+        k = attn["key"](x).reshape(b, s, h, d)
+        v = attn["value"](x).reshape(b, s, h, d)
+        weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        x = attn["out"](torch.einsum("bhqk,bkhd->bqhd", weights, v)
+                        .reshape(b, 1, e))
+        return x + self.mlp(self.ln(x), train, rng)

@@ -1,18 +1,20 @@
-"""Block-sparse masked flash attention with the LSE-saving forward and the
-dq / dk-dv backward: the CUDA kernels' wrappers, their plain PyTorch
-versions and the autograd function that joins them.
+"""Block-sparse masked flash attention: the plain forward, the LSE-saving
+forward and the dq / dk-dv backward, as the CUDA kernels' wrappers, their
+plain PyTorch versions and the autograd functions that join them.
 
 Counterpart of the JAX package's ``ops/flash_attention.py`` (Pallas kernels
-``_flash_fwd_lse_kernel``, ``_flash_dq_kernel`` and ``_flash_dkv_kernel``,
-driven by ``_flash_attention_vjp_native``).  The kernels live in
+``_flash_kernel``, ``_flash_fwd_lse_kernel``, ``_flash_dq_kernel`` and
+``_flash_dkv_kernel``, driven by ``_flash_attention_vjp`` and
+``_flash_attention_vjp_native``).  The kernels live in
 ``csrc/flash_attention.cu``; its source note says what bounds them and how
 the design answers.
 
-* :func:`flash_fwd_lse`, :func:`flash_dq` and :func:`flash_dkv` run their
-  plain versions (``*_reference``, written from the kernel bodies: the same
-  tiles, online softmax and rounding points) for CPU tensors, launch the
-  kernel for tensors on an sm_90 card, and raise for anything else.  Each
-  counts its kernel launches in ``.launches``.
+* :func:`flash_fwd`, :func:`flash_fwd_lse`, :func:`flash_dq` and
+  :func:`flash_dkv` run their plain versions (``*_reference``, written
+  from the kernel bodies: the same tiles, online softmax and rounding
+  points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
+  and raise for anything else.  Each counts its kernel launches in
+  ``.launches``.
 * The mask and the skip tables are device tensors (``mask_i8`` padded to the
   tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
   tiles, device), so the ring-attention path can later pass its own.
@@ -25,8 +27,11 @@ the design answers.
   whatever their tile sizes, and :func:`dropout_keep_mask` computes the same
   bits in torch integer arithmetic.
 * :func:`flash_attention` is the differentiable entry on the JAX layout
-  (B, S, H, D).  ``backward='xla'`` runs the TPU's ``_flash_kernel``, which
-  is not ported yet, and raises.
+  (B, S, H, D).  ``backward='pallas'`` saves the LSE and runs the dq and
+  dk/dv kernels; ``backward='xla'`` runs :func:`flash_fwd`, which writes no
+  LSE and draws no dropout bits (the forward a server wants), and
+  differentiates by recomputing :func:`xla_reference_attention` on the
+  saved q, k, v.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ import torch.nn.functional as F
 from .. import _build
 from ..core.hw import on_cuda
 
-__all__ = ["flash_attention", "make_attention_fn", "flash_fwd_lse",
-           "flash_dq", "flash_dkv", "flash_fwd_lse_reference",
+__all__ = ["flash_attention", "make_attention_fn", "flash_fwd",
+           "flash_fwd_lse", "flash_dq", "flash_dkv", "flash_fwd_reference",
+           "flash_fwd_lse_reference",
            "flash_dq_reference", "flash_dkv_reference", "attention_delta",
            "xla_reference_attention", "tile_skip_tables", "mask_tables",
            "device_tables", "dropout_threshold", "dropout_keep_mask",
@@ -105,17 +111,36 @@ _TABLE_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_MAX = 256
 
 
-def device_tables(mask: np.ndarray, block_q: int, block_k: int, device):
+def _resolve_device(device) -> torch.device:
+    """``device`` with a CUDA device's index filled in (the current one)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _build_tables(mask: np.ndarray, block_q: int, block_k: int, device):
     """:func:`mask_tables` as tensors on ``device`` (int8 mask, int32
-    tables), cached per (mask digest, tiles, device), LRU-bounded."""
-    key = (_mask_digest(mask), block_q, block_k, str(torch.device(device)))
+    tables).  The tensors are made outside inference mode, so that tables
+    first built while serving can later be saved for a backward pass."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in mask_tables(mask, block_q, block_k))
+
+
+def device_tables(mask: np.ndarray, block_q: int, block_k: int, device):
+    """:func:`mask_tables` as tensors on ``device``, cached per (mask
+    digest, tiles, device), LRU-bounded: for callers that hand
+    :func:`flash_attention` a mask at every call.  A hook of
+    :func:`make_attention_fn` keeps its own tables instead and hashes no
+    mask.  A CUDA device without an index means the current one."""
+    device = _resolve_device(device)
+    key = (_mask_digest(mask), block_q, block_k, str(device))
     hit = _TABLE_CACHE.get(key)
     if hit is not None:
         _TABLE_CACHE.move_to_end(key)
         return hit
-    padded, k_hi, q_lo = mask_tables(mask, block_q, block_k)
-    tables = tuple(torch.from_numpy(a).to(device) for a in (padded, k_hi,
-                                                             q_lo))
+    tables = _build_tables(mask, block_q, block_k, device)
     _TABLE_CACHE[key] = tables
     while len(_TABLE_CACHE) > _TABLE_CACHE_MAX:
         _TABLE_CACHE.popitem(last=False)
@@ -189,25 +214,18 @@ def _rows(i: int, block: int, device) -> torch.Tensor:
     return torch.arange(i * block, (i + 1) * block, device=device)
 
 
-def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
-                            block_q: int, block_k: int,
-                            dropout_rate: float = 0.0):
-    """Plain version of the forward kernel.
-
-    q, k, v (B, S, H, D); ``mask_i8`` (S_pad, S_pad) int8, tile-aligned;
-    ``k_hi`` (S_pad/block_q,) int; ``seed`` (2,) int64 words (dropout only).
-    Logits are float32 products of input-dtype operands times 1/sqrt(D),
-    masked to -1e30; online max and sum in float32 over the key tiles below
-    ``k_hi``; the accumulator takes ``keep * p / (1 - r)`` cast to v's dtype
-    while ``l`` and the LSE use the undropped p.  Returns ``out`` (B, S, H,
-    D) in q's dtype and ``lse`` (B, H, S_pad) float32."""
+def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
+                   dropout_rate):
+    """The forward kernels' loop: float32 (out (B, H, S_pad, D), running
+    max m, running sum l clamped at 1e-30 (B, H, S_pad, 1))."""
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
     scale = 1.0 / math.sqrt(d)
     qf, kf, vf = (_heads_first(x, s_pad) for x in (q, k, v))
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     out = torch.zeros(b, h, s_pad, d, device=q.device)
-    lse = torch.empty(b, h, s_pad, device=q.device)
+    m_all = torch.empty(b, h, s_pad, 1, device=q.device)
+    l_all = torch.empty(b, h, s_pad, 1, device=q.device)
     for qi, hi in enumerate(k_hi.tolist()):
         rq = slice(qi * block_q, (qi + 1) * block_q)
         m = torch.full((b, h, block_q, 1), NEG_INF, device=q.device)
@@ -231,8 +249,41 @@ def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
             m = m_new
         l_safe = torch.clamp_min(l, 1e-30)
         out[:, :, rq] = acc / l_safe
-        lse[:, :, rq] = (m + torch.log(l_safe))[..., 0]
-    return out[:, :, :s].permute(0, 2, 1, 3).to(q.dtype), lse
+        m_all[:, :, rq] = m
+        l_all[:, :, rq] = l_safe
+    return out, m_all, l_all
+
+
+def flash_fwd_reference(q, k, v, mask_i8, k_hi, *, block_q: int,
+                        block_k: int):
+    """Plain version of the forward kernel without LSE or dropout (the JAX
+    package's ``_flash_kernel``).
+
+    q, k, v (B, S, H, D); ``mask_i8`` (S_pad, S_pad) int8, tile-aligned;
+    ``k_hi`` (S_pad/block_q,) int.  Logits are float32 products of
+    input-dtype operands times 1/sqrt(D), masked to -1e30; online max and
+    sum in float32 over the key tiles below ``k_hi``, the reference of the
+    exponent clamped at -5e29 so a row with no live key keeps p = 0; p cast
+    to v's dtype before P V; ``acc / max(l, 1e-30)`` in q's dtype, zeros for
+    dead rows.  Returns ``out`` (B, S, H, D)."""
+    out, _, _ = _forward_tiles(q, k, v, mask_i8, k_hi, None, block_q,
+                               block_k, 0.0)
+    return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
+                            block_q: int, block_k: int,
+                            dropout_rate: float = 0.0):
+    """Plain version of the forward kernel with LSE.
+
+    Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words
+    (dropout only).  The accumulator takes ``keep * p / (1 - r)`` cast to
+    v's dtype while ``l`` and the LSE use the undropped p.  Returns ``out``
+    (B, S, H, D) in q's dtype and ``lse`` (B, H, S_pad) float32."""
+    out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
+                                    block_k, dropout_rate)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype), lse
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor,
@@ -360,11 +411,13 @@ def _library():
         # pointers, then batch, seq, heads, head_dim, s_pad, dtype, scale,
         # inv_keep, threshold, dropout, stream
         tail = [ci] * 6 + [cf, cf, cu, ci, vp]
+        # no seed, no LSE, no dropout arguments
+        lib.flash_fwd_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
         lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
         lib.flash_dq_launch.argtypes = [vp] * 10 + tail
         lib.flash_dkv_launch.argtypes = [vp] * 11 + tail
-        for fn in (lib.flash_fwd_lse_launch, lib.flash_dq_launch,
-                   lib.flash_dkv_launch):
+        for fn in (lib.flash_fwd_launch, lib.flash_fwd_lse_launch,
+                   lib.flash_dq_launch, lib.flash_dkv_launch):
             fn.restype = ci
         lib.flash_error_string.argtypes = [ci]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -422,6 +475,25 @@ def _check_rc(lib, name, rc):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.flash_error_string(rc).decode()}")
+
+
+def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
+    """Forward without LSE or dropout; arguments and result as for
+    :func:`flash_fwd_reference`.  CPU tensors take the plain version; on a
+    CUDA device this launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, mask_i8, k_hi, block_q=block_q,
+                                   block_k=block_k)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    args = _prepare("flash_fwd", q, k, v, (), mask_i8, k_hi, None, block_q,
+                    block_k, 0.0)
+    out = torch.empty_like(q)
+    lib = _library()
+    _check_rc(lib, "flash_fwd", lib.flash_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
+        k_hi.data_ptr(), out.data_ptr(), *args[:7], args[-1]))
+    flash_fwd.launches += 1
+    return out
 
 
 def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
@@ -500,6 +572,7 @@ def _check_stats(lse, delta, args):
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
 
 
+flash_fwd.launches = 0
 flash_fwd_lse.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
@@ -537,6 +610,57 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
+class _FlashAttentionRecompute(torch.autograd.Function):
+    """Forward by the kernel without LSE, backward by autograd through
+    :func:`xla_reference_attention` on the saved q, k, v (the JAX package's
+    ``_flash_attention_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_i8, k_hi, block_q, block_k):
+        ctx.save_for_backward(q, k, v, mask_i8)
+        return flash_fwd(q, k, v, mask_i8, k_hi, block_q=block_q,
+                         block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask_i8 = ctx.saved_tensors
+        s = q.shape[1]
+        mask_bool = mask_i8[:s, :s] != 0
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = xla_reference_attention(*qkv, mask_bool)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check_mode(backward: str, dropout_rate: float):
+    if backward not in ("pallas", "xla"):
+        raise ValueError(f"unknown backward {backward!r}")
+    if dropout_rate > 0.0:
+        if backward != "pallas":
+            raise ValueError("flash attention dropout requires "
+                             "backward='pallas'")
+        if not dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate {dropout_rate} not in (0, 1)")
+
+
+def _attend(q, k, v, mask: np.ndarray, tables, block_q, block_k, backward,
+            dropout_rate, dropout_seed):
+    """The autograd function of ``backward`` on the mask's ``tables``."""
+    s = q.shape[1]
+    if mask.shape != (s, s):
+        raise ValueError(f"mask shape {mask.shape} != ({s}, {s})")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    mask_i8, k_hi, q_lo = tables
+    if backward == "xla":
+        return _FlashAttentionRecompute.apply(q, k, v, mask_i8, k_hi,
+                                              block_q, block_k)
+    return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo,
+                                 dropout_seed if dropout_rate > 0 else None,
+                                 block_q, block_k, dropout_rate)
+
+
 def flash_attention(q, k, v, mask: np.ndarray, *,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None, backward: str = "pallas",
@@ -546,40 +670,23 @@ def flash_attention(q, k, v, mask: np.ndarray, *,
     static numpy bool (S, S) mask (queries attend to keys where True).
 
     Differentiable; ``backward='pallas'`` runs the dq and dk/dv kernels on
-    the saved LSE.  ``backward='xla'`` is the JAX package's recompute
-    backward around its ``_flash_kernel``, not ported yet: it raises.
+    the saved LSE.  ``backward='xla'`` runs the forward kernel that saves no
+    LSE and recomputes the gradients through
+    :func:`xla_reference_attention`; it takes no dropout.
     ``dropout_rate`` > 0 drops attention weights after the softmax with the
     Philox mask of ``dropout_seed`` ((2,) int64 words on q's device).
     Tiles default to the kernel's; CPU tensors take the plain versions at
     any tiles."""
     if not isinstance(mask, np.ndarray):
         raise TypeError("flash_attention requires a static numpy mask")
-    s = q.shape[1]
-    if mask.shape != (s, s):
-        raise ValueError(f"mask shape {mask.shape} != ({s}, {s})")
     auto_q, auto_k = _auto_blocks(q.shape[-1])
     block_q = block_q or auto_q
     block_k = block_k or auto_k
     dropout_rate = float(dropout_rate)
-    if dropout_rate > 0.0:
-        if backward != "pallas":
-            raise ValueError("flash attention dropout requires "
-                             "backward='pallas'")
-        if not 0.0 < dropout_rate < 1.0:
-            raise ValueError(f"dropout_rate {dropout_rate} not in (0, 1)")
-        if dropout_seed is None:
-            raise ValueError("dropout_rate > 0 requires dropout_seed")
-    if backward == "xla":
-        raise NotImplementedError(
-            "flash_backward='xla' runs the TPU's _flash_kernel "
-            "(ops/flash_attention.py:60), which is not ported yet; use "
-            "backward='pallas'")
-    if backward != "pallas":
-        raise ValueError(f"unknown backward {backward!r}")
-    mask_i8, k_hi, q_lo = device_tables(mask, block_q, block_k, q.device)
-    return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo,
-                                 dropout_seed if dropout_rate > 0 else None,
-                                 block_q, block_k, dropout_rate)
+    _check_mode(backward, dropout_rate)
+    return _attend(q, k, v, mask,
+                   device_tables(mask, block_q, block_k, q.device), block_q,
+                   block_k, backward, dropout_rate, dropout_seed)
 
 
 def draw_dropout_seed(generator: torch.Generator) -> torch.Tensor:
@@ -595,11 +702,29 @@ def make_attention_fn(mask: np.ndarray, *, block_q: Optional[int] = None,
     """The ``attention_fn`` hook of ``modules.attention.MultiHeadAttention``:
     ``fn(q, k, v, mask_ignored=None, dropout_generator=None)``.  With a
     generator and ``dropout_rate`` > 0 it draws the seed words from it and
-    drops weights in the kernel; without one it runs deterministically."""
+    drops weights in the kernel; without one it runs deterministically.
+    The hook owns its mask's device tables: built once per (head dim,
+    device), at the first call or ahead of it by ``fn.tables_for(head_dim,
+    device)``, so no call hashes the mask."""
+    if not isinstance(mask, np.ndarray):
+        raise TypeError("flash attention requires a static numpy mask")
+    dropout_rate = float(dropout_rate)
+    _check_mode(backward, dropout_rate)
+    tables = {}
+
+    def tables_for(head_dim: int, device):
+        auto_q, auto_k = _auto_blocks(head_dim)
+        bq, bk = block_q or auto_q, block_k or auto_k
+        key = (bq, bk, _resolve_device(device))
+        if key not in tables:
+            tables[key] = _build_tables(mask, bq, bk, key[2])
+        return bq, bk, tables[key]
+
     def attention_fn(q, k, v, _mask_ignored=None, dropout_generator=None):
         rate = dropout_rate if dropout_generator is not None else 0.0
         seed = draw_dropout_seed(dropout_generator) if rate > 0 else None
-        return flash_attention(q, k, v, mask, block_q=block_q,
-                               block_k=block_k, backward=backward,
-                               dropout_rate=rate, dropout_seed=seed)
+        bq, bk, held = tables_for(q.shape[-1], q.device)
+        return _attend(q, k, v, mask, held, bq, bk, backward, rate, seed)
+
+    attention_fn.tables_for = tables_for
     return attention_fn

@@ -1,11 +1,12 @@
 """Policy inference engine with instruction caching.
 
 Counterpart of the JAX package's ``serve/policy.py:PolicyEngine`` for the
-diffusion head.  ``set_instruction`` runs the frozen text tower once and
-keeps its embeddings, so each request runs only the image tower, the
-transformer and the sampler; ``encode_instruction`` memoizes single
-instructions in a bounded LRU for mixed-instruction batches.  Action noise
-comes from one ``torch.Generator`` per engine, on the model's device.
+diffusion, continuous and categorical heads.  ``set_instruction`` runs the
+frozen text tower once and keeps its embeddings, so each request runs only
+the image tower, the transformer and the head; ``encode_instruction``
+memoizes single instructions in a bounded LRU for mixed-instruction
+batches.  The diffusion head's action noise comes from one
+``torch.Generator`` per engine, on the model's device.
 
 Ahead-of-time compilation, meshes, int8/w8 towers and export come with
 later parts of the port.
@@ -23,6 +24,13 @@ from ..models.octo import Octo
 
 __all__ = ["PolicyEngine"]
 
+# head -> the model's predict method on cached text embeddings
+_CACHED_METHODS = {
+    "continuous": "predict_continuous_action_with_text",
+    "categorical": "predict_action_logits_with_text",
+    "diffusion": "predict_diffusion_action_with_text",
+}
+
 
 class PolicyEngine:
     """Batched obs -> action serving for an :class:`Octo` model."""
@@ -33,9 +41,17 @@ class PolicyEngine:
         """``tokenizer``: optional callable mapping a list of strings to
         (B, T) int ids.  ``ddim_steps``: serve with S-step deterministic
         DDIM instead of the full DDPM reverse loop."""
-        if head != "diffusion":
-            raise ValueError(f"head {head!r} is not ported yet; the port "
-                             f"serves 'diffusion'")
+        if ddim_steps is not None and head != "diffusion":
+            raise ValueError("ddim_steps only applies to the diffusion "
+                             f"head, got head={head!r}")
+        if head not in _CACHED_METHODS:
+            raise ValueError(
+                f"unknown head {head!r}; one of {sorted(_CACHED_METHODS)}")
+        if getattr(model.config.heads, head) is None:
+            available = [h for h in _CACHED_METHODS
+                         if getattr(model.config.heads, h) is not None]
+            raise ValueError(f"model has no {head!r} head configured; "
+                             f"available: {available}")
         self.model = model.eval().requires_grad_(False)
         self.head = head
         self.batch_size = batch_size
@@ -113,11 +129,12 @@ class PolicyEngine:
                  noisy: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One obs -> action inference: (B, [F,] H, W, C) images ->
-        (B, A) float32 actions.
+        (B, A) float32 actions (diffusion), (B, 1, A) actions (continuous)
+        or (B, A, num_bins) logits (categorical).
 
         The cached instruction serves unless ``text_tokens`` or
         ``text_embeddings`` (B, T, E) is given.  ``noisy`` and ``noise``
-        replace the engine's own draws (see
+        replace the engine's own draws of the diffusion head (see
         ``DiffusionActionHead.predict_action``)."""
         if text_tokens is not None and text_embeddings is not None:
             raise ValueError("pass text_tokens or text_embeddings, not both")
@@ -140,7 +157,10 @@ class PolicyEngine:
                 raise ValueError(
                     "no instruction set: call set_instruction(text_tokens) "
                     "or pass text_tokens / text_embeddings")
+        predict = getattr(self.model, _CACHED_METHODS[self.head])
         with torch.inference_mode():
-            return self.model.predict_diffusion_action_with_text(
-                emb, images, noisy=noisy, noise=noise,
-                generator=self._generator, ddim_steps=self.ddim_steps)
+            if self.head != "diffusion":
+                return predict(emb, images)
+            return predict(emb, images, noisy=noisy, noise=noise,
+                           generator=self._generator,
+                           ddim_steps=self.ddim_steps)

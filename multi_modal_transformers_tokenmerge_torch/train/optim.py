@@ -15,8 +15,9 @@ from torch's own optimizers in four places:
 * weight decay follows the FLAX parameter tree: every leaf with flax
   ``ndim >= 2`` whose name is not ``embedding`` / ``pos_embedding``.  That
   includes the attention q/k/v biases, (H, D) in flax but 1-D here,
-  ``fourier_kernel``, and every leaf of the scanned block stacks, whose
-  layer axis makes their norms and biases 2-D in flax.  A parameter without a gradient (the frozen T5 tower
+  ``fourier_kernel``, and every leaf of the scanned block stacks (the ToMe
+  ``stage_{i}`` among them), whose layer axis makes their norms and biases
+  2-D in flax.  A parameter without a gradient (the frozen T5 tower
   when nothing is masked) takes a zero gradient, so unmasked decay still
   shrinks it, as optax does.
 
@@ -58,38 +59,33 @@ def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
     return schedule
 
 
-def _split_head_biases(model: nn.Module) -> set:
-    """ids of the q/k/v biases, (H, D) leaves in the flax tree."""
-    from ..modules.attention import MultiHeadAttention
-    out = set()
-    for m in model.modules():
-        if isinstance(m, MultiHeadAttention):
-            out.update(id(d.bias) for d in (m.query, m.key, m.value)
-                       if d.bias is not None)
-    return out
-
-
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies: the flax leaves
     of two or more dims other than embeddings and position embeddings.
 
-    The JAX package scans its block stacks (``convert.SCANNED_STACKS``), so
-    every leaf there carries a leading layer axis: the layer norms' scales
-    and every bias of a block count as 2-D and decay."""
-    from ..convert import SCANNED_STACKS
+    A q/k/v bias is an (H, D) leaf in flax.  The JAX package scans its
+    block stacks (``convert.scanned_stacks`` of the model's configuration:
+    the T5 tower, the transformer's ``blocks`` or the ToMe ``stage_{i}``),
+    so every leaf there carries a leading layer axis: the layer norms'
+    scales and every bias of a block count as 2-D and decay.  The per-layer
+    ToMe blocks ``block_{l}`` are not scanned: their norms and plain biases
+    are 1-D and do not decay."""
+    from ..convert import scanned_stacks
     from ..modules.layers import Embed
     embeddings = {id(m.weight) for m in model.modules()
                   if isinstance(m, Embed)}
-    heads = _split_head_biases(model)
-    scanned = tuple(".".join(s) + "." for s in SCANNED_STACKS)
+    scanned = tuple(".".join(s) + "." for s in scanned_stacks(model.config))
     out = {}
     for name, p in model.named_parameters():
-        if id(p) in embeddings or name.split(".")[-1] == "pos_embedding":
+        parts = name.split(".")
+        if id(p) in embeddings or parts[-1] == "pos_embedding":
             out[name] = False
-        else:
-            flax_ndim = (2 if id(p) in heads else p.ndim) + int(
-                name.startswith(scanned))
-            out[name] = flax_ndim >= 2
+            continue
+        head_bias = (parts[-1] == "bias" and len(parts) > 1
+                     and parts[-2] in ("query", "key", "value"))
+        flax_ndim = (2 if head_bias else p.ndim) + int(
+            name.startswith(scanned))
+        out[name] = flax_ndim >= 2
     return out
 
 

@@ -1,9 +1,9 @@
 """Train steps.
 
 Counterpart of the JAX package's ``train/steps.py``: one step computes the
-head's loss in train mode, its gradients, the global gradient norm (before
-clipping), one optimizer update and the metrics.  The diffusion head is
-ported; the continuous and categorical heads are not yet and raise.
+head's loss in train mode (the mean over the batch of the diffusion,
+continuous L2 or categorical cross-entropy loss), its gradients, the global
+gradient norm (before clipping), one optimizer update and the metrics.
 
 With ``accum_steps`` > 1 the batch splits into that many microbatches,
 each with fresh draws from the generators; their gradients are summed in
@@ -22,12 +22,18 @@ from .state import OctoTrainState
 
 __all__ = ["make_train_step", "LOSS_METHODS", "LOSS_METHODS_WITH_TEXT"]
 
-LOSS_METHODS = {"diffusion": "compute_diffusion_denoise_loss"}
+LOSS_METHODS = {
+    "continuous": "compute_l2_loss",
+    "categorical": "compute_ce_loss",
+    "diffusion": "compute_diffusion_denoise_loss",
+}
 # the first batch element is (B, T, E) text embeddings instead of (B, T)
 # ids, valid for a frozen text tower (utils.data.cache_text_embeddings)
 LOSS_METHODS_WITH_TEXT = {
-    "diffusion": "compute_diffusion_denoise_loss_with_text"}
-_NOT_PORTED = ("continuous", "categorical")
+    "continuous": "compute_l2_loss_with_text",
+    "categorical": "compute_ce_loss_with_text",
+    "diffusion": "compute_diffusion_denoise_loss_with_text",
+}
 
 
 def _split_draws(draws: Optional[Mapping], i: int, n: int) -> Dict:
@@ -50,19 +56,17 @@ def make_train_step(head: str, accum_steps: int = 1,
     (state, loss)``; the state is updated in place and returned.
 
     ``draws`` optionally replaces the generators' train-mode draws:
-    ``positions`` ((B, F, P) rows, cols), ``time`` (B, 1), ``noise`` (B, A).
+    ``positions`` ((B, F, P) rows, cols) and, for the diffusion head,
+    ``time`` (B, 1) and ``noise`` (B, A).
     ``text_input='embeddings'`` takes the frozen text tower's (B, T, E)
     output instead of ids."""
     if text_input not in ("ids", "embeddings"):
         raise ValueError(
             f"text_input must be 'ids' or 'embeddings', got {text_input!r}")
-    if head in _NOT_PORTED:
-        raise NotImplementedError(f"the {head} head is not ported yet")
     methods = (LOSS_METHODS if text_input == "ids"
                else LOSS_METHODS_WITH_TEXT)
     if head not in methods:
-        raise ValueError(f"unknown head {head!r}; one of "
-                         f"{sorted(methods) + list(_NOT_PORTED)}")
+        raise ValueError(f"unknown head {head!r}; one of {sorted(methods)}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps} must be >= 1")
     method = methods[head]
@@ -79,7 +83,7 @@ def make_train_step(head: str, accum_steps: int = 1,
                 f"batch {b} not divisible by accum_steps={accum_steps}")
         if accum_steps == 1:
             loss = loss_fn(text, images, actions, True, rngs=state.rngs,
-                           **(draws or {}))
+                           **(draws or {})).mean()
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         else:
             loss = torch.zeros((), device=actions.device)
@@ -88,7 +92,7 @@ def make_train_step(head: str, accum_steps: int = 1,
                 mb = lambda x: x.chunk(accum_steps)[i]
                 l_i = loss_fn(mb(text), mb(images), mb(actions), True,
                               rngs=state.rngs,
-                              **_split_draws(draws, i, accum_steps))
+                              **_split_draws(draws, i, accum_steps)).mean()
                 g_i = torch.autograd.grad(l_i, params, allow_unused=True)
                 loss = loss + l_i.detach()
                 sums = [s if g is None else

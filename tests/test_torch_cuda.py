@@ -157,6 +157,60 @@ def test_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage,b", [(0, 1), (1, 8), (2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_fwd_kernel_matches_plain(card, stage, b, dtype):
+    """The forward without LSE at octo_deep's ToMe stages (224, 160, 96
+    tokens, 12 heads of 64), and its recompute backward."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
+        SequenceLayout)
+    mask = SequenceLayout.from_strings(
+        "[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
+        "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2"
+    ).attention_mask(stage)
+    s = mask.shape[0]
+    g = torch.Generator(device=card).manual_seed(stage)
+    q, k, v = (torch.randn(b, s, 12, 64, generator=g, device=card).to(dtype)
+               for _ in range(3))
+    padded, k_hi, _ = fa.device_tables(mask, 64, 64, card)
+    before = fa.flash_fwd.launches
+    out = fa.flash_fwd(q, k, v, padded, k_hi, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    _assert_flash_close(out, fa.flash_fwd_reference(
+        q, k, v, padded, k_hi, block_q=64, block_k=64), dtype)
+    if dtype == torch.float32:
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fa.flash_attention(*leaves, mask, backward="xla").sum().backward()
+        want = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fa.xla_reference_attention(*want, torch.as_tensor(
+            mask, device=card)).sum().backward()
+        for a, c in zip(leaves, want):
+            torch.testing.assert_close(a.grad, c.grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_merge_is_deterministic_on_the_card(card):
+    """Two runs of one merge on the card give the same bits (no atomics),
+    and the plan equals the CPU's on exactly tied scores."""
+    from multi_modal_transformers_tokenmerge_torch.ops import tome
+    g = torch.Generator().manual_seed(0)
+    axis = torch.randint(0, 4, (8, 100), generator=g)
+    x = torch.nn.functional.one_hot(axis, 16).float() * 2.0
+    feats = torch.randn(8, 100, 64, generator=g).to(torch.bfloat16)
+    plan_cpu = tome.bipartite_soft_matching(x, 32, ordering="stable")
+    plan = tome.bipartite_soft_matching(x.to(card), 32, ordering="stable")
+    for a, c in zip(plan[:3], plan_cpu[:3]):
+        assert torch.equal(a.cpu(), c)
+    first, size = tome.merge_wavg(plan, feats.to(card))
+    again, _ = tome.merge_wavg(plan, feats.to(card))
+    assert torch.equal(first, again) and size.sum() == 8 * 100
+
+
+@pytest.mark.cuda
 def test_flash_auto_selects_kernel_from_flash_min_seq(card):
     from multi_modal_transformers_tokenmerge_torch.core.config import (
         TransformerConfig)

@@ -1,7 +1,8 @@
 """The port's flash attention on the CPU: the plain versions of the
-forward/LSE, dq and dk/dv kernels and the autograd path against the JAX
-package's Pallas kernels in interpret mode, the skip tables, the Philox
-dropout masks, and the attention-core selection of ``modules.attention``."""
+forward, forward/LSE, dq and dk/dv kernels and both autograd paths against
+the JAX package's Pallas kernels in interpret mode, the skip tables, the
+Philox dropout masks, and the attention-core selection of
+``modules.attention``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,6 +110,93 @@ def test_autograd_matches_jax(kind, bq, bk):
         _close(t.grad, want, GRAD_RTOL, GRAD_ATOL)
 
 
+OCTO_DEEP = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
+             "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2")
+OCTO_SMALL = (OCTO, "[TaskDescriptionPrefix{0}] [Image{4};Readout{0}]*2")
+
+
+def _stage_mask(strings, stage):
+    return SequenceLayout.from_strings(*strings).attention_mask(stage)
+
+
+# the ToMe stage masks the staged stack hands the kernel, blocky masks and
+# dead rows: (mask, block_q, block_k)
+FWD_CASES = {
+    "octo_deep_stage1_160": lambda: (_stage_mask(OCTO_DEEP, 1), 64, 64),
+    "octo_deep_stage2_96": lambda: (_stage_mask(OCTO_DEEP, 2), 64, 64),
+    "octo_deep_stage2_96_tiles32": lambda: (_stage_mask(OCTO_DEEP, 2), 32,
+                                            32),
+    "octo_small_stage0_74": lambda: (_stage_mask(OCTO_SMALL, 0), 32, 32),
+    "octo_small_stage1_66": lambda: (_stage_mask(OCTO_SMALL, 1), 32, 32),
+    "octo_small_stage2_58": lambda: (_stage_mask(OCTO_SMALL, 2), 16, 32),
+    "blocky": lambda: (_mask("blocky"), 8, 8),
+    "blocky_16_8": lambda: (_mask("blocky"), 16, 8),
+    "dead_rows": lambda: (_mask("dead_rows"), 8, 8),
+    "dead_rows_8_16": lambda: (_mask("dead_rows"), 8, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_plain_forward_matches_jax_flash_kernel(case):
+    """flash_fwd_reference against the JAX ``_flash_kernel`` in interpret
+    mode (``flash_attention(interpret=True, backward='xla')``) on the same
+    tiles: rtol 2e-4 / atol 2e-5, zeros on dead rows; ``flash_fwd`` takes
+    the plain version for CPU tensors and launches nothing."""
+    mask, bq, bk = FWD_CASES[case]()
+    s = mask.shape[0]
+    q, k, v = _qkv(s, seed=5, n=3, b=2, h=2)
+    out_j = jfa.flash_attention(q, k, v, mask, block_q=bq, block_k=bk,
+                                interpret=True, backward="xla")
+    padded, k_hi, _ = (torch.tensor(a) for a in tfa.mask_tables(mask, bq, bk))
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    out_t = tfa.flash_fwd_reference(tq, tk, tv, padded, k_hi, block_q=bq,
+                                    block_k=bk)
+    _close(out_t, out_j, GRAD_RTOL, GRAD_ATOL)
+    before = tfa.flash_fwd.launches
+    again = tfa.flash_fwd(tq, tk, tv, padded, k_hi, block_q=bq, block_k=bk)
+    assert torch.equal(again, out_t) and tfa.flash_fwd.launches == before
+    # the LSE-saving forward computes the same output
+    with_lse, _ = tfa.flash_fwd_lse_reference(tq, tk, tv, padded, k_hi,
+                                              block_q=bq, block_k=bk)
+    assert torch.equal(with_lse, out_t)
+    dead = ~mask.any(axis=1)
+    if case.startswith("dead_rows"):
+        assert dead.sum() == 9
+    assert not out_t[:, torch.tensor(dead)].any()
+
+
+@pytest.mark.parametrize("kind,bq,bk", CASES)
+def test_xla_backward_matches_jax_grad(kind, bq, bk):
+    """flash_attention(backward='xla') (the forward kernel's plain version,
+    gradients recomputed through xla_reference_attention) against jax.grad
+    through the JAX ``_xla_reference_attention``, which is what the JAX
+    ``_flash_vjp_bwd`` differentiates: rtol 1e-4 / atol 1e-5 as
+    tests/test_flash_attention.py:101-106, zero gradient on dead rows."""
+    import jax
+    mask = _mask(kind)
+    q, k, v, g = _qkv(mask.shape[0], seed=6)
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jfa._xla_reference_attention(a, b, c,
+                                                     jnp.asarray(mask)),
+        q, k, v)
+    grads_j = vjp(g)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out_t = tfa.flash_attention(tq, tk, tv, mask, block_q=bq, block_k=bk,
+                                backward="xla")
+    out_t.backward(torch.tensor(g))
+    _close(out_t, out_j, FWD_TOL, FWD_TOL)
+    for t, want in zip((tq, tk, tv), grads_j):
+        _close(t.grad, want, 1e-4, 1e-5)
+    if kind == "dead_rows":
+        assert not out_t[:, 5].any() and not tq.grad[:, 5].any()
+    # and both backward routes of the port differentiate the same function
+    pq, pk, pv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tfa.flash_attention(pq, pk, pv, mask, block_q=bq, block_k=bk,
+                        backward="pallas").backward(torch.tensor(g))
+    for a, b in zip((tq, tk, tv), (pq, pk, pv)):
+        _close(a.grad, b.grad.numpy(), GRAD_RTOL, GRAD_ATOL)
+
+
 @pytest.mark.parametrize("kind,bq,bk", CASES)
 def test_skip_tables_match_jax(kind, bq, bk):
     mask = _mask(kind)
@@ -192,8 +280,13 @@ def test_philox_known_answers():
 def test_entry_checks():
     mask = _mask("octo")
     q = torch.zeros(1, 74, 2, 64)
-    with pytest.raises(NotImplementedError, match="_flash_kernel"):
-        tfa.flash_attention(q, q, q, mask, backward="xla")
+    # backward='xla' computes (zeros in, zeros out) and takes no dropout
+    assert not tfa.flash_attention(q, q, q, mask, backward="xla").any()
+    with pytest.raises(ValueError, match="backward='pallas'"):
+        tfa.flash_attention(q, q, q, mask, backward="xla", dropout_rate=0.1,
+                            dropout_seed=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="unknown backward"):
+        tfa.flash_attention(q, q, q, mask, backward="cudnn")
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q, mask, dropout_rate=0.1)
     with pytest.raises(TypeError):
@@ -206,10 +299,36 @@ def test_entry_checks():
     with pytest.raises(RuntimeError, match="sm_90"):
         tfa.flash_fwd_lse(meta, meta, meta, padded.to("meta"),
                           k_hi.to("meta"), block_q=64, block_k=64)
+    with pytest.raises(RuntimeError, match="sm_90"):
+        tfa.flash_fwd(meta, meta, meta, padded.to("meta"), k_hi.to("meta"),
+                      block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.flash_fwd(meta, meta, meta, padded.to("meta"), k_hi.to("meta"),
+                      block_q=32, block_k=64)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_fwd_lse(meta[..., :16], meta[..., :16], meta[..., :16],
                           padded.to("meta"), k_hi.to("meta"), block_q=64,
                           block_k=64)
+
+
+def test_tables_first_built_while_serving_can_train():
+    """A mask's device tables are cached; built for the first time under
+    inference mode (a served request), they must still be savable for a
+    later backward pass."""
+    rng = np.random.default_rng(7)
+    mask = rng.random((24, 24)) < 0.5
+    mask[np.arange(24), np.arange(24)] = True
+    q, k, v = (torch.tensor(x) for x in _qkv(24, seed=9, n=3))
+    for backward in ("xla", "pallas"):
+        fn = tfa.make_attention_fn(mask ^ (backward == "xla"), block_q=8,
+                                   block_k=8, backward=backward)
+        with torch.inference_mode():
+            served = fn(q, k, v)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        out.sum().backward()
+        assert torch.equal(out.detach(), served)
+        assert all(torch.isfinite(x.grad).all() for x in leaves)
 
 
 def _tcfg(**transformer):
@@ -235,8 +354,14 @@ def test_select_attention_fn():
     assert select_attention_fn(drop.replace(attention_impl="auto"), mask,
                                4096, "cpu") is None
     no_drop = drop.replace(attention=drop.attention.replace(dropout_rate=0.0))
-    with pytest.raises(NotImplementedError, match="_flash_kernel"):
-        select_attention_fn(no_drop, mask, 74)
+    # flash_backward='xla' without weight dropout: the hook of the forward
+    # kernel without LSE, its tables built for the device it is given
+    fn = select_attention_fn(no_drop, mask, 74, "cpu")
+    q, k, v = (torch.tensor(x) for x in _qkv(74, seed=8, n=3))
+    assert (fn.tables_for(16, "cpu")[2]
+            is fn.tables_for(16, torch.device("cpu"))[2])
+    plain = tfa.xla_reference_attention(q, k, v, torch.tensor(mask))
+    _close(fn(q, k, v), plain.numpy(), FWD_TOL, FWD_TOL)
 
 
 def test_attention_hook_drops_in_train_mode_only():

@@ -19,7 +19,8 @@ import optax
 import pytest
 import torch
 
-from torch_parity import inputs, micro_pair, octo_micro_t5, to_torch_config
+from torch_parity import inputs, micro_pair, octo_micro_t5, \
+    octo_micro_tome_layers, octo_micro_tome_staged, to_torch_config
 from multi_modal_transformers_tokenmerge_torch import convert
 from multi_modal_transformers_tokenmerge_torch.models.octo import Octo as TOcto
 from multi_modal_transformers_tokenmerge_torch.modules import layers
@@ -91,12 +92,15 @@ def _port_draws(d):
             "time": torch.tensor(d["time"]), "noise": torch.tensor(d["noise"])}
 
 
-def _inject_jax(monkeypatch, d, mask_of_shape=None):
+def _inject_jax(monkeypatch, d, mask_of_shape=None, diffusion=True):
     """Serve the JAX call's randint / normal / bernoulli from ``d``; with
-    ``mask_of_shape``, every keep mask is that function of its shape."""
-    queues = {"randint": collections.deque([d["rows"], d["cols"], d["time"]]),
-              "normal": collections.deque([d["noise"]]),
-              "bernoulli": collections.deque(d["keep"])}
+    ``mask_of_shape``, every keep mask is that function of its shape.
+    Only the diffusion loss draws a time, noise and the time encoder's
+    keep masks."""
+    queues = {"randint": collections.deque(
+                  [d["rows"], d["cols"]] + ([d["time"]] if diffusion else [])),
+              "normal": collections.deque([d["noise"]] if diffusion else []),
+              "bernoulli": collections.deque(d["keep"] if diffusion else [])}
 
     def serve(name, shape):
         if name == "bernoulli" and mask_of_shape is not None:
@@ -143,15 +147,17 @@ class RecordingOptimizer:
 
 
 def _jax_loss_and_grads(monkeypatch, jm, params, ids, images, actions, d,
-                        mask_of_shape=None):
-    queues = _inject_jax(monkeypatch, d, mask_of_shape)
+                        mask_of_shape=None,
+                        method="compute_diffusion_denoise_loss"):
+    queues = _inject_jax(monkeypatch, d, mask_of_shape,
+                         diffusion="diffusion" in method)
     key = jax.random.PRNGKey(0)
 
     def loss_fn(p):
-        return jm.apply({"params": p}, ids, images, actions, train=True,
-                        rngs={"dropout": key, "patch_encoding": key,
-                              "diffusion": key},
-                        method="compute_diffusion_denoise_loss")
+        return jnp.mean(jm.apply(
+            {"params": p}, ids, images, actions, train=True,
+            rngs={"dropout": key, "patch_encoding": key, "diffusion": key},
+            method=method))
 
     loss, grads = jax.value_and_grad(loss_fn)(params)
     monkeypatch.undo()
@@ -179,9 +185,11 @@ def _assert_grads_close(port_grads, want):
             # the frozen text tower: no gradient in the port, zeros in JAX
             assert scale == 0.0, name
             continue
-        if name.endswith("attention.key.bias"):
+        if name.endswith(".key.bias"):
             # exactly zero (softmax ignores a shift shared by a row's
-            # logits): both packages hold rounding noise only
+            # logits, in the plain blocks and in the ToMe blocks, whose
+            # merge plan passes no gradient): both packages hold rounding
+            # noise only
             assert max(scale, float(got.abs().max())) <= GRAD_TOL * largest
             continue
         err = float((got - ref).abs().max())
@@ -465,8 +473,11 @@ def test_fit_runs_the_generators_and_logs(monkeypatch):
 
 def test_unported_options_raise():
     model = _port(_jax_cfg())[2]
-    with pytest.raises(NotImplementedError):
-        tsteps.make_train_step("continuous")
+    # every head has its step now; an unknown one is refused
+    for head in ("continuous", "categorical", "diffusion"):
+        assert callable(tsteps.make_train_step(head))
+    with pytest.raises(ValueError, match="unknown head"):
+        tsteps.make_train_step("gaussian")
     with pytest.raises(ValueError):
         tsteps.make_train_step("diffusion", text_input="tokens")
     state = tstate.create_train_state(model, RecordingOptimizer())
@@ -509,3 +520,164 @@ def test_ema_follows_the_update():
         # one float32 rounding apart: the update multiplies, then adds
         torch.testing.assert_close(state.ema_params[n], want, rtol=1e-6,
                                    atol=1e-6)
+
+
+# -- the ToMe models and the other heads -------------------------------------
+
+def _no_dropout(cfg):
+    tr = cfg.transformer
+    return cfg.replace(
+        transformer=tr.replace(dropout_rate=0.0,
+                               attention=tr.attention.replace(
+                                   dropout_rate=0.0)),
+        heads=cfg.heads.replace(diffusion=cfg.heads.diffusion.replace(
+            dropout_rate=0.0)))
+
+
+TOME_TRAIN = {
+    # the staged stack on the flash forward without LSE, gradients
+    # recomputed through the plain attention
+    "staged_flash_xla": (lambda: _no_dropout(octo_micro_tome_staged()),
+                         dict(attention_impl="flash", flash_backward="xla")),
+    "layers": (lambda: _no_dropout(octo_micro_tome_layers()), {}),
+    "layers_prune_prestack": (lambda: _no_dropout(octo_micro_tome_layers(
+        compression_mode="prune", prestack_merge=True)), {}),
+}
+HEAD_ACTIONS = {"continuous": 4, "categorical": 2, "diffusion": 4}
+
+
+def _tome_port(jcfg, **transformer):
+    jm, v, tm = micro_pair(jcfg)
+    tc = to_torch_config(jcfg)
+    tc = tc.replace(transformer=tc.transformer.replace(**transformer))
+    model = TOcto(tc, device="cpu", seed=None)
+    model.load_state_dict(tm.state_dict())
+    return jm, v["params"], model
+
+
+@pytest.mark.parametrize("head", sorted(HEAD_ACTIONS))
+@pytest.mark.parametrize("case", sorted(TOME_TRAIN))
+def test_tome_train_step_matches_jax(monkeypatch, case, head):
+    """One train step of a micro ToMe Octo for each head's loss, the same
+    draws handed to both packages: loss within 1e-5 relative, every
+    gradient leaf within 1e-4 of its largest value."""
+    make, transformer = TOME_TRAIN[case]
+    jcfg = make()
+    jm, jparams, model = _tome_port(jcfg, **transformer)
+    b = 2
+    ids, images = inputs(jcfg, batch=b, frames=2, seed=40)
+    actions = np.random.default_rng(41).uniform(
+        -1, 1, (b, HEAD_ACTIONS[head])).astype(np.float32)
+    d = _draws(jcfg, b, 42)
+    j_loss, j_grads = _jax_loss_and_grads(
+        monkeypatch, jm, jparams, ids, images, actions, d,
+        method=tsteps.LOSS_METHODS[head])
+    rec = RecordingOptimizer()
+    state = tstate.create_train_state(model, rec, rngs=0)
+    draws = _port_draws(d)
+    if head == "diffusion":
+        _inject_port(monkeypatch, d["keep"])
+    else:
+        draws = {"positions": draws["positions"]}
+    step = tsteps.make_train_step(head)
+    state, loss = step(state, torch.tensor(ids).long(), torch.tensor(images),
+                       torch.tensor(actions), draws=draws)
+    assert loss.ndim == 0
+    assert abs(float(loss) - j_loss) <= LOSS_RTOL * abs(j_loss)
+    want = convert.from_flax(j_grads, model.config)
+    # only the trained head's parameters (and the backbone's) see a gradient
+    others = [h for h in HEAD_ACTIONS if h != head]
+    for name, g in rec.grads[0].items():
+        if name.split("_")[0] in others and "action_head" in name:
+            assert g is None and not want[name].any(), name
+    _assert_grads_close({n: g for n, g in rec.grads[0].items()
+                         if g is not None},
+                        {n: g for n, g in want.items()
+                         if rec.grads[0].get(n) is not None})
+
+
+@pytest.mark.parametrize("make", [octo_micro_tome_layers,
+                                  octo_micro_tome_staged])
+def test_tome_every_dropout_site_matches_jax(monkeypatch, make):
+    """Every dropout at 0.1 in a ToMe stack (the per-layer blocks'
+    explicit attention weights among them), the same keep mask per shape
+    in both packages: the continuous loss and its gradients agree."""
+    jcfg = make()
+    assert jcfg.transformer.attention.dropout_rate == 0.1
+    jm, v, tm = micro_pair(jcfg)
+    b = 2
+    ids, images = inputs(jcfg, batch=b, frames=2, seed=43)
+    actions = np.random.default_rng(44).uniform(-1, 1, (b, 4)).astype(
+        np.float32)
+    d = _draws(jcfg, b, 45)
+    j_loss, j_grads = _jax_loss_and_grads(
+        monkeypatch, jm, v["params"], ids, images, actions, d, _shape_mask,
+        method="compute_l2_loss")
+    rec = RecordingOptimizer()
+    state = tstate.create_train_state(tm, rec, rngs=0)
+    sites = []
+    monkeypatch.setattr(layers, "keep_mask",
+                        lambda shape, p, g, device: sites.append(shape) or
+                        torch.from_numpy(_shape_mask(shape)))
+    step = tsteps.make_train_step("continuous")
+    state, loss = step(state, torch.tensor(ids).long(), torch.tensor(images),
+                       torch.tensor(actions),
+                       draws={"positions": _port_draws(d)["positions"]})
+    assert len(sites) == 4 * jcfg.transformer.num_blocks
+    assert abs(float(loss) - j_loss) <= LOSS_RTOL * abs(j_loss)
+    want = convert.from_flax(j_grads, tm.config)
+    got = {n: g for n, g in rec.grads[0].items() if g is not None}
+    _assert_grads_close(got, {n: want[n] for n in got})
+
+
+@pytest.mark.parametrize("make", [octo_micro_tome_layers,
+                                  octo_micro_tome_staged, octo_micro_t5])
+def test_decay_mask_matches_optax_mask(make):
+    """decay_mask on a per-layer tree (block_{l}: norms and plain biases
+    1-D, no decay), a staged tree (stage_{i}: scanned, everything decays)
+    and the plain scanned stack, against the JAX package's mask of the flax
+    tree, leaf for leaf."""
+    jcfg = make()
+    _, v, tm = micro_pair(jcfg)
+    params = jax.tree.map(np.asarray, v["params"])
+    flags = jax.tree.map(lambda m, p: np.full(p.shape, float(m), np.float32),
+                         joptim.decay_mask(params), params)
+    want = convert.from_flax(flags, tm.config)
+    got = toptim.decay_mask(tm)
+    assert set(got) == set(want)
+    for name, flag in got.items():
+        assert bool(want[name].all()) == flag == bool(want[name].any()), name
+    t = "transformer."
+    if make is octo_micro_tome_layers:
+        assert not got[t + "block_0.ln_attention.weight"]
+        assert not got[t + "block_1.out.bias"]
+        assert got[t + "block_0.query.bias"] and got[t + "block_0.out.weight"]
+    elif make is octo_micro_tome_staged:
+        assert got[t + "stage_0.1.ln_mlp.weight"]
+        assert got[t + "stage_1.0.attention.out.bias"]
+        assert not got[t + "posembed_input.pos_embedding"]
+
+
+def test_tome_fit_runs_each_head():
+    """fit on synthetic batches through the staged ToMe model for the
+    continuous and categorical heads: finite windowed losses."""
+    cfg = _tome_port(_no_dropout(octo_micro_tome_staged()),
+                     attention_impl="flash", flash_backward="xla")[2].config
+    for head, dim in (("continuous", 4), ("categorical", 2)):
+        model = TOcto(cfg, device="cpu", seed=0)
+        tx = toptim.make_optimizer(peak_lr=1e-3, warmup_steps=1,
+                                   total_steps=4, params=model)
+        state = tstate.create_train_state(model, tx, rngs=1)
+        logged = []
+
+        class Logger:
+            def log(self, metrics, step):
+                logged.append(metrics)
+
+        batches = tdata.synthetic_octo_batches(
+            2, image_shape=(2, *cfg.images.image_size),
+            text_length=cfg.text.max_length, action_dim=dim,
+            vocab_size=cfg.text.vocab_size)
+        state = tloop.fit(state, batches, head, 2, logger=Logger(),
+                          log_every=2)
+        assert state.step == 2 and np.isfinite(logged[0]["loss"])

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from micro_configs import octo_micro
+from micro_configs import octo_micro, octo_micro_tome
 from multi_modal_transformers_tokenmerge_torch import convert
 from multi_modal_transformers_tokenmerge_torch.core import config as tcfg
 from multi_modal_transformers_tokenmerge_torch.models.octo import Octo as TOcto
@@ -42,6 +42,26 @@ def octo_micro_t5(**overrides):
                                                    sampler_impl="fused")),
     )
     return cfg.replace(**overrides)
+
+
+def octo_micro_tome_layers(**transformer):
+    """Micro ToMe Octo, per-layer cadence: 2 frames of 16 image tokens, 2
+    compressed blocks that each shed 2 image tokens a set (44 -> 36), every
+    head (the JAX diffusion head on its fused sampler, so that
+    ``capture_sampler_inputs`` sees its noise).  ``transformer`` overrides
+    fields of its TransformerConfig."""
+    cfg = octo_micro_tome()
+    return cfg.replace(
+        transformer=cfg.transformer.replace(**transformer),
+        heads=cfg.heads.replace(diffusion=cfg.heads.diffusion.replace(
+            sampler_impl="fused")))
+
+
+def octo_micro_tome_staged(**transformer):
+    """Micro ToMe Octo, staged cadence: 4 blocks in 2 stages of 2 with one
+    merge event between them (44 -> 40 tokens)."""
+    return octo_micro_tome_layers(**{"num_blocks": 4, "tome_merge_every": 2,
+                                     **transformer})
 
 
 def to_torch_config(cfg):
