@@ -5,7 +5,9 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build: compile every kernel under multi_modal_transformers_tokenmerge_torch/csrc
-   with nvcc for sm_90a, one nvcc per source, all at once;
+   with nvcc for sm_90a, one nvcc per source, all at once; log the registers
+   and spill stores of every flash forward instantiation (the whole report
+   in chiprun_out/ptxas.txt) and fail if a bf16 or fp16 forward spills;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes of the main paths (the sampler at octo_base serving; the
    flash forward/dq/dk-dv kernels at octo_base training and at the
@@ -13,9 +15,10 @@ Phases, each of which must pass (any failure exits non-zero):
    dropout 0 and 0.1; the forward without LSE at octo_deep's three stages
    (serving batches 1 and 8, training batch 32), octo_base_deep's first, the
    1024-token layout and a mask with dead rows;
-   the max-pool backward at octo_base training, bit for bit), time kernel, plain version and the PyTorch library call computing
-   the same function, and check that attention_impl='auto' takes the flash
-   kernel at 1024 tokens and not at 74;
+   the max-pool backward at octo_base training, bit for bit), time kernel,
+   plain version and the PyTorch library call computing the same function,
+   and check that attention_impl='auto' takes the flash kernel at 1024
+   tokens and not at 74;
 3. serving: the full-width octo_base policy in bfloat16 (random weights
    from a seed) served through PolicyEngine with a cached instruction, at
    batch 1 and batch 8, counting every kernel launch of that run;
@@ -128,8 +131,16 @@ def time_ms(fn, iters=30, warmup=5):
     return statistics.median(times)
 
 
-GUARD_LAUNCHES = 64
-_GUARD = {"lost": []}   # 'key': the guard kernel's name; 'lost': per session
+# one session on the H100 lost 199 guard records and kept the rest
+GUARD_LAUNCHES = 256
+PROFILE_ATTEMPTS = 3    # sessions run again when they lost every guard record
+# 'key': the guard kernel's name; 'lost': records lost, per session;
+# 'retries': the index of every session that lost them all and was run again
+_GUARD = {"lost": [], "retries": []}
+
+
+class _ProfileLost(Exception):
+    """A profiler session kept none of its guard records."""
 
 
 def guard_launches(x):
@@ -154,12 +165,14 @@ def profiled(with_host=False):
     one H100), the launches being all recorded: none in a young process,
     then more as the process ages (after one to two minutes the first 1 to
     10 kernels of a session, whatever their length and whatever idle time
-    surrounds them; once in 48 sessions one later kernel instead).  So every session starts with
-    GUARD_LAUNCHES launches of a kernel of its own, which take the loss
-    and count it; the session fails the run if all of them are gone.  A
-    time read from a session is a mean over the records it kept, never a
-    sum over the launches made.  The first session of the process learns
-    the guard kernel's name."""
+    surrounds them; once in 48 sessions one later kernel instead), and on
+    some machines a whole session's records early in a run.  So every
+    session starts with GUARD_LAUNCHES launches of a kernel of its own,
+    which take the loss and count it; a session that lost all of them
+    raises _ProfileLost (profile_session runs it again).  A time read from
+    a session is a mean over the records it kept, never a sum over the
+    launches made.  The first session of the process learns the guard
+    kernel's name."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA]
     if with_host:
@@ -181,8 +194,25 @@ def profiled(with_host=False):
                if e.key == _GUARD["key"])
     _GUARD["lost"].append(GUARD_LAUNCHES - kept)
     if kept == 0:
-        fail(f"the profiler lost all {GUARD_LAUNCHES} guard launches of a "
-             f"session")
+        raise _ProfileLost
+
+
+def profile_session(body, with_host=False):
+    """``body()`` in a ``profiled`` session: (the profiler, what body
+    returned).  A session that lost every guard record is logged and run
+    again, body included, up to PROFILE_ATTEMPTS times; then the run
+    fails."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        try:
+            with profiled(with_host) as prof:
+                out = body()
+            return prof, out
+        except _ProfileLost:
+            _GUARD["retries"].append(len(_GUARD["lost"]) - 1)
+            log(f"  (the profiler lost all {GUARD_LAUNCHES} guard records of "
+                f"a session, attempt {attempt} of {PROFILE_ATTEMPTS})")
+    fail(f"the profiler lost every guard record in {PROFILE_ATTEMPTS} "
+         f"sessions running")
 
 
 def device_ms(fn, kernel_name, iters=20, warmup=3):
@@ -193,9 +223,7 @@ def device_ms(fn, kernel_name, iters=20, warmup=3):
     and what it did hold is written to OUT_DIR/profile_miss.txt."""
     for _ in range(warmup):
         fn()
-    with profiled() as prof:
-        for _ in range(iters):
-            fn()
+    prof, _ = profile_session(lambda: [fn() for _ in range(iters)])
     hits = [e for e in device_events(prof) if kernel_name in e.key]
     total = sum(e.self_device_time_total for e in hits)
     kept = sum(e.count for e in hits)
@@ -213,6 +241,55 @@ def device_ms(fn, kernel_name, iters=20, warmup=3):
         log(f"  (the profiler kept {kept} of {iters} {kernel_name} records; "
             f"the mean is over those)")
     return total / 1e3 / kept
+
+
+# -- phase 1: the build -------------------------------------------------------
+
+def forward_ptxas(report):
+    """Registers and spill stores of every flash forward instantiation in
+    the flash library's ``-Xptxas -v`` report (demangled by c++filt where
+    the toolkit's host has it), logged; fails the run if a bf16 or fp16
+    forward spills or none is found.  Returns {entry: (registers, spill
+    store bytes)}."""
+    try:
+        r = subprocess.run(["c++filt"], input=report, capture_output=True,
+                           text=True, timeout=60)
+        if r.returncode == 0 and r.stdout:
+            report = r.stdout
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    found, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if "flash_fwd" in m.group(1) else None
+            if entry:
+                found[entry] = [0, 0]
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found[entry][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[entry][0] = int(m.group(1))
+    short = lambda e: e.replace("void (anonymous namespace)::", "").split(
+        "(")[0]
+    sixteen = 0
+    for entry, (regs, spill) in sorted(found.items()):
+        is16 = "f32" not in entry and ("bfloat16" in entry or "__half" in
+                                       entry)
+        sixteen += is16
+        log(f"  ptxas {short(entry)}: {regs} registers, {spill} bytes spill "
+            f"stores{' FAIL' if is16 and spill else ''}")
+        if is16 and spill:
+            fail(f"{short(entry)} spills {spill} bytes")
+    if not sixteen:
+        fail("no bf16 / fp16 flash forward in the ptxas report (a library "
+             "found built without its report beside it reports nothing: "
+             "remove its _build/)")
+    return {short(e): tuple(v) for e, v in found.items()}
 
 
 # -- phase 2: the sampler kernel ---------------------------------------------
@@ -384,9 +461,7 @@ def device_total_ms(fn, iters=20, warmup=3):
     launches a call (the records kept over ``iters``, rounded up)."""
     for _ in range(warmup):
         fn()
-    with profiled() as prof:
-        for _ in range(iters):
-            fn()
+    prof, _ = profile_session(lambda: [fn() for _ in range(iters)])
     events = device_events(prof)
     total = sum(e.self_device_time_total / e.count * -(-e.count // iters)
                 for e in events) / 1e3
@@ -1020,12 +1095,15 @@ def profile_phase(model, cfg, request_ms, label="octo_base bf16",
     for _ in range(3):
         eng(images)
     n = 5
-    with profiled(with_host=True) as prof:
+
+    def requests():
         t0 = time.perf_counter()
         for _ in range(n):
             eng(images)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    prof, wall = profile_session(requests, with_host=True)
     # device-side events only: host ops also report the time of the
     # kernels they launched
     events = device_events(prof)
@@ -1382,8 +1460,8 @@ def train_profile_phase(state, cfg, step_ms, kernel_names,
     batches = itertools.cycle(device_batches(cfg, TRAIN_BATCH, 2, seed=2))
     fit(state, batches, "diffusion", 2)
     n = 5
-    with profiled(with_host=True) as prof:
-        fit(state, batches, "diffusion", n)
+    prof, _ = profile_session(lambda: fit(state, batches, "diffusion", n),
+                              with_host=True)
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / n
     idle = max(0.0, 1 - busy / step_ms)
@@ -1432,8 +1510,7 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    with profiled():
-        pass
+    profile_session(lambda: None)
     log(f"profiler guard: {GUARD_LAUNCHES} launches of "
         f"{_GUARD['key'][:100]}")
     log("phase 1: build")
@@ -1454,6 +1531,7 @@ def main():
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
             f"-{max(regs, default=0)}, largest spill store "
             f"{max(spills, default=0)} bytes")
+    fwd_ptxas = forward_ptxas(reports["flash_attention"])
     counters = {"ddpm_sampler": ddpm_sampler, "flash_fwd": fa.flash_fwd,
                 "flash_fwd_lse": fa.flash_fwd_lse, "flash_dq": fa.flash_dq,
                 "flash_dkv": fa.flash_dkv, "pool_bwd": pool.pool_bwd}
@@ -1610,6 +1688,7 @@ def main():
         "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23",
         "launches_octo_deep_training": deep_train_launches["pool_bwd"],
     })
+    log(json.dumps({"forward_ptxas": fwd_ptxas}))
     log(json.dumps({"serve_ms_per_request": serve_ms,
                     "train_ms_per_step": train_ms,
                     "train_profile": train_prof,
@@ -1623,9 +1702,10 @@ def main():
         "train_profile": deep_train_prof,
         "train_reference": deep_train_ref},
         "octo_small_continuous_ms_per_request": small_ms, "card": card}))
-    log(f"profiler: {len(_GUARD['lost'])} sessions; of each session's "
-        f"{GUARD_LAUNCHES} guard launches the device records lost, in the "
-        f"order of the sessions: {_GUARD['lost']}")
+    log(json.dumps({"profiler": {
+        "sessions": len(_GUARD["lost"]), "guard_launches": GUARD_LAUNCHES,
+        "guard_records_lost": _GUARD["lost"],
+        "sessions_run_again": _GUARD["retries"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

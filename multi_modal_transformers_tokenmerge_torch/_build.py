@@ -5,9 +5,10 @@ library with a plain C interface, which :func:`load_library` opens with
 ``ctypes``.  The build happens at first use, into ``_build/`` beside this
 file, keyed by a hash of the sources and flags, so a changed source builds
 anew and an unchanged one is reused.  :func:`build_all` starts one ``nvcc``
-per missing source, all at once, and returns each compiler's report
-(``-Xptxas -v``: registers, shared memory and spills of every kernel).  A
-failed build raises; nothing falls back.
+per missing source, all at once, and returns each library's compiler
+report (``-Xptxas -v``: registers, shared memory and spills of every
+kernel), kept beside the library, so a reused library reports what it was
+built with.  A failed build raises; nothing falls back.
 
 ``nvcc`` is looked for under ``$CUDA_HOME``, then on ``PATH``, then under
 ``/usr/local/cuda``.
@@ -71,18 +72,25 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _report_path(target: Path) -> Path:
+    return target.with_suffix(".ptxas.txt")
+
+
 def build_all(names=None) -> Dict[str, str]:
     """Build every kernel of ``names`` (default: all sources) whose library
     is missing, one ``nvcc`` process each, all started together.  Returns
-    kernel name -> the compiler's output ('' for one already built)."""
+    kernel name -> the compiler's output, read back from beside the library
+    for one already built."""
     names = sorted(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
+    running, reports = {}, {}
     for name in names:
         if name not in sources():
             raise KernelBuildError(f"no kernel source csrc/{name}.cu")
         target = _target(name)
         if target.exists():
+            report = _report_path(target)
+            reports[name] = report.read_text() if report.exists() else ""
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -90,7 +98,6 @@ def build_all(names=None) -> Dict[str, str]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, target)
-    reports = {name: "" for name in names}
     failed = []
     for name, (proc, tmp, target) in running.items():
         reports[name], _ = proc.communicate()
@@ -99,7 +106,12 @@ def build_all(names=None) -> Dict[str, str]:
             failed.append(f"nvcc failed on {name}.cu (exit "
                           f"{proc.returncode}):\n{reports[name]}")
         else:
-            # atomic, so concurrent builds agree
+            # the report first, then the library; each replace is atomic, so
+            # concurrent builds agree
+            fd, tmp_report = tempfile.mkstemp(suffix=".txt", dir=BUILD_DIR)
+            with os.fdopen(fd, "w") as f:
+                f.write(reports[name])
+            os.replace(tmp_report, _report_path(target))
             os.replace(tmp, target)
     if failed:
         raise KernelBuildError("\n".join(failed))

@@ -8,20 +8,12 @@
 // versions (ops/flash_attention.py: flash_*_reference) repeat this
 // arithmetic step for step.
 //
-// flash_fwd_kernel is the forward a server runs, and the forward of the
-// recompute backward: no seed, no Philox bits, no LSE store.  The TPU
-// program handles one (batch, q tile) for ALL heads, because its grid runs
-// in order and fewer, fatter programs win there; here a block per (batch,
-// head, q tile) fills the SMs.  At the ToMe stages of octo_deep (B=1, H=12,
-// D=64, S=224/160/96) a launch is 24-48 blocks of a few key tiles each:
-// the work (under 0.1 GFLOP) and the bytes (under 1 MB) bound it at a
-// fraction of a microsecond, and launch latency plus the serial key-tile
-// loop of one block set its time.
-//
 // What it computes.  q, k, v, dO are (B, S, H, D) in the input dtype; the
 // static mask is an int8 (S_pad, S_pad) tile-aligned square (zero past S)
 // with per-tile skip tables: k_hi[q tile] key tiles are visited by the
 // forward and dq passes, the dk/dv pass visits q tiles from q_lo[k tile].
+// The tables' tiles (Tiles<D>: 64 x 64 at D = 64, 32 x 32 at D = 256) fix
+// S_pad, k_hi and the (B, H, S_pad) LSE that dq and dk/dv read.
 // Logits are float32 sums of input-dtype products times 1/sqrt(D), masked
 // to -1e30.  Online max and sum are float32; p = exp(s - max(m, -5e29))
 // keeps rows with no live key at p = 0, so they emit zeros and an LSE of
@@ -34,33 +26,78 @@
 // (b, h, row, col) is word (col & 3) of Philox4x32-10 at counter
 // (col >> 2, row, b*H + h, 0) under the key (seed[0], seed[1]); the element
 // is kept when that word is >= threshold.  Every pass regenerates the same
-// mask whatever its tiles.
+// mask whatever its tiles or fragment layout.
 //
-// What bounds it on the H100.  At octo_base training (B=32, S=74, H=3,
-// D=256) the work is tiny (0.5 GFLOP forward) and each pass is bounded by
-// its bytes (a few MB: about 1-3 us at 3.35 TB/s) and, in practice, by
-// launch latency.  At the long-context shape (B=8, S=1024, H=12, D=64) the
-// block-causal mask leaves some 14 GFLOP a pass, bound by the tensor cores
-// (~14 us at 989 TFLOP/s bf16).  This first kernel is simple and right, not
-// fast: it computes on the CUDA cores in float32 from shared memory, one
-// block per (batch, head, tile) - the TPU's one program per (batch, q tile)
-// looping over heads becomes one block per head, since blocks run in
-// parallel on 132 SMs.  Tiles are staged in shared memory as float32 rows
-// padded by four floats, so the float4 reads of a quarter warp hit distinct
-// banks; each thread owns one column (key or feature) and a stride of rows,
-// so one shared read of the column feeds a row of fused multiply-adds.
-// Register budget: with D = 256 a 64 x 256 float32 accumulator would take
-// 128 registers a thread at 128 threads, so D = 256 uses 32 x 32 tiles and
-// 256 threads (32 accumulators a thread, and 64 in the dk/dv pass, which
-// holds dK and dV); D = 64 uses 64 x 64 tiles and 128 threads (the same
-// counts).  Tensor-core (wgmma) tiles and cp.async staging are the work of
-// a later change; their absence is the gap between the measured time and
-// the bound (PERF.md).
+// The forward in bf16 and fp16 (flash_fwd_kernel, the server's forward and
+// that of the recompute backward, no seed, no LSE; flash_fwd_lse_kernel,
+// with the LSE and dropout) is one tensor-core body, mma_forward_block.
+// What bounds it: at octo_deep's stages (H=12, D=64, S=224/160/96) a launch
+// moves 0.6-1.4 MB at B=1 and 19-44 MB at B=32 for at most 0.11 / 3.4
+// GFLOP over the live pairs, so bytes bound it (0.43 us and 13 us at S=224
+// at 3.35 TB/s), four times above the tensor cores' bound; at octo_base
+// training (B=32, S=74, H=3, D=256) it moves 14.6 MB (4.4 us); only at
+// 1024 tokens (B=8, H=12, D=64, 19 GFLOP) do the tensor cores bound it
+// (19 us at 989 TFLOP/s).  In practice latency sets its time, 3-20 times
+// those bounds: each warp's chain of a tile (wait for the copy, S = Q K^T,
+// the softmax, P V) runs in order with four warps to a scheduler, and
+// leaving the Q K^T products out, half the tensor-core work, saves only a
+// tenth to a fifth of the time (flash_fwd_probe.py; PERF.md, PR 4).
+// The design:
+//   * Tensor cores: S = Q K^T and O += P V are mma.sync m16n8k16 with
+//     float32 accumulators, operands from shared memory by ldmatrix (.trans
+//     for V).  Each warp owns 16 query rows, so the row max and sum reduce
+//     inside a quad of lanes by shuffles, with no shared round trip and no
+//     barrier; P passes from the S accumulator to the A operand of P V in
+//     registers, rounded to T there, the point of the JAX cast.  The
+//     exponentials are 2^(x log2 e - ref log2 e) on the special-function
+//     unit (ex2.approx), as FlashAttention-2 takes them: the accurate expf
+//     is several instructions more a logit and the slower at every shape
+//     timed (flash_fwd_probe.py).
+//   * Asynchronous staging: K, V and the int8 mask tile arrive by 16-byte
+//     cp.async.cg copies into a ring of two stages, in T (not float32),
+//     rows at or past S zero-filled through the copy's source size; tile
+//     kt+1 is in flight while tile kt is computed, one barrier a tile.  Q
+//     is loaded once.  Rows are padded by 16 bytes, so the eight row
+//     addresses of an ldmatrix and the mask reads of a warp hit distinct
+//     banks.
+//   * Work in flight: a block is four warps, 64 rows at D = 64 (one mask
+//     table tile), and steps through its keys by the table's block_k, so
+//     the per-tile running max, and so the rounding of p, are the plain
+//     version's.  64-row blocks beat 32-row ones (which put twice the
+//     blocks in flight) at B = 1, 8 and 32 and at 1024 tokens
+//     (flash_fwd_probe.py), so one choice is compiled.  flash_fwd_kernel is
+//     held to 128 registers so four blocks share an SM.  At D = 256 a
+//     16 x 256 float32 output accumulator would take 128 registers a
+//     thread, so two warps share 16 rows, each holding half of D for P V
+//     (64 registers) and both computing the same S (bitwise equal: the
+//     same instructions on the same data): 32 rows a block, the table tile.
+//   * Dropout in the fragment layout: a thread of an m16n8 accumulator
+//     holds columns 2 (lane % 4) + {0, 1} of rows g and g + 8, so lanes
+//     t and t ^ 1 need the words of one Philox counter.  Each computes one
+//     counter (t even row g, t odd row g + 8) and passes the other's two
+//     words by a shuffle, faster than computing both (flash_fwd_probe.py).
+// float32 keeps the CUDA-core body below (forward_block): the tensor cores
+// have no float32 product that holds the 1e-4 of the card-against-CPU
+// checks, and float32 runs only in those checks and the tests.  The launcher
+// dispatches by dtype; nothing falls back.
+//
+// The CUDA-core body (the float32 forward, and dq and dk/dv in every
+// dtype) is simple and right, not fast: float32 fused multiply-adds from
+// shared memory, one block per (batch, head, tile).  Tiles are staged in
+// shared memory as float32 rows padded by four floats, so the float4 reads
+// of a quarter warp hit distinct banks; each thread owns one column (key or
+// feature) and a stride of rows.  Register budget: with D = 256 a 64 x 256
+// float32 accumulator would take 128 registers a thread at 128 threads, so
+// D = 256 uses 32 x 32 tiles and 256 threads; D = 64 uses 64 x 64 tiles and
+// 128 threads.  Tensor-core tiles for dq and dk/dv are the work of a later
+// change (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -214,6 +251,19 @@ struct Args {
   float scale;
 };
 
+// The mask tables' tiles (KERNEL_TILES of ops/flash_attention.py) and the
+// CUDA-core kernels' threads.
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<64> {
+  static constexpr int BQ = 64, BK = 64, NT = 128;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int BQ = 32, BK = 32, NT = 256;
+};
+
 // The forward pass of one (batch, head, q tile) block.  With DROPOUT the
 // kept weights are rescaled and the rest zeroed before P V (l and the LSE
 // use the undropped p); without it no Philox code is compiled in.  lse may
@@ -336,8 +386,373 @@ __device__ __forceinline__ void forward_block(
           sM[r] + logf(fmaxf(sL[r], 1e-30f));
 }
 
-template <typename T, int D, int BQ, int BK, int NT>
+// The float32 forward entries: the CUDA-core body, with and without the
+// LSE and dropout.
+template <int D, int BQ, int BK, int NT>
 __global__ void __launch_bounds__(NT)
+    flash_fwd_lse_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const int8_t* __restrict__ mask,
+                             const int32_t* __restrict__ k_hi,
+                             const int64_t* __restrict__ seed,
+                             float* __restrict__ out, float* __restrict__ lse,
+                             Args a, uint32_t threshold, float inv_keep,
+                             int dropout) {
+  forward_block<float, D, BQ, BK, NT, true>(
+      q, k, v, mask, k_hi, out, lse, a,
+      make_dropout(seed, threshold, inv_keep, dropout));
+}
+
+template <int D, int BQ, int BK, int NT>
+__global__ void __launch_bounds__(NT)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int8_t* __restrict__ mask,
+                         const int32_t* __restrict__ k_hi,
+                         float* __restrict__ out, Args a) {
+  forward_block<float, D, BQ, BK, NT, false>(q, k, v, mask, k_hi, out,
+                                             nullptr, a, Dropout{});
+}
+
+// -- the tensor-core forward (bf16, fp16) -------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, asynchronously; zeros when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a b for one m16n8k16 tile, float32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(
+    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&c)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to T (to nearest even) in one 32-bit word, lo in the low
+// half: the element order of an mma operand and of two neighbouring columns
+// in memory.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x by the special-function unit (flushes subnormal results to zero).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tiles of the tensor-core forward: RG warps along the rows (16 rows each),
+// DS warps along D for P V, BN keys a step (the mask table's block_k); rows
+// of Q, K and V padded by 8 elements and mask rows by 16 bytes; K, V and
+// mask tiles in a ring of two stages.
+template <typename T, int D, int RG, int DS, int BN>
+struct MmaFwd {
+  static constexpr int BM = 16 * RG, NT = 32 * RG * DS;
+  static constexpr int LDT = D + 8, LDM = BN + 16;
+  static constexpr size_t smem() {
+    return sizeof(T) * (BM + 4 * BN) * LDT + 2 * BM * LDM;
+  }
+};
+
+// rows [row0, row0 + ROWS) of a (B, S, H, D) slice into a shared tile of
+// row stride LDT, by 16-byte cp.async; rows at or past S are zero-filled.
+template <typename T, int D, int ROWS, int LDT, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0,
+                                           int seq, size_t row_stride) {
+  constexpr int CPR = D * sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int PER = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < (ROWS * CPR + NT - 1) / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    if (c < ROWS * CPR) {
+      const int r = c / CPR, ch = c % CPR;
+      const int row = row0 + r;
+      const bool in = row < seq;
+      cp_async16(dst + r * LDT + ch * PER,
+                 src + static_cast<size_t>(in ? row : 0) * row_stride +
+                     ch * PER,
+                 in);
+    }
+  }
+}
+
+// The forward of one block: rows [q0, q0 + BM) of one (batch, head), in T
+// on the tensor cores.  Warp w holds rows 16 (w / DS) .. + 15 and output
+// columns (w % DS) D / DS .. + D / DS - 1, and visits the key tiles below
+// k_hi of the mask table tile it lies in.  lse may be null (no statistic
+// stored); DROPOUT compiles the keep bits in.
+template <typename T, int D, int RG, int DS, int BN, bool DROPOUT>
+__device__ __forceinline__ void mma_forward_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
+    T* __restrict__ out, float* __restrict__ lse, const Args& a,
+    const Dropout& drop) {
+  using C = MmaFwd<T, D, RG, DS, BN>;
+  constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDM = C::LDM;
+  constexpr int NS = BN / 8;  // n8 tiles of S a warp
+  constexpr int DO = D / DS;  // output columns a warp
+  constexpr int NO = DO / 8;  // n8 tiles of O a warp
+  constexpr int TBQ = Tiles<D>::BQ;
+  static_assert(BN == Tiles<D>::BK && TBQ % BM == 0, "tiles of the tables");
+  static_assert(NS % 2 == 0 && NO % 2 == 0 && D % 16 == 0, "mma tiles");
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sK = sQ + BM * LDT;  // [2][BN][LDT]
+  T* sV = sK + 2 * BN * LDT;
+  int8_t* sM = reinterpret_cast<int8_t*>(sV + 2 * BN * LDT);  // [2][BM][LDM]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * D;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * D;
+  const int n_k = k_hi[q0 / TBQ];
+
+  auto stage = [&](int kt) {
+    const int st = kt & 1, k0 = kt * BN;
+    stage_rows<T, D, BN, LDT, NT>(sK + st * BN * LDT, k + base, k0, a.seq,
+                                  row_stride);
+    stage_rows<T, D, BN, LDT, NT>(sV + st * BN * LDT, v + base, k0, a.seq,
+                                  row_stride);
+    constexpr int MCH = BN / 16;  // 16-byte chunks of a mask row
+#pragma unroll
+    for (int i = 0; i < (BM * MCH + NT - 1) / NT; ++i) {
+      const int c = threadIdx.x + i * NT;
+      if (c < BM * MCH) {
+        const int r = c / MCH, ch = c % MCH;
+        cp_async16(sM + st * BM * LDM + r * LDM + ch * 16,
+                   mask + static_cast<size_t>(q0 + r) * a.s_pad + k0 + ch * 16,
+                   true);
+      }
+    }
+  };
+  if (n_k > 0) {
+    stage_rows<T, D, BM, LDT, NT>(sQ, q + base, q0, a.seq, row_stride);
+    stage(0);
+    cp_async_commit();
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // ldmatrix lane roles: row within an 8 x 8 matrix, and which matrix
+  const int lr = lane & 7, lm0 = (lane >> 3) & 1, lm1 = lane >> 4;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt visible; every warp is done with kt - 1
+    if (kt + 1 < n_k) {
+      stage(kt + 1);
+      cp_async_commit();
+    }
+    const int st = kt & 1, k0 = kt * BN;
+    const T* tK = sK + st * BN * LDT;
+    const T* tV = sV + st * BN * LDT;
+
+    // S = Q K^T: 16 rows x BN keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, sQ + (wr + lm0 * 8 + lr) * LDT + kk * 16 + lm1 * 8);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, tK + (np * 16 + lm1 * 8 + lr) * LDT + kk * 16 + lm0 * 8);
+        mma16816<T>(s[2 * np], qa, kb[0], kb[1]);
+        mma16816<T>(s[2 * np + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // mask, scale, online softmax; this thread holds rows wr + g (s[.][0:2])
+    // and wr + g + 8 (s[.][2:4]) at columns 8 j + 2 t + {0, 1}.
+    // exp(x - ref) is taken as 2^(x log2 e - ref log2 e)
+    const int8_t* tM = sM + st * BM * LDM + (wr + g) * LDM + 2 * t;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const char2 live =
+            *reinterpret_cast<const char2*>(tM + i * 8 * LDM + 8 * j);
+        s[j][2 * i] = live.x ? s[j][2 * i] * a.scale : kNegInf;
+        s[j][2 * i + 1] = live.y ? s[j][2 * i + 1] * a.scale : kNegInf;
+        mx[i] = fmaxf(mx[i], fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      }
+    }
+    float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      ref[i] = fmaxf(mx[i], 0.5f * kNegInf) * kLog2e;
+      alpha[i] = ex2_approx((m[i] - mx[i]) * kLog2e);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2_approx(fmaf(s[j][e], kLog2e, -ref[e >> 1]));
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+
+    if (DROPOUT && drop.on) {
+      const uint32_t row = static_cast<uint32_t>(q0 + wr + g);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const uint32_t ctr = static_cast<uint32_t>(k0 + 8 * j + 2 * t) >> 2;
+        // t even draws row g, t odd row g + 8; each passes the partner the
+        // two words of the partner's columns
+        const bool odd = t & 1;
+        const uint4 w = philox4x32_10(
+            make_uint4(ctr, row + (odd ? 8u : 0u), bh, 0u), drop.k0, drop.k1);
+        const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+        const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+        // [row g, row g + 8][column 2t, 2t + 1]
+        const uint32_t bits[2][2] = {{odd ? r0 : w.x, odd ? r1 : w.y},
+                                     {odd ? w.z : r0, odd ? w.w : r1}};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = bits[e >> 1][e & 1] >= drop.threshold
+                        ? s[j][e] * drop.inv_keep
+                        : 0.f;
+      }
+    }
+
+    // O = O alpha + P V, P rounded to T in the A operand
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < NO / 2; ++dn) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, tV + (kk * 16 + lm0 * 8 + lr) * LDT + dcol0 +
+                              dn * 16 + lm1 * 8);
+        mma16816<T>(o[2 * dn], pa, vb[0], vb[1]);
+        mma16816<T>(o[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wr + g + 8 * i;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    if (row < a.seq) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          out + base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        dst[4 * n] = pack2<T>(o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
+    }
+    if (lse != nullptr && dcol0 == 0 && t == 0)
+      lse[static_cast<size_t>(bh) * a.s_pad + row] = m[i] + logf(l_safe);
+  }
+}
+
+// Blocks a multiprocessor should hold of flash_fwd_kernel: four 64-row
+// blocks at D = 64, so at most 128 registers a thread (it takes 140 left
+// alone, and three blocks; PERF.md, PR 4); else no bound.
+template <int D, int NT>
+constexpr int fwd_min_blocks() {
+  return D == 64 && NT == 128 ? 4 : 1;
+}
+
+template <typename T, int D, int RG, int DS, int BN>
+__global__ void __launch_bounds__(32 * RG * DS)
     flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const int8_t* __restrict__ mask,
@@ -345,24 +760,22 @@ __global__ void __launch_bounds__(NT)
                          const int64_t* __restrict__ seed, T* __restrict__ out,
                          float* __restrict__ lse, Args a, uint32_t threshold,
                          float inv_keep, int dropout) {
-  forward_block<T, D, BQ, BK, NT, true>(
+  mma_forward_block<T, D, RG, DS, BN, true>(
       q, k, v, mask, k_hi, out, lse, a,
       make_dropout(seed, threshold, inv_keep, dropout));
 }
 
 // The forward without LSE and without dropout: what the JAX package's
 // _flash_kernel computes.  A __global__ entry of its own that takes no seed,
-// compiles no Philox code and stores no row statistic; p is rounded to V's
-// dtype before P V, and the reference of the exponent is clamped at -5e29 so
-// a row with no live key keeps p = 0 and emits zeros.
-template <typename T, int D, int BQ, int BK, int NT>
-__global__ void __launch_bounds__(NT)
+// compiles no Philox code and stores no row statistic.
+template <typename T, int D, int RG, int DS, int BN>
+__global__ void __launch_bounds__(32 * RG * DS, fwd_min_blocks<D, 32 * RG * DS>())
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int8_t* __restrict__ mask,
                      const int32_t* __restrict__ k_hi, T* __restrict__ out,
                      Args a) {
-  forward_block<T, D, BQ, BK, NT, false>(q, k, v, mask, k_hi, out, nullptr,
-                                         a, Dropout{});
+  mma_forward_block<T, D, RG, DS, BN, false>(
+      q, k, v, mask, k_hi, out, nullptr, a, Dropout{});
 }
 
 template <typename T, int D, int BQ, int BK, int NT>
@@ -552,17 +965,6 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int D>
-struct Tiles;
-template <>
-struct Tiles<64> {
-  static constexpr int BQ = 64, BK = 64, NT = 128;
-};
-template <>
-struct Tiles<256> {
-  static constexpr int BQ = 32, BK = 32, NT = 256;
-};
-
-template <int D>
 constexpr size_t fwd_smem() {
   using Tl = Tiles<D>;
   return sizeof(float) * ((Tl::BQ + 2 * Tl::BK) * (D + 4) +
@@ -589,40 +991,92 @@ struct Launch {
   cudaStream_t stream;
 };
 
+template <typename Kern>
+int launch_config(Kern kern, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// One tensor-core forward launch, with LSE (and dropout) or without: four
+// warps a block, at D = 64 four row groups of 16 rows (64 rows, the table
+// tile), at D = 256 two row groups of two warps that split D for P V.
+template <typename T, int D, bool LSE>
+int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
+            const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
+            const Launch& L) {
+  constexpr int RG = D == 64 ? 4 : 2, DS = D == 64 ? 1 : 2;
+  constexpr int BN = Tiles<D>::BK;
+  using C = MmaFwd<T, D, RG, DS, BN>;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(mask))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = C::smem();
+  const dim3 grid(L.s_pad / C::BM, L.heads, L.batch);
+  const Args args{L.batch, L.seq, L.heads, L.s_pad, L.scale};
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v);
+  int err;
+  if constexpr (LSE) {
+    auto kern = flash_fwd_lse_kernel<T, D, RG, DS, BN>;
+    if ((err = launch_config(kern, smem))) return err;
+    kern<<<grid, C::NT, smem, L.stream>>>(qt, kt, vt, mask, k_hi, seed,
+                                          static_cast<T*>(out), lse, args,
+                                          L.threshold, L.inv_keep, L.dropout);
+  } else {
+    auto kern = flash_fwd_kernel<T, D, RG, DS, BN>;
+    if ((err = launch_config(kern, smem))) return err;
+    kern<<<grid, C::NT, smem, L.stream>>>(qt, kt, vt, mask, k_hi,
+                                          static_cast<T*>(out), args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
         const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
         const Launch& L) {
-  using Tl = Tiles<D>;
-  auto kern = flash_fwd_lse_kernel<T, D, Tl::BQ, Tl::BK, Tl::NT>;
-  const size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
-  kern<<<grid, Tl::NT, smem, L.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, k_hi, seed, static_cast<T*>(out), lse,
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
-      L.inv_keep, L.dropout);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!std::is_same<T, float>::value) {
+    return mma_fwd<T, D, true>(q, k, v, mask, k_hi, seed, out, lse, L);
+  } else {
+    using Tl = Tiles<D>;
+    auto kern = flash_fwd_lse_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
+    const size_t smem = fwd_smem<D>();
+    int err;
+    if ((err = launch_config(kern, smem))) return err;
+    const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
+    kern<<<grid, Tl::NT, smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, k_hi, seed,
+        static_cast<float*>(out), lse,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        L.inv_keep, L.dropout);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
 int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
               const int32_t* k_hi, void* out, const Launch& L) {
-  using Tl = Tiles<D>;
-  auto kern = flash_fwd_kernel<T, D, Tl::BQ, Tl::BK, Tl::NT>;
-  const size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
-  kern<<<grid, Tl::NT, smem, L.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, k_hi, static_cast<T*>(out),
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale});
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!std::is_same<T, float>::value) {
+    return mma_fwd<T, D, false>(q, k, v, mask, k_hi, nullptr, out, nullptr,
+                                L);
+  } else {
+    using Tl = Tiles<D>;
+    auto kern = flash_fwd_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
+    const size_t smem = fwd_smem<D>();
+    int err;
+    if ((err = launch_config(kern, smem))) return err;
+    const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
+    kern<<<grid, Tl::NT, smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, k_hi, static_cast<float*>(out),
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale});
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

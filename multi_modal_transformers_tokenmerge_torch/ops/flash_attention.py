@@ -14,7 +14,8 @@ the design answers.
   from the kernel bodies: the same tiles, online softmax and rounding
   points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
   and raise for anything else.  Each counts its kernel launches in
-  ``.launches``.
+  ``.launches``.  The two forwards run on the tensor cores in bf16 and
+  fp16 and on the CUDA cores in float32.
 * The mask and the skip tables are device tensors (``mask_i8`` padded to the
   tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
   tiles, device), so the ring-attention path can later pass its own.

@@ -2,6 +2,7 @@
 octo_base shapes.  Marked ``cuda``; they skip where there is no sm_90 card
 and run on one with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -130,7 +131,8 @@ def _assert_flash_close(got, want, dtype):
 @pytest.mark.cuda
 @FLASH_SHAPES
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
     fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
         card, b, seq, h, d, dtype)
@@ -157,12 +159,36 @@ def test_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage,b", [(0, 1), (1, 8), (2, 1)])
+@FLASH_SHAPES
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_reads_new_forward_lse(card, b, seq, h, d, dtype):
+    """dq and dk/dv on the LSE of the tensor-core flash_fwd_lse, with
+    dropout 0.1: its LSE and keep bits fit the CUDA-core backward."""
+    fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
+        card, b, seq, h, d, dtype)
+    kw = dict(block_q=bq, block_k=bk, dropout_rate=0.1)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+    delta = fa.attention_delta(do, out, padded.shape[0])
+    dq = fa.flash_dq(q, k, v, do, lse, delta, padded, k_hi, seed, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, padded, q_lo, seed, **kw)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_dq_reference(q, k, v, do, lse, delta, padded, k_hi, seed,
+                                 **kw)
+    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse, delta, padded,
+                                        q_lo, seed, **kw)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("b", [1, 8, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_fwd_kernel_matches_plain(card, stage, b, dtype):
     """The forward without LSE at octo_deep's ToMe stages (224, 160, 96
-    tokens, 12 heads of 64), and its recompute backward."""
+    tokens, 12 heads of 64) at the serving and training batches, and its
+    recompute backward."""
     from multi_modal_transformers_tokenmerge_torch.ops import (
         flash_attention as fa)
     from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
@@ -193,6 +219,62 @@ def test_flash_fwd_kernel_matches_plain(card, stage, b, dtype):
 
 
 @pytest.mark.cuda
+def test_flash_forward_refuses_misaligned_operands(card):
+    """The tensor-core forward copies 16-byte chunks: an operand that
+    starts off a 16-byte boundary is refused, not read wrong."""
+    fa, (q, k, v, _), (padded, k_hi, _), _, (bq, bk) = _flash_case(
+        card, 1, 1024, 12, 64, torch.bfloat16)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    q_off = shifted[1:].view(q.shape)
+    q_off.copy_(q)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd(q_off, k, v, padded, k_hi, block_q=bq, block_k=bk)
+
+
+def _dead_row_mask(s=224):
+    """A random blocky mask with dead query rows, one run of them filling a
+    whole 64-row tile, and a live diagonal elsewhere."""
+    rng = np.random.default_rng(0)
+    mask = rng.random((s, s)) < 0.3
+    mask[np.arange(s), np.arange(s)] = True
+    mask[[5, 200]] = False
+    mask[64:128] = False
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["octo_base_deep_S74", "dead_rows_S224"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_fwd_kernel_matches_plain_other_masks(card, case, dtype):
+    """octo_base_deep's first stage (74 tokens, 3 heads of 256) and a mask
+    with dead rows, which must come out as zeros."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
+        SequenceLayout)
+    if case == "dead_rows_S224":
+        mask, b, h, d = _dead_row_mask(), 2, 12, 64
+    else:
+        mask = SequenceLayout.from_strings(
+            "[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2",
+            "[TaskDescriptionPrefix{0}] [Image{4};Readout{0}]*2"
+        ).attention_mask(0)
+        b, h, d = 1, 3, 256
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(b, mask.shape[0], h, d, generator=g,
+                           device=card).to(dtype) for _ in range(3))
+    bq, bk = fa.KERNEL_TILES[d]
+    padded, k_hi, _ = fa.device_tables(mask, bq, bk, card)
+    out = fa.flash_fwd(q, k, v, padded, k_hi, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    _assert_flash_close(out, fa.flash_fwd_reference(
+        q, k, v, padded, k_hi, block_q=bq, block_k=bk), dtype)
+    dead = torch.as_tensor(~mask.any(axis=1), device=card)
+    assert not out[:, dead].any()
+
+
+@pytest.mark.cuda
 def test_merge_is_deterministic_on_the_card(card):
     """Two runs of one merge on the card give the same bits (no atomics),
     and the plan equals the CPU's on exactly tied scores."""
@@ -216,7 +298,6 @@ def test_flash_auto_selects_kernel_from_flash_min_seq(card):
         TransformerConfig)
     from multi_modal_transformers_tokenmerge_torch.modules.attention import (
         select_attention_fn)
-    import numpy as np
     cfg = TransformerConfig(attention_impl="auto")
     assert select_attention_fn(cfg, np.ones((74, 74), bool), 74,
                                card) is None
