@@ -6,15 +6,17 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. build: compile every kernel under multi_modal_transformers_tokenmerge_torch/csrc
    with nvcc for sm_90a, one nvcc per source, all at once; log the registers
-   and spill stores of every flash forward instantiation (the whole report
-   in chiprun_out/ptxas.txt) and fail if a bf16 or fp16 forward spills;
+   and spill stores of every flash forward, dq and dk/dv instantiation (the
+   whole report in chiprun_out/ptxas.txt) and fail if a bf16 or fp16 one
+   spills;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes of the main paths (the sampler at octo_base serving; the
-   flash forward/dq/dk-dv kernels at octo_base training and at the
-   1024-token layout of bench.py's bench_flash, in three dtypes, with
-   dropout 0 and 0.1; the forward without LSE at octo_deep's three stages
-   (serving batches 1 and 8, training batch 32), octo_base_deep's first, the
-   1024-token layout and a mask with dead rows;
+   flash forward/dq/dk-dv kernels at octo_base training, at the 1024-token
+   layout of bench.py's bench_flash and at octo_deep's three stages at its
+   training batch, in three dtypes, with dropout 0 and 0.1, attention_delta
+   timed beside dq and dk/dv; the forward without LSE at octo_deep's three
+   stages (serving batches 1 and 8, training batch 32), octo_base_deep's
+   first, the 1024-token layout and a mask with dead rows;
    the max-pool backward at octo_base training, bit for bit), time kernel,
    plain version and the PyTorch library call computing the same function,
    and check that attention_impl='auto' takes the flash kernel at 1024
@@ -46,7 +48,11 @@ Phases, each of which must pass (any failure exits non-zero):
 12. ToMe training: octo_deep in bfloat16 at batch 32 through fit with the
     same pairing and pool_vjp='pallas' (12 flash_fwd launches a step), one
     float32 step CUDA against CPU, and the step's profile;
-13. octo_small in bfloat16 served with its continuous head (the embed text
+13. ToMe training as octo_deep's preset sets attention: flash_backward=
+    'pallas' with attention dropout 0.1 (12 flash_fwd_lse, 12 flash_dq and
+    12 flash_dkv launches a step), one 30-step fit window at batch 32 and
+    its profile, logged beside phase 12;
+14. octo_small in bfloat16 served with its continuous head (the embed text
     tower and the other head on the card).
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
@@ -135,8 +141,10 @@ def time_ms(fn, iters=30, warmup=5):
 GUARD_LAUNCHES = 256
 PROFILE_ATTEMPTS = 3    # sessions run again when they lost every guard record
 # 'key': the guard kernel's name; 'lost': records lost, per session;
-# 'retries': the index of every session that lost them all and was run again
-_GUARD = {"lost": [], "retries": []}
+# 'retries': the index of every session that lost them all and was run
+# again; 'short': (kernel, records kept, calls) of every device_ms session
+# run again for keeping fewer than half of its kernel's records
+_GUARD = {"lost": [], "retries": [], "short": []}
 
 
 class _ProfileLost(Exception):
@@ -219,15 +227,25 @@ def device_ms(fn, kernel_name, iters=20, warmup=3):
     """Mean device time (ms) of the kernels named ``kernel_name`` that one
     profiler session kept of ``iters`` calls of ``fn`` (one launch each):
     the kernel alone, without the host time of its wrapper.  A session that
-    kept fewer than half of them, or more than ``iters``, fails the run,
-    and what it did hold is written to OUT_DIR/profile_miss.txt."""
+    kept fewer than half of them is logged and run again, up to
+    PROFILE_ATTEMPTS sessions (one session kept all 256 guard records and 2
+    of 20 kernel records); then, or when a session kept more than
+    ``iters``, the run fails and what the last session held is written to
+    OUT_DIR/profile_miss.txt."""
     for _ in range(warmup):
         fn()
-    prof, _ = profile_session(lambda: [fn() for _ in range(iters)])
-    hits = [e for e in device_events(prof) if kernel_name in e.key]
-    total = sum(e.self_device_time_total for e in hits)
-    kept = sum(e.count for e in hits)
-    if not iters / 2 <= kept <= iters:
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof, _ = profile_session(lambda: [fn() for _ in range(iters)])
+        hits = [e for e in device_events(prof) if kernel_name in e.key]
+        total = sum(e.self_device_time_total for e in hits)
+        kept = sum(e.count for e in hits)
+        if iters / 2 <= kept <= iters:
+            break
+        if kept < iters / 2 and attempt < PROFILE_ATTEMPTS:
+            _GUARD["short"].append((kernel_name, kept, iters))
+            log(f"  (the profiler kept {kept} records of {kernel_name} from "
+                f"{iters} calls, attempt {attempt} of {PROFILE_ATTEMPTS})")
+            continue
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "profile_miss.txt"), "w") as f:
             f.write(prof.key_averages().table(row_limit=100))
@@ -245,12 +263,14 @@ def device_ms(fn, kernel_name, iters=20, warmup=3):
 
 # -- phase 1: the build -------------------------------------------------------
 
-def forward_ptxas(report):
-    """Registers and spill stores of every flash forward instantiation in
-    the flash library's ``-Xptxas -v`` report (demangled by c++filt where
-    the toolkit's host has it), logged; fails the run if a bf16 or fp16
-    forward spills or none is found.  Returns {entry: (registers, spill
-    store bytes)}."""
+FLASH_KINDS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def ptxas_entries(report, kinds=FLASH_KINDS):
+    """{kernel: (registers, spill store bytes)} of every entry of a
+    ``-Xptxas -v`` report whose name holds one of ``kinds``, demangled by
+    c++filt where the toolkit's host has it and shortened to the name and
+    template arguments."""
     try:
         r = subprocess.run(["c++filt"], input=report, capture_output=True,
                            text=True, timeout=60)
@@ -262,7 +282,9 @@ def forward_ptxas(report):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = m.group(1) if "flash_fwd" in m.group(1) else None
+            entry = m.group(1).replace("void (anonymous namespace)::", "")\
+                .split("(")[0]
+            entry = entry if any(k in entry for k in kinds) else None
             if entry:
                 found[entry] = [0, 0]
             continue
@@ -274,22 +296,32 @@ def forward_ptxas(report):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             found[entry][0] = int(m.group(1))
-    short = lambda e: e.replace("void (anonymous namespace)::", "").split(
-        "(")[0]
-    sixteen = 0
+    return {e: tuple(v) for e, v in found.items()}
+
+
+def flash_ptxas(report):
+    """Registers and spill stores of every flash forward, dq and dk/dv
+    instantiation in the flash library's ``-Xptxas -v`` report, logged;
+    fails the run if a bf16 or fp16 instantiation spills, or if the report
+    lacks the 16-bit instantiations of any of the three.  Returns
+    {entry: (registers, spill store bytes)}."""
+    found = ptxas_entries(report)
+    sixteen = dict.fromkeys(FLASH_KINDS, 0)
     for entry, (regs, spill) in sorted(found.items()):
         is16 = "f32" not in entry and ("bfloat16" in entry or "__half" in
                                        entry)
-        sixteen += is16
-        log(f"  ptxas {short(entry)}: {regs} registers, {spill} bytes spill "
+        for k in FLASH_KINDS:
+            sixteen[k] += is16 and k in entry
+        log(f"  ptxas {entry}: {regs} registers, {spill} bytes spill "
             f"stores{' FAIL' if is16 and spill else ''}")
         if is16 and spill:
-            fail(f"{short(entry)} spills {spill} bytes")
-    if not sixteen:
-        fail("no bf16 / fp16 flash forward in the ptxas report (a library "
-             "found built without its report beside it reports nothing: "
-             "remove its _build/)")
-    return {short(e): tuple(v) for e, v in found.items()}
+            fail(f"{entry} spills {spill} bytes")
+    missing = [k for k, n in sixteen.items() if not n]
+    if missing:
+        fail(f"no bf16 / fp16 {missing} in the ptxas report (a library found "
+             f"built without its report beside it reports nothing: remove "
+             f"its _build/)")
+    return found
 
 
 # -- phase 2: the sampler kernel ---------------------------------------------
@@ -417,16 +449,26 @@ OCTO_SPEC = "[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2"
 LONG_SPEC = ("[TaskDescriptionPrefix{16}] "
              "[Image{100};Image{100};Image{100};Image{100};Image{100};"
              "Readout{4}]*2")
-# name -> (batch, layout, heads, head_dim)
-FLASH_SHAPES = {"octo_base_train": (32, OCTO_SPEC, 3, 256),
-                "long_context": (8, LONG_SPEC, 12, 64)}
-TRAIN_DROPOUT = 0.1     # octo_base's attention.dropout_rate
+DEEP_SPEC = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
+             "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2")
+# name -> (batch, layout strings, stage, heads, head_dim): octo_base
+# training, the 1024-token layout, octo_deep's three stages at its training
+# batch (its blocks under flash_backward='pallas')
+FLASH_SHAPES = {"octo_base_train": (32, (OCTO_SPEC,), 0, 3, 256),
+                "long_context": (8, (LONG_SPEC,), 0, 12, 64),
+                **{f"octo_deep_S{s}": (32, DEEP_SPEC, stage, 12, 64)
+                   for stage, s in enumerate((224, 160, 96))}}
+TRAIN_DROPOUT = 0.1     # the attention.dropout_rate of octo_base and octo_deep
 
 
 def layout_mask(spec):
+    return stage_mask((spec,), 0)
+
+
+def stage_mask(strings, stage):
     from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
         SequenceLayout)
-    return SequenceLayout.from_strings(spec).attention_mask()
+    return SequenceLayout.from_strings(*strings).attention_mask(stage)
 
 
 def rel_gate(got, want, dtype):
@@ -469,8 +511,7 @@ def device_total_ms(fn, iters=20, warmup=3):
     return total, [e.key[:80] for e in top]
 
 
-def flash_case(fa, spec, b, h, d, dtype, seed):
-    mask = layout_mask(spec)
+def flash_case(fa, mask, b, h, d, dtype, seed):
     s = mask.shape[0]
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
@@ -480,7 +521,7 @@ def flash_case(fa, spec, b, h, d, dtype, seed):
     return mask, (q, k, v, do), tables, (bq, bk)
 
 
-def flash_check(fa, name, spec, b, h, d):
+def flash_check(fa, name, mask, b, h, d):
     """Every flash kernel against its plain version at one shape, in three
     dtypes, with dropout 0 and 0.1 on the same seed words."""
     seed = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64,
@@ -489,7 +530,7 @@ def flash_check(fa, name, spec, b, h, d):
              "dv": "flash_dkv"}
     f32_err = dict.fromkeys(owner.values(), 0.0)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        mask, qkvd, tables, tiles = flash_case(fa, spec, b, h, d, dtype,
+        mask, qkvd, tables, tiles = flash_case(fa, mask, b, h, d, dtype,
                                                seed=7)
         q, k, v, do = qkvd
         padded, k_hi, q_lo = tables
@@ -530,13 +571,15 @@ def flash_check(fa, name, spec, b, h, d):
     return f32_err
 
 
-def flash_timings(fa, name, spec, b, h, d):
+def flash_timings(fa, name, mask, b, h, d):
     """bf16 device times of the three kernels with the training dropout,
-    their plain versions, the bounds and SDPA with the boolean mask."""
+    their plain versions, the bounds and SDPA with the boolean mask; and of
+    attention_delta's kernels, which the pair needs beside it: SDPA's
+    backward computes its own delta."""
     import torch.nn.functional as F
     dtype = torch.bfloat16
     mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
-        fa, spec, b, h, d, dtype, seed=9)
+        fa, mask, b, h, d, dtype, seed=9)
     seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
     kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=TRAIN_DROPOUT)
     out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
@@ -570,6 +613,8 @@ def flash_timings(fa, name, spec, b, h, d):
     lib_both, both_names = device_total_ms(
         lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), doh))
     lib_bwd = max(lib_both - lib_fwd, 0.0)
+    delta_ms, delta_names = device_total_ms(
+        lambda: fa.attention_delta(do, out, padded.shape[0]))
     rows = {}
     for kernel, (call, plain, kind) in calls.items():
         ms = device_ms(call, f"{kernel}_kernel")
@@ -587,21 +632,20 @@ def flash_timings(fa, name, spec, b, h, d):
             f"{flops / 1e9:.3f} GFLOP), SDPA "
             f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
             f"{lib:.4f} ms")
+    pair = rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"] + delta_ms
+    for kernel in ("flash_dq", "flash_dkv"):
+        rows[kernel].update(delta_ms=delta_ms,
+                            pair_and_delta_over_sdpa=pair / lib_bwd)
+    log(f"  backward {name:15s}: dq + dk/dv + attention_delta "
+        f"({delta_ms:.4f} ms, {delta_names}) = {pair:.4f} ms against SDPA's "
+        f"backward {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
     log(f"  SDPA kernels, forward: {fwd_names}; forward+backward: "
         f"{both_names}")
     return rows, {"forward": fwd_names, "forward_backward": both_names}
 
 
-DEEP_SPEC = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
-             "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2")
 BASE_DEEP_SPEC = (OCTO_SPEC,
                   "[TaskDescriptionPrefix{0}] [Image{4};Readout{0}]*2")
-
-
-def stage_mask(strings, stage):
-    from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
-        SequenceLayout)
-    return SequenceLayout.from_strings(*strings).attention_mask(stage)
 
 
 def dead_row_mask(s=224):
@@ -1175,6 +1219,21 @@ def deep_config(dtype, **transformer):
             pool_vjp="pallas")))
 
 
+def deep_pallas_config(dtype):
+    """octo_deep as its preset sets attention: the flash forward with LSE
+    and the dq and dk/dv kernels in every block of its three stages, with
+    the preset's attention dropout (0.1) drawn in the kernels; and the
+    max-pool backward kernel."""
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_deep)
+    cfg = octo_deep(dtype=dtype)
+    return cfg.replace(
+        transformer=cfg.transformer.replace(attention_impl="flash",
+                                            flash_backward="pallas"),
+        images=cfg.images.replace(resnet=cfg.images.resnet.replace(
+            pool_vjp="pallas")))
+
+
 def train_phase(cfg, train_counters, label="octo_base", per_step=None,
                 window_steps=TRAIN_STEPS, synced_count=TRAIN_SYNCED):
     """A bf16 model through make_optimizer -> create_train_state -> fit
@@ -1531,7 +1590,7 @@ def main():
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
             f"-{max(regs, default=0)}, largest spill store "
             f"{max(spills, default=0)} bytes")
-    fwd_ptxas = forward_ptxas(reports["flash_attention"])
+    flash_ptx = flash_ptxas(reports["flash_attention"])
     counters = {"ddpm_sampler": ddpm_sampler, "flash_fwd": fa.flash_fwd,
                 "flash_fwd_lse": fa.flash_fwd_lse, "flash_dq": fa.flash_dq,
                 "flash_dkv": fa.flash_dkv, "pool_bwd": pool.pool_bwd}
@@ -1548,10 +1607,11 @@ def main():
     log("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
     flash_err, flash_rows, sdpa_kernels = {}, {}, {}
-    for name, (b, spec, h, d) in FLASH_SHAPES.items():
-        flash_err[name] = flash_check(fa, name, spec, b, h, d)
+    for name, (b, strings, stage, h, d) in FLASH_SHAPES.items():
+        mask = stage_mask(strings, stage)
+        flash_err[name] = flash_check(fa, name, mask, b, h, d)
         flash_rows[name], sdpa_kernels[name] = flash_timings(
-            fa, name, spec, b, h, d)
+            fa, name, mask, b, h, d)
     fwd_err = flash_fwd_check(fa)
     fwd_rows = flash_fwd_timings(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
@@ -1627,7 +1687,29 @@ def main():
     deep_train_ref = train_reference_phase(
         deep_config("float32"), counters, "octo_deep", deep_steps)
 
-    log("phase 13: octo_small, continuous head")
+    log("phase 13: ToMe training, flash_backward='pallas'")
+    pcfg = deep_pallas_config("bfloat16")
+    if pcfg.transformer.attention.dropout_rate != TRAIN_DROPOUT:
+        fail(f"octo_deep's attention dropout is "
+             f"{pcfg.transformer.attention.dropout_rate}")
+    state, deep_pallas_ms, deep_pallas_launches = train_phase(
+        pcfg, counters, "octo_deep (flash/pallas)",
+        {"flash_fwd_lse": deep_blocks, "flash_dq": deep_blocks,
+         "flash_dkv": deep_blocks, "pool_bwd": 1}, DEEP_TRAIN_STEPS,
+        DEEP_TRAIN_STEPS)
+    deep_pallas_prof = train_profile_phase(
+        state, pcfg, deep_pallas_ms["ms_per_step"], train_kernels,
+        "octo_deep (flash/pallas)", "profile_deep_train_pallas.txt")
+    del state
+    torch.cuda.empty_cache()
+    log(f"  octo_deep bf16 B={TRAIN_BATCH}, fit window: flash_backward="
+        f"'pallas' (attention dropout {TRAIN_DROPOUT}) "
+        f"{deep_pallas_ms['ms_per_step']:.4f} ms/step, device "
+        f"{deep_pallas_prof['device_ms']:.4f} ms/step; 'xla' (phase 12, "
+        f"attention dropout 0) {deep_train_ms['ms_per_step']:.4f} ms/step, "
+        f"device {deep_train_prof['device_ms']:.4f} ms/step")
+
+    log("phase 14: octo_small, continuous head")
     scfg = octo_small(dtype="bfloat16")
     small = Octo(scfg, device="cuda", seed=0).eval()
     small_ms, _ = serve_phase(small, scfg, counters,
@@ -1676,7 +1758,11 @@ def main():
                         "SDPA backward (dq, dk and dv together)"),
             "shape": f"octo_base train bf16 B=32 S=74 H=3 D=256 "
                      f"r={TRAIN_DROPOUT}",
-            "long_context": flash_rows["long_context"][kernel],
+            "launches_octo_deep_training_pallas":
+                deep_pallas_launches[kernel],
+            "other_shapes": {name: rows[kernel]
+                             for name, rows in flash_rows.items()
+                             if name != "octo_base_train"},
         })
     kernels.append({
         "name": "pool_bwd", "route": "cuda",
@@ -1688,7 +1774,7 @@ def main():
         "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23",
         "launches_octo_deep_training": deep_train_launches["pool_bwd"],
     })
-    log(json.dumps({"forward_ptxas": fwd_ptxas}))
+    log(json.dumps({"flash_ptxas": flash_ptx}))
     log(json.dumps({"serve_ms_per_request": serve_ms,
                     "train_ms_per_step": train_ms,
                     "train_profile": train_prof,
@@ -1700,12 +1786,16 @@ def main():
         "serve_profile": deep_prof, "train_ms_per_step": deep_train_ms,
         "train_launches": deep_train_launches,
         "train_profile": deep_train_prof,
-        "train_reference": deep_train_ref},
+        "train_reference": deep_train_ref,
+        "train_pallas_ms_per_step": deep_pallas_ms,
+        "train_pallas_launches": deep_pallas_launches,
+        "train_pallas_profile": deep_pallas_prof},
         "octo_small_continuous_ms_per_request": small_ms, "card": card}))
     log(json.dumps({"profiler": {
         "sessions": len(_GUARD["lost"]), "guard_launches": GUARD_LAUNCHES,
         "guard_records_lost": _GUARD["lost"],
-        "sessions_run_again": _GUARD["retries"]}}))
+        "sessions_run_again": _GUARD["retries"],
+        "kernel_sessions_run_again": _GUARD["short"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,14 +84,15 @@ def patched_source(src, patches):
     return src
 
 
-def build_variants(_build):
-    """name -> loaded library of every patched copy, built in parallel."""
+def build_variants(_build, variants=PATCHES):
+    """name -> loaded library of every patched copy of ``variants`` (name ->
+    patches), built in parallel."""
     import ctypes
     src = _build.sources()["flash_attention"].read_text()
     root = _build.BUILD_DIR / "probe"
     root.mkdir(parents=True, exist_ok=True)
     running = {}
-    for name, patches in PATCHES.items():
+    for name, patches in variants.items():
         cu = root / f"flash_attention_{name}.cu"
         cu.write_text(patched_source(src, patches))
         so = root / f"libflash_attention_{name}.so"
@@ -104,6 +105,10 @@ def build_variants(_build):
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on the {name} copy:\n{out}")
         libs[name] = ctypes.CDLL(str(so))
+        cs.log(f"  {name}: " + ", ".join(
+            f"{e} {regs} registers, {spill} bytes spill stores"
+            for e, (regs, spill) in sorted(cs.ptxas_entries(out).items())
+            if "bfloat16" in e))
     return libs
 
 
@@ -121,9 +126,10 @@ def cases(fa):
             lambda args=args, kw=kw: fa.flash_fwd(*args, **kw),
             lambda args=args, kw=kw: fa.flash_fwd_reference(*args, **kw))
     seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
-    for name, (b, spec, h, d) in cs.FLASH_SHAPES.items():
+    for name, (b, strings, stage, h, d) in cs.FLASH_SHAPES.items():
         _, (q, k, v, _), (padded, k_hi, _), tiles = cs.flash_case(
-            fa, spec, b, h, d, torch.bfloat16, seed=9)
+            fa, cs.stage_mask(strings, stage), b, h, d, torch.bfloat16,
+            seed=9)
         kw = dict(block_q=tiles[0], block_k=tiles[1],
                   dropout_rate=cs.TRAIN_DROPOUT)
         args = (q, k, v, padded, k_hi, seed)
@@ -136,24 +142,15 @@ def cases(fa):
     return out
 
 
-def main():
-    if not torch.cuda.is_available():
-        cs.log("no CUDA device: flash_fwd_probe.py runs on the card only")
-        return 2
-    from multi_modal_transformers_tokenmerge_torch import _build
-    from multi_modal_transformers_tokenmerge_torch.ops import (
-        flash_attention as fa)
-    card = cs.card_line()
-    cs.log(card)
-    cs.profile_session(lambda: None)
-    t0 = time.perf_counter()
-    libs = {"shipped": _build.load_library("flash_attention"),
-            **build_variants(_build)}
-    cs.log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+def time_in_turns(_build, libs, cases, same_function):
+    """case -> {library: mean device us, and for each variant of
+    ``same_function`` its agreement with the plain version}: every library
+    of a case timed in turns (shipped, variants, variants reversed,
+    shipped)."""
     shipped = libs["shipped"]
     readings = {}
     try:
-        for case, (kernel, variants, call, plain) in cases(fa).items():
+        for case, (kernel, variants, call, plain) in cases.items():
             order = ["shipped", *variants]
             times = {}
             for name in order + order[::-1]:
@@ -161,7 +158,7 @@ def main():
                 times.setdefault(name, []).append(cs.device_ms(call, kernel))
             row = {name: sum(t) / len(t) * 1e3 for name, t in times.items()}
             want = plain()
-            for name in SAME_FUNCTION:
+            for name in same_function:
                 if name in variants:
                     _build._loaded["flash_attention"] = libs[name]
                     got = call()
@@ -176,13 +173,38 @@ def main():
                 else f"{k} {v}" for k, v in row.items()))
     finally:
         _build._loaded["flash_attention"] = shipped
+    return readings
+
+
+def run(variants, make_cases, same_function, out_name):
+    """Build the patched copies, time them against the shipped library at
+    ``make_cases(fa)`` and write the readings to OUT_DIR/``out_name``."""
+    if not torch.cuda.is_available():
+        cs.log(f"no CUDA device: {out_name[:-5]}.py runs on the card only")
+        return 2
+    from multi_modal_transformers_tokenmerge_torch import _build
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    card = cs.card_line()
+    cs.log(card)
+    cs.profile_session(lambda: None)
+    t0 = time.perf_counter()
+    libs = {"shipped": _build.load_library("flash_attention"),
+            **build_variants(_build, variants)}
+    cs.log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    readings = time_in_turns(_build, libs, make_cases(fa), same_function)
     result = {"card": card, "readings_us": readings,
-              "guard_records_lost": cs._GUARD["lost"]}
+              "guard_records_lost": cs._GUARD["lost"],
+              "kernel_sessions_run_again": cs._GUARD["short"]}
     os.makedirs(cs.OUT_DIR, exist_ok=True)
-    with open(os.path.join(cs.OUT_DIR, "flash_fwd_probe.json"), "w") as f:
+    with open(os.path.join(cs.OUT_DIR, out_name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
     return 0
+
+
+def main():
+    return run(PATCHES, cases, SAME_FUNCTION, "flash_fwd_probe.json")
 
 
 if __name__ == "__main__":

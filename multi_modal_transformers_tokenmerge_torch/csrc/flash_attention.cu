@@ -81,16 +81,75 @@
 // checks, and float32 runs only in those checks and the tests.  The launcher
 // dispatches by dtype; nothing falls back.
 //
-// The CUDA-core body (the float32 forward, and dq and dk/dv in every
-// dtype) is simple and right, not fast: float32 fused multiply-adds from
-// shared memory, one block per (batch, head, tile).  Tiles are staged in
-// shared memory as float32 rows padded by four floats, so the float4 reads
-// of a quarter warp hit distinct banks; each thread owns one column (key or
-// feature) and a stride of rows.  Register budget: with D = 256 a 64 x 256
-// float32 accumulator would take 128 registers a thread at 128 threads, so
-// D = 256 uses 32 x 32 tiles and 256 threads; D = 64 uses 64 x 64 tiles and
-// 128 threads.  Tensor-core tiles for dq and dk/dv are the work of a later
-// change (PERF.md).
+// The backward in bf16 and fp16 (flash_dq_kernel, flash_dkv_kernel) runs on
+// the tensor cores too.  What bounds it: dq reads Q, K, V, dO and writes dQ
+// over three products of the live pairs, dk/dv reads four and writes two
+// over four.  At octo_base training (B=32, S=74, H=3, D=256) that is 18.3 /
+// 21.9 MB for 0.50 / 0.67 GFLOP, so bytes bound dq / dk/dv (5.4 / 6.5 us at
+// 3.35 TB/s); at octo_deep's stages at B=32 (H=12, D=64, S=224/160/96)
+// 24-56 / 29-67 MB for 0.9-5.1 / 1.2-6.8 GFLOP, bytes again (7-17 / 9-20
+// us); at 1024 tokens (B=8, H=12, D=64) 28.5 / 38.0 GFLOP, the tensor cores
+// (29 / 38 us at 989 TFLOP/s).  As in the forward, latency sets the time,
+// 3-11 times those bounds on an H100 80GB HBM3 at 700 W (PERF.md, PR 5;
+// the shares below are from flash_bwd_probe.py on that card, in bf16 with
+// dropout 0.1 at the shapes chip_smoke.py times).
+// The design:
+//   * dq is the forward with a second product.  Each warp owns 16 query
+//     rows; Q and dO are loaded once, the rows' LSE and delta held in
+//     registers; K, V and the mask tile arrive through the forward's
+//     two-stage cp.async ring.  S = Q K^T and dP = dO V^T take K and V rows
+//     as the B operand; p and dS = p (dP - delta) are formed in the
+//     accumulator layout and rounded to T into the A operand of
+//     dQ += dS K, K by ldmatrix.trans: no shared round trip and no barrier
+//     between the products.  The keep bits are the forward's, in its
+//     layout.  At D = 256 two warps share 16 rows, each holding half of dQ
+//     (64 registers) over one recomputed S and dP, as the forward splits O.
+//   * dk/dv runs key-major.  Each warp owns 16 keys; K and V are loaded
+//     once; Q, dO, the mask tile and the q tile's LSE and delta arrive
+//     through the ring.  S^T = K Q^T and dP^T = V dO^T leave P^T and dS^T in
+//     the accumulator layout that is the A operand of
+//     dV += (keep P / (1 - r))^T dO and dK += dS^T Q, dO and Q by
+//     ldmatrix.trans.  LSE and delta are per column there, read from the
+//     staged tile, and the mask is read across its staged [query][key]
+//     rows.  At D = 64 a q tile is taken in two passes of 32 queries: the
+//     dK and dV accumulators (64 registers) stay, and only one pass's S^T
+//     and dP^T are live, 167 registers a thread against 228 in one pass,
+//     three blocks an SM against two: 15-19% less time at 1024 tokens and
+//     at octo_deep's stages (four passes of 16: 152 registers, 3-5% more).
+//     dq keeps a whole 64-key tile in one pass: two passes of 32 bring it
+//     to 128 registers but take 5-7% more time.  At D = 256 the dK and dV
+//     accumulators of 16 keys would be 256 registers a thread, so four
+//     warps split D; each computes a quarter of the q tile's S^T and dP^T,
+//     and the block passes P^T and dS^T, rounded to T, through shared
+//     memory once a tile (FlashAttention-2's way).  At octo_base training
+//     that takes 42% less time than four warps each recomputing the whole
+//     S^T and dP^T (2.5 times the tensor-core work) and 20% less than two
+//     warps splitting D (244 registers, each recomputing).
+//   * Dropout in the transposed layout: a thread holds keys g and g + 8 at
+//     queries 2t and 2t + 1 of each n8 tile, and the four lanes
+//     16 m + 4 jj + t (jj = 0..3) hold keys 4 m + jj at the same queries:
+//     they need the same four Philox counters, each word jj of them.  Each
+//     lane draws one counter and the words pass in three shuffle rounds:
+//     one Philox a thread an n8 tile in place of four, 5-10% less time at
+//     D = 64 (level at octo_base training).
+//   * The exponent on ex2.approx, as in the forward: expf takes 6-25% more
+//     time in dq and up to 15% more in dk/dv, and the 16-bit limits hold.
+//   * Work in flight: blocks of 64 rows (the table tile) at D = 64; 32-row
+//     blocks, twice the blocks in flight, take 17-25% more time in dq and
+//     28-36% in dk/dv at every D = 64 shape timed.  Holding either kernel
+//     to 128 registers (four blocks an SM) spills 72 and 60 bytes and
+//     takes 5-7% (dq) and 14-20% (dk/dv) more time.
+// float32 keeps the CUDA-core bodies of dq and dk/dv (flash_dq_f32_kernel,
+// flash_dkv_f32_kernel), dispatched by dtype as the forward is.
+//
+// The CUDA-core bodies (the float32 forward, dq and dk/dv) are simple and
+// right, not fast: float32 fused multiply-adds from shared memory, one block
+// per (batch, head, tile).  Tiles are staged in shared memory as float32
+// rows padded by four floats, so the float4 reads of a quarter warp hit
+// distinct banks; each thread owns one column (key or feature) and a stride
+// of rows.  Register budget: with D = 256 a 64 x 256 float32 accumulator
+// would take 128 registers a thread at 128 threads, so D = 256 uses 32 x 32
+// tiles and 256 threads; D = 64 uses 64 x 64 tiles and 128 threads.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -778,16 +837,22 @@ __global__ void __launch_bounds__(32 * RG * DS, fwd_min_blocks<D, 32 * RG * DS>(
       q, k, v, mask, k_hi, out, nullptr, a, Dropout{});
 }
 
-template <typename T, int D, int BQ, int BK, int NT>
+// -- the float32 backward: the CUDA-core bodies ---------------------------------
+
+template <int D, int BQ, int BK, int NT>
 __global__ void __launch_bounds__(NT)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int8_t* __restrict__ mask,
-                    const int32_t* __restrict__ k_hi,
-                    const int64_t* __restrict__ seed, T* __restrict__ dq,
-                    Args a, uint32_t threshold, float inv_keep, int dropout) {
+    flash_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int8_t* __restrict__ mask,
+                        const int32_t* __restrict__ k_hi,
+                        const int64_t* __restrict__ seed,
+                        float* __restrict__ dq, Args a, uint32_t threshold,
+                        float inv_keep, int dropout) {
+  using T = float;
   constexpr int LD = D + 4, LP = BK + 4;
   constexpr int RSTEP = NT / BK, NS = BQ / RSTEP;
   constexpr int DSTEP = NT / D, NACC = BQ / DSTEP;
@@ -868,17 +933,21 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D, int BQ, int BK, int NT>
+template <int D, int BQ, int BK, int NT>
 __global__ void __launch_bounds__(NT)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int8_t* __restrict__ mask,
-                     const int32_t* __restrict__ q_lo,
-                     const int64_t* __restrict__ seed, T* __restrict__ dk,
-                     T* __restrict__ dv, Args a, uint32_t threshold,
-                     float inv_keep, int dropout) {
+    flash_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int8_t* __restrict__ mask,
+                         const int32_t* __restrict__ q_lo,
+                         const int64_t* __restrict__ seed,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Args a, uint32_t threshold, float inv_keep,
+                         int dropout) {
+  using T = float;
   constexpr int LD = D + 4, LP = BK + 4;
   constexpr int RSTEP = NT / BK, NS = BQ / RSTEP;
   constexpr int DSTEP = NT / D, NACC = BK / DSTEP;
@@ -960,6 +1029,510 @@ __global__ void __launch_bounds__(NT)
       const size_t at = base + static_cast<size_t>(row) * row_stride + dcol;
       dk[at] = Cvt<T>::from_f(acc_k[j] * a.scale);
       dv[at] = Cvt<T>::from_f(acc_v[j]);
+    }
+  }
+}
+
+// -- the tensor-core backward (bf16, fp16) ------------------------------------
+
+// 8 x 8 matrices 0 and 1 of an ldmatrix: lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c[n] = A B^T over depth D for one warp: A the 16 rows of a shared tile at
+// a, B the NN * 8 rows at b (row stride LDT each), both by ldmatrix, the way
+// the forward takes Q and K.
+template <typename T, int D, int LDT, int NN>
+__device__ __forceinline__ void warp_rows_dot(float (&c)[NN][4], const T* a,
+                                              const T* b, int lane) {
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+#pragma unroll
+  for (int n = 0; n < NN; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (l8 * 8 + lr) * LDT + kk * 16 + l16 * 8);
+    if constexpr (NN == 1) {
+      uint32_t bf[2];
+      ldsm_x2(bf, b + lr * LDT + kk * 16 + l8 * 8);
+      mma16816<T>(c[0], af, bf[0], bf[1]);
+    } else {
+      static_assert(NN % 2 == 0, "n8 tiles in pairs");
+#pragma unroll
+      for (int n2 = 0; n2 < NN / 2; ++n2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b + (n2 * 16 + l16 * 8 + lr) * LDT + kk * 16 + l8 * 8);
+        mma16816<T>(c[2 * n2], af, bf[0], bf[1]);
+        mma16816<T>(c[2 * n2 + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// o[n] += A B for one warp and one k16 step: A the fragment af (the warp's
+// 16 rows, the step's 16 columns), B the step's 16 rows of a shared tile at
+// b (row stride LDT, b at the warp's first output column), by
+// ldmatrix.trans, the way the forward takes V.
+template <typename T, int LDT, int NO>
+__device__ __forceinline__ void warp_step_dot(float (&o)[NO][4],
+                                              const uint32_t (&af)[4],
+                                              const T* b, int lane) {
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+#pragma unroll
+  for (int n2 = 0; n2 < NO / 2; ++n2) {
+    uint32_t bf[4];
+    ldsm_x4_trans(bf, b + (l8 * 8 + lr) * LDT + n2 * 16 + l16 * 8);
+    mma16816<T>(o[2 * n2], af, bf[0], bf[1]);
+    mma16816<T>(o[2 * n2 + 1], af, bf[2], bf[3]);
+  }
+}
+
+// The A fragment of k16 step kk from the accumulators c (their n8 tiles
+// 2 kk and 2 kk + 1), rounded to T: the cast of the JAX kernel.
+template <typename T, int NN>
+__device__ __forceinline__ void acc_to_a(uint32_t (&af)[4],
+                                         const float (&c)[NN][4], int kk) {
+  af[0] = pack2<T>(c[2 * kk][0], c[2 * kk][1]);
+  af[1] = pack2<T>(c[2 * kk][2], c[2 * kk][3]);
+  af[2] = pack2<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  af[3] = pack2<T>(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// x[i] for an index i in 0..3 known only at run time, by selects (an array
+// indexed so would go to local memory).
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&x)[4], int i) {
+  return i == 0 ? x[0] : (i == 1 ? x[1] : (i == 2 ? x[2] : x[3]));
+}
+
+// A ROWS x COLS int8 tile of the mask (row stride s_pad) into shared rows of
+// stride LDM, by 16-byte cp.async.
+template <int ROWS, int COLS, int LDM, int NT>
+__device__ __forceinline__ void stage_mask(int8_t* dst, const int8_t* src,
+                                           int s_pad) {
+  constexpr int CH = COLS / 16;
+#pragma unroll
+  for (int i = 0; i < (ROWS * CH + NT - 1) / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    if (c < ROWS * CH) {
+      const int r = c / CH, ch = c % CH;
+      cp_async16(dst + r * LDM + ch * 16,
+                 src + static_cast<size_t>(r) * s_pad + ch * 16, true);
+    }
+  }
+}
+
+// N floats into shared memory by 16-byte cp.async.
+template <int N, int NT>
+__device__ __forceinline__ void stage_floats(float* dst, const float* src) {
+  for (int c = threadIdx.x; c < N / 4; c += NT)
+    cp_async16(dst + 4 * c, src + 4 * c, true);
+}
+
+// Tiles of the tensor-core backward.  A block holds BM = 16 RG rows of its
+// own axis (queries for dq, keys for dk/dv), 16 a warp, and steps along the
+// other axis by BN, the mask table's tile there; DS warps split D for the
+// second products.  Operand rows are padded by 8 elements, mask rows by 16
+// bytes.
+template <typename T, int D, int RG, int DS, int BN>
+struct MmaBwd {
+  static constexpr int BM = 16 * RG, NT = 32 * RG * DS;
+  static constexpr int LDT = D + 8, LDP = BN + 8;
+  // dq: Q and dO [BM][LDT]; K and V [2][BN][LDT]; mask [2][BM][BN + 16]
+  static constexpr size_t dq_smem() {
+    return sizeof(T) * (2 * BM + 4 * BN) * LDT + 2 * BM * (BN + 16);
+  }
+  // dk/dv: K and V [BM][LDT]; Q and dO [2][BN][LDT]; with share P^T and
+  // dS^T [BM][LDP]; LSE and delta [2][BN] float; mask [2][BN][BM + 16]
+  // (its rows are queries)
+  static constexpr size_t dkv_smem(bool share) {
+    return sizeof(T) * ((2 * BM + 4 * BN) * LDT + (share ? 2 * BM * LDP : 0)) +
+           sizeof(float) * 4 * BN + 2 * BN * (BM + 16);
+  }
+};
+
+// dQ of one block: query rows [q0, q0 + BM) of one (batch, head), over the
+// key tiles below k_hi of the table tile the rows lie in, each in one pass
+// of NC n8 tiles of keys (the structure of dk/dv's passes; a whole tile is
+// the faster at D = 64, see the source note).  Warp w holds rows
+// 16 (w / DS) .. + 15 and dQ columns (w % DS) D / DS .. + D / DS - 1; the DS
+// warps of a row group compute the same S and dP (bitwise equal).
+template <typename T, int D, int RG, int DS, int BN>
+__global__ void __launch_bounds__(32 * RG * DS)
+    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int8_t* __restrict__ mask,
+                    const int32_t* __restrict__ k_hi,
+                    const int64_t* __restrict__ seed, T* __restrict__ dq,
+                    Args a, uint32_t threshold, float inv_keep, int dropout) {
+  using C = MmaBwd<T, D, RG, DS, BN>;
+  constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDM = BN + 16;
+  constexpr int NS = BN / 8;  // n8 tiles of S a warp in a tile
+  constexpr int NC = NS;      // ... in a pass
+  constexpr int DO = D / DS;            // dQ columns a warp
+  constexpr int NO = DO / 8;  // n8 tiles of dQ a warp
+  constexpr int TBQ = Tiles<D>::BQ;
+  static_assert(BN == Tiles<D>::BK && TBQ % BM == 0, "tiles of the tables");
+  static_assert(NS % NC == 0 && NC % 2 == 0 && NO % 2 == 0, "mma tiles");
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sO = sQ + BM * LDT;
+  T* sK = sO + BM * LDT;  // [2][BN][LDT]
+  T* sV = sK + 2 * BN * LDT;
+  int8_t* sM = reinterpret_cast<int8_t*>(sV + 2 * BN * LDT);  // [2][BM][LDM]
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * D;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * D;
+  const int n_k = k_hi[q0 / TBQ];
+
+  auto stage = [&](int kt) {
+    const int st = kt & 1, k0 = kt * BN;
+    stage_rows<T, D, BN, LDT, NT>(sK + st * BN * LDT, k + base, k0, a.seq,
+                                  row_stride);
+    stage_rows<T, D, BN, LDT, NT>(sV + st * BN * LDT, v + base, k0, a.seq,
+                                  row_stride);
+    stage_mask<BM, BN, LDM, NT>(sM + st * BM * LDM,
+                                mask + static_cast<size_t>(q0) * a.s_pad + k0,
+                                a.s_pad);
+  };
+  if (n_k > 0) {
+    stage_rows<T, D, BM, LDT, NT>(sQ, q + base, q0, a.seq, row_stride);
+    stage_rows<T, D, BM, LDT, NT>(sO, dout + base, q0, a.seq, row_stride);
+    stage(0);
+    cp_async_commit();
+  }
+  // rows wr + g and wr + g + 8: the LSE times log2 e, whether the row has a
+  // live key, and delta, in registers for the whole loop
+  float lse2[2], dlt[2];
+  bool alive[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t at = static_cast<size_t>(bh) * a.s_pad + q0 + wr + g + 8 * i;
+    const float l = lse[at];
+    alive[i] = l > 0.25f * kNegInf;
+    lse2[i] = l * kLog2e;
+    dlt[i] = delta[at];
+  }
+  const float scale2 = a.scale * kLog2e;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt visible; every warp is done with kt - 1
+    if (kt + 1 < n_k) {
+      stage(kt + 1);
+      cp_async_commit();
+    }
+    const int st = kt & 1, k0 = kt * BN;
+    const T* tK = sK + st * BN * LDT;
+    const T* tV = sV + st * BN * LDT;
+
+#pragma unroll 1
+    for (int pass = 0; pass < NS / NC; ++pass) {
+      const int kp = 8 * NC * pass;  // the pass's first key in the tile
+      // S = Q K^T and dP = dO V^T: 16 rows x 8 NC keys a warp
+      float s[NC][4], dp[NC][4];
+      warp_rows_dot<T, D, LDT, NC>(s, sQ + wr * LDT, tK + kp * LDT, lane);
+      warp_rows_dot<T, D, LDT, NC>(dp, sO + wr * LDT, tV + kp * LDT, lane);
+
+      // p = exp(s scale - lse), as 2^(s scale log2 e - lse log2 e), on the
+      // live keys of live rows, else 0.  This thread holds rows wr + g
+      // (s[.][0:2]) and wr + g + 8 (s[.][2:4]) at keys kp + 8 j + 2 t +
+      // {0, 1}.
+      const int8_t* tM = sM + st * BM * LDM + (wr + g) * LDM + kp + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const char2 on =
+              *reinterpret_cast<const char2*>(tM + i * 8 * LDM + 8 * j);
+          float& p0 = s[j][2 * i];
+          float& p1 = s[j][2 * i + 1];
+          p0 = on.x && alive[i] ? ex2_approx(fmaf(p0, scale2, -lse2[i]))
+                                : 0.f;
+          p1 = on.y && alive[i] ? ex2_approx(fmaf(p1, scale2, -lse2[i]))
+                                : 0.f;
+        }
+      }
+      if (drop.on) {
+        // the forward's keep bits in its fragment layout: lanes t and t ^ 1
+        // need one counter (key >> 2) for each row; t even draws row g, t
+        // odd row g + 8, and each passes the other the two words of its
+        // keys
+        const bool odd = t & 1;
+        const uint32_t qrow =
+            static_cast<uint32_t>(q0 + wr + g) + (odd ? 8u : 0u);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const uint4 w = philox4x32_10(
+              make_uint4(static_cast<uint32_t>(k0 + kp + 8 * j + 2 * t) >> 2,
+                         qrow, bh, 0u),
+              drop.k0, drop.k1);
+          const uint32_t x0 =
+              __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+          const uint32_t x1 =
+              __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+          // row g: keys 2t, 2t + 1; then row g + 8
+          const uint32_t kb[4] = {odd ? x0 : w.x, odd ? x1 : w.y,
+                                  odd ? w.z : x0, odd ? w.w : x1};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] =
+                kb[e] >= drop.threshold ? dp[j][e] * drop.inv_keep : 0.f;
+        }
+      }
+
+      // dS = p (dP - delta), rounded to T in the A operand of dQ += dS K
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dlt[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        uint32_t af[4];
+        acc_to_a<T>(af, s, kk);
+        warp_step_dot<T, LDT, NO>(acc, af, tK + (kp + kk * 16) * LDT + dcol0,
+                                  lane);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wr + g + 8 * i;
+    if (row < a.seq) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          dq + base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        dst[4 * n] =
+            pack2<T>(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+    }
+  }
+}
+
+// dK and dV of one block: key rows [k0, k0 + BM) of one (batch, head), over
+// the q tiles from q_lo of the table tile the keys lie in.  Warp w holds keys
+// 16 (w / DS) .. + 15 and dK, dV columns (w % DS) D / DS .. + D / DS - 1.
+// Without SHARE the DS warps of a row group compute the same S^T and dP^T
+// over all BN queries, in passes of at most 32 queries (S^T and dP^T of one
+// pass live at a time); with SHARE each computes BN / DS of the queries and
+// the block passes P^T and dS^T, rounded to T, through shared memory.
+template <typename T, int D, int RG, int DS, int BN, bool SHARE>
+__global__ void __launch_bounds__(32 * RG * DS)
+    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int8_t* __restrict__ mask,
+                     const int32_t* __restrict__ q_lo,
+                     const int64_t* __restrict__ seed, T* __restrict__ dk,
+                     T* __restrict__ dv, Args a, uint32_t threshold,
+                     float inv_keep, int dropout) {
+  using C = MmaBwd<T, D, RG, DS, BN>;
+  constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDP = C::LDP;
+  constexpr int LDM = BM + 16;
+  constexpr int NQ = SHARE ? BN / (8 * DS) : BN / 8;  // n8 tiles of S^T
+  constexpr int NC = NQ > 4 ? 4 : NQ;  // n8 tiles of S^T a pass
+  constexpr int DO = D / DS;  // dK and dV columns a warp
+  constexpr int NO = DO / 8;  // their n8 tiles
+  constexpr int TBK = Tiles<D>::BK;
+  static_assert(BN == Tiles<D>::BQ && TBK % BM == 0, "tiles of the tables");
+  static_assert(NQ % NC == 0 && (SHARE ? NQ == NC : NC % 2 == 0) &&
+                    NO % 2 == 0 && BN % 16 == 0,
+                "mma tiles");
+  extern __shared__ float4 smem4[];
+  T* sK = reinterpret_cast<T*>(smem4);
+  T* sV = sK + BM * LDT;
+  T* sQ = sV + BM * LDT;  // [2][BN][LDT]
+  T* sO = sQ + 2 * BN * LDT;
+  T* sP = sO + 2 * BN * LDT;  // SHARE: P^T, then dS^T, [BM][LDP] each
+  T* sS = sP + BM * LDP;
+  float* sL = reinterpret_cast<float*>(sP + (SHARE ? 2 * BM * LDP : 0));
+  float* sD = sL + 2 * BN;                              // [2][BN] each
+  int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * BN);  // [2][BN][LDM]
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
+  const int qc0 = SHARE ? (warp % DS) * 8 * NQ : 0;  // the warp's queries
+  const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * D;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * D;
+  const size_t stats = static_cast<size_t>(bh) * a.s_pad;
+  const int num_q = a.s_pad / BN, qt0 = q_lo[k0 / TBK];
+
+  auto stage = [&](int qt) {
+    const int st = (qt - qt0) & 1, q0 = qt * BN;
+    stage_rows<T, D, BN, LDT, NT>(sQ + st * BN * LDT, q + base, q0, a.seq,
+                                  row_stride);
+    stage_rows<T, D, BN, LDT, NT>(sO + st * BN * LDT, dout + base, q0, a.seq,
+                                  row_stride);
+    stage_floats<BN, NT>(sL + st * BN, lse + stats + q0);
+    stage_floats<BN, NT>(sD + st * BN, delta + stats + q0);
+    stage_mask<BN, BM, LDM, NT>(sM + st * BN * LDM,
+                                mask + static_cast<size_t>(q0) * a.s_pad + k0,
+                                a.s_pad);
+  };
+  if (qt0 < num_q) {
+    stage_rows<T, D, BM, LDT, NT>(sK, k + base, k0, a.seq, row_stride);
+    stage_rows<T, D, BM, LDT, NT>(sV, v + base, k0, a.seq, row_stride);
+    stage(qt0);
+    cp_async_commit();
+  }
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float scale2 = a.scale * kLog2e;
+  // keys g + 8 i of lanes 16 m + 4 jj + t (jj = 0..3) share key >> 2, and
+  // their word of a Philox block is jj
+  const int jj = g & 3;
+
+  for (int qt = qt0; qt < num_q; ++qt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile qt visible; every warp is done with qt - 1
+    if (qt + 1 < num_q) {
+      stage(qt + 1);
+      cp_async_commit();
+    }
+    const int st = (qt - qt0) & 1, q0 = qt * BN;
+    const T* tQ = sQ + st * BN * LDT;
+    const T* tO = sO + st * BN * LDT;
+    const float* tL = sL + st * BN;
+    const float* tD = sD + st * BN;
+    const int8_t* tM = sM + st * BN * LDM + wr + g;
+
+#pragma unroll 1
+    for (int pass = 0; pass < NQ / NC; ++pass) {
+      const int qp = qc0 + 8 * NC * pass;  // the pass's first query
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 8 NC queries a warp
+      float s[NC][4], dp[NC][4];
+      warp_rows_dot<T, D, LDT, NC>(s, sK + wr * LDT, tQ + qp * LDT, lane);
+      warp_rows_dot<T, D, LDT, NC>(dp, sV + wr * LDT, tO + qp * LDT, lane);
+
+      // This thread holds keys wr + g (s[.][0:2]) and wr + g + 8 (s[.][2:4])
+      // at queries qp + 8 j + 2 t + {0, 1}: element e is key half e >> 1,
+      // query e & 1.  LSE and delta are per query.
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int qc = qp + 8 * j + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(tL + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(tD + qc);
+        const float lq[2] = {l.x, l.y}, dlq[2] = {dl.x, dl.y};
+        uint32_t kb[4] = {0u, 0u, 0u, 0u};
+        if (drop.on) {
+          // the four lanes jj = 0..3 need the same four counters (key >> 2
+          // of key half e >> 1, query e & 1), each word jj of them: lane jj
+          // draws counter jj, and in round r sends word jj ^ r to lane
+          // jj ^ r, receiving word jj of counter jj ^ r
+          const uint32_t key4 =
+              static_cast<uint32_t>(k0 + wr + g + 8 * (jj >> 1)) >> 2;
+          const uint4 w = philox4x32_10(
+              make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)), bh,
+                         0u),
+              drop.k0, drop.k1);
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+          uint32_t got[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t send = pick4(words, jj ^ r);
+            got[r] = r ? __shfl_xor_sync(0xffffffffu, send, 4 * r) : send;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kb[e] = pick4(got, jj ^ e);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = e & 1;
+          const bool on = tM[(qc + c) * LDM + 8 * i] != 0 &&
+                          lq[c] > 0.25f * kNegInf;
+          const float p =
+              on ? ex2_approx(fmaf(s[j][e], scale2, -lq[c] * kLog2e)) : 0.f;
+          float pd = p, g_kept = dp[j][e];
+          if (drop.on) {
+            const bool keep = kb[e] >= drop.threshold;
+            pd = keep ? p * drop.inv_keep : 0.f;
+            g_kept = keep ? g_kept * drop.inv_keep : 0.f;
+          }
+          s[j][e] = pd;                        // keep p / (1 - r), for dV
+          dp[j][e] = p * (g_kept - dlq[c]);    // dS, for dK
+        }
+      }
+
+      // dV += (keep P / (1 - r))^T dO and dK += dS^T Q, the A operands
+      // rounded to T
+      if constexpr (!SHARE) {
+#pragma unroll
+        for (int kk = 0; kk < NC / 2; ++kk) {
+          const size_t at = (qp + kk * 16) * LDT + dcol0;
+          uint32_t af[4];
+          acc_to_a<T>(af, s, kk);
+          warp_step_dot<T, LDT, NO>(dv_acc, af, tO + at, lane);
+          acc_to_a<T>(af, dp, kk);
+          warp_step_dot<T, LDT, NO>(dk_acc, af, tQ + at, lane);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int at = (wr + g + 8 * i) * LDP + qp + 8 * j + 2 * t;
+            *reinterpret_cast<uint32_t*>(sP + at) =
+                pack2<T>(s[j][2 * i], s[j][2 * i + 1]);
+            *reinterpret_cast<uint32_t*>(sS + at) =
+                pack2<T>(dp[j][2 * i], dp[j][2 * i + 1]);
+          }
+        __syncthreads();  // the block's P^T and dS^T of tile qt written
+        const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          const int at = (wr + l8 * 8 + lr) * LDP + kk * 16 + l16 * 8;
+          uint32_t af[4];
+          ldsm_x4(af, sP + at);
+          warp_step_dot<T, LDT, NO>(dv_acc, af, tO + kk * 16 * LDT + dcol0,
+                                    lane);
+          ldsm_x4(af, sS + at);
+          warp_step_dot<T, LDT, NO>(dk_acc, af, tQ + kk * 16 * LDT + dcol0,
+                                    lane);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + wr + g + 8 * i;
+    if (row < a.seq) {
+      const size_t at =
+          base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t;
+      uint32_t* dst_k = reinterpret_cast<uint32_t*>(dk + at);
+      uint32_t* dst_v = reinterpret_cast<uint32_t*>(dv + at);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        dst_k[4 * n] = pack2<T>(dk_acc[n][2 * i] * a.scale,
+                                dk_acc[n][2 * i + 1] * a.scale);
+        dst_v[4 * n] = pack2<T>(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      }
     }
   }
 }
@@ -1079,18 +1652,26 @@ int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
   }
 }
 
+// One tensor-core dq launch: four warps a block; at D = 64 four row groups
+// of 16 query rows (64, the table tile), at D = 256 two row groups of two
+// warps that split D for dS K over one recomputed S and dP.
 template <typename T, int D>
-int dq(const void* q, const void* k, const void* v, const void* dout,
-       const float* lse, const float* delta, const int8_t* mask,
-       const int32_t* k_hi, const int64_t* seed, void* dqp, const Launch& L) {
-  using Tl = Tiles<D>;
-  auto kern = flash_dq_kernel<T, D, Tl::BQ, Tl::BK, Tl::NT>;
-  const size_t smem = dq_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
-  kern<<<grid, Tl::NT, smem, L.stream>>>(
+int mma_dq(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, const int8_t* mask,
+           const int32_t* k_hi, const int64_t* seed, void* dqp,
+           const Launch& L) {
+  constexpr int RG_DQ = D == 64 ? 4 : 2, DS_DQ = D == 64 ? 1 : 2;
+  constexpr int BN = Tiles<D>::BK;
+  using C = MmaBwd<T, D, RG_DQ, DS_DQ, BN>;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(mask))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto kern = flash_dq_kernel<T, D, RG_DQ, DS_DQ, BN>;
+  const size_t smem = C::dq_smem();
+  int err;
+  if ((err = launch_config(kern, smem))) return err;
+  const dim3 grid(L.s_pad / C::BM, L.heads, L.batch);
+  kern<<<grid, C::NT, smem, L.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       k_hi, seed, static_cast<T*>(dqp),
@@ -1099,25 +1680,83 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One tensor-core dk/dv launch: at D = 64 four warps, four row groups of 16
+// keys (64, the table tile); at D = 256 eight warps, two row groups of four
+// that split D for the second products, each computing a quarter of a q
+// tile's S^T and dP^T, P^T and dS^T passed through shared memory.
 template <typename T, int D>
-int dkv(const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, const int8_t* mask,
-        const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
-        const Launch& L) {
-  using Tl = Tiles<D>;
-  auto kern = flash_dkv_kernel<T, D, Tl::BQ, Tl::BK, Tl::NT>;
-  const size_t smem = dkv_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L.s_pad / Tl::BK, L.heads, L.batch);
-  kern<<<grid, Tl::NT, smem, L.stream>>>(
+int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* delta, const int8_t* mask,
+            const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
+            const Launch& L) {
+  constexpr int RG_DKV = D == 64 ? 4 : 2, DS_DKV = D == 64 ? 1 : 4;
+  constexpr bool SHARE_DKV = D == 256;
+  constexpr int BN = Tiles<D>::BQ;
+  using C = MmaBwd<T, D, RG_DKV, DS_DKV, BN>;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(mask) || !aligned16(lse) || !aligned16(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto kern = flash_dkv_kernel<T, D, RG_DKV, DS_DKV, BN, SHARE_DKV>;
+  const size_t smem = C::dkv_smem(SHARE_DKV);
+  int err;
+  if ((err = launch_config(kern, smem))) return err;
+  const dim3 grid(L.s_pad / C::BM, L.heads, L.batch);
+  kern<<<grid, C::NT, smem, L.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       q_lo, seed, static_cast<T*>(dkp), static_cast<T*>(dvp),
       Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const float* lse, const float* delta, const int8_t* mask,
+       const int32_t* k_hi, const int64_t* seed, void* dqp, const Launch& L) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return mma_dq<T, D>(q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L);
+  } else {
+    using Tl = Tiles<D>;
+    auto kern = flash_dq_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
+    const size_t smem = dq_smem<D>();
+    int err;
+    if ((err = launch_config(kern, smem))) return err;
+    const dim3 grid(L.s_pad / Tl::BQ, L.heads, L.batch);
+    kern<<<grid, Tl::NT, smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, mask, k_hi, seed, static_cast<float*>(dqp),
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        L.inv_keep, L.dropout);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename T, int D>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* delta, const int8_t* mask,
+        const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
+        const Launch& L) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return mma_dkv<T, D>(q, k, v, dout, lse, delta, mask, q_lo, seed, dkp,
+                         dvp, L);
+  } else {
+    using Tl = Tiles<D>;
+    auto kern = flash_dkv_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
+    const size_t smem = dkv_smem<D>();
+    int err;
+    if ((err = launch_config(kern, smem))) return err;
+    const dim3 grid(L.s_pad / Tl::BK, L.heads, L.batch);
+    kern<<<grid, Tl::NT, smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, mask, q_lo, seed, static_cast<float*>(dkp),
+        static_cast<float*>(dvp),
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        L.inv_keep, L.dropout);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 bool shapes_ok(int head_dim, int s_pad, int seq) {

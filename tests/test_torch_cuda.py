@@ -95,7 +95,17 @@ def test_sampler_kernel_matches_plain_low_precision(card, dtype, batch,
 FLASH_SHAPES = pytest.mark.parametrize("b,seq,h,d", [
     (4, 74, 3, 256),      # octo_base training (B cut from 32)
     (1, 1024, 12, 64),    # long context of bench.py:1056 (B cut from 8)
+    (8, 224, 12, 64),     # octo_deep's stage 0, a ToMe mask (B cut from 32)
 ])
+# the mask of each sequence length of FLASH_SHAPES: (layout strings, stage)
+FLASH_MASKS = {
+    74: (("[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2",), 0),
+    1024: (("[TaskDescriptionPrefix{16}] "
+            "[Image{100};Image{100};Image{100};Image{100};Image{100};"
+            "Readout{4}]*2",), 0),
+    224: (("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
+           "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2"), 0),
+}
 
 
 def _flash_case(card, b, seq, h, d, dtype):
@@ -103,12 +113,8 @@ def _flash_case(card, b, seq, h, d, dtype):
         flash_attention as fa)
     from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
         SequenceLayout)
-    spec = ("[TaskDescriptionPrefix{16}] [Image{25};Readout{4}]*2"
-            if seq == 74 else
-            "[TaskDescriptionPrefix{16}] "
-            "[Image{100};Image{100};Image{100};Image{100};Image{100};"
-            "Readout{4}]*2")
-    mask = SequenceLayout.from_strings(spec).attention_mask()
+    strings, stage = FLASH_MASKS[seq]
+    mask = SequenceLayout.from_strings(*strings).attention_mask(stage)
     assert mask.shape == (seq, seq)
     g = torch.Generator(device=card).manual_seed(seq + d)
     q, k, v, do = (torch.randn(b, seq, h, d, generator=g, device=card)
@@ -163,7 +169,7 @@ def test_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_backward_reads_new_forward_lse(card, b, seq, h, d, dtype):
     """dq and dk/dv on the LSE of the tensor-core flash_fwd_lse, with
-    dropout 0.1: its LSE and keep bits fit the CUDA-core backward."""
+    dropout 0.1: its LSE and keep bits fit the backward's."""
     fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
         card, b, seq, h, d, dtype)
     kw = dict(block_q=bq, block_k=bk, dropout_rate=0.1)
@@ -272,6 +278,41 @@ def test_flash_fwd_kernel_matches_plain_other_masks(card, case, dtype):
         q, k, v, padded, k_hi, block_q=bq, block_k=bk), dtype)
     dead = torch.as_tensor(~mask.any(axis=1), device=card)
     assert not out[:, dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_backward_dead_rows(card, rate, dtype):
+    """dq and dk/dv on a mask with dead query rows (one run of them filling
+    a whole 64-row tile): zero dq on the dead rows, which add nothing to dk
+    or dv, and all three within the limits of their plain versions."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    mask = _dead_row_mask()
+    b, s, h, d = 2, mask.shape[0], 12, 64
+    g = torch.Generator(device=card).manual_seed(6)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=card)
+                   .to(dtype) for _ in range(4))
+    bq, bk = fa.KERNEL_TILES[d]
+    padded, k_hi, q_lo = fa.device_tables(mask, bq, bk, card)
+    seed = torch.tensor([3, 4], dtype=torch.int64, device=card)
+    kw = dict(block_q=bq, block_k=bk, dropout_rate=rate)
+    sw = seed if rate else None
+    out, lse = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi, sw, **kw)
+    delta = fa.attention_delta(do, out, padded.shape[0])
+    dq = fa.flash_dq(q, k, v, do, lse, delta, padded, k_hi, sw, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, padded, q_lo, sw, **kw)
+    torch.cuda.synchronize()
+    dead = torch.as_tensor(~mask.any(axis=1), device=card)
+    assert int(dead.sum()) == 66 and not dq[:, dead].any()
+    _assert_flash_close(dq, fa.flash_dq_reference(
+        q, k, v, do, lse, delta, padded, k_hi, sw, **kw), dtype)
+    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse, delta, padded,
+                                        q_lo, sw, **kw)
+    _assert_flash_close(dk, dk_p, dtype)
+    _assert_flash_close(dv, dv_p, dtype)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The port, chip_smoke.py and flash_fwd_probe.py import neither JAX, flax
+"""The port, chip_smoke.py and the flash probes import neither JAX, flax
 nor the JAX package, checked on the source AST of every module."""
 
 import ast
@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 def _files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "flash_fwd_probe.py"]
+                                         ROOT / "flash_fwd_probe.py",
+                                         ROOT / "flash_bwd_probe.py"]
 
 
 def _imported(path):

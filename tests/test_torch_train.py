@@ -539,6 +539,11 @@ TOME_TRAIN = {
     # recomputed through the plain attention
     "staged_flash_xla": (lambda: _no_dropout(octo_micro_tome_staged()),
                          dict(attention_impl="flash", flash_backward="xla")),
+    # the staged stack on the forward with LSE, gradients from the plain
+    # versions of the dq and dk/dv kernels
+    "staged_flash_pallas": (lambda: _no_dropout(octo_micro_tome_staged()),
+                            dict(attention_impl="flash",
+                                 flash_backward="pallas")),
     "layers": (lambda: _no_dropout(octo_micro_tome_layers()), {}),
     "layers_prune_prestack": (lambda: _no_dropout(octo_micro_tome_layers(
         compression_mode="prune", prestack_merge=True)), {}),
