@@ -17,7 +17,10 @@ Phases, each of which must pass (any failure exits non-zero):
    timed beside dq and dk/dv; the forward without LSE at octo_deep's three
    stages (serving batches 1 and 8, training batch 32), octo_base_deep's
    first, the 1024-token layout and a mask with dead rows;
-   the max-pool backward at octo_base training, bit for bit), time kernel,
+   the max-pool backward at octo_base training, bit for bit, on the layout
+   the embedder hands it (x channels_last, g NCHW; checked again after
+   phases 6 and 12), on NCHW and on channels_last, one call on the main
+   path's layout running the kernel and no copy kernel), time kernel,
    plain version and the PyTorch library call computing the same function,
    and check that attention_impl='auto' takes the flash kernel at 1024
    tokens and not at 74;
@@ -748,10 +751,29 @@ def flash_fwd_timings(fa):
     return rows
 
 
+# the layouts the pool backward is held in: (x, g); the first is the one the
+# embedder hands it on the main path (its convolution's channels_last output
+# and a contiguous cotangent), which main() checks after training
+POOL_LAYOUTS = (("channels_last", "nchw"), ("nchw", "nchw"),
+                ("channels_last", "channels_last"))
+
+
+def layout_name(strides):
+    """'channels_last', 'nchw' or 'other' for the strides of an NCHW-shaped
+    tensor."""
+    return ("channels_last" if strides[1] == 1 else
+            "nchw" if strides[3] == 1 else "other")
+
+
 def pool_check_and_time(pool, n):
     """pool_bwd against its plain version, bit for bit, at the embedder's
-    shape (N, 64, 23, 23) with many ties and a NaN window; bf16 times."""
+    shape (N, 64, 23, 23) with many ties and a NaN window, on each of
+    POOL_LAYOUTS; one wrapper call on the main path's layout must launch
+    the kernel and no copy kernel; bf16 times on that layout (and the
+    kernel's on NCHW)."""
     import torch.nn.functional as F
+    fmt = {"channels_last": torch.channels_last,
+           "nchw": torch.contiguous_format}
     g = torch.Generator(device="cuda").manual_seed(3)
     base = (torch.randn(n, 64, 23, 23, generator=g, device="cuda") * 2
             ).round() / 2
@@ -759,20 +781,35 @@ def pool_check_and_time(pool, n):
     gy32 = torch.randn(n, 64, 21, 21, generator=g, device="cuda")
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        x, gy = base.to(dtype), gy32.to(dtype)
-        dx = pool.pool_bwd(x, gy, (3, 3))
-        ref = pool.pool_bwd_reference(x, gy, (3, 3))
-        torch.cuda.synchronize()
-        same = torch.equal(dx, ref)
-        err = max(err, (dx.float() - ref.float()).abs().max().item())
-        log(f"  pool_bwd {str(dtype)[6:]:8s} N={n} C=64 23x23: kernel == "
-            f"plain bit for bit: {same}")
-        if not same:
-            fail(f"pool_bwd {dtype}")
+        for xl, gl in POOL_LAYOUTS:
+            x = base.to(dtype).contiguous(memory_format=fmt[xl])
+            gy = gy32.to(dtype).contiguous(memory_format=fmt[gl])
+            dx = pool.pool_bwd(x, gy, (3, 3))
+            ref = pool.pool_bwd_reference(x, gy, (3, 3))
+            torch.cuda.synchronize()
+            same = torch.equal(dx, ref) and dx.stride() == x.stride()
+            err = max(err, (dx.float() - ref.float()).abs().max().item())
+            log(f"  pool_bwd {str(dtype)[6:]:8s} N={n} C=64 23x23, x {xl}, "
+                f"g {gl}: kernel == plain bit for bit, dx in x's layout: "
+                f"{same}")
+            if not same:
+                fail(f"pool_bwd {dtype} x {xl} g {gl}")
     dtype = torch.bfloat16
-    x, gy = base.to(dtype), gy32.to(dtype)
-    ms = device_ms(lambda: pool.pool_bwd(x, gy, (3, 3)), "pool_bwd_kernel")
-    call_ms = time_ms(lambda: pool.pool_bwd(x, gy, (3, 3)))
+    xl, gl = POOL_LAYOUTS[0]
+    x = base.to(dtype).contiguous(memory_format=fmt[xl])
+    gy = gy32.to(dtype).contiguous(memory_format=fmt[gl])
+    call = lambda: pool.pool_bwd(x, gy, (3, 3))
+    call()
+    prof, _ = profile_session(call)
+    names = sorted({e.key for e in device_events(prof)})
+    log(f"  one wrapper call on x {xl}, g {gl} runs: {names}")
+    if len(names) != 1 or "pool_bwd_kernel" not in names[0]:
+        fail(f"a pool_bwd call on the main path's layout ran {names}")
+    ms = device_ms(call, "pool_bwd_kernel")
+    x_nchw = x.contiguous()
+    ms_nchw = device_ms(lambda: pool.pool_bwd(x_nchw, gy, (3, 3)),
+                        "pool_bwd_kernel")
+    call_ms = time_ms(call)
     plain_ms = time_ms(lambda: pool.pool_bwd_reference(x, gy, (3, 3)),
                        iters=5, warmup=1)
     xg = x.detach().requires_grad_(True)
@@ -784,12 +821,27 @@ def pool_check_and_time(pool, n):
     # 9 compares for the max, 9 for the first match, 1 add per window
     flops = 19 * gy.numel()
     bnd, by = bound(nbytes, flops, torch.float32)
-    log(f"  pool_bwd bf16 N={n}: kernel {ms:.4f} ms on the device "
-        f"({call_ms:.4f} ms a wrapper call), plain {plain_ms:.3f} ms, bound "
-        f"{bnd:.5f} ms ({by}; {nbytes / 1e6:.1f} MB), autograd backward of "
-        f"F.max_pool2d {lib:.4f} ms ({lib_names})")
+    log(f"  pool_bwd bf16 N={n}, x {xl}, g {gl}: kernel {ms:.4f} ms on the "
+        f"device ({call_ms:.4f} ms a wrapper call; {ms_nchw:.4f} ms with x "
+        f"and g NCHW), plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}; "
+        f"{nbytes / 1e6:.1f} MB), autograd backward of F.max_pool2d on the "
+        f"same layout {lib:.4f} ms ({lib_names})")
     return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=lib)
+                bound_ms=bnd, bound_by=by, library_ms=lib,
+                ms_nchw=ms_nchw, layout={"x": xl, "g": gl})
+
+
+def check_pool_layout(pool, label):
+    """The layout the main path just handed the pool backward is the one
+    phase 2 held and timed (POOL_LAYOUTS[0])."""
+    strides = pool.pool_bwd.last_strides
+    got = tuple(layout_name(s) for s in strides)
+    log(f"  {label}: _MaxPool.backward received x strides {strides[0]} "
+        f"({got[0]}), g strides {strides[1]} ({got[1]})")
+    if got != POOL_LAYOUTS[0]:
+        fail(f"{label} handed the pool backward x {got[0]}, g {got[1]}; "
+             f"phase 2 held {POOL_LAYOUTS[0]}")
+    return {"x": got[0], "g": got[1], "strides": strides}
 
 
 def auto_gate_check(fa):
@@ -1633,6 +1685,8 @@ def main():
     log("phase 6: training")
     tcfg = train_config("bfloat16")
     state, train_ms, train_launches = train_phase(tcfg, counters)
+    pool_row["main_path_layout"] = check_pool_layout(pool, "octo_base "
+                                                     "training")
 
     log("phase 7: training reference")
     blocks = tcfg.transformer.num_blocks
@@ -1679,6 +1733,7 @@ def main():
     state, deep_train_ms, deep_train_launches = train_phase(
         dcfg, counters, "octo_deep", deep_steps, DEEP_TRAIN_STEPS,
         DEEP_TRAIN_STEPS)
+    check_pool_layout(pool, "octo_deep training")
     deep_train_prof = train_profile_phase(
         state, dcfg, deep_train_ms["ms_per_step"], train_kernels,
         "octo_deep", "profile_deep_train.txt")
@@ -1771,7 +1826,8 @@ def main():
         "replaces": f"{tpu}pool.py:65",
         "launches": train_launches["pool_bwd"], **pool_row,
         "library": "autograd backward of F.max_pool2d",
-        "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23",
+        "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23, "
+                 f"x channels_last, g NCHW",
         "launches_octo_deep_training": deep_train_launches["pool_bwd"],
     })
     log(json.dumps({"flash_ptxas": flash_ptx}))

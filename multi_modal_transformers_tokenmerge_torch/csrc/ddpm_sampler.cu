@@ -18,17 +18,35 @@
 // the weights) and does about 0.8 MFLOP: tens of nanoseconds of HBM time.
 // The floor is latency: 32 dependent steps, each a 768-wide product, a
 // block-wide reduction of A partial sums and an update that the next step
-// needs, plus one launch.
+// needs, plus one launch.  The first design took 2.4 us a step, the same at
+// any batch (a row is a block): two barriers a step, A x 5 shuffles, a
+// serial sum of the warps' partials by A threads, the step's coefficients
+// and noise loaded from device memory inside the loop, and the weights
+// re-read from shared memory as 2-byte loads every step.
 //
 // What the design does about it: one thread block per batch row, so rows
-// run in parallel on separate SMs and nothing crosses blocks.  The block
-// stages the weights, biases and all T of its row's contexts in shared
-// memory once, before the loop, with every copy in flight at once
-// (cp.async), so no step waits on device memory.  The
-// sample lives in shared memory for the whole loop.  Each step is two
-// __syncthreads: one after the warp-shuffle reduction of the A partial sums,
-// one after the A threads that own the state have updated it.  No batch tile
-// sizing is carried over from the TPU kernel.
+// run in parallel on separate SMs and nothing crosses blocks.  Each of the
+// 256 threads owns H / 256 hidden units and holds their Wn rows, Wo columns
+// and biases in registers for the whole loop, in float32.  The block
+// stages all T of its row's contexts, the coefficients and its noise in
+// shared memory once, before the loop, every copy in flight at once
+// (cp.async), so nothing in the loop touches device memory; a thread reads
+// step t + 1's context elements and step t's coefficients and noise while
+// it computes step t.  A step is one __syncthreads: each warp folds its A
+// partial sums with a transpose reduction (9 shuffles at A = 8: lane l ends
+// with the sum of action l / 4) and writes them to a buffer
+// double-buffered by t & 1; after the barrier lane a of every warp sums the
+// warps' partials of action a, updates that value of the sample and rounds
+// it, and A shuffles hand the rounded sample to the whole warp for the next
+// product - no round trip through shared memory, no second barrier.  On
+// this card the update is worth keeping to one action a lane: with every
+// thread summing and updating all A values (A times the sums and the
+// roundings) the kernel took 37.6 us against 28.9 (pool_sampler_probe.py).
+// 256 threads beat 128 and 768; 384 ran 6% faster, but their order of the
+// sums rounded one float16 DDIM check of chip_smoke.py 2.5 eps from the
+// plain version, past its gate of 2.
+// Action dims below 8 (16) run padded with zero weights, which keep the
+// padding at zero.  No batch tile sizing is carried over from the TPU kernel.
 //
 // Plain-C interface, loaded with ctypes: ddpm_sampler_launch returns the
 // cudaError_t of the launch (0 = success) and does not synchronise.
@@ -41,8 +59,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kBlock = 256;   // threads of a block at most
+// hidden units a thread holds at most, at an action width padded to 8:
+// H <= kBlock * kUnitsMax; half as many at 16, to stay in registers
+constexpr int kUnitsMax = kBlock >= 256 ? 1536 / kBlock : 6;
+__host__ __device__ constexpr int units_max(int ma) {
+  return ma == 8 ? kUnitsMax : (kUnitsMax > 1 ? kUnitsMax / 2 : 1);
+}
+constexpr int kMaxWarps = kBlock / 32;
 constexpr int kMaxA = 16;
 
 enum Mode { kDDPM = 0, kDDIMRaw = 1, kDDIMRecompute = 2 };
@@ -79,49 +103,86 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// shared memory: Wn (H*A), Wo (A*H), bn (H), ctx (T*H) in T; then floats
+// the padded action width: 8, or 16 above 8
+__host__ __device__ __forceinline__ int padded_a(int adim) {
+  return adim <= 8 ? 8 : kMaxA;
+}
+
+// shared memory: ctx (T*H) in T; coefficients (T*4), noise (T*MA) and the
+// partial sums (2*kMaxWarps*MA) in float32
 __host__ __device__ __forceinline__ size_t smem_bytes(int steps, int hidden,
                                                       int adim, int elem) {
-  size_t n = align16(size_t(2) * hidden * adim * elem);
-  n += align16(size_t(hidden) * elem);
-  n += align16(size_t(steps) * hidden * elem);
-  n += sizeof(float) * (kWarps * kMaxA + 2 * kMaxA);
-  return n;
+  const int ma = padded_a(adim);
+  return align16(size_t(steps) * hidden * elem) +
+         sizeof(float) * (size_t(steps) * (4 + ma) + 2 * kMaxWarps * ma);
 }
 
 // Copy `rows` rows of `row_elems` elements from global memory (rows
-// `src_stride` elements apart) to consecutive rows in shared memory.  Rows
-// of whole 16-byte chunks go through cp.async, all in flight at once;
+// `src_stride` elements apart) to shared memory rows `dst_stride` apart.
+// Rows of whole 16-byte chunks go through cp.async, all in flight at once;
 // otherwise element by element.  The caller commits and waits.
 template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows,
+__device__ __forceinline__ void stage_rows(T* dst, size_t dst_stride,
+                                           const T* src, int rows,
                                            int row_elems, size_t src_stride,
-                                           int tid) {
+                                           int tid, int nthreads) {
   const size_t row_bytes = size_t(row_elems) * sizeof(T);
   const bool vec = row_bytes % 16 == 0 &&
                    (src_stride * sizeof(T)) % 16 == 0 &&
+                   (dst_stride * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(src) % 16 == 0;
   if (vec) {
     const int per_row = int(row_bytes / 16);
-    for (int c = tid; c < rows * per_row; c += kThreads) {
+    for (int c = tid; c < rows * per_row; c += nthreads) {
       const int r = c / per_row;
       const int k = c - r * per_row;
       __pipeline_memcpy_async(
-          reinterpret_cast<char*>(dst) + r * row_bytes + size_t(k) * 16,
+          reinterpret_cast<char*>(dst + r * dst_stride) + size_t(k) * 16,
           reinterpret_cast<const char*>(src + r * src_stride) +
               size_t(k) * 16,
           16);
     }
   } else {
-    for (int i = tid; i < rows * row_elems; i += kThreads) {
+    for (int i = tid; i < rows * row_elems; i += nthreads) {
       const int r = i / row_elems;
-      dst[i] = src[r * src_stride + (i - r * row_elems)];
+      const int k = i - r * row_elems;
+      dst[r * dst_stride + k] = src[r * src_stride + k];
     }
   }
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
+// The warp's sums of v[0 .. MA-1] over its 32 lanes, transposed: each round
+// halves the values a lane holds, lanes whose `off` bit is set keeping the
+// upper half, until one is left; the last rounds add it across the lanes
+// that share it.  Lane l returns the sum of v[l / (32 / MA)].
+template <int MA>
+__device__ __forceinline__ float transpose_reduce(float (&v)[MA], int lane) {
+#pragma unroll
+  for (int n = MA, off = 16; n > 1; n >>= 1, off >>= 1) {
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? v[i] : v[i + n / 2];
+      const float keep = up ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int off = 16 / MA; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// v of lanes 0 .. MA-1 into out[0 .. MA-1], in every lane
+template <int MA>
+__device__ __forceinline__ void spread(float (&out)[MA], float v) {
+#pragma unroll
+  for (int a = 0; a < MA; ++a) out[a] = __shfl_sync(0xffffffffu, v, a);
+}
+
+template <typename T, int MODE, int MA>
+__global__ void __launch_bounds__(kBlock)
 ddpm_sampler_kernel(const float* __restrict__ noisy,   // (B, A)
                     const T* __restrict__ ctx,         // (T, B, H)
                     const float* __restrict__ noise,   // (T, B, A), DDPM only
@@ -134,104 +195,116 @@ ddpm_sampler_kernel(const float* __restrict__ noisy,   // (B, A)
                     int steps, int batch, int hidden, int adim,
                     float clip_value) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ha = hidden * adim;
-  T* wn_s = reinterpret_cast<T*>(smem);
-  T* wo_s = wn_s + ha;
-  unsigned char* p = smem + align16(size_t(2) * ha * sizeof(T));
-  T* bn_s = reinterpret_cast<T*>(p);
-  p += align16(size_t(hidden) * sizeof(T));
-  T* ctx_s = reinterpret_cast<T*>(p);
-  p += align16(size_t(steps) * hidden * sizeof(T));
-  float* part_s = reinterpret_cast<float*>(p);  // [kWarps][kMaxA]
-  float* x_s = part_s + kWarps * kMaxA;          // [kMaxA]
+  T* ctx_s = reinterpret_cast<T*>(smem);
+  float* coef_s = reinterpret_cast<float*>(
+      smem + align16(size_t(steps) * hidden * sizeof(T)));   // [T][ncoef]
+  float* noise_s = coef_s + size_t(steps) * 4;              // [T][MA]
+  float* part_s = noise_s + size_t(steps) * MA;   // [2][kMaxWarps][MA]
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ncoef = MODE == kDDPM ? 3 : 4;
+  const int warp = tid >> 5, nwarps = nthreads >> 5;
+  constexpr int ncoef = MODE == kDDPM ? 3 : 4;
 
   // everything the loop reads from device memory, in flight at once
-  stage_rows(wn_s, wn, 1, ha, 0, tid);
-  stage_rows(wo_s, wo, 1, ha, 0, tid);
-  stage_rows(bn_s, bn, 1, hidden, 0, tid);
-  stage_rows(ctx_s, ctx + size_t(b) * hidden, steps, hidden,
-             size_t(batch) * hidden, tid);
+  stage_rows(ctx_s, hidden, ctx + size_t(b) * hidden, steps, hidden,
+             size_t(batch) * hidden, tid, nthreads);
+  stage_rows(coef_s, 0, coeffs, 1, steps * ncoef, 0, tid, nthreads);
+  if (MODE == kDDPM) {
+    stage_rows(noise_s, MA, noise + size_t(b) * adim, steps, adim,
+               size_t(batch) * adim, tid, nthreads);
+    for (int i = tid; i < steps * (MA - adim); i += nthreads)
+      noise_s[(i / (MA - adim)) * MA + adim + i % (MA - adim)] = 0.f;
+  }
   __pipeline_commit();
-  if (tid < adim) x_s[tid] = noisy[size_t(b) * adim + tid];
-  const float bo_f = tid < adim ? Cvt<T>::to_f(bo[tid]) : 0.f;
+
+  // the thread's hidden units j = tid + u * nthreads, u < units, with their
+  // weights in registers (zero past adim)
+  constexpr int UM = units_max(MA);
+  const int units = tid < hidden ? (hidden - 1 - tid) / nthreads + 1 : 0;
+  float wn_r[UM][MA], wo_r[UM][MA], bn_r[UM];
+#pragma unroll
+  for (int u = 0; u < UM; ++u) {
+    const int j = tid + u * nthreads;
+    const bool on = u < units;
+    bn_r[u] = on ? Cvt<T>::to_f(bn[j]) : 0.f;
+#pragma unroll
+    for (int a = 0; a < MA; ++a) {
+      wn_r[u][a] = on && a < adim ? Cvt<T>::to_f(wn[size_t(j) * adim + a])
+                                  : 0.f;
+      wo_r[u][a] = on && a < adim ? Cvt<T>::to_f(wo[size_t(a) * hidden + j])
+                                  : 0.f;
+    }
+  }
+  // lane am of every warp keeps action am of the sample (32 / MA copies a
+  // warp) and spreads its rounding to the warp with MA shuffles
+  const int am = lane & (MA - 1);
+  float x = am < adim ? noisy[size_t(b) * adim + am] : 0.f;
+  const float bo_a = am < adim ? Cvt<T>::to_f(bo[am]) : 0.f;
   __pipeline_wait_prior(0);
   __syncthreads();
 
+  float cur[UM], xr[MA];
+#pragma unroll
+  for (int u = 0; u < UM; ++u)
+    cur[u] = u < units ? Cvt<T>::to_f(ctx_s[tid + u * nthreads]) : 0.f;
+  spread<MA>(xr, rnd<T>(x));
+
   for (int t = 0; t < steps; ++t) {
-    // the state update's inputs do not depend on this step's product:
-    // issue their loads first so they overlap with it
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    float nz = 0.f;
-    if (tid < adim) {
-      for (int k = 0; k < ncoef; ++k) c[k] = coeffs[t * ncoef + k];
-      if (MODE == kDDPM) nz = noise[(size_t(t) * batch + b) * adim + tid];
-    }
+    // step t + 1's contexts, read while this step computes
+    float nxt[UM];
+    const T* ctx_n = ctx_s + size_t(t + 1 < steps ? t + 1 : t) * hidden;
+#pragma unroll
+    for (int u = 0; u < UM; ++u)
+      nxt[u] = u < units ? Cvt<T>::to_f(ctx_n[tid + u * nthreads]) : 0.f;
+    // and this step's coefficients and noise, which the update after the
+    // barrier needs
+    const float* c = coef_s + t * ncoef;
+    const float c0 = c[0], c1 = c[1], c2 = c[2];
+    const float c3 = MODE == kDDPM ? 0.f : c[ncoef - 1];
+    const float nz = MODE == kDDPM ? noise_s[t * MA + am] : 0.f;
 
-    float xr[kMaxA];
+    float part[MA];
 #pragma unroll
-    for (int a = 0; a < kMaxA; ++a) xr[a] = a < adim ? rnd<T>(x_s[a]) : 0.f;
-
-    float part[kMaxA];
+    for (int a = 0; a < MA; ++a) part[a] = 0.f;
 #pragma unroll
-    for (int a = 0; a < kMaxA; ++a) part[a] = 0.f;
-
-    const T* ctx_t = ctx_s + size_t(t) * hidden;
-    for (int j = tid; j < hidden; j += kThreads) {
-      float acc = 0.f;
+    for (int u = 0; u < UM; ++u) {
+      if (u < units) {
+        float acc = 0.f;
 #pragma unroll
-      for (int a = 0; a < kMaxA; ++a)
-        if (a < adim) acc = fmaf(xr[a], Cvt<T>::to_f(wn_s[j * adim + a]), acc);
-      float h = rnd<T>(rnd<T>(acc) + Cvt<T>::to_f(bn_s[j]));
-      h = rnd<T>(h + Cvt<T>::to_f(ctx_t[j]));
-      h = fmaxf(h, 0.f);
+        for (int a = 0; a < MA; ++a) acc = fmaf(xr[a], wn_r[u][a], acc);
+        float h = rnd<T>(rnd<T>(acc) + bn_r[u]);
+        h = fmaxf(rnd<T>(h + cur[u]), 0.f);
 #pragma unroll
-      for (int a = 0; a < kMaxA; ++a)
-        if (a < adim)
-          part[a] = fmaf(h, Cvt<T>::to_f(wo_s[a * hidden + j]), part[a]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      if (a < adim) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[a] += __shfl_xor_sync(0xffffffffu, part[a], off);
+        for (int a = 0; a < MA; ++a) part[a] = fmaf(h, wo_r[u][a], part[a]);
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int a = 0; a < kMaxA; ++a)
-        if (a < adim) part_s[warp * kMaxA + a] = part[a];
-    }
+
+    const float sum = transpose_reduce<MA>(part, lane);
+    float* buf = part_s + (t & 1) * kMaxWarps * MA;
+    if ((lane & (32 / MA - 1)) == 0) buf[warp * MA + lane / (32 / MA)] = sum;
     __syncthreads();
 
-    if (tid < adim) {
-      float e = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) e += part_s[w * kMaxA + tid];
-      float eps = rnd<T>(rnd<T>(e) + bo_f);
-      const float x = x_s[tid];
-      float nx;
-      if (MODE == kDDPM) {
-        nx = c[0] * (x - c[1] * eps) + c[2] * nz;
-      } else {
-        float x0 = fminf(fmaxf(c[0] * x - c[1] * eps, -clip_value),
-                         clip_value);
-        if (MODE == kDDIMRecompute) eps = (c[0] * x - x0) / c[1];
-        nx = c[2] * x0 + c[3] * eps;
-      }
-      x_s[tid] = fminf(fmaxf(nx, -clip_value), clip_value);
+    float e = 0.f;
+    for (int w = 0; w < nwarps; ++w) e += buf[w * MA + am];
+    float eps = rnd<T>(rnd<T>(e) + bo_a);
+    float nx;
+    if (MODE == kDDPM) {
+      nx = c0 * (x - c1 * eps) + c2 * nz;
+    } else {
+      const float x0 = fminf(fmaxf(c0 * x - c1 * eps, -clip_value),
+                             clip_value);
+      if (MODE == kDDIMRecompute) eps = (c0 * x - x0) / c1;
+      nx = c2 * x0 + c3 * eps;
     }
-    __syncthreads();
+    x = fminf(fmaxf(nx, -clip_value), clip_value);
+    spread<MA>(xr, rnd<T>(x));
+#pragma unroll
+    for (int u = 0; u < UM; ++u) cur[u] = nxt[u];
   }
 
-  if (tid < adim) out[size_t(b) * adim + tid] = x_s[tid];
+  if (tid < adim) out[size_t(b) * adim + tid] = x;
 }
 
 template <typename T, int MODE>
@@ -241,11 +314,13 @@ cudaError_t launch_typed(const void* noisy, const void* ctx, const void* noise,
                          int batch, int hidden, int adim, float clip_value,
                          cudaStream_t stream) {
   const size_t smem = smem_bytes(steps, hidden, adim, sizeof(T));
-  auto kernel = ddpm_sampler_kernel<T, MODE>;
+  auto kernel = adim <= 8 ? ddpm_sampler_kernel<T, MODE, 8>
+                          : ddpm_sampler_kernel<T, MODE, kMaxA>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(
+  const int threads = hidden < kBlock ? (hidden + 31) / 32 * 32 : kBlock;
+  kernel<<<batch, threads, smem, stream>>>(
       static_cast<const float*>(noisy), static_cast<const T*>(ctx),
       static_cast<const float*>(noise), static_cast<const float*>(coeffs),
       static_cast<const T*>(wn), static_cast<const T*>(bn),
@@ -287,6 +362,11 @@ size_t ddpm_sampler_smem_bytes(int steps, int hidden, int adim, int elem) {
   return smem_bytes(steps, hidden, adim, elem);
 }
 
+// the widest hidden layer the kernel holds in registers at this action dim
+int ddpm_sampler_max_hidden(int adim) {
+  return kBlock * units_max(padded_a(adim));
+}
+
 // dtype: 0 float32, 1 bfloat16, 2 float16.  mode: 0 DDPM, 1 DDIM raw eps,
 // 2 DDIM recomputed eps.  Returns a cudaError_t.
 int ddpm_sampler_launch(const void* noisy, const void* ctx, const void* noise,
@@ -294,7 +374,8 @@ int ddpm_sampler_launch(const void* noisy, const void* ctx, const void* noise,
                         const void* wo, const void* bo, void* out, int steps,
                         int batch, int hidden, int adim, float clip_value,
                         int dtype, int mode, void* stream) {
-  if (adim < 1 || adim > kMaxA || steps < 1 || batch < 1 || hidden < 1)
+  if (adim < 1 || adim > kMaxA || steps < 1 || batch < 1 || hidden < 1 ||
+      hidden > ddpm_sampler_max_hidden(adim))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -42,7 +42,10 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
 
     ``'xla'``: plain.  ``'flash'``: always the flash path (its plain
     versions on the CPU).  ``'auto'``: flash only when the stack lives on an
-    sm_90 card and ``seq_len >= flash_min_seq``.  Attention-weight dropout
+    sm_90 card, ``seq_len >= flash_min_seq`` and the kernels are compiled
+    for the head dim and the configured tiles (``KERNEL_TILES``); forcing
+    ``'flash'`` on the card with a head dim or tiles the kernels lack
+    raises.  Attention-weight dropout
     needs ``flash_backward='pallas'``: forcing ``'flash'`` with another
     backward raises, ``'auto'`` falls back to the plain path.
     ``flash_backward='xla'`` runs the forward kernel that saves no LSE and
@@ -65,10 +68,21 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
                 "flash_backward='pallas', set attention.dropout_rate=0.0, "
                 "or use attention_impl='auto'/'xla'.")
         return None
+    from ..ops.flash_attention import KERNEL_TILES, make_attention_fn
+    head_dim = cfg.attention.qkv_features // cfg.attention.num_heads
+    tiles = KERNEL_TILES.get(head_dim)
+    compiled = tiles is not None and all(
+        b in (0, t) for b, t in zip((cfg.flash_block_q, cfg.flash_block_k),
+                                    tiles))
     if cfg.attention_impl == "auto":
-        if seq_len < cfg.flash_min_seq or not kernel_device(device):
+        if (seq_len < cfg.flash_min_seq or not kernel_device(device)
+                or not compiled):
             return None
-    from ..ops.flash_attention import make_attention_fn
+    elif not compiled and kernel_device(device):
+        raise ValueError(
+            f"attention_impl='flash': the kernels are compiled for head dims "
+            f"and tiles {KERNEL_TILES}; got head dim {head_dim} with tiles "
+            f"({cfg.flash_block_q or 'auto'}, {cfg.flash_block_k or 'auto'}).")
     fn = make_attention_fn(mask_np, block_q=cfg.flash_block_q or None,
                            block_k=cfg.flash_block_k or None,
                            backward=cfg.flash_backward,

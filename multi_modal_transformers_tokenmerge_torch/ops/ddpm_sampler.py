@@ -4,8 +4,9 @@ plain PyTorch version.
 Counterpart of the JAX package's ``ops/ddpm_sampler.py:fused_ddpm_sample``
 (Pallas kernel ``_sampler_kernel``).  The kernel, ``csrc/ddpm_sampler.cu``,
 runs the whole T-step reverse loop of a ``num_blocks == 1`` denoiser in one
-launch with the weights and the per-step contexts on chip; its source note
-says what bounds it and how the design answers.
+launch, the weights in registers and the per-step contexts, coefficients
+and noise in shared memory; its source note says what bounds it and how the
+design answers.
 
 :func:`ddpm_sampler` runs :func:`ddpm_sample_reference` for CPU tensors,
 launches the kernel for tensors on an sm_90 card, and raises for anything
@@ -110,6 +111,11 @@ def _launch(noisy, contexts, noise, coeffs, wn, bn, wo, bo, clip_value,
             f"device; got {sorted({str(t.device) for t in tensors})}")
 
     lib = _library()
+    widest = lib.ddpm_sampler_max_hidden(adim)
+    if hidden > widest:
+        raise ValueError(
+            f"ddpm_sampler: hidden width {hidden} above the {widest} units "
+            f"the kernel holds in registers at action dim {adim}")
     elem = contexts.element_size()
     smem = lib.ddpm_sampler_smem_bytes(steps, hidden, adim, elem)
     if smem > _MAX_SMEM_BYTES:
@@ -142,6 +148,8 @@ def _library():
         lib.ddpm_sampler_launch.restype = ctypes.c_int
         lib.ddpm_sampler_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.ddpm_sampler_smem_bytes.restype = ctypes.c_size_t
+        lib.ddpm_sampler_max_hidden.argtypes = [ctypes.c_int]
+        lib.ddpm_sampler_max_hidden.restype = ctypes.c_int
         lib.ddpm_sampler_error_string.argtypes = [ctypes.c_int]
         lib.ddpm_sampler_error_string.restype = ctypes.c_char_p
         lib._signatures_set = True

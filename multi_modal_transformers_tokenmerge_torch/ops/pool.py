@@ -7,15 +7,18 @@ forward is XLA's ``reduce_window`` outside Pallas.  The backward routes
 each window's gradient to the FIRST position in raster order equal to the
 window's float32 max (the tie rule of XLA's ``select_and_scatter``); a
 window holding a NaN drops its gradient, as the JAX kernel does.  The
-kernel, ``csrc/pool_bwd.cu``, works on NCHW planes; its source note says
-what bounds it.
+kernel, ``csrc/pool_bwd.cu``, reads x and g each in the layout it is
+handed, NCHW or channels_last (the embedder's convolution hands it
+channels_last), and writes dx in x's; its source note says what bounds
+it.
 
 :func:`max_pool_nchw` is the core the NCHW image embedder calls;
 :func:`max_pool_hwcn` keeps the JAX signature on (H, W, C, N) operands.
 ``vjp='xla'`` (and any stride other than 1, as in the JAX package) takes
 torch's own max-pool backward.  :func:`pool_bwd` runs
 :func:`pool_bwd_reference` for CPU tensors, launches the kernel on an sm_90
-card and raises otherwise; ``pool_bwd.launches`` counts kernel launches.
+card and raises otherwise; ``pool_bwd.launches`` counts kernel launches
+and ``pool_bwd.last_strides`` holds the strides of the last call's x and g.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..core.hw import on_cuda
 
-__all__ = ["max_pool_hwcn", "max_pool_nchw", "pool_bwd",
+__all__ = ["kernel_layout", "max_pool_hwcn", "max_pool_nchw", "pool_bwd",
            "pool_bwd_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -65,11 +68,22 @@ def pool_bwd_reference(x: torch.Tensor, g: torch.Tensor,
     return dx
 
 
+def kernel_layout(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(t, True) for a dense channels_last tensor, (t, False) for a
+    contiguous NCHW one; anything else is copied to NCHW first.  The two
+    layouts the kernel reads; NCHW where a tensor is both."""
+    if t.is_contiguous():
+        return t, False
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return t, True
+    return t.contiguous(), False
+
+
 def _library():
     lib = _build.load_library("pool_bwd")
     if not getattr(lib, "_signatures_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pool_bwd_launch.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+        lib.pool_bwd_launch.argtypes = [vp] * 3 + [ci] * 9 + [vp]
         lib.pool_bwd_launch.restype = ci
         lib.pool_bwd_error_string.argtypes = [ci]
         lib.pool_bwd_error_string.restype = ctypes.c_char_p
@@ -79,14 +93,17 @@ def _library():
 
 def pool_bwd(x: torch.Tensor, g: torch.Tensor,
              window: Tuple[int, int]) -> torch.Tensor:
-    """Max-pool backward (stride 1, VALID) on NCHW; arguments as for
-    :func:`pool_bwd_reference`.  CPU tensors take the plain version; on a
-    CUDA device this launches the kernel or raises."""
+    """Max-pool backward (stride 1, VALID) on NCHW shapes; arguments as
+    for :func:`pool_bwd_reference`.  CPU tensors take the plain version; on
+    a CUDA device this launches the kernel or raises.  The kernel reads x
+    and g as they are laid out (:func:`kernel_layout`) and dx comes back in
+    x's layout."""
     wh, ww = (int(v) for v in window)
     n, c, h, w = x.shape
     if tuple(g.shape) != (n, c, h - wh + 1, w - ww + 1):
         raise ValueError(f"pool_bwd: g {tuple(g.shape)} does not match x "
                          f"{tuple(x.shape)} under window {(wh, ww)}")
+    pool_bwd.last_strides = (tuple(x.stride()), tuple(g.stride()))
     if x.device.type == "cpu":
         return pool_bwd_reference(x, g, (wh, ww))
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
@@ -98,12 +115,14 @@ def pool_bwd(x: torch.Tensor, g: torch.Tensor,
     if not on_cuda(x, g):
         raise RuntimeError("pool_bwd: the kernel needs both tensors on one "
                            f"sm_90 CUDA device; got {x.device}, {g.device}")
-    x, g = x.contiguous(), g.contiguous()
-    dx = torch.empty_like(x)
+    (x, x_nhwc), (g, g_nhwc) = kernel_layout(x), kernel_layout(g)
+    dx = torch.empty_like(x, memory_format=torch.channels_last if x_nhwc
+                          else torch.contiguous_format)
     lib = _library()
     rc = lib.pool_bwd_launch(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n * c, h, w, wh, ww,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c, h, w, wh, ww,
+        int(x_nhwc), int(g_nhwc), _DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("pool_bwd kernel launch failed: "
                            f"{lib.pool_bwd_error_string(rc).decode()}")
@@ -112,6 +131,7 @@ def pool_bwd(x: torch.Tensor, g: torch.Tensor,
 
 
 pool_bwd.launches = 0
+pool_bwd.last_strides = None
 
 
 class _MaxPool(torch.autograd.Function):

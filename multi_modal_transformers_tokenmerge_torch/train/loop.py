@@ -34,7 +34,9 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
     Every ``log_every`` steps ``logger.log(metrics, step=...)`` receives the
     metrics averaged over the steps since the previous log, the last loss
     and the steps per second; only then does the loop wait for the
-    device."""
+    device.  The metrics restart after every log but the one at the last
+    step, so the state returned holds the last window's metrics, as the
+    JAX package's ``fit`` leaves them."""
     if mesh is not None:
         raise NotImplementedError("fit(mesh=...): device meshes are not "
                                   "ported yet")
@@ -55,5 +57,6 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
             t_last = now
             logger.log({**metrics, "last_loss": float(loss),
                         "steps_per_sec": round(sps, 2)}, step=state.step)
-            state.metrics = state.metrics.zeros_like()
+            if i + 1 < num_steps:
+                state.metrics = state.metrics.zeros_like()
     return state

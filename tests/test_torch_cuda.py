@@ -346,18 +346,24 @@ def test_flash_auto_selects_kernel_from_flash_min_seq(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pool_bwd_kernel_matches_plain_exactly(card, dtype):
-    """x (N, 64, 23, 23), g (N, 64, 21, 21) with many ties: the kernel
-    routes and sums as the plain version does, bit for bit."""
+def test_pool_bwd_kernel_matches_plain_exactly(card, dtype, layout):
+    """x (N, 64, 23, 23), g (N, 64, 21, 21) with many ties, contiguous or
+    channels_last (the embedder's layout): the kernel routes and sums as
+    the plain version does, bit for bit, and dx keeps x's layout."""
     from multi_modal_transformers_tokenmerge_torch.ops import pool
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
     g = torch.Generator(device=card).manual_seed(0)
     x = (torch.randn(200, 64, 23, 23, generator=g, device=card) * 2).round()
     x = (x / 2).to(dtype)
     x[0, 0, 5, 5] = float("nan")
     gy = torch.randn(200, 64, 21, 21, generator=g, device=card).to(dtype)
+    x, gy = (t.contiguous(memory_format=fmt) for t in (x, gy))
     before = pool.pool_bwd.launches
     dx = pool.pool_bwd(x, gy, (3, 3))
     torch.cuda.synchronize()
     assert pool.pool_bwd.launches == before + 1
+    assert dx.is_contiguous(memory_format=fmt)
     assert torch.equal(dx, pool.pool_bwd_reference(x, gy, (3, 3)))

@@ -66,6 +66,42 @@ def test_pool_bwd_routing_exact(h, w, c, n, window, dtype):
     np.testing.assert_array_equal(dx_t, dx_j)
 
 
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("h,w,c,n,window,dtype", CASES)
+def test_plain_backward_matches_jax_in_either_layout(h, w, c, n, window,
+                                                     dtype, layout):
+    """pool_bwd_reference on contiguous NCHW operands and on the
+    channels_last ones the embedder's convolution hands the backward
+    equals the JAX kernel's vjp exactly; dx keeps x's layout."""
+    x, g = _case(h, w, c, n, window, seed=5)
+    _, dx_j = _jax_grad(x, g, window, dtype)
+    tdt = getattr(torch, dtype)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    nchw = lambda a: torch.tensor(a).to(tdt).permute(3, 2, 0, 1) \
+        .contiguous(memory_format=fmt)
+    tx, tg = nchw(x), nchw(g)
+    assert tpool.kernel_layout(tx)[1] == (layout == "channels_last" and c > 1)
+    dx = tpool.pool_bwd(tx, tg, window)
+    assert tpool.pool_bwd.last_strides == (tx.stride(), tg.stride())
+    assert dx.dtype == tdt and dx.is_contiguous(memory_format=fmt)
+    np.testing.assert_array_equal(dx.permute(2, 3, 1, 0).float().numpy(),
+                                  dx_j)
+
+
+def test_kernel_layout_copies_only_other_layouts():
+    """NCHW and channels_last pass as they are; any other strides become
+    NCHW."""
+    x = torch.randn(2, 8, 5, 5)
+    assert tpool.kernel_layout(x) == (x, False)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    got, nhwc = tpool.kernel_layout(cl)
+    assert nhwc and got.data_ptr() == cl.data_ptr()
+    odd = x.permute(0, 1, 3, 2)
+    got, nhwc = tpool.kernel_layout(odd)
+    assert not nhwc and got.is_contiguous() and torch.equal(got, odd)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_nan_window_drops_its_gradient(dtype):
     """A window holding a NaN routes its gradient nowhere (the JAX

@@ -68,3 +68,35 @@ def test_readouts_match():
                                                    torch.from_numpy(img))
     assert tuple(out.shape) == ref.shape == (2, 4, 32)
     assert_close(out, ref, MODULE_TOL)
+
+
+@pytest.mark.parametrize("heads,block_q,block_k,compiled", [
+    (12, 0, 0, True),      # head dim 64, its tiles
+    (3, 32, 32, True),     # head dim 256, its tiles named
+    (6, 0, 0, False),      # head dim 128: no kernel compiled for it
+    (12, 32, 32, False),   # head dim 64 with tiles the kernels lack
+])
+def test_auto_takes_the_kernel_only_where_it_is_compiled(
+        monkeypatch, heads, block_q, block_k, compiled):
+    """On a kernel device (monkeypatched here) 'auto' at flash_min_seq
+    tokens takes the flash path only for a head dim and tiles of
+    KERNEL_TILES and the plain path otherwise; 'flash' raises there."""
+    from multi_modal_transformers_tokenmerge_torch.core.config import (
+        AttentionConfig, TransformerConfig)
+    from multi_modal_transformers_tokenmerge_torch.modules import (
+        attention as tattn)
+    monkeypatch.setattr(tattn, "kernel_device", lambda device: True)
+    cfg = TransformerConfig(
+        attention_impl="auto", flash_block_q=block_q, flash_block_k=block_k,
+        attention=AttentionConfig(num_heads=heads, qkv_features=768,
+                                  dropout_rate=0.0))
+    seq = cfg.flash_min_seq
+    mask = np.tril(np.ones((seq, seq), bool))
+    fn = tattn.select_attention_fn(cfg, mask, seq, "cpu")
+    assert (fn is not None) == compiled
+    flash = cfg.replace(attention_impl="flash")
+    if compiled:
+        assert tattn.select_attention_fn(flash, mask, seq, "cpu")
+    else:
+        with pytest.raises(ValueError, match="compiled"):
+            tattn.select_attention_fn(flash, mask, seq, "cpu")

@@ -471,6 +471,44 @@ def test_fit_runs_the_generators_and_logs(monkeypatch):
     assert all(np.isfinite(v) for v in metrics.values())
 
 
+@pytest.mark.parametrize("num_steps,log_every,window", [(4, 2, 2),
+                                                         (5, 2, 1)])
+def test_fit_returns_the_last_windows_metrics(monkeypatch, num_steps,
+                                              log_every, window):
+    """The metrics restart at every log but the one at the last step (the
+    JAX package's fit, train/loop.py:131): the state returned holds the
+    steps since the last restart, the last logged window when a log falls
+    on the last step."""
+    model = _port(_jax_cfg())[2]
+    state = tstate.create_train_state(
+        model, toptim.make_optimizer(peak_lr=1e-3, warmup_steps=1,
+                                     total_steps=8, params=model), rngs=0)
+
+    def step_fn(st, text, images, actions):
+        st.step += 1
+        loss = torch.tensor(float(st.step))
+        st.metrics.update(loss=loss, grad_norm=2 * loss)
+        return st, loss
+
+    monkeypatch.setattr(tloop, "make_train_step", lambda *a, **k: step_fn)
+    logged = []
+
+    class Logger:
+        def log(self, metrics, step):
+            logged.append((step, metrics))
+
+    batches = iter([(np.zeros(1), np.zeros(1), np.zeros(1))] * num_steps)
+    state = tloop.fit(state, batches, "diffusion", num_steps,
+                      logger=Logger(), log_every=log_every)
+    last = range(num_steps - window + 1, num_steps + 1)
+    assert state.metrics.counts == {"grad_norm": window, "loss": window}
+    got = {k: float(v) for k, v in state.metrics.compute().items()}
+    assert got == {"loss": float(np.mean(last)),
+                   "grad_norm": 2 * float(np.mean(last))}
+    if num_steps % log_every == 0:
+        assert {k: logged[-1][1][k] for k in got} == got
+
+
 def test_unported_options_raise():
     model = _port(_jax_cfg())[2]
     # every head has its step now; an unknown one is refused
