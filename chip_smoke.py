@@ -56,7 +56,23 @@ Phases, each of which must pass (any failure exits non-zero):
     12 flash_dkv launches a step), one 30-step fit window at batch 32 and
     its profile, logged beside phase 12;
 14. octo_small in bfloat16 served with its continuous head (the embed text
-    tower and the other head on the card).
+    tower and the other head on the card);
+15. compiled serving (after phase 5 for octo_base, after phase 11 for
+    octo_deep beside its unmerged twin): PolicyEngine.compile at batch 1
+    and 8, every replay equal to the eager call bit for bit (the same
+    noise), latency eager and compiled in turns, and one profiled replay:
+    its kernels (the sampler once a request, flash_fwd 12 times at
+    octo_deep, read from the device records, as a replay makes no wrapper
+    call), launches, device time and idle share;
+16. compiled training (after phase 8 for octo_base, after phase 13 for
+    octo_deep as its preset sets attention): make_train_step(jit=True)
+    captured as a CUDA graph, equal to the eager step bit for bit after
+    five steps from the same state, fit with each in turns, one profiled
+    replay (flash_fwd_lse, flash_dq, flash_dkv and pool_bwd at 1, 1, 1, 1
+    a step at octo_base and 12, 12, 12, 1 at octo_deep);
+17. checkpoint on the card (after phase 16's octo_base): save at step 3,
+    restore into a fresh state, two more compiled steps, equal to the
+    unbroken run's state after step 5.
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -142,7 +158,9 @@ def time_ms(fn, iters=30, warmup=5):
 
 # one session on the H100 lost 199 guard records and kept the rest
 GUARD_LAUNCHES = 256
-PROFILE_ATTEMPTS = 3    # sessions run again when they lost every guard record
+# sessions run again when they lost every guard record (one H100 machine
+# lost three whole sessions in a row in phase 2)
+PROFILE_ATTEMPTS = 5
 # 'key': the guard kernel's name; 'lost': records lost, per session;
 # 'retries': the index of every session that lost them all and was run
 # again; 'short': (kernel, records kept, calls) of every device_ms session
@@ -1322,7 +1340,7 @@ def train_phase(cfg, train_counters, label="octo_base", per_step=None,
         def log(self, metrics, step):
             logged.append((step, metrics))
 
-    step = make_train_step("diffusion")
+    step = make_train_step("diffusion", jit=False)
 
     def synced_steps(count):
         out = []
@@ -1341,7 +1359,7 @@ def train_phase(cfg, train_counters, label="octo_base", per_step=None,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = fit(state, batches, "diffusion", window_steps, logger=Logger(),
-                log_every=10)
+                log_every=10, step_fn=step)
     torch.cuda.synchronize()
     window = (time.perf_counter() - t0) * 1e3
     synced = synced_steps(synced_count)
@@ -1470,7 +1488,7 @@ def train_reference_phase(cfg, counters, label, expected):
         rec = RecordingOptimizer()
         state = create_train_state(model, rec, rngs=0)
         on = lambda t: t.to(dev)
-        step = make_train_step("diffusion")
+        step = make_train_step("diffusion", jit=False)
         before = {k: c.launches for k, c in counters.items()}
         with recorded_merge_events() as plans[name], \
                 recorded_relu_signs(model) as signs[name], \
@@ -1568,11 +1586,14 @@ def train_profile_phase(state, cfg, step_ms, kernel_names,
                         label="octo_base", fname="profile_train.txt"):
     import itertools
     from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
     batches = itertools.cycle(device_batches(cfg, TRAIN_BATCH, 2, seed=2))
-    fit(state, batches, "diffusion", 2)
+    step = make_train_step("diffusion", jit=False)
+    fit(state, batches, "diffusion", 2, step_fn=step)
     n = 5
-    prof, _ = profile_session(lambda: fit(state, batches, "diffusion", n),
-                              with_host=True)
+    prof, _ = profile_session(lambda: fit(state, batches, "diffusion", n,
+                                          step_fn=step), with_host=True)
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / n
     idle = max(0.0, 1 - busy / step_ms)
@@ -1595,6 +1616,321 @@ def train_profile_phase(state, cfg, step_ms, kernel_names,
                                           row_limit=80))
     return dict(device_ms=busy, idle_share=idle, kernels_ms=ours,
                 launches=sum(e.count for e in events) / n)
+
+
+# -- phases 15-17: CUDA graphs ----------------------------------------------------
+
+COMPILED_REQUESTS = 100     # per turn of the eager / compiled latency turns
+COMPILED_TRAIN_CHECK = 5    # steps held captured against eager
+COMPILED_TRAIN_WINDOW = 30  # steps per turn of the eager / compiled fit turns
+
+
+def replay_profile(fn, calls, expected, label):
+    """One profiled session of ``calls`` calls of ``fn`` (graph replays: no
+    wrapper runs, so the ``.launches`` counters cannot see them).  The
+    device records give, per call, each named kernel's launches (which
+    must equal ``expected``: kernel -> launches a call, 0 for a kernel it
+    does not name), all launches and the device time.  A session that kept
+    too few records of a named kernel is run again (PROFILE_ATTEMPTS)."""
+    names = ("ddpm_sampler", "flash_fwd", "flash_fwd_lse", "flash_dq",
+             "flash_dkv", "pool_bwd")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof, _ = profile_session(lambda: [fn() for _ in range(calls)])
+        events = device_events(prof)
+        counts = {k: sum(e.count for e in events
+                         if re.search(rf"\b{k}_kernel\b", e.key)) / calls
+                  for k in names}
+        if all(counts[k] == expected.get(k, 0) for k in names):
+            break
+        if attempt < PROFILE_ATTEMPTS:
+            _GUARD["short"].append((label, counts, expected))
+            log(f"  (replay of {label}: kernel records {counts}, expected "
+                f"{expected}; attempt {attempt} of {PROFILE_ATTEMPTS})")
+            continue
+        fail(f"{label}: one replay ran the kernels {counts}; expected "
+             f"{expected} (a graph that lost or swapped a kernel)")
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"kernels": counts, "device_ms": busy,
+            "launches": sum(e.count for e in events) / calls,
+            "top": [(round(e.self_device_time_total / 1e3 / calls, 4),
+                     e.count / calls, e.key[:70]) for e in top]}
+
+
+def compiled_serve_phase(models, cfg, label, expected, requests=None):
+    """``models``: name -> model (the first the one held and profiled).  At
+    batch 1 and 8: an eager engine and a compiled one on the same weights
+    and seed; the compiled replay must equal the eager call bit for bit
+    (the first request also against the eager call handed the same noisy
+    and noise explicitly); latency of eager and compiled in turns (eager,
+    compiled, compiled, eager); one profiled replay for the kernels,
+    launches and device time a request.  With two models their compiled
+    engines are also served in turns (first, second, second, first)."""
+    from multi_modal_transformers_tokenmerge_torch.serve.policy import (
+        PolicyEngine)
+    requests = requests or COMPILED_REQUESTS
+    g = np.random.default_rng(7)
+    ids = g.integers(0, cfg.text.vocab_size, (cfg.text.max_length,))
+    image_shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    hc = cfg.heads.diffusion
+    steps = hc.ddim_steps or hc.diffusion_steps
+    first = next(iter(models))
+    out = {}
+    for batch in (1, 8):
+        row = {}
+        compiled = {}
+        for name, model in models.items():
+            t0 = time.perf_counter()
+            eng = PolicyEngine(model, batch_size=batch, seed=1)
+            eng.compile((cfg.text.max_length,), image_shape)
+            eng.set_instruction(ids)
+            torch.cuda.synchronize()
+            compiled[name] = eng
+            row[f"{name}_compile_s"] = time.perf_counter() - t0
+        model = models[first]
+        eager = PolicyEngine(model, batch_size=batch, seed=1)
+        eager.set_instruction(ids)
+        comp = compiled[first]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        noisy = torch.randn(batch, hc.action_space_dim, generator=gen,
+                            device="cuda")
+        noise = torch.randn(steps, batch, hc.action_space_dim,
+                            generator=gen, device="cuda")
+        diffs = []
+        for i in range(3):
+            images = random_images(cfg, batch, g)
+            got = comp(images)
+            want = eager(images) if i else eager(images, noisy=noisy,
+                                                 noise=noise)
+            if i == 0:
+                eager(images)       # the eager engine's own first draw
+            diffs.append(float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"{label} B={batch}: request {i} of the compiled "
+                     f"engine differs from the eager call by {diffs[-1]}")
+        # the full path (token ids) against the eager full path
+        images = random_images(cfg, batch, g)
+        fresh = PolicyEngine(model, batch_size=batch, seed=3)
+        comp._generator.manual_seed(3)
+        if not torch.equal(comp(images, text_tokens=ids),
+                           fresh(images, text_tokens=ids)):
+            fail(f"{label} B={batch}: the compiled full path differs from "
+                 f"the eager one")
+        times = {"eager": [], "compiled": []}
+        timed_requests(eager, cfg, batch, 2, g)
+        timed_requests(comp, cfg, batch, 2, g)
+        for name in ("eager", "compiled", "compiled", "eager"):
+            eng = eager if name == "eager" else comp
+            times[name] += timed_requests(eng, cfg, batch, requests // 2, g)
+        row.update({name: latency(t) for name, t in times.items()})
+        images = random_images(cfg, batch, g)
+        prof = replay_profile(lambda: comp(images), 5, expected,
+                              f"{label} B={batch} compiled request")
+        prof["idle_share"] = max(0.0, 1 - prof["device_ms"]
+                                 / row["compiled"]["median_ms"])
+        row["replay_profile"] = prof
+        log(f"  compiled {label} B={batch}: compile "
+            f"{row[f'{first}_compile_s']:.2f} s; replay equals the eager "
+            f"call bit for bit (max |diff| {max(diffs)}); in turns, eager "
+            f"median {row['eager']['median_ms']:.4f} ms (p90 "
+            f"{row['eager']['p90_ms']:.4f}), compiled median "
+            f"{row['compiled']['median_ms']:.4f} ms (p90 "
+            f"{row['compiled']['p90_ms']:.4f}); one replay: "
+            f"{prof['launches']:.0f} launches, device "
+            f"{prof['device_ms']:.4f} ms, idle share "
+            f"{prof['idle_share']:.3f}, kernels "
+            f"{ {k: v for k, v in prof['kernels'].items() if v} }")
+        for t in prof["top"]:
+            log(f"    {t[0]:8.4f} ms/request x{t[1]:5.1f}  {t[2]}")
+        if len(models) > 1:
+            names = list(models)
+            turns = {n: [] for n in names}
+            for name in (names[0], names[1], names[1], names[0]):
+                turns[name] += timed_requests(compiled[name], cfg, batch,
+                                              requests // 2, g)
+            row["in_turns"] = {n: latency(t) for n, t in turns.items()}
+            log(f"  compiled, in turns: " + ", ".join(
+                f"{n} median {row['in_turns'][n]['median_ms']:.4f} ms (p90 "
+                f"{row['in_turns'][n]['p90_ms']:.4f})" for n in names))
+        out[batch] = row
+        del compiled, comp, eager, fresh
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fresh_train_state(cfg, model_seed=0, rng_seed=0):
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.train.optim import (
+        make_optimizer)
+    from multi_modal_transformers_tokenmerge_torch.train.state import (
+        create_train_state)
+    model = Octo(cfg, device="cuda", seed=model_seed)
+    tx = make_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=1000,
+                        params=model, frozen_prefixes=("text_encoder",))
+    return create_train_state(model, tx, rngs=rng_seed)
+
+
+# the captured step against the eager one, each parameter and moment leaf:
+# max |captured - eager| <= GRAPH_TRAIN_TOL * max |eager leaf|.  The same
+# kernels run on the same inputs, so octo_base agrees bit for bit; in
+# octo_deep's backward the scatter-adds of the ToMe merge run in an order
+# that changes from run to run, so two eager runs from the same state differ
+# too (2.8e-14 in a moment, parameters equal, on an H100 80GB HBM3 at
+# 700 W).  The phase prints both differences.
+GRAPH_TRAIN_TOL = 1e-5
+
+
+def leaf_diffs(a, b):
+    """(largest |a - b| of a parameter, of a moment; largest of either over
+    its leaf's largest |value|), between two train states."""
+    pairs = [(p, b.params[n]) for n, p in a.params.items()]
+    moments = list(zip((*a.optimizer.mu, *a.optimizer.nu),
+                       (*b.optimizer.mu, *b.optimizer.nu)))
+    diff = lambda x, y: float((x.detach().float() - y.detach().float())
+                              .abs().max())
+    rel = max(diff(x, y) / max(float(x.detach().float().abs().max()), 1e-30)
+              for x, y in pairs + moments)
+    return (max(diff(x, y) for x, y in pairs),
+            max(diff(x, y) for x, y in moments), rel)
+
+
+def compiled_train_phase(cfg, label, expected):
+    """The captured step (make_train_step(jit=True): one eager warm-up,
+    then a CUDA graph) against the eager step: COMPILED_TRAIN_CHECK steps
+    from the same state, batches and generator seeds, held to
+    GRAPH_TRAIN_TOL (a second eager run from the same state shows how far
+    the eager step agrees with itself).  Then fit with each in turns
+    (eager, compiled, compiled, eager; COMPILED_TRAIN_WINDOW steps a turn,
+    ms/step on the host clock ending in a synchronize), and one profiled
+    replay: the kernels, launches and device time a step."""
+    import itertools
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    batches = device_batches(cfg, TRAIN_BATCH, 4, seed=11)
+    states = {"eager": _fresh_train_state(cfg),
+              "compiled": _fresh_train_state(cfg),
+              "eager_again": _fresh_train_state(cfg)}
+    eager_step = make_train_step("diffusion", jit=False)
+    steps = {"eager": eager_step, "eager_again": eager_step,
+             "compiled": make_train_step("diffusion")}
+    for name, state in states.items():
+        for i in range(COMPILED_TRAIN_CHECK):
+            steps[name](state, *batches[i % len(batches)])
+    torch.cuda.synchronize()
+    a, b = states["eager"], states["compiled"]
+    if "graph" not in next(iter(steps["compiled"]._graphs[b].values())):
+        fail(f"{label}: the compiled step captured no graph")
+    p_diff, m_diff, rel = leaf_diffs(a, b)
+    p_self, m_self, rel_self = leaf_diffs(a, states.pop("eager_again"))
+    exact = p_diff == 0 and m_diff == 0
+    same = (rel <= GRAPH_TRAIN_TOL
+            and torch.equal(a.optimizer.count, b.optimizer.count)
+            and a.step == b.step)
+    log(f"  compiled {label} step: after {COMPILED_TRAIN_CHECK} steps the "
+        f"captured and eager runs differ by {p_diff} (parameters) and "
+        f"{m_diff} (moments), {rel:.2e} of a leaf's largest value (limit "
+        f"{GRAPH_TRAIN_TOL}); {'bit for bit' if exact else 'not bit for bit'}"
+        f"; two eager runs differ by {p_self} and {m_self} ({rel_self:.2e})"
+        f"; count {int(b.optimizer.count)}, step {b.step}")
+    if not same:
+        fail(f"{label}: the captured step's state differs from the eager "
+             f"step's")
+    cycle = itertools.cycle(batches)
+    ms = {"eager": [], "compiled": []}
+    for name in ("eager", "compiled", "compiled", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(states[name], cycle, "diffusion", COMPILED_TRAIN_WINDOW,
+            step_fn=steps[name], logger=_NullLogger(), log_every=10)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3
+                        / COMPILED_TRAIN_WINDOW)
+    batch = batches[0]
+    prof = replay_profile(lambda: steps["compiled"](b, *batch), 3, expected,
+                          f"{label} compiled train step")
+    eager_prof = replay_profile(lambda: steps["eager"](a, *batch), 3,
+                                expected, f"{label} eager train step")
+    row = {"max_param_diff": p_diff, "max_moment_diff": m_diff,
+           "max_leaf_rel_diff": rel, "bit_for_bit": exact,
+           "eager_vs_eager": [p_self, m_self, rel_self],
+           "eager_ms_per_step": ms["eager"],
+           "compiled_ms_per_step": ms["compiled"],
+           "replay_profile": prof, "eager_profile": eager_prof}
+    c_ms = statistics.mean(ms["compiled"])
+    e_ms = statistics.mean(ms["eager"])
+    prof["idle_share"] = max(0.0, 1 - prof["device_ms"] / c_ms)
+    eager_prof["idle_share"] = max(0.0, 1 - eager_prof["device_ms"] / e_ms)
+    log(f"  {label} bf16 B={TRAIN_BATCH}, fit in turns ({COMPILED_TRAIN_WINDOW}"
+        f" steps a turn): eager {[round(x, 4) for x in ms['eager']]} ms/step, "
+        f"compiled {[round(x, 4) for x in ms['compiled']]} ms/step; one "
+        f"replay: {prof['launches']:.0f} launches, device "
+        f"{prof['device_ms']:.4f} ms, idle share {prof['idle_share']:.3f}, "
+        f"kernels { {k: v for k, v in prof['kernels'].items() if v} }; "
+        f"eager step: {eager_prof['launches']:.0f} launches, device "
+        f"{eager_prof['device_ms']:.4f} ms, idle share "
+        f"{eager_prof['idle_share']:.3f}")
+    for t in prof["top"]:
+        log(f"    {t[0]:8.4f} ms/step x{t[1]:5.1f}  {t[2]}")
+    del states, steps
+    torch.cuda.empty_cache()
+    return row
+
+
+class _NullLogger:
+    def log(self, metrics, step):
+        pass
+
+
+def checkpoint_phase(cfg, k=3, batch=8):
+    """On the card: a captured run of k + 2 steps against k captured steps,
+    a save, a restore into a fresh state (other weights and generator
+    seeds) and 2 more steps of the compiled step (a warm-up, then a new
+    capture and its replay): the same parameters, moments, count and
+    generator states, bit for bit."""
+    import tempfile
+    from multi_modal_transformers_tokenmerge_torch.train.checkpoint import (
+        CheckpointManager)
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    batches = device_batches(cfg, batch, k + 2, seed=13)
+    step = make_train_step("diffusion")
+    unbroken = _fresh_train_state(cfg, 0, 5)
+    for bt in batches:
+        step(unbroken, *bt)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, max_to_keep=1)
+        first = _fresh_train_state(cfg, 0, 5)
+        for bt in batches[:k]:
+            step(first, *bt)
+        t0 = time.perf_counter()
+        mgr.save(first.step, first)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        del first
+        fresh = _fresh_train_state(cfg, 9, 9)
+        t0 = time.perf_counter()
+        mgr.restore(fresh)
+        restore_s = time.perf_counter() - t0
+    for bt in batches[k:]:
+        step(fresh, *bt)
+    torch.cuda.synchronize()
+    captured = "graph" in next(iter(step._graphs[fresh].values()))
+    diff, moments, _ = leaf_diffs(unbroken, fresh)
+    same = (diff == 0 and moments == 0
+            and fresh.step == unbroken.step == k + 2
+            and torch.equal(fresh.optimizer.count, unbroken.optimizer.count)
+            and all(torch.equal(g.get_state(),
+                                unbroken.rngs[n].get_state())
+                    for n, g in fresh.rngs.items()))
+    log(f"  checkpoint at step {k} ({size / 2 ** 30:.2f} GiB, saved in "
+        f"{save_s:.2f} s, restored in {restore_s:.2f} s), restored into a "
+        f"fresh state, 2 more compiled steps (captured anew: {captured}): "
+        f"max parameter difference from the unbroken run {diff}")
+    if not (same and captured):
+        fail("the resumed compiled run differs from the unbroken one")
+    return {"k": k, "batch": batch, "bytes": size, "save_s": save_s,
+            "restore_s": restore_s, "max_param_diff": diff}
 
 
 def main():
@@ -1679,6 +2015,10 @@ def main():
 
     log("phase 5: profile")
     profile_phase(model, cfg, serve_ms[1]["median_ms"])
+
+    log("phase 15: compiled serving, octo_base")
+    compiled = {"octo_base_serving": compiled_serve_phase(
+        {"octo_base": model}, cfg, "octo_base bf16", {"ddpm_sampler": 1})}
     del model
     torch.cuda.empty_cache()
 
@@ -1701,6 +2041,13 @@ def main():
     del state
     torch.cuda.empty_cache()
 
+    log("phase 16: compiled training, octo_base")
+    compiled["octo_base_training"] = compiled_train_phase(
+        tcfg, "octo_base", {"flash_fwd_lse": blocks, "flash_dq": blocks,
+                            "flash_dkv": blocks, "pool_bwd": 1})
+    log("phase 17: checkpoint on the card")
+    compiled["checkpoint"] = checkpoint_phase(tcfg)
+
     log("phase 9: ToMe serving")
     dcfg = deep_config("bfloat16")
     t0 = time.perf_counter()
@@ -1717,7 +2064,6 @@ def main():
     baseline = Octo(deep_config("bfloat16", compression_mode="none"),
                     device="cuda", seed=0).eval()
     merge_ms = merge_compare_phase(deep, baseline, dcfg, DEEP_REQUESTS)
-    del baseline
 
     log("phase 10: ToMe reference")
     deep_ref = tome_reference_phase(deep_config("float32"), counters)
@@ -1725,7 +2071,13 @@ def main():
     log("phase 11: ToMe profile")
     deep_prof = profile_phase(deep, dcfg, deep_ms[1]["median_ms"],
                               "octo_deep bf16", "profile_deep_b1.txt")
-    del deep
+
+    log("phase 15: compiled serving, octo_deep beside its unmerged twin")
+    compiled["octo_deep_serving"] = compiled_serve_phase(
+        {"merged": deep, "unmerged": baseline}, dcfg, "octo_deep bf16",
+        {"flash_fwd": deep_blocks, "ddpm_sampler": 1},
+        requests=COMPILED_REQUESTS // 2)
+    del deep, baseline
     torch.cuda.empty_cache()
 
     log("phase 12: ToMe training")
@@ -1757,6 +2109,11 @@ def main():
         "octo_deep (flash/pallas)", "profile_deep_train_pallas.txt")
     del state
     torch.cuda.empty_cache()
+    log("phase 16: compiled training, octo_deep (flash/pallas)")
+    compiled["octo_deep_training_pallas"] = compiled_train_phase(
+        pcfg, "octo_deep (flash/pallas)",
+        {"flash_fwd_lse": deep_blocks, "flash_dq": deep_blocks,
+         "flash_dkv": deep_blocks, "pool_bwd": 1})
     log(f"  octo_deep bf16 B={TRAIN_BATCH}, fit window: flash_backward="
         f"'pallas' (attention dropout {TRAIN_DROPOUT}) "
         f"{deep_pallas_ms['ms_per_step']:.4f} ms/step, device "
@@ -1784,6 +2141,8 @@ def main():
         "library_ms": None, "call_ms": call_ms,
         "shape": "octo_base bf16 DDPM T=32 H=768 A=8 B=1",
         "launches_octo_deep_serving": deep_launches["ddpm_sampler"],
+        "launches_per_compiled_request": compiled["octo_base_serving"][1][
+            "replay_profile"]["kernels"]["ddpm_sampler"],
     }]
     tpu = "multi_modal_transformers_tokenmerge_tpu/ops/"
     flash_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
@@ -1796,6 +2155,8 @@ def main():
         "library": "SDPA forward, boolean mask",
         "shape": "octo_deep serving bf16 B=1 S=224 H=12 D=64 (stage 0 of 3)",
         "launches_octo_deep_training": deep_train_launches["flash_fwd"],
+        "launches_per_compiled_request_octo_deep": compiled[
+            "octo_deep_serving"][1]["replay_profile"]["kernels"]["flash_fwd"],
         "other_shapes": {k: v for k, v in fwd_rows.items()
                          if k != "octo_deep_S224_B1"},
     })
@@ -1815,6 +2176,11 @@ def main():
                      f"r={TRAIN_DROPOUT}",
             "launches_octo_deep_training_pallas":
                 deep_pallas_launches[kernel],
+            "launches_per_compiled_step": compiled["octo_base_training"][
+                "replay_profile"]["kernels"][kernel],
+            "launches_per_compiled_step_octo_deep": compiled[
+                "octo_deep_training_pallas"]["replay_profile"]["kernels"][
+                kernel],
             "other_shapes": {name: rows[kernel]
                              for name, rows in flash_rows.items()
                              if name != "octo_base_train"},
@@ -1829,6 +2195,8 @@ def main():
         "shape": f"octo_base train bf16 N={TRAIN_BATCH * 50} C=64 23x23, "
                  f"x channels_last, g NCHW",
         "launches_octo_deep_training": deep_train_launches["pool_bwd"],
+        "launches_per_compiled_step": compiled["octo_base_training"][
+            "replay_profile"]["kernels"]["pool_bwd"],
     })
     log(json.dumps({"flash_ptxas": flash_ptx}))
     log(json.dumps({"serve_ms_per_request": serve_ms,
@@ -1847,6 +2215,7 @@ def main():
         "train_pallas_launches": deep_pallas_launches,
         "train_pallas_profile": deep_pallas_prof},
         "octo_small_continuous_ms_per_request": small_ms, "card": card}))
+    log(json.dumps({"compiled": compiled, "card": card}))
     log(json.dumps({"profiler": {
         "sessions": len(_GUARD["lost"]), "guard_launches": GUARD_LAUNCHES,
         "guard_records_lost": _GUARD["lost"],

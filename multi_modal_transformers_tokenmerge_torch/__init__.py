@@ -11,10 +11,12 @@ from .core.config import OctoConfig
 from .models.octo import Octo
 from .models.presets import PRESETS, get_preset
 from .serve.policy import PolicyEngine
-from .train.loop import fit
+from .train.checkpoint import CheckpointManager
+from .train.loop import evaluate, fit, graceful_stop
 from .train.optim import make_optimizer
 from .train.state import create_train_state
 from .train.steps import make_train_step
 
 __all__ = ["Octo", "OctoConfig", "PolicyEngine", "PRESETS", "get_preset",
-           "create_train_state", "fit", "make_optimizer", "make_train_step"]
+           "CheckpointManager", "create_train_state", "evaluate", "fit",
+           "graceful_stop", "make_optimizer", "make_train_step"]

@@ -73,6 +73,8 @@ def ddim_schedule(diffusion_steps: int, ddim_steps: int,
 class FourierFeatures(nn.Module):
     """Learned Fourier time embedding + MLP (with the MLP's dropout)."""
 
+    CAST_PARAMS = ("fourier_kernel",)
+
     def __init__(self, output_dim: int, mlp_dim: int, *,
                  dropout_rate: float = 0.1, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
@@ -151,6 +153,7 @@ class DiffusionActionHead(nn.Module):
         betas = cosine_beta_schedule(cfg.diffusion_steps)
         alphas = 1.0 - betas
         self._np_alpha_hats = np.cumprod(alphas)
+        self._schedules = {}    # (ddim_steps, device) -> (times, coeffs)
         device = kw.get("device")
         self.register_buffer("betas", torch.as_tensor(
             betas, dtype=torch.float32, device=device), persistent=False)
@@ -162,9 +165,18 @@ class DiffusionActionHead(nn.Module):
 
     def schedule(self, ddim_steps: Optional[int] = None):
         """(times (T,), coeffs (T, 3|4) f32) for DDPM or ``ddim_steps``-step
-        DDIM, on the head's device."""
-        cfg = self.cfg
+        DDIM, on the head's device; made once for each (steps, device), so
+        that sampling copies nothing from the host (a CUDA graph could not
+        capture that)."""
         device = self.alphas.device
+        key = (ddim_steps, str(device))
+        if key not in self._schedules:
+            with torch.inference_mode(False), torch.no_grad():
+                self._schedules[key] = self._make_schedule(ddim_steps, device)
+        return self._schedules[key]
+
+    def _make_schedule(self, ddim_steps, device):
+        cfg = self.cfg
         if ddim_steps is not None:
             taus, d1, d2, e1, e2 = ddim_schedule(
                 cfg.diffusion_steps, ddim_steps, self._np_alpha_hats)

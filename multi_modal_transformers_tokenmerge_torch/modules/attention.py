@@ -207,11 +207,16 @@ class EncoderBlock(nn.Module):
 
 
 class AddPositionEmbedding(nn.Module):
-    """Learned (1, S, E) position embedding added to the sequence."""
+    """Learned (1, S, E) position embedding added to the sequence (in the
+    compute dtype, which the sequence is in)."""
+
+    CAST_PARAMS = ("pos_embedding",)
 
     def __init__(self, seq_len: int, features: int, *,
-                 param_dtype=torch.float32, device=None, **_):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
+                 **_):
         super().__init__()
+        self.dtype = dtype
         self.pos_embedding = nn.Parameter(torch.empty(
             1, seq_len, features, dtype=param_dtype, device=device))
 
@@ -252,6 +257,8 @@ class MultiHeadAttentionPooling(nn.Module):
     (flax ``MultiHeadDotProductAttention``: the query scaled by
     1/sqrt(head_dim) before the product, no mask), then x + mlp(LN(x)).
     (B, S, E) -> (B, 1, E)."""
+
+    CAST_PARAMS = ("learnt_q_input",)
 
     def __init__(self, features: int, num_heads: int = 3, mlp_dim: int = 768,
                  dropout_rate: float = 0.1, *, dtype=torch.float32,

@@ -71,6 +71,10 @@ class Dense(nn.Module):
     layers) or 'lecun' (flax's Dense default).  ``bias_init``: 'normal'
     (std 1e-2) or 'zeros'."""
 
+    # parameters every forward casts to ``self.dtype`` before use: a serving
+    # copy may store them in it (serve.policy.serving_copy)
+    CAST_PARAMS = ("weight", "bias")
+
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype=torch.float32,
                  param_dtype=torch.float32, device=None,
@@ -104,6 +108,8 @@ class Dense(nn.Module):
 class Conv2d(nn.Module):
     """NCHW convolution in the compute dtype, 'VALID' or 'SAME' padding,
     OIHW weights."""
+
+    CAST_PARAMS = ("weight", "bias")
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=(1, 1), padding: str = "VALID", *,
@@ -171,6 +177,8 @@ class Embed(nn.Module):
     """Lookup table; rows come out in the compute dtype.
 
     ``std=None`` gives flax's Embed default (normal, std 1/sqrt(dim))."""
+
+    CAST_PARAMS = ("weight",)
 
     def __init__(self, num_embeddings: int, features: int, *,
                  std: Optional[float] = None, dtype=torch.float32,

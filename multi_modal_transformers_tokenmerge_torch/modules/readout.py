@@ -14,6 +14,8 @@ __all__ = ["ReadoutTokens"]
 
 
 class ReadoutTokens(nn.Module):
+    CAST_PARAMS = ("pos_embedding",)
+
     def __init__(self, num_tokens: int, embedding_dim: int, *,
                  dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()

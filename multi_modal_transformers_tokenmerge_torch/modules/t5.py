@@ -105,6 +105,7 @@ class T5EncoderStack(nn.Module):
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.rel_pos_buckets = rel_pos_buckets
         self.rel_pos_max_distance = rel_pos_max_distance
+        self._buckets = {}      # (T, device) -> (T, T) int64 bucket ids
         self.token_embedding = Embed(vocab_size, d_model, std=1.0, **kw)
         self.relative_attention_bias = Embed(rel_pos_buckets, num_heads, **kw)
         self.blocks = nn.ModuleList(
@@ -113,13 +114,18 @@ class T5EncoderStack(nn.Module):
         self.final_norm = T5RMSNorm(d_model, **kw)
 
     def position_bias(self, t: int, device) -> torch.Tensor:
-        """(H, T, T) float32 bias from the static bucket table."""
-        pos = np.arange(t)
-        buckets = relative_position_bucket(
-            pos[None, :] - pos[:, None], num_buckets=self.rel_pos_buckets,
-            max_distance=self.rel_pos_max_distance)
-        table = self.relative_attention_bias(
-            torch.as_tensor(buckets, device=device))       # (T, T, H)
+        """(H, T, T) float32 bias from the static bucket table (its device
+        copy made once for each (T, device), so that a call copies nothing
+        from the host: a CUDA graph could not capture that)."""
+        key = (t, str(device))
+        if key not in self._buckets:
+            pos = np.arange(t)
+            buckets = relative_position_bucket(
+                pos[None, :] - pos[:, None], num_buckets=self.rel_pos_buckets,
+                max_distance=self.rel_pos_max_distance)
+            with torch.inference_mode(False):
+                self._buckets[key] = torch.as_tensor(buckets, device=device)
+        table = self.relative_attention_bias(self._buckets[key])  # (T, T, H)
         return table.permute(2, 0, 1).float()
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,21 @@ def eval_position_tokens(
     return (rs + rp) // 2, (cs + cp) // 2
 
 
+@functools.lru_cache(maxsize=64)
+def _draw_tables(image_dim: int, patch_size: int, position_interval: int,
+                 device: torch.device):
+    """(row start, row span, col start, col span) int64 tensors on
+    ``device``, made once: a draw then copies nothing from the host, which a
+    CUDA graph could not capture."""
+    rs, rp, cs, cp = position_interval_bounds(image_dim, patch_size,
+                                              position_interval)
+    rp = np.maximum(rp, rs + 1)
+    cp = np.maximum(cp, cs + 1)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                     for a in (rs, rp - rs, cs, cp - cs))
+
+
 def sample_position_tokens(
     batch_shape: Tuple[int, ...], image_dim: int, patch_size: int,
     position_interval: int, generator: Optional[torch.Generator] = None,
@@ -76,18 +91,16 @@ def sample_position_tokens(
     A degenerate interval (start == stop, possible when position_interval
     - 1 < patches per dim) is widened to ``[start, start + 1)``, so its
     patches emit their start bucket."""
-    rs, rp, cs, cp = position_interval_bounds(image_dim, patch_size,
-                                              position_interval)
-    rp = np.maximum(rp, rs + 1)
-    cp = np.maximum(cp, cs + 1)
-    shape = (*batch_shape, rs.shape[0])
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    row_lo, row_span, col_lo, col_span = _draw_tables(
+        image_dim, patch_size, position_interval, device)
+    shape = (*batch_shape, row_lo.shape[0])
 
-    def draw(start, stop):
-        lo = torch.as_tensor(start, dtype=torch.int64, device=device)
-        span = torch.as_tensor(stop - start, dtype=torch.int64,
-                               device=device)
+    def draw(lo, span):
         u = torch.rand(shape, generator=generator, device=device)
         off = torch.minimum((u * span).long(), span - 1)
         return lo + off
 
-    return draw(rs, rp), draw(cs, cp)
+    return draw(row_lo, row_span), draw(col_lo, col_span)

@@ -1,22 +1,32 @@
-"""Training loop.
+"""Training loop: ``fit``, ``evaluate`` and ``graceful_stop``.
 
-Counterpart of the JAX package's ``train/loop.py:fit``: run train steps
-over a batch iterator, logging windowed metrics.  Device meshes,
-checkpointing and the periodic eval hook are not ported yet; a mesh or a
-checkpointer raises.
+Counterpart of the JAX package's ``train/loop.py``: run train steps over a
+batch iterator, logging windowed metrics, with periodic evaluation,
+checkpointing (``train.checkpoint.CheckpointManager``) and a stop hook for
+preemption.  The default step is the compiled one of ``train.steps`` (a
+CUDA graph for a state on the card).  Device meshes are not ported yet; a
+mesh raises.
 """
 
 from __future__ import annotations
 
+import signal
 import time
-from typing import Iterable
+import weakref
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
-from .state import OctoTrainState
-from .steps import make_train_step
+from .state import Metrics, OctoTrainState
+from .steps import (LOSS_METHODS, LOSS_METHODS_WITH_TEXT, CapturedStep,
+                    make_train_step)
 
-__all__ = ["fit", "to_device"]
+__all__ = ["fit", "evaluate", "graceful_stop", "to_device", "eval_seed",
+           "EVAL_FOLD"]
+
+# the fixed offset evaluate() folds into every generator seed, with the
+# batch index (the JAX package folds 0xE7A1, then i, into each key)
+EVAL_FOLD = 0xE7A1
 
 
 def to_device(batch, device):
@@ -25,27 +35,69 @@ def to_device(batch, device):
                  for x in batch)
 
 
+def graceful_stop(signals=(signal.SIGTERM, signal.SIGINT)):
+    """A zero-argument callable that turns True once any of ``signals``
+    arrives: pass it as ``fit(should_stop=...)`` so that a preempted run
+    checkpoints and returns instead of dying mid-step.
+
+    Handlers installed before are chained, except Python's default SIGINT
+    handler, which raises KeyboardInterrupt and would end the run before
+    its final checkpoint.  The first SIGINT therefore stops the run
+    gracefully; a second one raises KeyboardInterrupt.  SIGTERMs do not
+    count towards that second SIGINT."""
+    state = {"stop": False, "sigints": 0}
+
+    def make_handler(prev):
+        def handler(signum, frame):
+            if signum == getattr(signal, "SIGINT", None):
+                state["sigints"] += 1
+                if state["sigints"] >= 2:
+                    raise KeyboardInterrupt
+            state["stop"] = True
+            if callable(prev) and prev is not signal.default_int_handler:
+                prev(signum, frame)
+        return handler
+
+    for s in signals:
+        signal.signal(s, make_handler(signal.getsignal(s)))
+    return lambda: state["stop"]
+
+
 def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
-        log_every: int = 50, logger=None, text_input: str = "ids",
-        mesh=None, checkpointer=None) -> OctoTrainState:
+        mesh=None, logger=None, log_every: int = 50,
+        reset_metrics_on_log: bool = True, checkpointer=None,
+        checkpoint_every: int = 1000, step_fn: Optional[Callable] = None,
+        eval_fn: Optional[Callable] = None, eval_every: int = 0,
+        text_input: str = "ids", data_state_fn: Optional[Callable] = None,
+        should_stop: Optional[Callable] = None) -> OctoTrainState:
     """Run ``num_steps`` train steps on ``batches`` of ``(text, images,
     actions)``, moved to the model's device.
 
     Every ``log_every`` steps ``logger.log(metrics, step=...)`` receives the
-    metrics averaged over the steps since the previous log, the last loss
-    and the steps per second; only then does the loop wait for the
-    device.  The metrics restart after every log but the one at the last
-    step, so the state returned holds the last window's metrics, as the
-    JAX package's ``fit`` leaves them."""
+    metrics averaged over the steps since the previous log (with
+    ``reset_metrics_on_log``; else since the start), the last loss and the
+    steps per second; only then does the loop wait for the device.  The
+    metrics restart after every log but the one at the last step, so the
+    state returned holds the last window's metrics.
+
+    ``step_fn`` replaces the default step (``make_train_step(head,
+    text_input=text_input)``).  ``eval_fn(state) -> dict`` runs every
+    ``eval_every`` steps and is logged under ``eval/``; the latest result
+    rides along with every checkpoint save, so a ``CheckpointManager`` with
+    ``best_metric`` keeps the best checkpoints.  ``checkpointer.save`` runs
+    every ``checkpoint_every`` steps and once at the end (then ``wait()``),
+    with ``data_state_fn()`` (e.g. ``RecordReader.state``) saved beside
+    it.  ``should_stop()`` (e.g. :func:`graceful_stop`) is polled once a
+    step; when it turns true the loop saves (with a checkpointer) and
+    returns early."""
     if mesh is not None:
         raise NotImplementedError("fit(mesh=...): device meshes are not "
                                   "ported yet")
-    if checkpointer is not None:
-        raise NotImplementedError("fit(checkpointer=...): checkpointing is "
-                                  "not ported yet")
-    step = make_train_step(head, text_input=text_input)
+    step = (step_fn if step_fn is not None
+            else make_train_step(head, text_input=text_input))
     device = next(state.model.parameters()).device
     it = iter(batches)
+    last_eval = None
     t_last = time.perf_counter()
     for i in range(num_steps):
         state, loss = step(state, *to_device(next(it), device))
@@ -57,6 +109,99 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
             t_last = now
             logger.log({**metrics, "last_loss": float(loss),
                         "steps_per_sec": round(sps, 2)}, step=state.step)
-            if i + 1 < num_steps:
+            if reset_metrics_on_log and i + 1 < num_steps:
                 state.metrics = state.metrics.zeros_like()
+        if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
+            last_eval = {k: float(v) for k, v in eval_fn(state).items()}
+            if logger is not None:
+                logger.log({f"eval/{k}": v for k, v in last_eval.items()},
+                           step=state.step)
+        if checkpointer is not None and (i + 1) % checkpoint_every == 0:
+            checkpointer.save(state.step, state,
+                              data_state=_maybe(data_state_fn),
+                              metrics=last_eval)
+        if should_stop is not None and should_stop():
+            break
+    if checkpointer is not None:
+        checkpointer.save(state.step, state,
+                          data_state=_maybe(data_state_fn), metrics=last_eval)
+        checkpointer.wait()
     return state
+
+
+def _maybe(fn):
+    return fn() if fn is not None else None
+
+
+def eval_seed(seed: int, i: int) -> int:
+    """The seed of batch ``i``'s generator, from a training generator's
+    initial seed, :data:`EVAL_FOLD` and ``i`` (a 64-bit mix)."""
+    x = seed & 0xFFFFFFFFFFFFFFFF
+    for word in (EVAL_FOLD, i):
+        x = (x ^ (word + 0x9E3779B97F4A7C15 + (x << 6) + (x >> 2))
+             ) & 0xFFFFFFFFFFFFFFFF
+    return x & 0x7FFFFFFFFFFFFFFF
+
+
+# state -> {collection: generator}: evaluate's own generators, reseeded for
+# every batch, never the training ones
+_EVAL_RNGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# (head, text_input) -> CapturedStep of the eval loss
+_EVAL_STEPS: Dict = {}
+
+
+def _eval_rngs(state: OctoTrainState) -> Dict[str, torch.Generator]:
+    if state not in _EVAL_RNGS:
+        _EVAL_RNGS[state] = {n: torch.Generator(device=g.device)
+                             for n, g in state.rngs.items()}
+    return _EVAL_RNGS[state]
+
+
+def _eval_step(head: str, text_input: str) -> CapturedStep:
+    """The eval loss of ``head`` as a captured step (eager on the CPU)."""
+    key = (head, text_input)
+    if key not in _EVAL_STEPS:
+        method = (LOSS_METHODS if text_input == "ids"
+                  else LOSS_METHODS_WITH_TEXT)[head]
+
+        @torch.no_grad()
+        def body(state, text, images, actions, *, draws=None):
+            loss_fn = getattr(state.model, method)
+            return loss_fn(text, images, actions, False,
+                           rngs=_eval_rngs(state)).mean().float()
+
+        _EVAL_STEPS[key] = CapturedStep(
+            body, after=lambda state: None,
+            generators=lambda state: _eval_rngs(state).values())
+    return _EVAL_STEPS[key]
+
+
+def evaluate(state: OctoTrainState, batches: Iterable, head: str,
+             num_batches: int, mesh=None, text_input: str = "ids") -> dict:
+    """The head's loss averaged over ``num_batches`` held-out batches: eval
+    mode (dropout off, deterministic patch positions), no gradients, no
+    change to the state.
+
+    Deterministic: the stochastic pieces (diffusion times and noise) draw
+    from generators of evaluate's own, seeded for batch ``i`` from each
+    training generator's initial seed, :data:`EVAL_FOLD` and ``i``
+    (:func:`eval_seed`); the training generators do not advance.  On the
+    card the loss is a captured step, as the train step is."""
+    if mesh is not None:
+        raise NotImplementedError("evaluate(mesh=...): device meshes are not "
+                                  "ported yet")
+    if head not in LOSS_METHODS:
+        raise ValueError(f"unknown head {head!r}; one of "
+                         f"{sorted(LOSS_METHODS)}")
+    device = next(state.model.parameters()).device
+    step = _eval_step(head, text_input)
+    rngs = _eval_rngs(state)
+    metrics = Metrics.empty(device, loss="avg")
+    it = iter(batches)
+    for i in range(num_batches):
+        batch = to_device(next(it), device)
+        for name, g in rngs.items():
+            g.manual_seed(eval_seed(state.rngs[name].initial_seed(), i))
+        _, loss = step(state, *batch)
+        metrics.update(loss=loss)
+    return {k: float(v) for k, v in metrics.compute().items()}

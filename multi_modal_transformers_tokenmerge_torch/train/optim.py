@@ -22,7 +22,10 @@ from torch's own optimizers in four places:
   shrinks it, as optax does.
 
 The optimizer updates the parameters in place (no copy of the parameter
-tree per step).
+tree per step).  Its step count lives on the device, and the learning rate
+and the bias corrections are computed from it there, so one update reads
+nothing back from the device and a CUDA graph that captures it (the
+compiled step of ``train.steps``) replays every later update correctly.
 """
 
 from __future__ import annotations
@@ -40,21 +43,30 @@ __all__ = ["warmup_cosine_schedule", "make_optimizer", "decay_mask",
 
 def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
                            total_steps: int,
-                           end_lr_ratio: float = 0.1) -> Callable[[int], float]:
+                           end_lr_ratio: float = 0.1) -> Callable:
     """optax ``warmup_cosine_decay_schedule(0, peak_lr, warmup_steps,
     max(total_steps, warmup_steps + 1), peak_lr * end_lr_ratio)``: linear
-    from 0 over the warmup, then cosine down to the end value."""
+    from 0 over the warmup, then cosine down to the end value.
+
+    Called with a tensor count (the optimizer's, on the device) the
+    schedule returns the rate as a float32 tensor on that device, with
+    optax's float32 arithmetic; called with an int it returns a float."""
     decay_steps = max(total_steps, warmup_steps + 1) - warmup_steps
     end_lr = peak_lr * end_lr_ratio
     alpha = 0.0 if peak_lr == 0.0 else end_lr / peak_lr
 
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            frac = 1.0 - max(count, 0) / warmup_steps
-            return -peak_lr * frac + peak_lr
-        c = min(count - warmup_steps, decay_steps)
-        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
-        return peak_lr * ((1.0 - alpha) * cosine + alpha)
+    def schedule(count):
+        if not isinstance(count, torch.Tensor):
+            return float(schedule(torch.tensor(count, dtype=torch.float64)))
+        c = count if count.is_floating_point() else count.float()
+        decay_c = torch.clamp(c - warmup_steps, max=decay_steps)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * decay_c / decay_steps))
+        out = peak_lr * ((1.0 - alpha) * cosine + alpha)
+        if warmup_steps > 0:
+            frac = 1.0 - torch.clamp(c, 0, warmup_steps) / warmup_steps
+            out = torch.where(c < warmup_steps, -peak_lr * frac + peak_lr,
+                              out)
+        return out
 
     return schedule
 
@@ -98,36 +110,86 @@ def trainable_mask(model: nn.Module,
 
 
 class Optimizer:
-    """The optax chain ``[masked](clip_by_global_norm, adamw(schedule, b1,
-    b2, eps, weight_decay, mask))`` over named parameters.
+    """The optax chain ``[apply_if_finite]([masked](clip_by_global_norm,
+    adamw(schedule, b1, b2, eps, weight_decay, mask)), n)`` over named
+    parameters.
 
-    :meth:`init` creates the moments of the trainable parameters;
-    :meth:`step` applies one update in place.  Frozen parameters carry no
-    state and are never changed."""
+    :meth:`init` creates the moments of the trainable parameters and the
+    step count (int32, on the parameters' device); :meth:`step` applies one
+    update in place.  Frozen parameters carry no state and are never
+    changed.
 
-    def __init__(self, schedule: Callable[[int], float], *, b1: float,
+    ``skip_nonfinite`` = n > 0 is optax's ``apply_if_finite(tx, n)``: an
+    update whose gradients hold an inf or a NaN leaves the parameters, the
+    moments and ``count`` as they were, unless it is the (n+1)-th such
+    update in a row, which applies.  ``notfinite_count`` (in a row),
+    ``last_finite`` and ``total_notfinite`` are optax's counters.  The
+    choice is made on the device, with no branch on the host."""
+
+    def __init__(self, schedule: Callable, *, b1: float,
                  b2: float, eps: float, weight_decay: float,
                  clip_norm: Optional[float],
                  decay: Optional[Dict[str, bool]] = None,
-                 trainable: Optional[Dict[str, bool]] = None):
+                 trainable: Optional[Dict[str, bool]] = None,
+                 skip_nonfinite: int = 0):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
         self.decay = decay
         self.trainable = trainable
-        self.count = 0
+        self.skip_nonfinite = skip_nonfinite
+        self.count: Optional[torch.Tensor] = None
         self.names: List[str] = []
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
+        self.notfinite_count = self.last_finite = None
+        self.total_notfinite = None
 
     def init(self, named_params: Iterable) -> None:
         params = dict(named_params)
-        self.count = 0
+        device = next(iter(params.values())).device if params else None
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.names = [n for n in params
                       if self.trainable is None or self.trainable[n]]
         self.mu = [torch.zeros_like(params[n]) for n in self.names]
         self.nu = [torch.zeros_like(params[n]) for n in self.names]
+        if self.skip_nonfinite:
+            self.notfinite_count = torch.zeros((), dtype=torch.int32,
+                                               device=device)
+            self.last_finite = torch.ones((), dtype=torch.bool,
+                                          device=device)
+            self.total_notfinite = torch.zeros((), dtype=torch.int32,
+                                               device=device)
+
+    def state_dict(self) -> Dict[str, object]:
+        """The optimizer's tensors by name (moments keyed by parameter)."""
+        out = {"count": self.count,
+               "mu": dict(zip(self.names, self.mu)),
+               "nu": dict(zip(self.names, self.nu))}
+        if self.skip_nonfinite:
+            out.update(notfinite_count=self.notfinite_count,
+                       last_finite=self.last_finite,
+                       total_notfinite=self.total_notfinite)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy ``state`` (from :meth:`state_dict`) into this optimizer's
+        tensors in place."""
+        for name, mine in self.state_dict().items():
+            if isinstance(mine, dict):
+                for n, t in mine.items():
+                    t.copy_(state[name][n])
+            else:
+                mine.copy_(state[name])
+
+    def hyperparameters(self, count: torch.Tensor):
+        """(learning rate, 1 - b1^(count+1), 1 - b2^(count+1)) of the update
+        at ``count`` (counted from 0), as float32 tensors on its device."""
+        nxt = (count + 1).float()
+        return (self.schedule(count), 1.0 - torch.pow(self.b1, nxt),
+                1.0 - torch.pow(self.b2, nxt))
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
@@ -137,20 +199,28 @@ class Optimizer:
         p = [params[n] for n in self.names]
         g = [grads.get(n) if grads.get(n) is not None
              else torch.zeros_like(params[n]) for n in self.names]
+        apply = None
+        if self.skip_nonfinite:
+            apply = self._check_finite(
+                [t for t in grads.values() if t is not None])
         if self.clip_norm is not None and g:
             norm = global_norm(g)
             scale = torch.where(norm < self.clip_norm, 1.0,
                                 self.clip_norm / norm)
             torch._foreach_mul_(g, scale)
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - b2)
-        lr = self.schedule(self.count)
-        self.count += 1
-        m_hat = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
-        v_hat = torch._foreach_div(self.nu, 1.0 - b2 ** self.count)
+        lr, bc1, bc2 = self.hyperparameters(self.count)
+        if apply is None:
+            mu, nu = self.mu, self.nu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_mul_(nu, b2)
+        else:
+            mu = torch._foreach_mul(self.mu, b1)
+            nu = torch._foreach_mul(self.nu, b2)
+        torch._foreach_add_(mu, g, alpha=1.0 - b1)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+        m_hat = torch._foreach_div(mu, bc1)
+        v_hat = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(v_hat)
         torch._foreach_add_(v_hat, self.eps)
         upd = torch._foreach_div(m_hat, v_hat)
@@ -161,7 +231,32 @@ class Optimizer:
                 torch._foreach_add_([upd[i] for i in pick],
                                     [p[i] for i in pick],
                                     alpha=self.weight_decay)
-        torch._foreach_add_(p, upd, alpha=-lr)
+        torch._foreach_mul_(upd, -lr)
+        if apply is not None:
+            # a rejected update leaves moments, parameters and count as
+            # they were (optax returns zero updates and the old state)
+            for old, new in ((self.mu, mu), (self.nu, nu)):
+                for o, n in zip(old, new):
+                    o.copy_(torch.where(apply, n, o))
+            upd = [torch.where(apply, u, 0.0) for u in upd]
+            self.count.add_(apply.int())
+        else:
+            self.count.add_(1)
+        torch._foreach_add_(p, upd)
+
+    def _check_finite(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """Advance optax's counters on the device; True where the update
+        applies (finite, or past ``skip_nonfinite`` bad updates in a
+        row)."""
+        zeros = torch._foreach_mul(grads, 0.0)   # NaN where not finite
+        finite = (torch.stack(torch._foreach_norm(zeros)).sum() == 0
+                  if zeros else torch.ones((), dtype=torch.bool,
+                                           device=self.count.device))
+        self.notfinite_count.copy_(torch.where(
+            finite, 0, self.notfinite_count + 1))
+        self.total_notfinite.add_((~finite).int())
+        self.last_finite.copy_(finite)
+        return finite | (self.notfinite_count > self.skip_nonfinite)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -194,18 +289,17 @@ def make_optimizer(peak_lr: float = 3e-4, warmup_steps: int = 1000,
 
     ``params`` (the model) enables the decay mask (otherwise every
     parameter decays, as plain adamw) and is needed for
-    ``frozen_prefixes``.  ``skip_nonfinite_steps`` (optax
-    ``apply_if_finite``) is not ported yet and raises."""
+    ``frozen_prefixes``.  ``skip_nonfinite_steps`` > 0 wraps the chain as
+    optax ``apply_if_finite`` does (see :class:`Optimizer`)."""
     if frozen_prefixes and params is None:
         raise ValueError("frozen_prefixes requires params (the masks are "
                          "built from the parameter names)")
-    if skip_nonfinite_steps > 0:
-        raise NotImplementedError("skip_nonfinite_steps is not ported yet")
     decay = decay_mask(params) if params is not None else None
     tx = Optimizer(warmup_cosine_schedule(peak_lr, warmup_steps,
                                           total_steps),
                    b1=b1, b2=b2, eps=1e-8, weight_decay=weight_decay,
-                   clip_norm=clip_norm, decay=decay)
+                   clip_norm=clip_norm, decay=decay,
+                   skip_nonfinite=max(skip_nonfinite_steps, 0))
     if frozen_prefixes:
         tx = mask_frozen(tx, params, tuple(frozen_prefixes))
     return tx

@@ -9,11 +9,22 @@ With ``accum_steps`` > 1 the batch splits into that many microbatches,
 each with fresh draws from the generators; their gradients are summed in
 float32, averaged and cast to the parameter dtype, and the loss averaged,
 before one update.
+
+``jit=True`` (the default, as in the JAX package) compiles the step for a
+state on the card: the first call runs eagerly on a side stream (warm-up:
+kernel libraries load, flash tables and caches are built, cuBLAS picks its
+algorithms), then one whole step (forward, ``torch.autograd.grad``, global
+norm, optimizer, EMA, metrics, every microbatch) is captured as a
+``torch.cuda.CUDAGraph``, which every later call replays after copying its
+batch into the graph's input buffers.  The state's generators are
+registered with the graph, so each replay draws fresh numbers, the same
+ones the eager step would draw.  A state on the CPU runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+import weakref
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
@@ -50,11 +61,127 @@ def _split_draws(draws: Optional[Mapping], i: int, n: int) -> Dict:
     return out
 
 
-def make_train_step(head: str, accum_steps: int = 1,
+def _signature(tensors: List[torch.Tensor]):
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+
+
+class CapturedStep:
+    """A step function compiled as a CUDA graph per (state, input shapes).
+
+    ``body(state, *inputs, draws=...)`` does the device work of one call
+    and returns its output tensor; it must advance nothing on the host.
+    ``after(state)`` is the host bookkeeping of one call (``state.step +=
+    1``), run after every eager call and every replay.  ``generators(state)``
+    are registered with each graph, so that a replay advances them as the
+    eager call would.  The first ``WARMUP_CALLS`` calls for a (state,
+    shapes) run ``body`` eagerly on a side stream; the next captures it and
+    replays it; later calls replay.  A call with explicit ``draws`` runs
+    eagerly.  A failed capture raises.  A state restored since its capture
+    (``state.restored`` changed) is captured anew; a ``Metrics`` object put
+    in place of the captured one (``fit`` does so after each log) is
+    adopted: its values move into the graph's accumulators, which it then
+    holds."""
+
+    # eager calls of a (state, shapes) before its capture: they load the
+    # kernel libraries and make every table and cache that is built at
+    # first use, which a capture could not do
+    WARMUP_CALLS = 1
+
+    def __init__(self, body: Callable, after: Callable,
+                 generators: Callable = lambda state: state.rngs.values()):
+        self.body = body
+        self.after = after
+        self.generators = generators
+        self._graphs = weakref.WeakKeyDictionary()   # state -> {key: entry}
+        self._stream = None
+
+    def __call__(self, state, *inputs, draws: Optional[Mapping] = None):
+        device = next(state.model.parameters()).device
+        if device.type != "cuda" or draws:
+            # explicit draws are a hook of the parity checks, which hold
+            # the eager step; a graph takes its draws from the generators
+            out = self.body(state, *inputs, draws=draws)
+            self.after(state)
+            return state, out
+        tensors = [torch.as_tensor(x, device=device) for x in inputs]
+        key = _signature(tensors)
+        per_state = self._graphs.setdefault(state, {})
+        entry = per_state.get(key)
+        if entry is not None and entry["restored"] != state.restored:
+            per_state.clear()
+            entry = None
+        if entry is None:
+            entry = {"calls": 0, "restored": state.restored}
+            per_state[key] = entry
+        if entry["calls"] < self.WARMUP_CALLS:
+            entry["calls"] += 1
+            out = self._eager_on_side_stream(state, tensors)
+            self.after(state)
+            return state, out
+        if "graph" not in entry:
+            self._capture(entry, state, tensors)
+        else:
+            for dst, src in zip(entry["inputs"], tensors):
+                dst.copy_(src)
+            self._adopt_metrics(entry, state)
+        entry["graph"].replay()
+        self.after(state)
+        return state, entry["output"].clone()
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        return self._stream
+
+    def _eager_on_side_stream(self, state, tensors):
+        stream = self._side_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = self.body(state, *tensors)
+        torch.cuda.current_stream().wait_stream(stream)
+        return out
+
+    def _capture(self, entry, state, tensors):
+        stream = self._side_stream()
+        static = [t.clone() for t in tensors]
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators(state):
+            graph.register_generator_state(gen)
+        # a private memory pool per graph: graphs of other shapes or states
+        # replay in any order
+        with torch.cuda.graph(graph, stream=stream):
+            out = self.body(state, *static)
+        entry.update(graph=graph, inputs=static, output=out,
+                     metrics=state.metrics)
+
+    @staticmethod
+    def _adopt_metrics(entry, state):
+        captured, now = entry["metrics"], state.metrics
+        if now is captured:
+            return
+        if now.kinds != captured.kinds:
+            raise ValueError(
+                f"the state's metrics were declared anew ({sorted(now.kinds)}"
+                f" after {sorted(captured.kinds)}) after the step was "
+                f"captured; build a new step")
+        for n in captured.kinds:
+            captured.sums[n].copy_(now.sums[n])
+            captured.counts[n].copy_(now.counts[n])
+        now.sums, now.counts = captured.sums, captured.counts
+        entry["metrics"] = now
+
+
+def make_train_step(head: str, donate: bool = True, jit: bool = True,
+                    accum_steps: int = 1,
                     text_input: str = "ids") -> Callable:
     """Build ``step(state, text, images, actions, *, draws=None) ->
     (state, loss)``; the state is updated in place and returned.
 
+    ``jit=True`` compiles the step as a CUDA graph for a state on the card
+    (see the module docstring); ``jit=False``, or a state on the CPU, runs
+    it eagerly.  ``donate`` is accepted for the JAX signature and does
+    nothing: the state is always updated in place, which is what donation
+    buys the JAX step.
     ``draws`` optionally replaces the generators' train-mode draws:
     ``positions`` ((B, F, P) rows, cols) and, for the diffusion head,
     ``time`` (B, 1) and ``noise`` (B, A).
@@ -71,7 +198,7 @@ def make_train_step(head: str, accum_steps: int = 1,
         raise ValueError(f"accum_steps={accum_steps} must be >= 1")
     method = methods[head]
 
-    def step(state: OctoTrainState, text, images, actions, *,
+    def body(state: OctoTrainState, text, images, actions, *,
              draws: Optional[Mapping] = None):
         model = state.model
         loss_fn = getattr(model, method)
@@ -106,11 +233,23 @@ def make_train_step(head: str, accum_steps: int = 1,
         present = [g for g in grads.values() if g is not None]
         grad_norm = (global_norm(present) if present
                      else torch.zeros((), device=actions.device))
-        state.apply_gradients(grads)
+        state.update_parameters(grads)
         loss = loss.detach()
         std = {k: v for k, v in (("loss", loss), ("grad_norm", grad_norm))
                if k in state.metrics.sums}
         state.metrics.update(**std)
+        return loss
+
+    def after(state: OctoTrainState):
+        state.step += 1
+
+    if jit:
+        return CapturedStep(body, after)
+
+    def step(state: OctoTrainState, text, images, actions, *,
+             draws: Optional[Mapping] = None):
+        loss = body(state, text, images, actions, draws=draws)
+        after(state)
         return state, loss
 
     return step

@@ -1,18 +1,89 @@
-"""Synthetic batches and the frozen text tower's embedding cache.
+"""Host-to-device prefetching, synthetic batches and the frozen text
+tower's embedding cache.
 
 Counterpart of the JAX package's ``utils/data.py``
-(``synthetic_octo_batches``, ``cache_text_embeddings``).
+(``prefetch_to_device``, ``synthetic_octo_batches``,
+``cache_text_embeddings``).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
-__all__ = ["synthetic_octo_batches", "cache_text_embeddings"]
+__all__ = ["prefetch_to_device", "synthetic_octo_batches",
+           "cache_text_embeddings"]
+
+
+def _map(fn, batch):
+    """``fn`` over the arrays of a tuple, list or dict batch."""
+    if isinstance(batch, dict):
+        return {k: _map(fn, v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map(fn, v) for v in batch)
+    return fn(batch)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor; a numpy array is made contiguous first (a
+    reader's fields may be strided views into its batch buffer)."""
+    return torch.as_tensor(np.ascontiguousarray(x)
+                           if isinstance(x, np.ndarray) else x)
+
+
+def prefetch_to_device(iterator: Iterable, size: int = 2,
+                       device="cuda") -> Iterator:
+    """Yield batches (tuples, lists or dicts of arrays) as tensors on
+    ``device`` with ``size`` more already on their way.
+
+    On a CUDA device each batch is staged in pinned host memory and copied
+    on a stream of its own, and an event recorded after its copies is
+    waited on by the consumer's stream before the batch is yielded: a step
+    never reads a batch before its copy has ended, and the copy of batch
+    N+size overlaps the step on batch N.  On the CPU batches are converted
+    in order."""
+    device = torch.device(device)
+    it = iter(iterator)
+    if device.type != "cuda":
+        for batch in it:
+            yield _map(lambda x: _host_tensor(x).to(device), batch)
+        return
+    stream = torch.cuda.Stream(device)
+
+    def place(batch):
+        def copy(x):
+            host = _host_tensor(x)
+            if host.device.type == "cpu":
+                host = host.pin_memory()
+            return host.to(device, non_blocking=True)
+        with torch.cuda.stream(stream):
+            out = _map(copy, batch)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return out, done
+
+    def hand_over(entry):
+        out, done = entry
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        # the consumer's stream now uses memory the copy stream allocated
+        _map(lambda t: t.record_stream(consumer), out)
+        return out
+
+    if size <= 0:
+        for batch in it:
+            yield hand_over(place(batch))
+        return
+    queue = collections.deque(place(b) for b in itertools.islice(it, size))
+    while queue:
+        nxt = next(it, None)
+        if nxt is not None:
+            queue.append(place(nxt))
+        yield hand_over(queue.popleft())
 
 
 def synthetic_octo_batches(batch_size: int, image_shape=(2, 280, 280, 3),

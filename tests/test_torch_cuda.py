@@ -367,3 +367,180 @@ def test_pool_bwd_kernel_matches_plain_exactly(card, dtype, layout):
     assert pool.pool_bwd.launches == before + 1
     assert dx.is_contiguous(memory_format=fmt)
     assert torch.equal(dx, pool.pool_bwd_reference(x, gy, (3, 3)))
+
+
+# -- CUDA graphs: the compiled train step and engine ------------------------------
+
+def _bf16_train_config():
+    """octo_base in bfloat16 with the flash kernels (dropout 0.1 in them)
+    and the max-pool backward kernel: every training kernel in the step."""
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    cfg = octo_base(dtype="bfloat16")
+    return cfg.replace(
+        transformer=cfg.transformer.replace(attention_impl="flash"),
+        images=cfg.images.replace(resnet=cfg.images.resnet.replace(
+            pool_vjp="pallas")))
+
+
+def _train_state(cfg, model_seed=0, rng_seed=0):
+    from multi_modal_transformers_tokenmerge_torch import (
+        Octo, create_train_state, make_optimizer)
+    model = Octo(cfg, device="cuda", seed=model_seed)
+    tx = make_optimizer(peak_lr=3e-4, warmup_steps=2, total_steps=20,
+                        params=model, frozen_prefixes=("text_encoder",),
+                        skip_nonfinite_steps=2)
+    return create_train_state(model, tx, rngs=rng_seed, ema_decay=0.99)
+
+
+def _device_batches(cfg, batch, count, seed):
+    from multi_modal_transformers_tokenmerge_torch.utils.data import (
+        synthetic_octo_batches)
+    it = synthetic_octo_batches(
+        batch, image_shape=(cfg.num_observation_blocks,
+                            *cfg.images.image_size),
+        text_length=cfg.text.max_length,
+        action_dim=cfg.heads.diffusion.action_space_dim,
+        vocab_size=cfg.text.vocab_size, seed=seed)
+    return [tuple(torch.as_tensor(a).cuda() for a in next(it))
+            for _ in range(count)]
+
+
+def _assert_same_state(a, b):
+    assert a.step == b.step
+    for n, p in a.params.items():
+        assert torch.equal(p, b.params[n]), n
+    for x, y in zip((*a.optimizer.mu, *a.optimizer.nu, a.optimizer.count,
+                     *a.ema_params.values()),
+                    (*b.optimizer.mu, *b.optimizer.nu, b.optimizer.count,
+                     *b.ema_params.values())):
+        assert torch.equal(x, y)
+    for n in a.metrics.kinds:
+        assert torch.equal(a.metrics.sums[n], b.metrics.sums[n])
+        assert torch.equal(a.metrics.counts[n], b.metrics.counts[n])
+    for n, g in a.rngs.items():
+        assert torch.equal(g.get_state(), b.rngs[n].get_state()), n
+
+
+@pytest.mark.cuda
+def test_captured_train_step_equals_the_eager_step(card):
+    """make_train_step(jit=True) captures one CUDA graph after one eager
+    warm-up and replays it; after 4 steps from the same state, batches and
+    generator seeds the state equals the eager step's bit for bit."""
+    from multi_modal_transformers_tokenmerge_torch import make_train_step
+    cfg = _bf16_train_config()
+    batches = _device_batches(cfg, 4, 4, seed=1)
+    eager, captured = _train_state(cfg), _train_state(cfg)
+    step_e = make_train_step("diffusion", jit=False)
+    step_c = make_train_step("diffusion")
+    for bt in batches:
+        step_e(eager, *bt)
+        step_c(captured, *bt)
+    torch.cuda.synchronize()
+    (entry,) = step_c._graphs[captured].values()
+    assert "graph" in entry
+    _assert_same_state(eager, captured)
+
+
+@pytest.mark.cuda
+def test_restored_state_is_captured_anew(card, tmp_path):
+    """Save after 2 compiled steps, restore into a fresh state, 2 more:
+    the unbroken compiled run's state after step 4."""
+    from multi_modal_transformers_tokenmerge_torch import (
+        CheckpointManager, make_train_step)
+    cfg = _bf16_train_config()
+    batches = _device_batches(cfg, 4, 4, seed=2)
+    step = make_train_step("diffusion")
+    unbroken = _train_state(cfg)
+    for bt in batches:
+        step(unbroken, *bt)
+    mgr = CheckpointManager(str(tmp_path))
+    first = _train_state(cfg)
+    for bt in batches[:2]:
+        step(first, *bt)
+    mgr.save(first.step, first)
+    fresh = mgr.restore(_train_state(cfg, 5, 5))
+    for bt in batches[2:]:
+        step(fresh, *bt)
+    (entry,) = step._graphs[fresh].values()
+    assert "graph" in entry
+    _assert_same_state(unbroken, fresh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,ddim_steps", [(1, None), (8, None), (1, 8)])
+def test_compiled_engine_replays_the_eager_call(card, batch, ddim_steps):
+    """PolicyEngine.compile captures the full and the cached path (DDPM, or
+    DDIM, whose coefficients are made before the capture); each replay
+    equals the eager engine's call on the same seed bit for bit, and
+    compiling consumed none of the engine's noise."""
+    from multi_modal_transformers_tokenmerge_torch import Octo, PolicyEngine
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    cfg = octo_base(dtype="bfloat16")
+    model = Octo(cfg, device="cuda", seed=0)
+    ids = np.arange(cfg.text.max_length)
+    shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    kw = dict(batch_size=batch, seed=1, ddim_steps=ddim_steps)
+    eager = PolicyEngine(model, **kw).set_instruction(ids)
+    compiled = PolicyEngine(model, **kw).compile(
+        (cfg.text.max_length,), shape).set_instruction(ids)
+    assert set(compiled._graphs) == {"full", "cached"}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for i in range(3):
+        images = torch.randint(0, 256, (batch, *shape), generator=g,
+                               device="cuda").float()
+        if i == 2:
+            want = eager(images, text_tokens=ids)
+            got = compiled(images, text_tokens=ids)
+        else:
+            want, got = eager(images), compiled(images)
+        assert torch.equal(got, want), i
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_the_card(card):
+    """Pinned staging, a copy stream and an event per batch: the batches
+    arrive on the card, equal and in order, and a consumer reading each at
+    once sees its copy finished."""
+    from multi_modal_transformers_tokenmerge_torch.utils.data import (
+        prefetch_to_device)
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(64, 1024)).astype(np.float32),
+                {"ids": rng.integers(0, 9, (64,))}) for _ in range(6)]
+    out = []
+    for x, d in prefetch_to_device(iter(batches), size=2, device="cuda"):
+        assert x.device.type == "cuda"
+        out.append((x.sum().item(), d["ids"].cpu().numpy()))
+    for (s, ids), (x, d) in zip(out, batches):
+        assert s == pytest.approx(float(x.sum()), rel=1e-4)
+        np.testing.assert_array_equal(ids, d["ids"])
+
+
+@pytest.mark.cuda
+def test_captured_evaluate_equals_the_eager_losses(card):
+    """evaluate on the card (batch 0 eager, batch 1 captured, then
+    replays) gives the mean of the eager eval losses drawn from the same
+    per-batch generators, and leaves the training generators alone."""
+    from multi_modal_transformers_tokenmerge_torch import evaluate
+    from multi_modal_transformers_tokenmerge_torch.train.loop import (
+        eval_seed)
+    cfg = _bf16_train_config()
+    state = _train_state(cfg, rng_seed=4)
+    batches = _device_batches(cfg, 4, 4, seed=3)
+    before = {n: g.get_state() for n, g in state.rngs.items()}
+    got = evaluate(state, iter(batches), "diffusion", 4)
+    again = evaluate(state, iter(batches), "diffusion", 4)
+    rngs = {n: torch.Generator(device="cuda") for n in state.rngs}
+    losses = []
+    with torch.no_grad():
+        for i, bt in enumerate(batches):
+            for n, g in rngs.items():
+                g.manual_seed(eval_seed(state.rngs[n].initial_seed(), i))
+            losses.append(state.model.compute_diffusion_denoise_loss(
+                *bt, False, rngs=rngs).mean().float())
+    want = float(torch.stack(losses).sum() / len(losses))
+    assert got == again
+    assert got["loss"] == pytest.approx(want, rel=1e-6)
+    assert all(torch.equal(g.get_state(), before[n])
+               for n, g in state.rngs.items())

@@ -49,7 +49,11 @@ def test_importing_every_module_loads_no_jax():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
-    assert "multi_modal_transformers_tokenmerge_torch.train.steps" in modules
+    for name in ("train.steps", "train.checkpoint", "train.loop",
+                 "utils.recordio", "utils.episodes", "utils.spm",
+                 "utils.logging", "utils.data", "modules.text",
+                 "serve.policy"):
+        assert f"multi_modal_transformers_tokenmerge_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"

@@ -522,9 +522,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tloop.fit(state, iter([]), "diffusion", 1, mesh=object())
     with pytest.raises(NotImplementedError):
-        tloop.fit(state, iter([]), "diffusion", 1, checkpointer=object())
-    with pytest.raises(NotImplementedError):
-        toptim.make_optimizer(skip_nonfinite_steps=3)
+        tloop.evaluate(state, iter([]), "diffusion", 1, mesh=object())
+    # checkpointing (fit(checkpointer=...)) and skip_nonfinite_steps are
+    # ported: tests/test_torch_checkpoint.py, tests/test_torch_optim.py
+    assert toptim.make_optimizer(skip_nonfinite_steps=3).skip_nonfinite == 3
 
 
 def test_metrics_kinds():
