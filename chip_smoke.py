@@ -72,7 +72,27 @@ Phases, each of which must pass (any failure exits non-zero):
     a step at octo_base and 12, 12, 12, 1 at octo_deep);
 17. checkpoint on the card (after phase 16's octo_base): save at step 3,
     restore into a fresh state, two more compiled steps, equal to the
-    unbroken run's state after step 5.
+    unbroken run's state after step 5;
+18. configs and the CLI: ``python -m multi_modal_transformers_tokenmerge_torch
+    info`` in a subprocess reports cuda and the card; load_config("octo_base",
+    ["dtype=bfloat16"]) equals the preset, and builds the next phases' model;
+19. PolicyServer around that model's compiled engine at batch 8 (diffusion
+    head): the closed-loop service time of one client (100 requests), then
+    open-loop Poisson arrivals of single uint8 observations at 0.3, 0.6 and
+    0.9 of the batch capacity it gives (200 requests each, max_wait_ms=2),
+    p50/p95/p99 and achieved requests/s; one profiled server batch (one
+    ddpm_sampler launch); the server thread's replay equal to the main
+    thread's bit for bit; the continuous head through the server against
+    direct engine calls, and a two-instruction batch against the tokens
+    path; an eager engine behind the server, its sampler launches counted;
+20. the closed loop: ReachTask.rollout at batch 8 (up to 16 steps, 2 uint8
+    frames of 280x280) through the compiled engine, ms per env step split
+    into render and policy, the success rate printed (random weights);
+21. octo_base bf16 with a three-block denoiser and GELU MLPs from
+    load_config overrides: compiled serving at batch 1 and 8 (no sampler
+    launch), float32 card against CPU (1e-3 on actions), one float32 train
+    step against the CPU with its planted bfloat16 fault, and octo_deep's
+    float32 attention probes against the CPU per stage.
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -1004,7 +1024,11 @@ def merge_compare_phase(merged, baseline, cfg, requests):
 
 # -- phase 4: float32 CUDA vs CPU ----------------------------------------------
 
-def reference_phase(cfg32):
+def reference_phase(cfg32, label="octo_base", sampler_launches=1):
+    """``cfg32`` in float32 on the card against the CPU, the same weights,
+    inputs and noise; the card's request must launch the sampler kernel
+    ``sampler_launches`` times (0 for a multi-block denoiser, whose reverse
+    loop is plain PyTorch on every device)."""
     from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
     from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
         ddpm_sampler)
@@ -1026,12 +1050,14 @@ def reference_phase(cfg32):
         out_gpu = gpu.predict_diffusion_action(
             ids.cuda(), images.cuda(), noisy=noisy.cuda(),
             noise=noise.cuda()).cpu()
-        if ddpm_sampler.launches != before + 1:
-            fail("the float32 CUDA run did not launch the sampler kernel")
+        if ddpm_sampler.launches != before + sampler_launches:
+            fail(f"the float32 CUDA run of {label} launched the sampler "
+                 f"kernel {ddpm_sampler.launches - before} times; expected "
+                 f"{sampler_launches}")
         out_cpu = cpu.predict_diffusion_action(ids, images, noisy=noisy,
                                                noise=noise)
     err = (out_gpu - out_cpu).abs().max().item()
-    log(f"  octo_base f32 predict_diffusion_action B={b}: |cuda-cpu|="
+    log(f"  {label} f32 predict_diffusion_action B={b}: |cuda-cpu|="
         f"{err:.3e} (tol {E2E_F32_TOL:g}: cuDNN/cuBLAS sum in another order "
         f"than the CPU, and 32 sampling steps amplify it)")
     if not err <= E2E_F32_TOL:
@@ -1416,6 +1442,10 @@ def train_phase(cfg, train_counters, label="octo_base", per_step=None,
 TRAIN_REF_LIMITS = {
     "octo_base": dict(rest=1e-3, image=3e-3, l2=None),
     "octo_deep": dict(rest=5e-2, image=1e-2, l2=5e-3),
+    # phase 21: octo_base with a three-block denoiser and GELU MLPs; the
+    # same image tower and pool as octo_base, smooth activations after it,
+    # so octo_base's limits
+    "octo_base_3block_gelu": dict(rest=1e-3, image=3e-3, l2=None),
 }
 
 
@@ -1477,8 +1507,13 @@ def train_reference_phase(cfg, counters, label, expected):
                                                    (b, 1))),
              "noise": torch.from_numpy(rng.normal(
                  size=(b, d.action_space_dim)).astype(np.float32))}
-    masks = [torch.from_numpy(rng.random((b, n)) < 0.9)
-             for n in (d.mlp_dim, d.time_dim)]
+    # the dropout sites of fixed rate 0.1, in the order they run: the time
+    # encoder's MLP, then each tail block of a multi-block denoiser
+    sites = [d.mlp_dim, d.time_dim]
+    for i in range(1, d.num_blocks):
+        sites += [d.mlp_dim,
+                  d.action_space_dim if i == d.num_blocks - 1 else d.mlp_dim]
+    masks = [torch.from_numpy(rng.random((b, n)) < 0.9) for n in sites]
     results = {}
     launched = None
     plans, signs = {}, {}
@@ -1560,8 +1595,9 @@ def train_reference_phase(cfg, counters, label, expected):
             f"{rest:.2e} (limit {rest_tol:g}); largest relative L2 error of "
             f"a leaf {l2:.2e}"
             + (f" (limit {l2_tol:g})" if l2_tol else "") + f"; "
-            f"{relu_flips[name]} of {relu_inputs} ReLU inputs of the "
-            f"transformer have another sign than on the CPU; worst "
+            f"{relu_flips[name]} of {relu_inputs} MLP activation inputs "
+            f"(dense_in outputs) of the transformer have another sign than "
+            f"on the CPU; worst "
             f"{[(n, f'{v:.1e}') for n, v in top]}")
     r = report["cuda"]
     r["merge_events"] = len(plans["cuda"])
@@ -1933,6 +1969,537 @@ def checkpoint_phase(cfg, k=3, batch=8):
             "restore_s": restore_s, "max_param_diff": diff}
 
 
+# -- phases 18-21: configs and the CLI, the server, the closed loop, and ----
+# -- what the model refused before -------------------------------------------
+
+SERVER_BATCH = 8
+SERVER_WAIT_MS = 2.0
+SERVER_CLOSED_REQUESTS = 100   # one client, after three warm-up requests
+SERVER_LOAD_REQUESTS = 200     # per load point
+SERVER_LOADS = (0.3, 0.6, 0.9)  # of the batch capacity the closed loop gives
+CLOSED_LOOP_BATCH = 8
+# octo_base as the YAML config gives it, and the configuration the port
+# refused before: a three-block denoiser and GELU MLPs, from overrides
+YAML_OVERRIDES = ["dtype=bfloat16"]
+REFUSED_OVERRIDES = ["heads.diffusion.num_blocks=3",
+                     "transformer.mlp_activation=gelu"]
+# the attention probes of octo_deep, float32 on the card against the CPU:
+# max |cuda - cpu| over every weight of a stage (softmax probabilities).
+# Seen: 3.1e-5 at stage 0, 6.8e-6 at stage 2, every merge plan the same
+# (H100 80GB HBM3, 700 W); the same forward in bfloat16, the planted fault,
+# read 0.14-0.21, and must stay above the limit
+PROBE_F32_TOL = 1e-4
+
+
+def config_cli_phase():
+    """Phase 18: the CLI's ``info`` in a subprocess reports the card, and
+    load_config("octo_base", ["dtype=bfloat16"]) equals the preset."""
+    import dataclasses
+    from multi_modal_transformers_tokenmerge_torch import load_config
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "multi_modal_transformers_tokenmerge_torch", "info"],
+                       capture_output=True, text=True, timeout=120)
+    info_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the CLI's info exited {r.returncode}: {r.stderr[-2000:]}")
+    info = json.loads(r.stdout)
+    name = torch.cuda.get_device_name(0)
+    if info["backend"] != "cuda" or not any(name in d
+                                            for d in info["devices"]):
+        fail(f"the CLI's info reports {info['backend']} {info['devices']}; "
+             f"expected cuda and {name}")
+    cfg = load_config("octo_base", YAML_OVERRIDES)
+    preset = octo_base(dtype="bfloat16")
+    got, want = dataclasses.asdict(cfg), dataclasses.asdict(preset)
+    if got != want:
+        fail(f"load_config('octo_base', {YAML_OVERRIDES}) differs from the "
+             f"preset")
+    log(f"  python -m multi_modal_transformers_tokenmerge_torch info "
+        f"({info_s:.2f} s in a subprocess): backend {info['backend']}, "
+        f"devices {info['devices']}; load_config('octo_base', "
+        f"{YAML_OVERRIDES}) equals octo_base(dtype='bfloat16') on every "
+        f"field")
+    return cfg, info
+
+
+def _poisson_load(server, frames, rate, n, rng):
+    """Open loop, as benchmarks/serving_load_r4.py drives it: requests fired
+    at Poisson arrival times, each in its own thread, each timed from its
+    call to its answer."""
+    import threading
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def one(img):
+        t0 = time.perf_counter()
+        try:
+            act = server.predict(img, timeout=120.0)
+            if not np.isfinite(act).all():
+                raise ValueError("non-finite action")
+        except Exception as e:  # noqa: BLE001 - the phase fails below
+            errors.append(repr(e))
+            return
+        with lock:
+            lat.append((time.perf_counter() - t0) * 1e3)
+
+    gaps = rng.exponential(1.0 / rate, size=n)
+    threads = []
+    start = time.perf_counter()
+    at = 0.0
+    for i in range(n):
+        at += gaps[i]
+        delay = start + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t = threading.Thread(target=one, args=(frames[i % len(frames)],),
+                             daemon=True)
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join(timeout=180.0)
+    wall = time.perf_counter() - start
+    if errors or len(lat) != n:
+        fail(f"open-loop load at {rate:.1f} requests/s: {len(lat)} of {n} "
+             f"answered, errors {errors[:3]}")
+    lat = np.asarray(lat)
+    return {"offered_rps": rate, "achieved_rps": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max()), "requests": n}
+
+
+class _Recording:
+    """An engine that records, per call on the server's thread, the host
+    milliseconds of the call (the input copies and the replay's launch) and,
+    with ``keep``, the batch it was handed, the generator state before it
+    and its output."""
+
+    def __init__(self, eng, keep=True):
+        self.eng = eng
+        self.keep = keep
+        self.calls = []
+        self.call_ms = []
+
+    def __getattr__(self, name):
+        return getattr(self.eng, name)
+
+    def __call__(self, images, **kw):
+        t = time.perf_counter()
+        state = self.eng._generator.get_state() if self.keep else None
+        out = self.eng(images, **kw)
+        self.call_ms.append((time.perf_counter() - t) * 1e3)
+        if self.keep:
+            self.calls.append((images.clone(), kw, state, out.clone()))
+        return out
+
+
+def _coalesced(server, frames, instructions=None):
+    """One request per frame, started 2 ms apart so that they reach the
+    server in order and fill one batch; each request's answer."""
+    import threading
+    out = [None] * len(frames)
+
+    def call(i):
+        out[i] = server.predict(frames[i], None if instructions is None
+                                else instructions[i], timeout=120.0)
+
+    threads = []
+    for i in range(len(frames)):
+        threads.append(threading.Thread(target=call, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.002)
+    for t in threads:
+        t.join(timeout=120.0)
+    return out
+
+
+def _held(got, want, label):
+    """Bit for bit, else within LOW_ULPS * eps(bf16) * (1 + |want|): which
+    one held, and the largest difference."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    diff = float((got - want).abs().max())
+    if torch.equal(got, want):
+        return "bit for bit", diff
+    gate = rel_gate(got, want, torch.bfloat16)
+    if not gate[0]:
+        fail(f"{label}: differs by {diff} (limit {LOW_ULPS} eps(bf16) "
+             f"(1+|x|))")
+    return f"within {LOW_ULPS} eps(bf16) (1+|x|)", diff
+
+
+def server_phase(model, cfg, counters):
+    """Phase 19: PolicyServer around the compiled octo_base bf16 engine at
+    batch 8 (diffusion head), in the manner of benchmarks/serving_load_r4.py:
+    the closed-loop service time of one client, then open-loop Poisson
+    arrivals of single uint8 observations at 0.3, 0.6 and 0.9 of the batch
+    capacity that service time gives (8 requests a service time), with
+    max_wait_ms=2; one profiled server batch (one ddpm_sampler launch);
+    the server thread's replay against a replay on the main thread, bit for
+    bit; the continuous head through the server against direct engine calls
+    on the same rows, and a mixed-instruction batch against the same rows
+    and, in float32, against the tokens path; an eager server's counted
+    sampler launches."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.serve.policy import (
+        PolicyEngine)
+    from multi_modal_transformers_tokenmerge_torch.serve.server import (
+        PolicyServer)
+    g = np.random.default_rng(19)
+    ids = g.integers(0, cfg.text.vocab_size, (cfg.text.max_length,))
+    image_shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    frames = [g.integers(0, 256, image_shape, dtype=np.uint8)
+              for _ in range(16)]
+    hc = cfg.heads.diffusion
+    t0 = time.perf_counter()
+    eng = PolicyEngine(model, batch_size=SERVER_BATCH, seed=1).compile(
+        (cfg.text.max_length,), image_shape)
+    eng.set_instruction(ids)
+    compile_s = time.perf_counter() - t0
+    out = {"batch": SERVER_BATCH, "max_wait_ms": SERVER_WAIT_MS,
+           "compile_s": compile_s}
+
+    class TimedServer(PolicyServer):
+        """Times each batch on the server's thread: stack, copies, replay,
+        the copy back and the hand-out."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.runs = []
+
+        def _run(self, batch):
+            t = time.perf_counter()
+            super()._run(batch)
+            self.runs.append((time.perf_counter() - t) * 1e3)
+
+    timed = _Recording(eng, keep=False)
+    with TimedServer(timed, max_wait_ms=SERVER_WAIT_MS) as server:
+        for i in range(3):
+            server.predict(frames[i])
+        server.runs.clear()
+        timed.call_ms.clear()
+        times = []
+        for i in range(SERVER_CLOSED_REQUESTS):
+            t = time.perf_counter()
+            act = server.predict(frames[i % len(frames)])
+            times.append((time.perf_counter() - t) * 1e3)
+            if act.shape != (hc.action_space_dim,) or not (
+                    np.isfinite(act).all()
+                    and np.abs(act).max() <= hc.clip_value):
+                fail(f"server: action {act.shape} not finite or outside "
+                     f"+-{hc.clip_value}")
+        runs = list(server.runs)
+    svc_ms = float(np.mean(times))
+    capacity = SERVER_BATCH / (svc_ms / 1e3)
+    out["closed_loop"] = {"service_ms": svc_ms, **latency(times),
+                          "p99_ms": float(np.percentile(times, 99)),
+                          "capacity_rps": capacity,
+                          "batch_run_mean_ms": float(np.mean(runs)),
+                          "engine_call_mean_ms": float(np.mean(
+                              timed.call_ms))}
+    cl = out["closed_loop"]
+    log(f"  server, one client, {SERVER_CLOSED_REQUESTS} requests: service "
+        f"time mean {svc_ms:.4f} ms (median {cl['median_ms']:.4f}, p99 "
+        f"{cl['p99_ms']:.4f}; each waits max_wait_ms={SERVER_WAIT_MS} for "
+        f"company first, then its batch runs in "
+        f"{cl['batch_run_mean_ms']:.4f} ms on the server's thread, the "
+        f"engine call {cl['engine_call_mean_ms']:.4f} of it); batch "
+        f"capacity {SERVER_BATCH} a service time = {capacity:.1f} "
+        f"requests/s")
+
+    rng = np.random.default_rng(0)
+    out["load"] = []
+    for frac in SERVER_LOADS:
+        timed = _Recording(eng, keep=False)
+        with TimedServer(timed, max_wait_ms=SERVER_WAIT_MS) as server:
+            server.predict(frames[0])
+            server.runs.clear()
+            timed.call_ms.clear()
+            res = _poisson_load(server, frames, frac * capacity,
+                                SERVER_LOAD_REQUESTS, rng)
+            runs = list(server.runs)
+        res.update(load=frac, batches=len(runs),
+                   mean_batch_fill=SERVER_LOAD_REQUESTS / len(runs),
+                   batch_run_mean_ms=float(np.mean(runs)),
+                   batch_run_p99_ms=float(np.percentile(runs, 99)),
+                   engine_call_mean_ms=float(np.mean(timed.call_ms)))
+        out["load"].append(res)
+        log(f"  server at {frac} of capacity ({res['offered_rps']:.1f} "
+            f"requests/s offered, Poisson, {SERVER_LOAD_REQUESTS} requests):"
+            f" achieved {res['achieved_rps']:.1f}/s; p50 {res['p50_ms']:.4f}"
+            f" ms, p95 {res['p95_ms']:.4f}, p99 {res['p99_ms']:.4f}, max "
+            f"{res['max_ms']:.4f}; {res['batches']} batches, "
+            f"{res['mean_batch_fill']:.2f} requests a batch, each run in "
+            f"{res['batch_run_mean_ms']:.4f} ms on the server's thread "
+            f"(p99 {res['batch_run_p99_ms']:.4f}; of it the engine call, "
+            f"input copies and replay launch, "
+            f"{res['engine_call_mean_ms']:.4f})")
+
+    with PolicyServer(eng, max_wait_ms=SERVER_WAIT_MS) as server:
+        server.predict(frames[0])
+        prof = replay_profile(lambda: server.predict(frames[1]), 5,
+                              {"ddpm_sampler": 1}, "one server batch")
+    out["batch_profile"] = prof
+    kernels = {k: v for k, v in prof["kernels"].items() if v}
+    log(f"  one server batch (one request, padded to {SERVER_BATCH}): "
+        f"{prof['launches']:.0f} launches, device {prof['device_ms']:.4f} "
+        f"ms, kernels {kernels}")
+
+    # the server thread's replay against the main thread's, bit for bit
+    rec = _Recording(eng)
+    with PolicyServer(rec, max_wait_ms=200.0) as server:
+        answers = _coalesced(server, frames[:SERVER_BATCH])
+    images, _, state, worker_out = rec.calls[-1]
+    saved = eng._generator.get_state()
+    eng._generator.set_state(state)
+    main_out = eng(images)
+    eng._generator.set_state(saved)
+    if len(rec.calls) != 1 or not torch.equal(worker_out, main_out):
+        fail(f"server: {len(rec.calls)} batches; the server thread's replay "
+             f"differs from the main thread's by "
+             f"{float((worker_out - main_out).abs().max())}")
+    for i, a in enumerate(answers):
+        if not np.array_equal(a, worker_out[i].cpu().numpy()):
+            fail(f"server: request {i} got another row than its own")
+    out["thread_replay"] = "bit for bit"
+
+    # the deterministic continuous head: server rows against direct calls
+    cont = PolicyEngine(model, head="continuous",
+                        batch_size=SERVER_BATCH).compile(
+        (cfg.text.max_length,), image_shape)
+    cont.set_instruction(ids)
+    rec = _Recording(cont)
+    with PolicyServer(rec, max_wait_ms=200.0) as server:
+        answers = _coalesced(server, frames[:SERVER_BATCH])
+    direct = cont(torch.from_numpy(np.stack(frames[:SERVER_BATCH])))
+    if len(rec.calls) != 1:
+        fail(f"server: the continuous requests ran in {len(rec.calls)} "
+             f"batches")
+    held, diff = _held(np.stack(answers), direct.cpu(),
+                       "continuous head through the server")
+    out["continuous_vs_direct"] = {"held": held, "max_abs_diff": diff}
+
+    # a mixed-instruction batch: against the same rows served directly, and
+    # against the tokens path.  The tokens path runs the text tower at
+    # batch 8 inside the graph, the mixed batch at batch 1 per instruction
+    # (encode_instruction): other products, other bf16 roundings through
+    # twelve T5 blocks.  So the tokens path is held in float32 (the same
+    # weights), and the bfloat16 difference is recorded.
+    other = (ids + 1) % cfg.text.vocab_size
+    instr = [ids if i % 2 == 0 else other for i in range(SERVER_BATCH)]
+    rows = torch.from_numpy(np.stack(frames[:SERVER_BATCH]))
+    mixed = {}
+    model32 = Octo(cfg.replace(dtype="float32"), device="cuda",
+                   seed=None).eval()
+    model32.load_state_dict(model.state_dict())
+    for dtype, m in (("bfloat16", model), ("float32", model32)):
+        e = cont
+        if dtype == "float32":
+            e = PolicyEngine(m, head="continuous",
+                             batch_size=SERVER_BATCH).compile(
+                (cfg.text.max_length,), image_shape)
+            e.set_instruction(ids)
+        with PolicyServer(e, max_wait_ms=200.0) as server:
+            answers = torch.from_numpy(np.stack(_coalesced(
+                server, frames[:SERVER_BATCH], instr)))
+        emb = torch.stack([e.encode_instruction(i) for i in instr])
+        held_rows, diff_rows = _held(
+            answers, e(rows, text_embeddings=emb).cpu(),
+            f"{dtype} mixed-instruction batch against the same rows")
+        tokens = e(rows, text_tokens=np.stack(instr)).cpu().float()
+        ok, diff_tokens, units = rel_gate(answers, tokens, torch.float32)
+        mixed[dtype] = {"same_rows": held_rows,
+                        "same_rows_max_abs_diff": diff_rows,
+                        "vs_tokens_max_abs_diff": diff_tokens,
+                        "vs_tokens_f32_units": units}
+        if dtype == "float32" and not ok:
+            fail(f"float32 mixed-instruction batch against the tokens path: "
+                 f"{diff_tokens} ({units:.2f} units of {F32_TOL}(1+|x|))")
+    out["mixed"] = mixed
+    log(f"  server thread's replay equals the main thread's: bit for bit; "
+        f"continuous head, {SERVER_BATCH} requests through the server "
+        f"against one direct call on the same rows: {held} (max |diff| "
+        f"{diff}); two instructions in one batch against the same rows "
+        f"served directly: bf16 {mixed['bfloat16']['same_rows']}, f32 "
+        f"{mixed['float32']['same_rows']}; against the tokens path (the "
+        f"text tower at batch 8 in the graph): f32 "
+        f"{mixed['float32']['vs_tokens_max_abs_diff']:.3e} (limit "
+        f"{F32_TOL}(1+|x|)), bf16 "
+        f"{mixed['bfloat16']['vs_tokens_max_abs_diff']:.3e} (recorded: "
+        f"another text-tower batch, other roundings)")
+    del model32
+
+    # an eager engine behind the server: the counted sampler launches
+    eager = PolicyEngine(model, batch_size=SERVER_BATCH, seed=1)
+    eager.set_instruction(ids)
+    for c in counters.values():
+        c.launches = 0
+    with PolicyServer(eager, max_wait_ms=SERVER_WAIT_MS) as server:
+        for i in range(4):
+            server.predict(frames[i])
+    launched = {k: c.launches for k, c in counters.items()}
+    if launched != {k: 4 if k == "ddpm_sampler" else 0 for k in counters}:
+        fail(f"eager server: 4 batches launched {launched}")
+    out["eager_server_launches"] = launched
+    log(f"  eager engine behind the server, 4 batches: launches {launched}")
+    del cont, eager
+    return eng, out
+
+
+def closed_loop_phase(eng, cfg):
+    """Phase 20: ReachTask.rollout at batch 8, up to 16 steps, 2 uint8
+    frames of 280x280 a request, through the compiled octo_base engine
+    (per-row instructions from encode_instruction, cached path).  ms per
+    env step split into render and policy; the success rate is printed,
+    not held (the weights are random)."""
+    from multi_modal_transformers_tokenmerge_torch.utils.sim import ReachTask
+    spent = {"render": 0.0, "policy": 0.0, "steps": 0}
+
+    class TimedTask(ReachTask):
+        def render(self, state):
+            t = time.perf_counter()
+            img = super().render(state)
+            spent["render"] += time.perf_counter() - t
+            return img
+
+    task = TimedTask(image_size=cfg.images.image_size[0])
+    a = cfg.heads.diffusion.action_space_dim
+
+    def policy(obs, text):
+        t = time.perf_counter()
+        emb = torch.stack([eng.encode_instruction(row) for row in text])
+        act = eng(torch.from_numpy(obs), text_embeddings=emb).cpu().numpy()
+        spent["policy"] += time.perf_counter() - t
+        spent["steps"] += 1
+        if act.shape != (CLOSED_LOOP_BATCH, a) or not np.isfinite(act).all():
+            fail(f"closed loop: actions {act.shape} not finite")
+        return act
+
+    task.rollout(policy, np.random.default_rng(1), CLOSED_LOOP_BATCH,
+                 frames=cfg.num_observation_blocks,
+                 text_length=cfg.text.max_length)      # warm-up episode
+    spent.update(render=0.0, policy=0.0, steps=0)
+    t0 = time.perf_counter()
+    res = task.rollout(policy, np.random.default_rng(20), CLOSED_LOOP_BATCH,
+                       frames=cfg.num_observation_blocks,
+                       text_length=cfg.text.max_length)
+    wall = time.perf_counter() - t0
+    n = spent["steps"]
+    out = {"batch": CLOSED_LOOP_BATCH, "env_steps": n,
+           "ms_per_step": wall * 1e3 / n,
+           "render_ms_per_step": spent["render"] * 1e3 / n,
+           "policy_ms_per_step": spent["policy"] * 1e3 / n, **res}
+    log(f"  closed loop, {CLOSED_LOOP_BATCH} episodes of up to "
+        f"{task.max_steps} steps, {cfg.num_observation_blocks} uint8 frames "
+        f"of {task.image_size}x{task.image_size}: {n} env steps, "
+        f"{out['ms_per_step']:.4f} ms a step (render "
+        f"{out['render_ms_per_step']:.4f}, policy "
+        f"{out['policy_ms_per_step']:.4f}); success rate "
+        f"{res['success_rate']} (random weights: printed, not held), mean "
+        f"final distance {res['mean_final_distance']:.4f}")
+    return out
+
+
+def probe_phase(cfg32, counters):
+    """octo_deep's attention probes (capture_intermediates) in float32 on
+    the card (flash_fwd in every block: the probes do not change the path)
+    against the CPU, per stage, with every merge plan compared; the same
+    forward in bfloat16 is the planted fault."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        capture_intermediates)
+    gpu = Octo(cfg32, device="cuda", seed=3).eval()
+    cpu = Octo(cfg32, device="cpu", seed=None).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    fault = Octo(cfg32.replace(dtype="bfloat16"), device="cuda",
+                 seed=None).eval()
+    fault.load_state_dict(gpu.state_dict())
+    g = np.random.default_rng(21)
+    b = 2
+    ids = torch.from_numpy(g.integers(0, cfg32.text.vocab_size,
+                                      (b, cfg32.text.max_length)))
+    images = torch.from_numpy(g.integers(
+        0, 256, (b, cfg32.num_observation_blocks,
+                 *cfg32.images.image_size)).astype(np.float32))
+    probes, events = {}, {}
+    launched = None
+    for name, model in (("cuda", gpu), ("cuda_bf16_fault", fault),
+                        ("cpu", cpu)):
+        on = lambda x: x.to(model.device)
+        before = {k: c.launches for k, c in counters.items()}
+        with recorded_merge_events() as events[name], \
+                capture_intermediates(model) as probes[name], \
+                torch.inference_mode():
+            model.generate_readouts(on(ids), on(images))
+        if name == "cuda":
+            launched = {k: c.launches - before[k] for k, c in counters.items()
+                        if c.launches != before[k]}
+    blocks = cfg32.transformer.num_blocks
+    if launched != {"flash_fwd": blocks}:
+        fail(f"the probed float32 forward of octo_deep launched {launched}")
+    flips = compare_merge_events(events["cuda"], events["cpu"],
+                                 "octo_deep f32 probes")
+    keys = sorted(probes["cpu"])
+    if sorted(probes["cuda"]) != keys or len(keys) != 3:
+        fail(f"probes: {sorted(probes['cuda'])} on the card, {keys} on the "
+             f"CPU")
+    per_stage = {}
+    for key in keys:
+        want = probes["cpu"][key][0]
+        got = probes["cuda"][key][0].cpu()
+        bf = probes["cuda_bf16_fault"][key][0].cpu()
+        per_stage[key] = {
+            "shape": list(want.shape),
+            "max_abs_err": float((got - want).abs().max()),
+            "bf16_max_abs_err": float((bf - want).abs().max())}
+        log(f"    {key} {tuple(want.shape)}: |cuda-cpu| "
+            f"{per_stage[key]['max_abs_err']:.3e} (tol {PROBE_F32_TOL:g}); "
+            f"bfloat16 {per_stage[key]['bf16_max_abs_err']:.3e}")
+    worst = max(v["max_abs_err"] for v in per_stage.values())
+    if not worst <= PROBE_F32_TOL:
+        fail("octo_deep's float32 attention probes differ between the card "
+             "and the CPU" + (f" ({flips} merge events chose other tokens)"
+                              if flips else ""))
+    if not min(v["bf16_max_abs_err"] for v in per_stage.values()) \
+            > PROBE_F32_TOL:
+        fail("the planted bfloat16 fault passes the probes' float32 limit")
+    del gpu, cpu, fault
+    return {"stages": per_stage, "flipped_events": flips,
+            "launches": launched}
+
+
+def refused_phase(counters):
+    """Phase 21: octo_base bf16 with a three-block denoiser and GELU MLPs
+    (REFUSED_OVERRIDES through load_config): compiled serving at batch 1
+    and 8 with no sampler launch, float32 on the card against the CPU, one
+    float32 train step against the CPU (TRAIN_REF_LIMITS, with the planted
+    bfloat16 fault), and octo_deep's attention probes against the CPU."""
+    from multi_modal_transformers_tokenmerge_torch import load_config
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    cfg = load_config("octo_base", YAML_OVERRIDES + REFUSED_OVERRIDES)
+    model = Octo(cfg, device="cuda", seed=0).eval()
+    d = model.diffusion_action_head.denoiser
+    log(f"  octo_base + {REFUSED_OVERRIDES}: denoiser blocks "
+        f"{['first_out'] + [f'mlp_{i}' for i in range(1, d.num_blocks)]}, "
+        f"transformer activation {cfg.transformer.mlp_activation}")
+    label = "octo_base 3-block denoiser, GELU"
+    served = compiled_serve_phase({"octo_base_3block_gelu": model}, cfg,
+                                  label, {}, requests=COMPILED_REQUESTS // 2)
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = load_config("octo_base", ["dtype=float32"] + REFUSED_OVERRIDES)
+    ref_err = reference_phase(cfg32, label, sampler_launches=0)
+    train_ref = train_reference_phase(cfg32, counters,
+                                      "octo_base_3block_gelu", {})
+    log("  octo_deep float32 attention probes, card against CPU:")
+    probes = probe_phase(deep_config("float32"), counters)
+    return {"serving": served, "reference_err": ref_err,
+            "train_reference": train_ref, "probes": probes}
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -2129,6 +2696,21 @@ def main():
                               {}, head="continuous")
     del small
 
+    log("phase 18: configs and the CLI on the card")
+    ycfg, cli_info = config_cli_phase()
+    ymodel = Octo(ycfg, device="cuda", seed=0).eval()
+
+    log("phase 19: PolicyServer under load (compiled octo_base bf16, B=8)")
+    server_eng, server = server_phase(ymodel, ycfg, counters)
+
+    log("phase 20: the closed loop (ReachTask through the compiled engine)")
+    closed_loop = closed_loop_phase(server_eng, ycfg)
+    del server_eng, ymodel
+    torch.cuda.empty_cache()
+
+    log("phase 21: the configuration the port refused before")
+    refused = refused_phase(counters)
+
     ms, call_ms, plain, bnd, by = timings[1]
     kernels = [{
         "name": "ddpm_sampler", "route": "cuda",
@@ -2143,6 +2725,10 @@ def main():
         "launches_octo_deep_serving": deep_launches["ddpm_sampler"],
         "launches_per_compiled_request": compiled["octo_base_serving"][1][
             "replay_profile"]["kernels"]["ddpm_sampler"],
+        "launches_per_server_batch": server["batch_profile"]["kernels"][
+            "ddpm_sampler"],
+        "launches_eager_server_4_batches": server["eager_server_launches"][
+            "ddpm_sampler"],
     }]
     tpu = "multi_modal_transformers_tokenmerge_tpu/ops/"
     flash_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
@@ -2216,6 +2802,9 @@ def main():
         "train_pallas_profile": deep_pallas_prof},
         "octo_small_continuous_ms_per_request": small_ms, "card": card}))
     log(json.dumps({"compiled": compiled, "card": card}))
+    log(json.dumps({"cli_info": cli_info, "server": server,
+                    "closed_loop": closed_loop, "refused": refused,
+                    "card": card}))
     log(json.dumps({"profiler": {
         "sessions": len(_GUARD["lost"]), "guard_launches": GUARD_LAUNCHES,
         "guard_records_lost": _GUARD["lost"],

@@ -4,9 +4,15 @@ Counterpart of the JAX package's ``heads/diffusion.py``.  The denoiser's
 first layer is split by source (``noisy_proj``, ``time_proj``,
 ``readout_proj``), so everything that does not depend on the current sample
 is computed once before the reverse loop: the (T, B, H) per-step contexts
-``time_proj(FourierFeatures(t)) + readout_proj(mean(readouts))``.  The loop
-itself is ``ops.ddpm_sampler``: the CUDA kernel on the card, its plain
-version on the CPU.
+``time_proj(FourierFeatures(t)) + readout_proj(mean(readouts))``.  With
+the one-block denoiser of the shipped configurations the loop itself is
+``ops.ddpm_sampler``: the CUDA kernel on the card, its plain version on
+the CPU.  With ``num_blocks > 1`` the first layer widens to ``mlp_dim`` and
+``num_blocks - 1`` tail ``MLPBlock``s (``mlp_1``, ``mlp_2``, ...; ReLU and
+dropout 0.1, the block's defaults, whatever the configuration says) follow
+it, the last out to the action dim; the JAX package runs that denoiser in a
+``lax.scan`` outside its fused sampler, and the port runs it in a plain
+reverse loop here, on any device.
 
 Randomness comes from a ``torch.Generator`` or is passed in: ``noisy``
 (B, A) and ``noise`` (T, B, A).  ``sampler_rng_mode='reference'`` keeps
@@ -103,22 +109,38 @@ class FourierFeatures(nn.Module):
 
 class OctoDenoise(nn.Module):
     """Denoiser MLP over (noisy action, time embedding, readout embedding)
-    with its first layer split by source.  Only the one-block denoiser of
-    every shipped configuration is ported."""
+    with its first layer split by source, then ``num_blocks - 1`` tail
+    blocks ``mlp_{i}`` (the JAX ``OctoDenoise``)."""
 
     def __init__(self, cfg: DiffusionHeadConfig, readout_dim: int, **kw):
         super().__init__()
-        if cfg.num_blocks != 1:
-            raise ValueError(
-                f"diffusion num_blocks={cfg.num_blocks}: only the one-block "
-                f"denoiser is ported")
-        h = cfg.mlp_dim
+        if cfg.num_blocks < 1:
+            raise ValueError(f"diffusion num_blocks={cfg.num_blocks} < 1")
+        h, a = cfg.mlp_dim, cfg.action_space_dim
         self.dropout_rate = cfg.dropout_rate
+        self.num_blocks = cfg.num_blocks
         self.time_encoder = FourierFeatures(cfg.time_dim, cfg.mlp_dim, **kw)
-        self.noisy_proj = Dense(cfg.action_space_dim, h, **kw)
+        self.noisy_proj = Dense(a, h, **kw)
         self.time_proj = Dense(cfg.time_dim, h, bias=False, **kw)
         self.readout_proj = Dense(readout_dim, h, bias=False, **kw)
-        self.first_out = Dense(h, cfg.action_space_dim, **kw)
+        self.first_out = Dense(h, a if cfg.num_blocks == 1 else h, **kw)
+        # MLPBlock's defaults (relu, dropout 0.1), as the JAX tail blocks
+        for i in range(1, cfg.num_blocks):
+            self.add_module(f"mlp_{i}", MLPBlock(
+                h, h, a if i == cfg.num_blocks - 1 else h, **kw))
+
+    def tail(self, x, train: bool = False,
+             rng: Optional[torch.Generator] = None):
+        for i in range(1, self.num_blocks):
+            x = getattr(self, f"mlp_{i}")(x, train, rng)
+        return x
+
+    def denoise_from_context(self, noisy_action: torch.Tensor,
+                             context: torch.Tensor) -> torch.Tensor:
+        """(B, A) noisy actions, (B, H) first-layer context of one step ->
+        (B, A) noise prediction in the compute dtype (eval mode)."""
+        x = torch.relu(self.noisy_proj(noisy_action) + context)
+        return self.tail(self.first_out(x))
 
     def contexts(self, times: torch.Tensor, readout_emb: torch.Tensor):
         """(T,) times, (B, E) readout embedding -> (T, B, H) per-step
@@ -136,7 +158,8 @@ class OctoDenoise(nn.Module):
                + self.readout_proj(readout_emb))
         x = torch.relu(self.noisy_proj(noisy_action) + ctx)
         x = dropout(x, self.dropout_rate, train, rng)
-        return dropout(self.first_out(x), self.dropout_rate, train, rng)
+        x = dropout(self.first_out(x), self.dropout_rate, train, rng)
+        return self.tail(x, train, rng)
 
 
 class DiffusionActionHead(nn.Module):
@@ -270,6 +293,9 @@ class DiffusionActionHead(nn.Module):
 
         contexts = self.denoiser.contexts(times, readouts.mean(dim=-2))
         d = self.denoiser
+        if d.num_blocks > 1:
+            return self._reverse_loop(noisy, contexts, noise, coeffs,
+                                      ddim_steps is not None)
         return ddpm_sampler(
             noisy, contexts, None if ddim_steps is not None else noise,
             coeffs, d.noisy_proj.weight, d.noisy_proj.bias,
@@ -277,3 +303,26 @@ class DiffusionActionHead(nn.Module):
             ddim_x0clip=ddim_steps is not None,
             ddim_eps_recompute=(ddim_steps is not None
                                 and cfg.ddim_eps_mode == "recompute"))
+
+    def _reverse_loop(self, noisy, contexts, noise, coeffs, ddim: bool):
+        """The reverse process of a multi-block denoiser, step by step (the
+        JAX package's ``lax.scan`` paths): DDPM
+        ``x = clip(c1 * (x - c2 * eps) + c3 * noise_t)``, or DDIM with the
+        clamped x0 and ``ddim_eps_mode``."""
+        cfg = self.cfg
+        clip = cfg.clip_value
+        recompute = cfg.ddim_eps_mode == "recompute"
+        x = noisy
+        for i in range(contexts.shape[0]):
+            eps = self.denoiser.denoise_from_context(x, contexts[i]).float()
+            if ddim:
+                d1, d2, e1, e2 = coeffs[i].unbind()
+                x0 = torch.clamp(d1 * x - d2 * eps, -clip, clip)
+                if recompute:
+                    eps = (d1 * x - x0) / d2
+                x = e1 * x0 + e2 * eps
+            else:
+                c1, c2, c3 = coeffs[i].unbind()
+                x = c1 * (x - c2 * eps) + c3 * noise[i]
+            x = torch.clamp(x, -clip, clip)
+        return x

@@ -7,6 +7,12 @@ masked softmax attention below (float32 logits and softmax, scaled by
 1/sqrt(head_dim)), or the flash attention of ``ops.flash_attention``, whose
 kernels run on an sm_90 card and whose plain versions run on the CPU.
 
+Attention-weight probes (the JAX module's ``attention_weights`` sown into
+the ``intermediates`` collection): inside :func:`capture_intermediates`
+every :class:`MultiHeadAttention` also records ``softmax(q k^T / sqrt(d))``
+in float32 under its mask, masked with ``finfo(float32).min`` as JAX does
+(a fully masked row is uniform there), beside the attention path it runs.
+
 Train mode (``train=True`` with a ``dropout`` generator) applies every
 dropout site of the JAX blocks: after the MLP activation and after its
 output projection, after the attention block, and on the attention weights
@@ -16,8 +22,9 @@ plain path).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,13 +32,13 @@ from torch import nn
 
 from ..core.config import AttentionConfig, TransformerConfig
 from ..core.hw import kernel_device
-from .layers import (Dense, LayerNorm, dropout, init_normal,
+from .layers import (Dense, LayerNorm, activation_fn, dropout, init_normal,
                      init_truncated)
 
 __all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock",
            "TransformerStack", "AddPositionEmbedding",
            "MultiHeadAttentionPooling", "masked_attention",
-           "select_attention_fn", "layer_norm_dim"]
+           "select_attention_fn", "layer_norm_dim", "capture_intermediates"]
 
 _IMPLS = ("auto", "xla", "flash")
 
@@ -112,20 +119,28 @@ def masked_attention(q, k, v, mask: Optional[torch.Tensor],
 
 
 class MLPBlock(nn.Module):
-    """Dense -> activation -> Dropout -> Dense -> Dropout."""
+    """Dense -> activation -> Dropout -> Dense -> Dropout.  ``activation``
+    is any flax activation name the JAX block can apply
+    (``layers.ACTIVATIONS``); others raise here.  ``glu`` halves the
+    hidden width, so ``dense_out`` takes ``mlp_dim // 2`` inputs."""
 
     def __init__(self, in_dim: int, mlp_dim: int, out_dim: int,
                  activation: str = "relu", dropout_rate: float = 0.1, **kw):
         super().__init__()
-        if activation != "relu":
-            raise ValueError(f"unsupported mlp activation {activation!r}")
+        self.act = activation_fn(activation)
+        hidden = mlp_dim
+        if activation == "glu":
+            if mlp_dim % 2:
+                raise ValueError(f"glu halves the last axis; mlp_dim "
+                                 f"{mlp_dim} is odd")
+            hidden = mlp_dim // 2
         self.dropout_rate = dropout_rate
         self.dense_in = Dense(in_dim, mlp_dim, **kw)
-        self.dense_out = Dense(mlp_dim, out_dim, **kw)
+        self.dense_out = Dense(hidden, out_dim, **kw)
 
     def forward(self, x, train: bool = False,
                 rng: Optional[torch.Generator] = None):
-        x = dropout(torch.relu(self.dense_in(x)), self.dropout_rate, train,
+        x = dropout(self.act(self.dense_in(x)), self.dropout_rate, train,
                     rng)
         return dropout(self.dense_out(x), self.dropout_rate, train, rng)
 
@@ -149,12 +164,28 @@ class MultiHeadAttention(nn.Module):
                              **kw)
         self.query, self.key, self.value = proj(), proj(), proj()
         self.out = Dense(cfg.qkv_features, features, bias=cfg.use_bias, **kw)
+        # a list while capture_intermediates records this module's weights
+        self.probe = None
+
+    def record_weights(self, q, k, mask):
+        """The JAX module's sown ``attention_weights``: float32 logits
+        over sqrt(head_dim), masked with finfo(float32).min, softmax."""
+        if _capturing():
+            raise RuntimeError("attention probes are eager only: they cannot "
+                               "be recorded inside a CUDA-graph capture")
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        logits = logits / math.sqrt(self.head_dim)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        self.probe.append(torch.softmax(logits, dim=-1).detach())
 
     def forward(self, x, mask=None, train: bool = False,
                 rng: Optional[torch.Generator] = None):
         b, t, _ = x.shape
         split = lambda y: y.reshape(b, t, self.num_heads, self.head_dim)
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        if self.probe is not None:
+            self.record_weights(q, k, mask)
         stochastic = train and self.dropout_rate > 0.0
         if stochastic and rng is None:
             raise ValueError(f"attention dropout rate {self.dropout_rate} in "
@@ -168,6 +199,52 @@ class MultiHeadAttention(nn.Module):
                                    self.dropout_rate if stochastic else 0.0,
                                    rng)
         return self.out(out.reshape(b, t, -1))
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+@contextlib.contextmanager
+def capture_intermediates(model: nn.Module):
+    """Record the attention weights of every :class:`MultiHeadAttention`
+    in ``model`` while the block runs (the JAX package's
+    ``apply(..., mutable=['intermediates'])``).
+
+    Yields a dict, filled when the block exits, keyed by the flax path of
+    each JAX ``attention_weights`` entry relative to ``model`` (e.g.
+    ``'transformer/blocks/attention/attention_weights'``, or
+    ``'transformer/stage_{i}/attention/attention_weights'`` in the staged
+    ToMe stack).  Each value is a tuple with one entry per forward in the
+    block, as flax's ``sow`` keeps them; an entry stacks the layers of a
+    stack (or stage) on axis 0, as ``nn.scan`` does: (L, B, H, S, S)
+    float32 at that stack's token count.  The per-layer compressed blocks
+    and the T5 tower sow nothing in JAX and record nothing here.  Probes
+    are eager only: asking for them inside a CUDA-graph capture raises,
+    and a graph replay records nothing."""
+    if _capturing():
+        raise RuntimeError("attention probes are eager only: they cannot be "
+                           "recorded inside a CUDA-graph capture")
+    groups: Dict[str, list] = {}
+    for name, m in model.named_modules():
+        if isinstance(m, MultiHeadAttention):
+            path = [p for p in name.split(".") if p and not p.isdigit()]
+            key = "/".join(path + ["attention_weights"])
+            groups.setdefault(key, []).append(m)
+            m.probe = []
+    out: Dict[str, Tuple[torch.Tensor, ...]] = {}
+    try:
+        yield out
+    finally:
+        for key, mods in groups.items():
+            calls = [m.probe for m in mods]
+            for m in mods:
+                m.probe = None
+            n = min(len(c) for c in calls)
+            if n:
+                out[key] = tuple(torch.stack([c[i] for c in calls])
+                                 for i in range(n))
 
 
 def layer_norm_dim(cfg: TransformerConfig) -> int:

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "dropout", "init_normal",
-           "init_truncated"]
+           "init_truncated", "ACTIVATIONS", "activation_fn"]
 
 # std correction of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -38,6 +38,57 @@ def init_truncated(t: torch.Tensor, std: float, generator) -> None:
     with torch.no_grad():
         nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
                               generator=generator)
+
+
+def _standardize(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.standardize`` over the last axis: E[x^2] - mu^2 variance
+    clipped at 0, epsilon 1e-5, in the input's dtype."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+    return (x - mu) * torch.rsqrt(var + 1e-5)
+
+
+# flax.linen activation name -> the torch function with flax's defaults:
+# every name the JAX package's MLPBlock resolves with getattr(flax.linen,
+# name) and can apply to an array of the block's shape.  gelu is flax's
+# tanh approximation; glu halves the last axis; standardize (normalize is
+# its flax alias) and the softmaxes work over the last axis.
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "elu": F.elu,
+    "celu": F.celu,
+    "selu": F.selu,
+    "softplus": F.softplus,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "relu6": F.relu6,
+    "hard_sigmoid": F.hardsigmoid,
+    "hard_silu": F.hardswish,
+    "hard_swish": F.hardswish,
+    "hard_tanh": F.hardtanh,
+    "log_sigmoid": F.logsigmoid,
+    "soft_sign": F.softsign,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    "standardize": _standardize,
+    "normalize": _standardize,
+    "glu": lambda x: F.glu(x, dim=-1),
+}
+
+
+def activation_fn(name: str):
+    """The torch function of a flax activation name; any other name (one
+    the JAX block cannot apply either: ``one_hot``, ``logsumexp``,
+    ``PReLU``, ...) raises ValueError."""
+    try:
+        return ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(f"unsupported mlp activation {name!r}; one of "
+                         f"{sorted(ACTIVATIONS)}") from None
 
 
 def keep_mask(shape, keep_prob: float, generator: torch.Generator,

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..models.octo import Octo
+from ..utils.debug import jit_enabled
 
 __all__ = ["PolicyEngine", "serving_copy"]
 
@@ -201,7 +202,10 @@ class PolicyEngine:
         what the eager call would.  A capture that fails raises.
 
         An engine on the CPU makes the serving copy and, with ``warmup``,
-        runs each path once on zeros, but captures nothing.  Neither the
+        runs each path once on zeros, but captures nothing; so does an
+        engine on the card while ``utils.debug`` runs the compiled paths
+        eagerly (``disable_jit`` or NaN checks), and a call made in that
+        mode runs eagerly even where graphs were captured.  Neither the
         warm-up nor the capture consumes the engine's noise stream."""
         self._serve_model = serving_copy(self.model)
         self._graphs = {}
@@ -216,12 +220,13 @@ class PolicyEngine:
                 (b, *text_shape, cfg.token_embedding_dim),
                 dtype=cfg.compute_dtype, device=self.device)))
         saved = self._generator.get_state()
+        capture = self.device.type == "cuda" and jit_enabled()
         for path, text in paths:
-            if self.device.type == "cuda":
+            if capture:
                 self._capture(path, text, images)
             elif warmup:
                 self._predict(path, text, images, None, None)
-        if self.device.type == "cuda" and warmup:
+        if capture and warmup:
             for path, text in paths:
                 self._replay(path, text, images)
             torch.cuda.synchronize(self.device)
@@ -301,6 +306,7 @@ class PolicyEngine:
                 raise ValueError(
                     "no instruction set: call set_instruction(text_tokens) "
                     "or pass text_tokens / text_embeddings")
-        if path in self._graphs and noisy is None and noise is None:
+        if (path in self._graphs and noisy is None and noise is None
+                and jit_enabled()):
             return self._replay(path, text, images)
         return self._predict(path, text, images, noisy, noise)

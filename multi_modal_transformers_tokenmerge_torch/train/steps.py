@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
+from ..utils.debug import jit_enabled
 from .optim import global_norm
 from .state import OctoTrainState
 
@@ -76,11 +77,12 @@ class CapturedStep:
     eager call would.  The first ``WARMUP_CALLS`` calls for a (state,
     shapes) run ``body`` eagerly on a side stream; the next captures it and
     replays it; later calls replay.  A call with explicit ``draws`` runs
-    eagerly.  A failed capture raises.  A state restored since its capture
-    (``state.restored`` changed) is captured anew; a ``Metrics`` object put
-    in place of the captured one (``fit`` does so after each log) is
-    adopted: its values move into the graph's accumulators, which it then
-    holds."""
+    eagerly, as does every call while ``utils.debug`` runs the compiled
+    paths eagerly.  A failed capture raises.  A state restored since its
+    capture (``state.restored`` changed) is captured anew; a ``Metrics``
+    object put in place of the captured one (``fit`` does so after each
+    log) is adopted: its values move into the graph's accumulators, which
+    it then holds."""
 
     # eager calls of a (state, shapes) before its capture: they load the
     # kernel libraries and make every table and cache that is built at
@@ -97,9 +99,10 @@ class CapturedStep:
 
     def __call__(self, state, *inputs, draws: Optional[Mapping] = None):
         device = next(state.model.parameters()).device
-        if device.type != "cuda" or draws:
+        if device.type != "cuda" or draws or not jit_enabled():
             # explicit draws are a hook of the parity checks, which hold
-            # the eager step; a graph takes its draws from the generators
+            # the eager step; a graph takes its draws from the generators.
+            # utils.debug's disable_jit and NaN checks run eagerly too
             out = self.body(state, *inputs, draws=draws)
             self.after(state)
             return state, out

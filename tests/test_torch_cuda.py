@@ -544,3 +544,146 @@ def test_captured_evaluate_equals_the_eager_losses(card):
     assert got["loss"] == pytest.approx(want, rel=1e-6)
     assert all(torch.equal(g.get_state(), before[n])
                for n, g in state.rngs.items())
+
+
+def _refused_config(dtype):
+    """octo_base with a three-block denoiser and GELU MLPs (YAML
+    overrides)."""
+    from multi_modal_transformers_tokenmerge_torch import load_config
+    return load_config("octo_base", [f"dtype={dtype}",
+                                     "heads.diffusion.num_blocks=3",
+                                     "transformer.mlp_activation=gelu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+def test_multi_block_engine_replays_the_eager_call(card, batch):
+    """The three-block GELU configuration compiled: each replay equals the
+    eager call bit for bit, and the eager call launches no sampler (its
+    reverse loop is plain PyTorch)."""
+    from multi_modal_transformers_tokenmerge_torch import Octo, PolicyEngine
+    cfg = _refused_config("bfloat16")
+    model = Octo(cfg, device="cuda", seed=0)
+    ids = np.arange(cfg.text.max_length)
+    shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    eager = PolicyEngine(model, batch_size=batch, seed=1).set_instruction(ids)
+    compiled = PolicyEngine(model, batch_size=batch, seed=1).compile(
+        (cfg.text.max_length,), shape).set_instruction(ids)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    before = ddpm_sampler.launches
+    for _ in range(2):
+        images = torch.randint(0, 256, (batch, *shape), generator=g,
+                               device="cuda").float()
+        want, got = eager(images), compiled(images)
+        assert torch.isfinite(want).all()
+        assert torch.equal(got, want)
+    assert ddpm_sampler.launches == before
+
+
+@pytest.mark.cuda
+def test_server_thread_replays_the_main_threads_graph(card):
+    """A compiled engine's graph replayed from PolicyServer's thread equals
+    the same replay on the main thread (the same batch and generator
+    state) bit for bit."""
+    import threading
+    import time
+    from multi_modal_transformers_tokenmerge_torch import Octo, PolicyEngine
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    from multi_modal_transformers_tokenmerge_torch.serve.server import (
+        PolicyServer)
+    cfg = octo_base(dtype="bfloat16")
+    shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    eng = PolicyEngine(Octo(cfg, device="cuda", seed=0), batch_size=4,
+                       seed=1).compile((cfg.text.max_length,), shape)
+    eng.set_instruction(np.arange(cfg.text.max_length))
+    calls = []
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(eng, name)
+
+        def __call__(self, images, **kw):
+            state = eng._generator.get_state()
+            out = eng(images, **kw)
+            calls.append((images.clone(), state, out.clone()))
+            return out
+
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(4)]
+    answers = [None] * 4
+    with PolicyServer(Recording(), max_wait_ms=200.0) as server:
+        def call(i):
+            answers[i] = server.predict(frames[i])
+
+        threads = []
+        for i in range(4):       # in order, into one batch
+            threads.append(threading.Thread(target=call, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.002)
+        for t in threads:
+            t.join(60)
+    (images, state, worker), = calls
+    eng._generator.set_state(state)
+    assert torch.equal(eng(images), worker)
+    for i, a in enumerate(answers):
+        np.testing.assert_array_equal(a, worker[i].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_debug_mode_runs_the_compiled_engine_eagerly(card):
+    """Under debug_mode a compiled engine runs its serving copy eagerly
+    (the sampler's wrapper launches, no replay) with every operator
+    NaN-checked, and answers as the replay does."""
+    from multi_modal_transformers_tokenmerge_torch import Octo, PolicyEngine
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    from multi_modal_transformers_tokenmerge_torch.utils.debug import (
+        debug_mode)
+    cfg = octo_base(dtype="bfloat16")
+    shape = (cfg.num_observation_blocks, *cfg.images.image_size)
+    eng = PolicyEngine(Octo(cfg, device="cuda", seed=0), batch_size=2,
+                       seed=1).compile((cfg.text.max_length,), shape)
+    eng.set_instruction(np.arange(cfg.text.max_length))
+    images = torch.randint(0, 256, (2, *shape), device="cuda").float()
+    state = eng._generator.get_state()
+    before = ddpm_sampler.launches
+    replayed = eng(images)
+    assert ddpm_sampler.launches == before
+    eng._generator.set_state(state)
+    with debug_mode():
+        checked = eng(images)
+    assert ddpm_sampler.launches == before + 1
+    assert torch.equal(checked, replayed)
+
+
+@pytest.mark.cuda
+def test_probes_on_the_card_match_the_cpu(card):
+    """capture_intermediates on octo_tiny in float32 (no TF32 in cuBLAS or
+    cuDNN): the card's probes equal the CPU's to 1e-4 (chip_smoke.py's
+    PROBE_F32_TOL), stacked over its two blocks."""
+    from multi_modal_transformers_tokenmerge_torch import Octo, octo_tiny
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        capture_intermediates)
+    cfg = octo_tiny()
+    gpu = Octo(cfg, device="cuda", seed=0).eval()
+    cpu = Octo(cfg, device="cpu", seed=None).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.text.vocab_size, (2, 16)))
+    images = torch.from_numpy(rng.integers(
+        0, 256, (2, 1, *cfg.images.image_size)).astype(np.float32))
+    probes = {}
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, m in (("cuda", gpu), ("cpu", cpu)):
+            with torch.no_grad(), capture_intermediates(m) as probes[name]:
+                m.generate_readouts(ids.to(m.device), images.to(m.device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    key = "transformer/blocks/attention/attention_weights"
+    assert sorted(probes["cuda"]) == sorted(probes["cpu"]) == [key]
+    got, want = probes["cuda"][key][0].cpu(), probes["cpu"][key][0]
+    assert tuple(got.shape) == (2, 2, 4, 36, 36)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -175,3 +175,144 @@ def test_on_cuda_false_for_cpu_tensors():
 
 def test_kernel_sources_present():
     assert "ddpm_sampler" in _build.sources()
+
+
+# -- the multi-block denoiser (JAX: lax.scan, heads/diffusion.py:350-400) ----
+
+class capture_head_rng:
+    """Records every key the JAX diffusion head's ``make_rng`` returns (an
+    unjitted ``apply``), so that its draws can be derived with jax.random
+    exactly as the head derives them."""
+
+    def __init__(self, monkeypatch):
+        self.keys = []
+        original = jdiff.DiffusionActionHead.make_rng
+
+        def wrapper(module, name=None):
+            key = original(module, name)
+            self.keys.append(key)
+            return key
+
+        monkeypatch.setattr(jdiff.DiffusionActionHead, "make_rng", wrapper)
+
+
+def _scan_draws(rng, cfg, batch):
+    """(noisy (B, A), noise (T, B, A)) of the JAX scan sampler
+    (heads/diffusion.py:249-260, 383-385)."""
+    d = cfg.heads.diffusion
+    a = d.action_space_dim
+    init_key, loop_key = jax.random.split(rng)
+    if d.sampler_rng_mode == "reference":
+        keys = jax.random.split(rng, batch)
+        noisy = jax.vmap(lambda k: jax.random.normal(k, (a,)))(keys)
+        noise = jnp.broadcast_to(noisy, (d.diffusion_steps, batch, a))
+    else:
+        noisy = jax.random.normal(init_key, (batch, a))
+        noise = jnp.stack([
+            jax.random.normal(jax.random.fold_in(loop_key, t), (batch, a))
+            for t in range(d.diffusion_steps - 1, -1, -1)])
+    return (torch.tensor(np.asarray(noisy)), torch.tensor(np.asarray(noise)))
+
+
+def _multi_cfg(num_blocks, rng_mode="folded", ddim_steps=None,
+               eps_mode="raw"):
+    """The micro head with ``num_blocks`` denoiser blocks; 'auto' runs the
+    JAX scan sampler on the CPU."""
+    cfg = _head_cfg(rng_mode, ddim_steps, eps_mode, impl="auto")
+    return cfg.replace(heads=cfg.heads.replace(
+        diffusion=cfg.heads.diffusion.replace(num_blocks=num_blocks)))
+
+
+def test_multi_block_denoiser_structure():
+    """first_out widens to mlp_dim, then mlp_1 .. mlp_{n-1}, the last out
+    to the action dim; relu and dropout 0.1 whatever the config says."""
+    _, v, tm = micro_pair(_multi_cfg(3))
+    d = tm.diffusion_action_head.denoiser
+    flax = v["params"]["diffusion_action_head"]["denoiser"]
+    assert sorted(k for k in flax if k.startswith("mlp_")) == ["mlp_1",
+                                                               "mlp_2"]
+    assert tuple(d.first_out.weight.shape) == (32, 32)
+    assert tuple(d.mlp_2.dense_out.weight.shape) == (4, 32)
+    assert d.mlp_1.dropout_rate == d.mlp_2.dropout_rate == 0.1
+    assert d.mlp_1.act is torch.relu
+
+
+@pytest.mark.parametrize("num_blocks,rng_mode,ddim_steps,eps_mode", [
+    (2, "folded", None, "raw"),
+    (3, "folded", None, "raw"),
+    (3, "reference", None, "raw"),
+    (2, "folded", 8, "raw"),
+    (3, "folded", 8, "raw"),
+    (3, "folded", 8, "recompute"),
+])
+def test_multi_block_predict_action_matches_scan(monkeypatch, num_blocks,
+                                                 rng_mode, ddim_steps,
+                                                 eps_mode):
+    """The port's plain reverse loop against the JAX scan path, the JAX
+    draws handed in as noisy / noise; f32, 2e-5.  No sampler launch."""
+    cfg = _multi_cfg(num_blocks, rng_mode, ddim_steps, eps_mode)
+    _, _, tm = micro_pair(cfg)
+    readouts = np.random.default_rng(9).normal(
+        size=(3, 4, 32)).astype(np.float32)
+    cap = capture_head_rng(monkeypatch)
+    ref = _jax_predict(cfg, readouts, seed=11)
+    noisy, noise = _scan_draws(cap.keys[-1], cfg, 3)
+    before = tds.ddpm_sampler.launches
+    with torch.no_grad():
+        out = tm.diffusion_action_head.predict_action(
+            torch.from_numpy(readouts), noisy=noisy,
+            noise=None if ddim_steps else noise)
+    assert tds.ddpm_sampler.launches == before
+    assert tuple(out.shape) == ref.shape == (3, 4)
+    assert_close(out, ref, MODULE_TOL)
+
+
+@pytest.mark.parametrize("num_blocks", [1, 2, 3])
+def test_denoise_loss_and_gradients_match(monkeypatch, num_blocks):
+    """denoise_loss (eval mode) and its gradients on every head parameter
+    against jax.grad of the JAX loss, with the JAX time and noise draws;
+    f32: loss 2e-5, gradients rtol 1e-4 / atol 1e-5."""
+    from multi_modal_transformers_tokenmerge_torch import convert
+    from torch_parity import to_torch_config
+    cfg = _multi_cfg(num_blocks)
+    jm, v, tm = micro_pair(cfg)
+    rng = np.random.default_rng(num_blocks)
+    readouts = rng.normal(size=(3, 4, 32)).astype(np.float32)
+    actions = rng.uniform(-1, 1, (3, 4)).astype(np.float32)
+    key = jax.random.PRNGKey(21)
+    cap = capture_head_rng(monkeypatch)
+
+    def loss_fn(params):
+        return jm.apply({"params": params}, jnp.asarray(readouts),
+                        jnp.asarray(actions), method=lambda m, r, a: (
+                            m.diffusion_action_head.denoise_loss(r, a,
+                                                                 False)),
+                        rngs={"diffusion": key})
+
+    ref_loss = loss_fn(v["params"])
+    ref_grads = jax.grad(loss_fn)(v["params"])
+    time_key, noise_key = jax.random.split(cap.keys[0])
+    time = jax.random.randint(time_key, (3, 1), 0,
+                              cfg.heads.diffusion.diffusion_steps)
+    noise = jax.random.normal(noise_key, (3, 4), dtype=jnp.float32)
+    head = tm.diffusion_action_head
+    head.zero_grad()
+    flags = [p.requires_grad for p in head.parameters()]
+    head.requires_grad_(True)
+    loss = head.denoise_loss(torch.from_numpy(readouts),
+                             torch.from_numpy(actions), train=False,
+                             time=torch.tensor(np.asarray(time)),
+                             noise=torch.tensor(np.asarray(noise)))
+    loss.backward()
+    assert_close(loss, ref_loss, MODULE_TOL)
+    want = convert.from_flax(jax.tree.map(np.asarray, ref_grads),
+                             to_torch_config(cfg))
+    names = [n for n, _ in head.named_parameters()]
+    assert any(".mlp_" in n for n in names) == (num_blocks > 1)
+    for n, p in head.named_parameters():
+        np.testing.assert_allclose(
+            p.grad.numpy(), want[f"diffusion_action_head.{n}"].numpy(),
+            rtol=1e-4, atol=1e-5, err_msg=n)
+    for p, flag in zip(head.parameters(), flags):
+        p.requires_grad_(flag)
+        p.grad = None

@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
     for name in ("train.steps", "train.checkpoint", "train.loop",
                  "utils.recordio", "utils.episodes", "utils.spm",
                  "utils.logging", "utils.data", "modules.text",
-                 "serve.policy"):
+                 "serve.policy", "serve.server", "utils.sim",
+                 "utils.profiling", "utils.debug", "core.yaml_loader",
+                 "__main__"):
         assert f"multi_modal_transformers_tokenmerge_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (MODULE_TOL, assert_close, micro_pair,
-                          octo_micro_tome_layers, octo_micro_tome_staged,
+from torch_parity import (MODULE_TOL, assert_close, flat_intermediates,
+                          micro_pair, octo_micro_tome_layers,
+                          octo_micro_tome_staged,
                           to_torch_config)
 from multi_modal_transformers_tokenmerge_torch import convert
 from multi_modal_transformers_tokenmerge_torch.models.octo import Octo as TOcto
@@ -310,3 +311,75 @@ def test_convert_layouts_of_both_cadences():
         np.testing.assert_array_equal(state[key].numpy(),
                                       leaf.reshape(32, 32).T)
         assert "transformer.final_norm.weight" not in state
+
+
+# -- activations and attention probes -----------------------------------------
+
+@pytest.mark.parametrize("case,activation", [
+    ("layers", "gelu"), ("layers", "glu"), ("staged", "silu"),
+    ("staged", "glu")])
+def test_compressed_stack_activation_matches(case, activation):
+    """Both cadences with another flax activation than relu, weights by
+    convert.from_flax (glu: dense_out takes mlp_dim // 2 inputs)."""
+    make = octo_micro_tome_layers if case == "layers" else \
+        octo_micro_tome_staged
+    cfg = make(mlp_activation=activation)
+    jm, v, tm = micro_pair(cfg)
+    x = _tokens(cfg, seed=3)
+    ref = _jax_stack(jm, v, x)
+    with torch.no_grad():
+        out = tm.transformer(torch.tensor(x))
+    assert_close(out, ref, STACK_TOL)
+
+
+@pytest.mark.parametrize("case", ["layers_merge", "staged_merge",
+                                  "staged_prune", "staged_three_stages",
+                                  "staged_merge_prestack"])
+def test_compressed_stack_probes_match(case):
+    """capture_intermediates against apply(..., mutable=['intermediates']):
+    one entry per stage at that stage's token count, its blocks stacked on
+    axis 0; the per-layer blocks sow nothing in JAX and record nothing
+    here.  f32, the stack's tolerance."""
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        capture_intermediates)
+    cfg = CASES[case]
+    jm, v, tm = micro_pair(cfg)
+    x = _tokens(cfg, seed=6)
+    _, state = jm.apply(v, jnp.asarray(x), method=lambda m, t: m.transformer(
+        t, deterministic=True), mutable=["intermediates"])
+    ref = flat_intermediates(state.get("intermediates", {}))
+    with torch.no_grad(), capture_intermediates(tm) as probes:
+        tm.transformer(torch.tensor(x))
+    assert sorted(probes) == sorted(ref)
+    stages = tm.transformer.num_stages
+    assert len(ref) == stages
+    off = tm.transformer.off
+    for i in range(stages):
+        key = f"transformer/stage_{i}/attention/attention_weights"
+        s = tm.layout.tokens_at_layer(i + off)
+        blocks = len(getattr(tm.transformer, f"stage_{i}"))
+        assert tuple(probes[key][0].shape) == ref[key][0].shape == (
+            blocks, 2, 2, s, s)
+        assert_close(probes[key][0], ref[key][0], STACK_TOL)
+
+
+def test_full_model_probes_match():
+    """The whole model's forward (embed text tower, image tower, staged
+    ToMe stack): the same probe paths and weights as the JAX model's."""
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        capture_intermediates)
+    from torch_parity import inputs
+    cfg = octo_micro_tome_staged(num_blocks=6)
+    jm, v, tm = micro_pair(cfg)
+    ids, images = inputs(cfg, seed=8)
+    _, state = jm.apply(v, jnp.asarray(ids), jnp.asarray(images),
+                        method="generate_readouts", mutable=["intermediates"])
+    ref = flat_intermediates(state["intermediates"])
+    with torch.no_grad(), capture_intermediates(tm) as probes:
+        tm.generate_readouts(torch.from_numpy(ids).long(),
+                             torch.from_numpy(images))
+    assert sorted(probes) == sorted(ref) == [
+        f"transformer/stage_{i}/attention/attention_weights"
+        for i in range(3)]
+    for key in ref:
+        assert_close(probes[key][0], ref[key][0], STACK_TOL)

@@ -132,3 +132,14 @@ def assert_close(port, ref, tol):
         else np.asarray(port)
     np.testing.assert_allclose(port, np.asarray(ref, dtype=np.float32),
                                rtol=tol, atol=tol)
+
+
+def flat_intermediates(tree, prefix=()):
+    """A flax ``intermediates`` tree as {'a/b/attention_weights': value}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_intermediates(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
