@@ -16,7 +16,9 @@ returns a ``state_dict`` for ``models.octo.Octo(cfg)``.  Layouts:
   ``query`` / ``key`` / ``value`` / ``out`` directly;
 * ``output_dense``'s rows are in flattened (h, w, c) order; the port
   flattens NCHW maps as (c, h, w), so the rows are permuted;
-* ``scale`` and ``embedding`` -> ``weight``; everything else is copied.
+* ``scale`` and ``embedding`` -> ``weight``; everything else is copied,
+  the MoE blocks' ``expert_wi/bi/wo/bo`` among them (stacked (E, ...) in
+  both), and their ``router`` kernel transposes like any dense.
 
 Any key the port does not have, and any key the port needs but the
 tree lacks, raises, as does a shape mismatch.
@@ -25,14 +27,14 @@ tree lacks, raises, as does a shape mismatch.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core.config import OctoConfig
 
-__all__ = ["from_flax", "scanned_stacks"]
+__all__ = ["from_flax", "scanned_stacks", "tree_to_state"]
 
 
 def scanned_stacks(cfg: OctoConfig) -> Tuple[Tuple[str, ...], ...]:
@@ -91,22 +93,20 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray, cfg: OctoConfig):
     return mods + [leaf], arr
 
 
-def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
-    """Flax Octo params (numpy) -> ``Octo(cfg).state_dict()``-shaped dict
-    of CPU tensors in ``cfg.param_dtype``."""
-    from .models.octo import Octo
-
-    if set(params) == {"params"}:
-        params = params["params"]
+def tree_to_state(params: Mapping, stacks: Tuple[Tuple[str, ...], ...] = (),
+                  cfg: Optional[OctoConfig] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (nested dicts of arrays) -> float32 CPU
+    tensors under the port's names, with the layouts above; the leaves
+    under each path of ``stacks`` carry a leading layer axis and split
+    along it.  ``cfg`` is needed only for an ``output_dense`` kernel."""
     out: Dict[str, torch.Tensor] = {}
-    dtype = cfg.params_dtype
 
     def put(path, arr):
         names, value = _leaf(path, arr, cfg)
         out[".".join(names)] = torch.tensor(
-            np.ascontiguousarray(value, dtype=np.float32)).to(dtype)
+            np.ascontiguousarray(value, dtype=np.float32))
 
-    stacks = scanned_stacks(cfg)
     for path, arr in _flatten(params):
         for scanned in stacks:
             n = len(scanned)
@@ -116,7 +116,18 @@ def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
                 break
         else:
             put(path, arr)
+    return out
 
+
+def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
+    """Flax Octo params (numpy) -> ``Octo(cfg).state_dict()``-shaped dict
+    of CPU tensors, each in its port parameter's dtype (``cfg.params_dtype``;
+    the MoE router float32, as in flax)."""
+    from .models.octo import Octo
+
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = tree_to_state(params, scanned_stacks(cfg), cfg)
     expected = Octo(cfg, device="meta", seed=None).state_dict()
     unknown = sorted(set(out) - set(expected))
     missing = sorted(set(expected) - set(out))
@@ -127,4 +138,5 @@ def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
         if tuple(v.shape) != tuple(expected[k].shape):
             raise ValueError(f"{k}: converted shape {tuple(v.shape)}, port "
                              f"expects {tuple(expected[k].shape)}")
+        out[k] = v.to(expected[k].dtype)
     return out

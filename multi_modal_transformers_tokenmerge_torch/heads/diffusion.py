@@ -39,7 +39,7 @@ from torch import nn
 from ..core.config import DiffusionHeadConfig
 from ..modules.attention import MLPBlock
 from ..modules.layers import Dense, dropout, init_truncated
-from ..ops.ddpm_sampler import ddpm_sampler
+from ..ops.ddpm_sampler import ddpm_sampler_op
 
 __all__ = ["DiffusionActionHead", "OctoDenoise", "FourierFeatures",
            "cosine_beta_schedule", "ddim_schedule"]
@@ -296,13 +296,12 @@ class DiffusionActionHead(nn.Module):
         if d.num_blocks > 1:
             return self._reverse_loop(noisy, contexts, noise, coeffs,
                                       ddim_steps is not None)
-        return ddpm_sampler(
+        return ddpm_sampler_op(
             noisy, contexts, None if ddim_steps is not None else noise,
             coeffs, d.noisy_proj.weight, d.noisy_proj.bias,
-            d.first_out.weight, d.first_out.bias, clip_value=cfg.clip_value,
-            ddim_x0clip=ddim_steps is not None,
-            ddim_eps_recompute=(ddim_steps is not None
-                                and cfg.ddim_eps_mode == "recompute"))
+            d.first_out.weight, d.first_out.bias, cfg.clip_value,
+            ddim_steps is not None,
+            ddim_steps is not None and cfg.ddim_eps_mode == "recompute")
 
     def _reverse_loop(self, noisy, contexts, noise, coeffs, ddim: bool):
         """The reverse process of a multi-block denoiser, step by step (the

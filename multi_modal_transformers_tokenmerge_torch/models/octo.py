@@ -117,6 +117,14 @@ class Octo(nn.Module):
     def device(self) -> torch.device:
         return self.attention_mask.device
 
+    def moe_aux_loss(self) -> Optional[torch.Tensor]:
+        """The transformer's pre-weighted mixture-of-experts balance loss
+        from its last forward (``aux_loss_weight`` times the sum over its
+        blocks, a float32 device tensor; the JAX package's sown ``'losses'``
+        collection), or None for a dense MLP.  ``make_train_step`` adds it
+        to the loss."""
+        return self.transformer.moe_aux
+
     def reset_parameters(self, seed: int) -> None:
         """Draw every parameter from the flax initializers' distributions
         with one generator seeded by ``seed``, on the model's device."""

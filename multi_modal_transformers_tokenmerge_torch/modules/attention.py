@@ -34,8 +34,10 @@ from ..core.config import AttentionConfig, TransformerConfig
 from ..core.hw import kernel_device
 from .layers import (Dense, LayerNorm, activation_fn, dropout, init_normal,
                      init_truncated)
+from .moe import MoEMLPBlock, sum_aux
 
-__all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock",
+__all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock", "make_mlp",
+           "mlp_branch",
            "TransformerStack", "AddPositionEmbedding",
            "MultiHeadAttentionPooling", "masked_attention",
            "select_attention_fn", "layer_norm_dim", "capture_intermediates"]
@@ -258,14 +260,39 @@ def layer_norm_dim(cfg: TransformerConfig) -> int:
         f"unknown layer_norm_reduction {cfg.layer_norm_reduction!r}")
 
 
+def make_mlp(cfg: TransformerConfig, features: int, **kw) -> nn.Module:
+    """The block's MLP: the dense :class:`MLPBlock`, or with
+    ``mlp_type='moe'`` the routed ``moe.MoEMLPBlock``."""
+    if cfg.mlp_type == "dense":
+        return MLPBlock(features, cfg.mlp_dim, features, cfg.mlp_activation,
+                        cfg.dropout_rate, **kw)
+    if cfg.mlp_type == "moe":
+        return MoEMLPBlock(cfg.moe, features, cfg.mlp_dim, features,
+                           cfg.mlp_activation, **kw)
+    raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}; 'dense' or 'moe'")
+
+
+def mlp_branch(mlp: nn.Module, y, dropout_rate: float, train: bool,
+               rng: Optional[torch.Generator], aux: Optional[list]):
+    """The MLP branch of a pre-LN block on LN(x).  The dense block drops
+    inside; the MoE block's output takes one dropout after it, and its
+    balance loss is appended to ``aux``."""
+    if isinstance(mlp, MLPBlock):
+        return mlp(y, train, rng)
+    y, loss = mlp(y, train, rng)
+    if aux is not None:
+        aux.append(loss)
+    return dropout(y, dropout_rate, train, rng)
+
+
 class EncoderBlock(nn.Module):
-    """Pre-LN block: x + Dropout(attn(LN(x))), then x + mlp(LN(x))."""
+    """Pre-LN block: x + Dropout(attn(LN(x))), then x + mlp(LN(x)).  With
+    ``mlp_type='moe'`` the MLP is ``moe`` (the flax name) and its balance
+    loss goes to the ``aux`` list a caller hands in."""
 
     def __init__(self, cfg: TransformerConfig, features: int,
                  attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
-        if cfg.mlp_type != "dense":
-            raise ValueError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
         dim = layer_norm_dim(cfg)
         self.dropout_rate = cfg.dropout_rate
         ln = lambda: LayerNorm(features, cfg.layer_norm_epsilon, dim, **kw)
@@ -273,14 +300,16 @@ class EncoderBlock(nn.Module):
         self.attention = MultiHeadAttention(cfg.attention, features,
                                             attention_fn, **kw)
         self.ln_mlp = ln()
-        self.mlp = MLPBlock(features, cfg.mlp_dim, features,
-                            cfg.mlp_activation, cfg.dropout_rate, **kw)
+        self.mlp_name = "moe" if cfg.mlp_type == "moe" else "mlp"
+        self.add_module(self.mlp_name, make_mlp(cfg, features, **kw))
 
     def forward(self, x, mask=None, train: bool = False,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                aux: Optional[list] = None):
         y = self.attention(self.ln_attention(x), mask, train, rng)
         x = x + dropout(y, self.dropout_rate, train, rng)
-        return x + self.mlp(self.ln_mlp(x), train, rng)
+        return x + mlp_branch(getattr(self, self.mlp_name), self.ln_mlp(x),
+                              self.dropout_rate, train, rng, aux)
 
 
 class AddPositionEmbedding(nn.Module):
@@ -312,6 +341,8 @@ class TransformerStack(nn.Module):
     def __init__(self, cfg: TransformerConfig, seq_len: int, features: int,
                  attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
+        self.aux_loss_weight = cfg.moe.aux_loss_weight
+        self.moe_aux = None
         self.posembed_input = AddPositionEmbedding(seq_len, features, **kw)
         self.blocks = nn.ModuleList(
             EncoderBlock(cfg, features, attention_fn, **kw)
@@ -321,9 +352,14 @@ class TransformerStack(nn.Module):
 
     def forward(self, x, mask=None, train: bool = False,
                 rng: Optional[torch.Generator] = None):
+        """Also sets ``moe_aux``: with ``mlp_type='moe'`` the pre-weighted
+        ``aux_loss_weight * sum`` of the blocks' balance losses (a float32
+        device tensor, the JAX stack's sown ``moe_aux``), else None."""
         x = self.posembed_input(x)
+        aux = []
         for block in self.blocks:
-            x = block(x, mask, train, rng)
+            x = block(x, mask, train, rng, aux)
+        self.moe_aux = sum_aux(aux, self.aux_loss_weight)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x

@@ -34,7 +34,31 @@ from ..ops.image_ops import (eval_position_tokens, patchify,
 from ..ops.pool import max_pool_nchw
 from .layers import Conv2d, Dense, Embed
 
-__all__ = ["PatchGroupNorm", "ResNetV2Embedder", "ImageTokenizer"]
+__all__ = ["group_norm_stats", "PatchGroupNorm", "ResNetV2Embedder",
+           "ImageTokenizer"]
+
+
+def group_norm_stats(f: torch.Tensor, num_groups: int, eps: float,
+                     stats_scope: str, patches_per_element: int):
+    """GroupNorm statistics and normalization of a float32 (B*G, C, h, w)
+    patch map, no affine: the JAX package's ``group_norm_stats_hwcn``,
+    shared by :class:`PatchGroupNorm` and the quantized serving towers
+    (``serve.quantize``) so that a numerical fix applies to both.  The
+    variance is E[x^2] - mu^2 clamped at zero, as flax's."""
+    n, c, h, w = f.shape
+    g = num_groups
+    if stats_scope == "image":
+        f = f.reshape(n // patches_per_element, patches_per_element, g,
+                      c // g, h, w)
+        dims = (1, 3, 4, 5)
+    elif stats_scope == "patch":
+        f = f.reshape(n, g, c // g, h, w)
+        dims = (2, 3, 4)
+    else:
+        raise ValueError(f"unknown norm_stats_scope {stats_scope!r}")
+    mu = f.mean(dims, keepdim=True)
+    var = ((f * f).mean(dims, keepdim=True) - mu * mu).clamp_min(0.0)
+    return ((f - mu) * torch.rsqrt(var + eps)).reshape(n, c, h, w)
 
 
 class PatchGroupNorm(nn.Module):
@@ -67,19 +91,8 @@ class PatchGroupNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, patches_per_element: int):
-        n, c, h, w = x.shape
-        g = self.num_groups
-        f = x.float()
-        if self.stats_scope == "image":
-            f = f.reshape(n // patches_per_element, patches_per_element, g,
-                          c // g, h, w)
-            dims = (1, 3, 4, 5)
-        else:
-            f = f.reshape(n, g, c // g, h, w)
-            dims = (2, 3, 4)
-        mu = f.mean(dims, keepdim=True)
-        var = ((f * f).mean(dims, keepdim=True) - mu * mu).clamp_min(0.0)
-        f = ((f - mu) * torch.rsqrt(var + self.eps)).reshape(n, c, h, w)
+        f = group_norm_stats(x.float(), self.num_groups, self.eps,
+                             self.stats_scope, patches_per_element)
         f = (f * self.weight.float()[:, None, None]
              + self.bias.float()[:, None, None])
         return f.to(self.dtype)

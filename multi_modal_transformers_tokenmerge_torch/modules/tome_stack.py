@@ -13,6 +13,9 @@ Counterpart of the JAX package's ``modules/tome_stack.py``.
   hidden state itself (cosine metric, or L2-norm importance).
 * ``merge_wavg`` size tracking carries through the whole stack, in the
   compute dtype; proportional attention adds ``log(size)`` to the logits.
+* With ``mlp_type='moe'`` every block's MLP is the routed ``moe`` block;
+  its capacity follows each layer's or stage's token count, and the stack
+  hands the pre-weighted balance loss on in ``moe_aux``.
 
 Every stage mask is a buffer on the model's device, and with
 ``attention_impl='flash'`` (or ``'auto'`` past its gate) each stage runs
@@ -37,10 +40,11 @@ from ..ops.pruning import prune_gather, topk_tokens_per_set
 from ..ops.tome import bipartite_soft_matching, merge_wavg
 from ..sequence.dsl import KIND_TEXT
 from ..sequence.layout import SequenceLayout
-from .attention import (AddPositionEmbedding, EncoderBlock, MLPBlock,
-                        layer_norm_dim, masked_attention,
+from .attention import (AddPositionEmbedding, EncoderBlock, layer_norm_dim,
+                        make_mlp, masked_attention, mlp_branch,
                         select_attention_fn)
 from .layers import Dense, LayerNorm, dropout
+from .moe import sum_aux
 
 __all__ = ["CompressedEncoderBlock", "CompressedTransformerStack"]
 
@@ -87,8 +91,6 @@ class CompressedEncoderBlock(nn.Module):
         if cfg.compression_mode not in ("merge", "prune"):
             raise ValueError(
                 f"unknown compression mode {cfg.compression_mode!r}")
-        if cfg.mlp_type != "dense":
-            raise ValueError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
         kw = dict(kw, device=device)
         a = cfg.attention
         if a.qkv_features % a.num_heads:
@@ -105,13 +107,14 @@ class CompressedEncoderBlock(nn.Module):
         self.query, self.key, self.value = proj(), proj(), proj()
         self.out = Dense(a.qkv_features, features, bias=a.use_bias, **kw)
         self.ln_mlp = ln()
-        self.mlp = MLPBlock(features, cfg.mlp_dim, features,
-                            cfg.mlp_activation, cfg.dropout_rate, **kw)
+        self.mlp_name = "moe" if cfg.mlp_type == "moe" else "mlp"
+        self.add_module(self.mlp_name, make_mlp(cfg, features, **kw))
         self.register_buffer("mask", _mask_buffer(layout, layer, device),
                              persistent=False)
 
     def forward(self, x, size, train: bool = False,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                aux: Optional[list] = None):
         c = self.cfg
         rate = c.attention.dropout_rate
         b, t, _ = x.shape
@@ -148,7 +151,8 @@ class CompressedEncoderBlock(nn.Module):
             importance = clean_weights.mean(dim=(1, 2))          # (B, K)
             x, size = _prune_sets(x, size, importance, self.layout,
                                   self.layer)
-        return x + self.mlp(self.ln_mlp(x), train, rng), size
+        return x + mlp_branch(getattr(self, self.mlp_name), self.ln_mlp(x),
+                              c.dropout_rate, train, rng, aux), size
 
 
 class CompressedTransformerStack(nn.Module):
@@ -185,6 +189,7 @@ class CompressedTransformerStack(nn.Module):
         kw = dict(kw, device=device)
         self.cfg = cfg
         self.layout = layout
+        self.moe_aux = None
         self.off = 1 if cfg.prestack_merge else 0
         self.posembed_input = AddPositionEmbedding(layout.total_tokens,
                                                    features, **kw)
@@ -233,19 +238,24 @@ class CompressedTransformerStack(nn.Module):
 
     def forward(self, x, train: bool = False,
                 rng: Optional[torch.Generator] = None):
+        """Also sets ``moe_aux`` as ``TransformerStack`` does: the
+        pre-weighted sum of every block's balance loss, or None."""
         x = self.posembed_input(x)
         size = torch.ones_like(x[..., :1])
+        aux = []
         if self.off:
             x, size = self._event(x, size, 0)
         if self.num_stages == 0:
             for layer in range(self.cfg.num_blocks):
-                x, size = getattr(self, f"block_{layer}")(x, size, train, rng)
+                x, size = getattr(self, f"block_{layer}")(x, size, train, rng,
+                                                          aux)
         for stage in range(self.num_stages):
             mask = getattr(self, f"mask_{stage}")
             for block in getattr(self, f"stage_{stage}"):
-                x = block(x, mask, train, rng)
+                x = block(x, mask, train, rng, aux)
             if stage < self.num_stages - 1:
                 x, size = self._event(x, size, stage + self.off)
+        self.moe_aux = sum_aux(aux, self.cfg.moe.aux_loss_weight)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x

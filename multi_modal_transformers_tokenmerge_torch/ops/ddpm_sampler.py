@@ -11,6 +11,9 @@ design answers.
 :func:`ddpm_sampler` runs :func:`ddpm_sample_reference` for CPU tensors,
 launches the kernel for tensors on an sm_90 card, and raises for anything
 else.  ``ddpm_sampler.launches`` counts kernel launches.
+:func:`ddpm_sampler_op` is the same function registered as the custom op
+``tokenmerge::ddpm_sampler`` (with a shape function for tracing), so that
+``torch.export`` can carry it.
 
 Weights come in ``torch.nn.Linear`` layout: ``wn`` (H, A) and ``wo``
 (A, H), so ``h = x @ wn.T`` and ``eps = h @ wo.T``.
@@ -26,7 +29,8 @@ import torch
 from .. import _build
 from ..core.hw import on_cuda
 
-__all__ = ["ddpm_sampler", "ddpm_sample_reference", "MAX_ACTION_DIM"]
+__all__ = ["ddpm_sampler", "ddpm_sampler_op", "ddpm_sample_reference",
+           "MAX_ACTION_DIM"]
 
 MAX_ACTION_DIM = 16          # kMaxA in the kernel
 _MAX_SMEM_BYTES = 232448     # a block's shared memory on sm_90
@@ -175,3 +179,23 @@ def ddpm_sampler(noisy, contexts, noise: Optional[torch.Tensor], coeffs, wn,
 
 
 ddpm_sampler.launches = 0
+
+
+@torch.library.custom_op("tokenmerge::ddpm_sampler", mutates_args=())
+def ddpm_sampler_op(noisy: torch.Tensor, contexts: torch.Tensor,
+                    noise: Optional[torch.Tensor], coeffs: torch.Tensor,
+                    wn: torch.Tensor, bn: torch.Tensor, wo: torch.Tensor,
+                    bo: torch.Tensor, clip_value: float, ddim_x0clip: bool,
+                    ddim_eps_recompute: bool) -> torch.Tensor:
+    """:func:`ddpm_sampler` as the custom op ``tokenmerge::ddpm_sampler``,
+    the name an exported program (``serve.export``) holds; the model's
+    head calls it."""
+    return ddpm_sampler(noisy, contexts, noise, coeffs, wn, bn, wo, bo,
+                        clip_value=clip_value, ddim_x0clip=ddim_x0clip,
+                        ddim_eps_recompute=ddim_eps_recompute)
+
+
+@ddpm_sampler_op.register_fake
+def _(noisy, contexts, noise, coeffs, wn, bn, wo, bo, clip_value,
+      ddim_x0clip, ddim_eps_recompute):
+    return noisy.new_empty(noisy.shape, dtype=torch.float32)

@@ -15,7 +15,9 @@ the design answers.
   points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
   and raise for anything else.  Each counts its kernel launches in
   ``.launches``.  The two forwards run on the tensor cores in bf16 and
-  fp16 and on the CUDA cores in float32.
+  fp16 and on the CUDA cores in float32.  :func:`flash_fwd_op` is
+  :func:`flash_fwd` registered as the custom op ``tokenmerge::flash_fwd``
+  (with a shape function), which ``torch.export`` can carry.
 * The mask and the skip tables are device tensors (``mask_i8`` padded to the
   tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
   tiles, device), so the ring-attention path can later pass its own.
@@ -50,7 +52,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..core.hw import on_cuda
 
-__all__ = ["flash_attention", "make_attention_fn", "flash_fwd",
+__all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "flash_fwd_lse", "flash_dq", "flash_dkv", "flash_fwd_reference",
            "flash_fwd_lse_reference",
            "flash_dq_reference", "flash_dkv_reference", "attention_delta",
@@ -575,6 +577,22 @@ def _check_stats(lse, delta, args):
 
 flash_fwd.launches = 0
 flash_fwd_lse.launches = 0
+
+
+@torch.library.custom_op("tokenmerge::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask_i8: torch.Tensor, k_hi: torch.Tensor, block_q: int,
+                 block_k: int) -> torch.Tensor:
+    """:func:`flash_fwd` as the custom op ``tokenmerge::flash_fwd``, the
+    name an exported program (``serve.export``) holds; the attention hook
+    calls it."""
+    return flash_fwd(q, k, v, mask_i8, k_hi, block_q=block_q,
+                     block_k=block_k)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, mask_i8, k_hi, block_q, block_k):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
@@ -619,8 +637,7 @@ class _FlashAttentionRecompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask_i8, k_hi, block_q, block_k):
         ctx.save_for_backward(q, k, v, mask_i8)
-        return flash_fwd(q, k, v, mask_i8, k_hi, block_q=block_q,
-                         block_k=block_k)
+        return flash_fwd_op(q, k, v, mask_i8, k_hi, block_q, block_k)
 
     @staticmethod
     def backward(ctx, g):

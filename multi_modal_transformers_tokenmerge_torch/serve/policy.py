@@ -15,8 +15,16 @@ engine, on the model's device.
 ahead-of-time compilation: it makes a serving copy of the model whose
 compute-dtype parameters are stored in that dtype (no cast per request)
 and, on the card, captures the full path (token ids) and the cached path
-(text embeddings) as CUDA graphs at the engine's batch size.  Meshes,
-int8/w8 towers and export come with later parts of the port.
+(text embeddings) as CUDA graphs at the engine's batch size.
+
+``image_tower`` and ``text_tower`` ('bf16', 'int8' or 'w8') put the
+quantized towers of ``serve.quantize`` in place of the model's own: the
+image tower on both request paths (through the model's
+``*_with_modalities`` methods), the text tower wherever an instruction is
+encoded (``set_instruction``, ``encode_instruction``), as the JAX engine
+does.  :meth:`PolicyEngine.load_artifact` serves through programs exported
+by ``serve.export`` instead of the model's own methods.  Meshes come with
+a later part of the port.
 """
 
 from __future__ import annotations
@@ -31,15 +39,14 @@ from torch import nn
 
 from ..models.octo import Octo
 from ..utils.debug import jit_enabled
+from .export import (CACHED_PREDICT_METHODS as _CACHED_METHODS, draw_shapes,
+                     load_policy, parameters_of)
+from .quantize import (image_embed_int8, image_embed_w8, quantize_image_tower,
+                       quantize_t5_params, t5_encode_int8)
 
-__all__ = ["PolicyEngine", "serving_copy"]
+__all__ = ["PolicyEngine", "serving_copy", "TOWERS"]
 
-# head -> the model's predict method on cached text embeddings
-_CACHED_METHODS = {
-    "continuous": "predict_continuous_action_with_text",
-    "categorical": "predict_action_logits_with_text",
-    "diffusion": "predict_diffusion_action_with_text",
-}
+TOWERS = ("bf16", "int8", "w8")
 
 
 def serving_copy(model: nn.Module) -> nn.Module:
@@ -65,11 +72,16 @@ class PolicyEngine:
 
     def __init__(self, model: Octo, head: str = "diffusion",
                  batch_size: int = 1, seed: int = 0, cache_text: bool = True,
-                 tokenizer=None, ddim_steps: Optional[int] = None):
+                 tokenizer=None, ddim_steps: Optional[int] = None,
+                 image_tower: str = "bf16", text_tower: str = "bf16"):
         """``tokenizer``: optional callable mapping a list of strings to
         (B, T) int ids.  ``ddim_steps``: serve with S-step deterministic
         DDIM instead of the full DDPM reverse loop.  ``cache_text``:
-        :meth:`compile` also compiles the cached-instruction path."""
+        :meth:`compile` also compiles the cached-instruction path.
+        ``image_tower``: 'bf16' (the model's own), 'int8' (int8 weights and
+        activations, int32 sums) or 'w8' (int8-stored weights, float
+        compute).  ``text_tower``: the same three for the T5 tower that
+        encodes instructions; a quantized one needs a 't5' text encoder."""
         if ddim_steps is not None and head != "diffusion":
             raise ValueError("ddim_steps only applies to the diffusion "
                              f"head, got head={head!r}")
@@ -81,7 +93,22 @@ class PolicyEngine:
                          if getattr(model.config.heads, h) is not None]
             raise ValueError(f"model has no {head!r} head configured; "
                              f"available: {available}")
+        for name, tower in (("image_tower", image_tower),
+                            ("text_tower", text_tower)):
+            if tower not in TOWERS:
+                raise ValueError(f"unknown {name} {tower!r}; 'bf16', "
+                                 f"'int8' or 'w8'")
+        if text_tower != "bf16" and model.config.text.kind != "t5":
+            raise ValueError(
+                f"text_tower={text_tower!r} requires a t5 text encoder, got "
+                f"{model.config.text.kind!r}")
         self.model = model.eval().requires_grad_(False)
+        self.image_tower = image_tower
+        self.text_tower = text_tower
+        self._image_qp = (quantize_image_tower(model)
+                          if image_tower != "bf16" else None)
+        self._text_qp = (quantize_t5_params(model.text_encoder.t5_encoder)
+                         if text_tower != "bf16" else None)
         self.head = head
         self.batch_size = batch_size
         self.cache_text = cache_text
@@ -98,6 +125,8 @@ class PolicyEngine:
         self._serve_model: Optional[nn.Module] = None
         self._graphs = {}
         self._stream = None
+        # set by load_artifact(): path -> loaded program
+        self._artifacts = {}
 
     # -- instruction caching ---------------------------------------------
 
@@ -147,10 +176,17 @@ class PolicyEngine:
             else self.model
 
     def _encode(self, ids: np.ndarray) -> torch.Tensor:
+        ids = torch.tensor(np.ascontiguousarray(ids), dtype=torch.long,
+                           device=self.device)
         with torch.inference_mode():
-            return self._model.encode_text(torch.tensor(
-                np.ascontiguousarray(ids), dtype=torch.long,
-                device=self.device))
+            if self._text_qp is None:
+                return self._model.encode_text(ids)
+            cfg = self.model.config
+            return t5_encode_int8(
+                self._text_qp, ids,
+                rel_pos_buckets=cfg.text.t5_rel_pos_buckets,
+                rel_pos_max_distance=cfg.text.t5_rel_pos_max_distance,
+                dtype=cfg.compute_dtype, mode=self.text_tower)
 
     def set_instruction(self, text) -> "PolicyEngine":
         """Encode and cache one instruction for the whole batch (a string,
@@ -182,6 +218,45 @@ class PolicyEngine:
         while len(self._instruction_cache) > self._instruction_cache_max:
             self._instruction_cache.popitem(last=False)
         return hit
+
+    # -- exported programs -------------------------------------------------
+
+    def load_artifact(self, blob_or_path,
+                      cached_blob_or_path=None) -> "PolicyEngine":
+        """Serve through exported programs (``serve.export``): the full
+        path from ``blob_or_path`` (``export_policy``) and, when given, the
+        cached-instruction path from ``cached_blob_or_path``
+        (``export_cached_policy``); a path without one runs as before.
+        Each call hands the program the model's parameters and, for the
+        diffusion head, draws from the engine's generator in the order the
+        head draws them, so it returns what the eager call would.  The
+        artifacts serve the model's own image tower, as in the JAX engine,
+        and the sampler they were exported with (no ``ddim_steps``)."""
+        if self.image_tower != "bf16":
+            raise ValueError(
+                "exported policy artifacts serve the model's own (bf16) "
+                "image tower; build an image_tower='bf16' engine or "
+                f"compile() the {self.image_tower} engine in-process")
+        if self.ddim_steps is not None:
+            raise ValueError("an exported artifact runs the sampler it was "
+                             "exported with; build the engine without "
+                             "ddim_steps")
+        self._artifacts = {"full": load_policy(blob_or_path)}
+        if cached_blob_or_path is not None:
+            self._artifacts["cached"] = load_policy(cached_blob_or_path)
+        self._artifact_params = parameters_of(self.model)
+        return self
+
+    def _run_artifact(self, path, text, images, noisy, noise):
+        given = {"noisy": noisy, "noise": noise}
+        draws = [given[name].to(self.device, torch.float32)
+                 if given[name] is not None else
+                 torch.randn(shape, generator=self._generator,
+                             device=self.device)
+                 for name, shape in draw_shapes(
+                     self.model, self.head, images.shape[0]).items()]
+        return self._artifacts[path](self._artifact_params, text,
+                                     images.to(torch.float32), *draws)
 
     # -- compilation -------------------------------------------------------
 
@@ -237,12 +312,32 @@ class PolicyEngine:
         model = self._model
         with torch.inference_mode():
             emb = model.encode_text(text) if path == "full" else text
+            sample_kw = dict(noisy=noisy, noise=noise,
+                             generator=self._generator,
+                             ddim_steps=self.ddim_steps)
+            if self._image_qp is not None:
+                return self._predict_quantized(model, emb, images, sample_kw)
             predict = getattr(model, _CACHED_METHODS[self.head])
             if self.head != "diffusion":
                 return predict(emb, images)
-            return predict(emb, images, noisy=noisy, noise=noise,
-                           generator=self._generator,
-                           ddim_steps=self.ddim_steps)
+            return predict(emb, images, **sample_kw)
+
+    def _predict_quantized(self, model, text_embeddings, images, sample_kw):
+        """Text embeddings + images -> actions through the quantized image
+        tower and the model's ``*_with_modalities`` path."""
+        cfg = self.model.config
+        embed = image_embed_w8 if self.image_tower == "w8" \
+            else image_embed_int8
+        image_embeddings = embed(self._image_qp, images, cfg.images,
+                                 dtype=cfg.compute_dtype)
+        if self.head == "diffusion":
+            return model.predict_diffusion_action_with_modalities(
+                text_embeddings, image_embeddings, **sample_kw)
+        readouts = model.generate_readouts_with_modalities(
+            text_embeddings, image_embeddings)
+        if self.head == "continuous":
+            return model.continuous_action_head(readouts)
+        return model.categorical_action_head(readouts)
 
     def _capture(self, path, text, images):
         if self._stream is None:
@@ -286,7 +381,8 @@ class PolicyEngine:
         ``text_embeddings`` (B, T, E) is given.  ``noisy`` and ``noise``
         replace the engine's own draws of the diffusion head (see
         ``DiffusionActionHead.predict_action``); a compiled engine then
-        runs that call eagerly on its serving copy."""
+        runs that call eagerly on its serving copy, an engine with a
+        loaded artifact hands them to the program."""
         if text_tokens is not None and text_embeddings is not None:
             raise ValueError("pass text_tokens or text_embeddings, not both")
         images = torch.as_tensor(images, device=self.device)
@@ -306,6 +402,8 @@ class PolicyEngine:
                 raise ValueError(
                     "no instruction set: call set_instruction(text_tokens) "
                     "or pass text_tokens / text_embeddings")
+        if path in self._artifacts:
+            return self._run_artifact(path, text, images, noisy, noise)
         if (path in self._graphs and noisy is None and noise is None
                 and jit_enabled()):
             return self._replay(path, text, images)

@@ -5,6 +5,10 @@ head's loss in train mode (the mean over the batch of the diffusion,
 continuous L2 or categorical cross-entropy loss), its gradients, the global
 gradient norm (before clipping), one optimizer update and the metrics.
 
+A mixture-of-experts transformer adds its pre-weighted balance loss
+(``Octo.moe_aux_loss``, the JAX step's ``'losses'`` collection) to each
+loss before the gradients, without reading it back to the host.
+
 With ``accum_steps`` > 1 the batch splits into that many microbatches,
 each with fresh draws from the generators; their gradients are summed in
 float32, averaged and cast to the parameter dtype, and the loss averaged,
@@ -205,6 +209,13 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
              draws: Optional[Mapping] = None):
         model = state.model
         loss_fn = getattr(model, method)
+
+        def with_aux(per_example):
+            # the mean loss plus the pre-weighted auxiliary term the forward
+            # handed back (the MoE balance loss; none for a dense MLP)
+            aux = model.moe_aux_loss()
+            loss = per_example.mean()
+            return loss if aux is None else loss + aux
         names = [n for n, p in state.params.items() if p.requires_grad]
         params = [state.params[n] for n in names]
         b = actions.shape[0]
@@ -212,17 +223,17 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
             raise ValueError(
                 f"batch {b} not divisible by accum_steps={accum_steps}")
         if accum_steps == 1:
-            loss = loss_fn(text, images, actions, True, rngs=state.rngs,
-                           **(draws or {})).mean()
+            loss = with_aux(loss_fn(text, images, actions, True,
+                                    rngs=state.rngs, **(draws or {})))
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         else:
             loss = torch.zeros((), device=actions.device)
             sums = [None] * len(params)
             for i in range(accum_steps):
                 mb = lambda x: x.chunk(accum_steps)[i]
-                l_i = loss_fn(mb(text), mb(images), mb(actions), True,
-                              rngs=state.rngs,
-                              **_split_draws(draws, i, accum_steps)).mean()
+                l_i = with_aux(loss_fn(
+                    mb(text), mb(images), mb(actions), True, rngs=state.rngs,
+                    **_split_draws(draws, i, accum_steps)))
                 g_i = torch.autograd.grad(l_i, params, allow_unused=True)
                 loss = loss + l_i.detach()
                 sums = [s if g is None else

@@ -1,8 +1,8 @@
 """The port's CompressedTransformerStack against the JAX package's, on the
 CPU in float32 with converted weights: both cadences, merge and prune,
 ``prestack_merge``, proportional attention, ``final_norm``,
-``sequence_compat``, the flash hook of the staged path, and every
-rejection.  The micro ToMe fixtures of ``torch_parity`` supply the models;
+``sequence_compat``, mixture-of-experts MLPs, the flash hook of the staged
+path, and every rejection.  The micro ToMe fixtures of ``torch_parity`` supply the models;
 the stacks are called directly on random token sequences."""
 
 import jax
@@ -22,6 +22,7 @@ from multi_modal_transformers_tokenmerge_torch.ops import flash_attention as tfa
 from multi_modal_transformers_tokenmerge_torch.sequence.layout import (
     SequenceLayout,
 )
+from multi_modal_transformers_tokenmerge_tpu.core.config import MoEConfig
 
 # 12 layer norms and 2-4 merges deep: a few float32 roundings more than one
 # module's 2e-5
@@ -50,6 +51,11 @@ CASES = {
         layer_norm_reduction="sequence_compat"),
     "staged_uneven": octo_micro_tome_staged(num_blocks=5),
     "staged_three_stages": octo_micro_tome_staged(num_blocks=6),
+    # mixture-of-experts MLPs in both paths (tests/test_torch_moe.py holds
+    # their gradients and balance loss)
+    "layers_moe": octo_micro_tome_layers(mlp_type="moe"),
+    "staged_moe_top2": octo_micro_tome_staged(
+        mlp_type="moe", moe=MoEConfig(top_k=2)),
 }
 
 
@@ -234,12 +240,6 @@ def test_flash_rejected_in_per_layer_path():
     strings = (TEXT_LAYOUT[0], "[Text{0}] [Image{1};Readout{0}]")
     with pytest.raises(ValueError, match="flash"):
         _build(_stack_cfg(2, 1, attention_impl="flash"), strings)
-
-
-def test_moe_not_ported_in_either_path():
-    for blocks, every in ((2, 1), (4, 2)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            _build(_stack_cfg(blocks, every, mlp_type="moe"))
 
 
 def test_prestack_requires_active_compression():
