@@ -116,7 +116,31 @@ Phases, each of which must pass (any failure exits non-zero):
     the CPU, one float32 train step (the balance loss in it) under
     TRAIN_REF_LIMITS, trained compiled at batch 32 (held against the eager
     step, then in turns with the dense twin); octo_deep with MoE at top_k=2
-    served eagerly and trained compiled at batch 32 beside its dense twin.
+    served eagerly and trained compiled at batch 32 beside its dense twin;
+25. ring attention (``parallel.ring_attention``) as a ring of P=4 shards of
+    1024 tokens in one process (B=2, S=4096, H=12, D=64): the main path in
+    bf16 (causal, forward and backward) with every count set to 0 before it
+    and read after (16 launches each of flash_fwd_lse, flash_dq and
+    flash_dkv, all with float32 outputs); in float32 and bf16, causal and a
+    block-causal layout, the ring's output and dq/dk/dv against the
+    whole-sequence flash_attention (rel_gate) and, in float32, against the
+    plain whole-sequence attention at the JAX ring tests' tolerances; each
+    float32-output kernel against its plain version on one ring step (a
+    partly masked tile), its device time, bound and SDPA on the same tile;
+    the ring, the whole-sequence kernels and SDPA timed at S=4096; the plain
+    and the flash inner block timed at shards of 256-2048 tokens (the
+    crossover 'auto' is set from);
+26. distributed at world 1 on NCCL: ``initialize_multihost`` and
+    ``make_mesh()``; three ``fit(mesh=)`` steps of octo_base bf16 (eager,
+    captured, replayed) against ``fit()`` bit for bit, then both in turns
+    for their step times; ``PolicyEngine(mesh=)`` eager, compiled and cached
+    against the un-meshed engine bit for bit; ``ring_attention`` over the
+    NCCL group at P=1 against ``flash_attention`` bit for bit;
+27. the legacy families in float32, card against CPU within E2E_F32_TOL of
+    the largest |output|: PointCloudTransformer at its default configuration
+    on 8 clouds of 1024 points, GatoConceptLearner, SingleImageConceptLearner
+    and ConceptPlanner's generation (its tokens equal) at
+    ConceptLearnerConfig's defaults, each timed on the card.
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -3162,6 +3186,476 @@ def moe_phase(counters):
     return out
 
 
+# -- phase 25: ring attention on the card ---------------------------------------
+
+RING_P = 4
+RING_B, RING_S, RING_H, RING_D = 2, 4096, 12, 64     # octo_deep's heads
+RING_BLOCK_SPEC = "[TaskDescriptionPrefix{96}] [Image{980};Readout{20}]*4"
+RING_SHARDS = (64, 128, 256, 512, 1024, 2048)   # the 'auto' crossover's
+# float32 against the plain attention: the JAX ring tests' tolerances
+# (tests/test_ring_attention.py:57, :76); 16-bit uses rel_gate
+RING_FWD_TOL = 2e-5
+RING_GRAD_RTOL, RING_GRAD_ATOL = 5e-4, 1e-6
+
+
+def ring_masks():
+    return {"causal": np.tril(np.ones((RING_S, RING_S), dtype=bool)),
+            "block_causal": layout_mask(RING_BLOCK_SPEC)}
+
+
+def fwd_bwd(fn, q, k, v):
+    """fn's output and the gradients of mean(out^2) for q, k, v."""
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out.float().square().mean(), (q, k, v))
+    return out.detach(), grads
+
+
+def ring_inputs(dtype, seed, s=RING_S, b=RING_B):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, s, RING_H, RING_D, generator=g, device="cuda")
+                 .to(dtype).requires_grad_(True) for _ in range(3))
+
+
+def ring_step_bytes_flops(b, s, h, d, nnz, kind):
+    """Least bytes and FLOPs of one ring step's kernel at shard length s:
+    bf16 inputs read once, float32 outputs written once, the (s, s) int8
+    tile, the float32 row statistics; 2 FLOPs a multiply-add over the tile's
+    live pairs."""
+    act = b * s * h * d
+    stats = b * h * s * 4
+    ins, outs, nstats, products = {"fwd": (3, 1, 1, 2), "dq": (4, 1, 2, 3),
+                                   "dkv": (4, 2, 2, 4)}[kind]
+    nbytes = ins * act * 2 + outs * act * 4 + nstats * stats + s * s
+    return nbytes, 2 * products * b * h * d * nnz
+
+
+def ring_step_check(fa, tables, mask):
+    """Each float32-output kernel against its plain version on one ring
+    step: query shard 1 against key shard 1 of the block-causal layout (a
+    partly masked tile), bf16 inputs at shard length S/P; then their device
+    times, plain times, bounds and SDPA on the same tile."""
+    import torch.nn.functional as F
+    tiles, khi, qlo = tables
+    i = src = 1
+    s = RING_S // RING_P
+    tile, k_hi, q_lo = tiles[i, src], khi[i, src], qlo[i, src]
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(251)
+    q, k, v, do = (torch.randn(RING_B, s, RING_H, RING_D, generator=g,
+                               device="cuda").to(dtype) for _ in range(4))
+    bq, bk = fa.KERNEL_TILES[RING_D]
+    kw = dict(block_q=bq, block_k=bk, out_dtype=torch.float32)
+    out, lse = fa.flash_fwd_lse(q, k, v, tile, k_hi, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, tile, k_hi, **kw)
+    delta = fa.attention_delta(do, out_p, s)
+    dq = fa.flash_dq(q, k, v, do, lse_p, delta, tile, k_hi, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_p, delta, tile, q_lo, **kw)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_dq_reference(q, k, v, do, lse_p, delta, tile, k_hi, **kw)
+    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse_p, delta, tile,
+                                        q_lo, **kw)
+    err = {}
+    for kernel, pairs in (("flash_fwd_lse", [(out, out_p)]),
+                          ("flash_dq", [(dq, dq_p)]),
+                          ("flash_dkv", [(dk, dk_p), (dv, dv_p)])):
+        worst = 0.0
+        for got, want in pairs:
+            if got.dtype != torch.float32:
+                fail(f"{kernel} out_dtype=float32 wrote {got.dtype}")
+            ok, e, units = rel_gate(got, want, dtype)
+            rounded = bool((got != got.to(dtype).float()).any())
+            log(f"  ring step {kernel:13s} bf16 in, float32 out, B={RING_B} "
+                f"S={s} H={RING_H} D={RING_D}: |kernel-plain| {e:.2e} "
+                f"({units:.3f} of {LOW_ULPS} eps(bf16)); bits below bf16 "
+                f"{'kept' if rounded else 'LOST'}")
+            if not ok or not rounded:
+                fail(f"ring step {kernel} float32 output")
+            worst = max(worst, e)
+        err[kernel] = worst
+    lse_err = ((lse - lse_p).abs() / (1 + lse_p.abs())).max().item()
+    if not lse_err <= 1e-5:
+        fail(f"ring step lse rel {lse_err:.2e}")
+    nnz = int(tile.sum())
+    calls = {
+        "flash_fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, tile, k_hi, **kw),
+                          lambda: fa.flash_fwd_lse_reference(
+                              q, k, v, tile, k_hi, **kw), "fwd"),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, tile, k_hi,
+                                         **kw),
+                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                                   tile, k_hi, **kw), "dq"),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, tile,
+                                           q_lo, **kw),
+                      lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                                     tile, q_lo, **kw),
+                      "dkv"),
+    }
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    m = tile.bool()
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c,
+                                                          attn_mask=m)
+    lib_fwd, _ = device_total_ms(lambda: sdpa(qh, kh, vh))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    lib_both, _ = device_total_ms(
+        lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), doh))
+    lib_bwd = max(lib_both - lib_fwd, 0.0)
+    rows = {}
+    for kernel, (call, plain, kind) in calls.items():
+        ms = device_ms(call, f"{kernel}_kernel")
+        plain_ms = time_ms(plain, iters=1, warmup=0)
+        nbytes, flops = ring_step_bytes_flops(RING_B, s, RING_H, RING_D, nnz,
+                                              kind)
+        bnd, by = bound(nbytes, flops, dtype)
+        lib = lib_fwd if kind == "fwd" else lib_bwd
+        rows[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                            bound_by=by, library_ms=lib,
+                            max_abs_err=err[kernel])
+        log(f"  ring step {kernel:13s} float32 out: kernel {ms:.4f} ms on the "
+            f"device, plain {plain_ms:.1f} ms, bound {bnd:.5f} ms ({by}; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), SDPA "
+            f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} on the "
+            f"tile {lib:.4f} ms")
+    return rows
+
+
+def ring_phase(fa, counters):
+    """Ring attention as a LocalRing of P=4 shards of 1024 tokens on the
+    card: the main path (bf16, causal, forward and backward) with every
+    count set to 0 before it and read after (P^2 launches of flash_fwd_lse,
+    flash_dq and flash_dkv); forward and dq/dk/dv against the whole-sequence
+    flash_attention and, in float32, the plain whole-sequence attention;
+    each float32-output kernel on one ring step; the times; the inner
+    block's crossover."""
+    from multi_modal_transformers_tokenmerge_torch.parallel import (
+        ring_attention as ra)
+    masks = ring_masks()
+    ring = lambda mask, impl="flash": (
+        lambda q, k, v: ra.ring_attention(q, k, v, mask, RING_P, impl=impl))
+    for c in counters.values():
+        c.launches = 0
+    q, k, v = ring_inputs(torch.bfloat16, 250)
+    out, grads = fwd_bwd(ring(masks["causal"]), q, k, v)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    p2 = RING_P * RING_P
+    want = {"flash_fwd_lse": p2, "flash_dq": p2, "flash_dkv": p2}
+    log(f"  ring main path (bf16 causal, P={RING_P}, B={RING_B} S={RING_S} "
+        f"H={RING_H} D={RING_D}, forward and backward): launches {launches}")
+    if any(launches[n] != want.get(n, 0) for n in launches):
+        fail(f"the ring launched {launches}; expected {want}")
+    if not all(torch.isfinite(t.float()).all() for t in (out, *grads)):
+        fail("ring outputs not finite")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, mask in masks.items():
+            q, k, v = ring_inputs(dtype, 252)
+            r_out, r_g = fwd_bwd(ring(mask), q, k, v)
+            w_out, w_g = fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c,
+                                                                    mask),
+                                 q, k, v)
+            parts, ok_all = [], True
+            for key, got, whole in zip(("out", "dq", "dk", "dv"),
+                                       (r_out, *r_g), (w_out, *w_g)):
+                ok, e, units = rel_gate(got, whole, dtype)
+                ok_all &= ok
+                parts.append(f"{key} {e:.2e}")
+            if dtype == torch.float32:
+                mb = torch.as_tensor(mask, device="cuda")
+                p_out, p_g = fwd_bwd(
+                    lambda a, b, c: fa.xla_reference_attention(a, b, c, mb),
+                    q, k, v)
+                e_out = (r_out - p_out).abs()
+                ok = bool((e_out <= RING_FWD_TOL * (1 + p_out.abs())).all())
+                plain = [f"out {e_out.max().item():.2e}"]
+                for key, got, want_g in zip(("dq", "dk", "dv"), r_g, p_g):
+                    e = (got - want_g).abs()
+                    ok &= bool((e <= RING_GRAD_ATOL + RING_GRAD_RTOL *
+                                want_g.abs()).all())
+                    plain.append(f"{key} {e.max().item():.2e}")
+                ok_all &= ok
+                parts.append(f"against the plain attention {', '.join(plain)}")
+                del p_out, p_g
+            errs[f"{str(dtype)[6:]}_{name}"] = parts
+            log(f"  ring {str(dtype)[6:]:8s} {name:12s}: |ring - whole "
+                f"flash_attention| {', '.join(parts)} "
+                f"{'ok' if ok_all else 'FAIL'}")
+            if not ok_all:
+                fail(f"ring attention {dtype} {name}")
+            del r_out, r_g, w_out, w_g
+    torch.cuda.empty_cache()
+    tables = ra.ring_tables(masks["block_causal"], RING_P,
+                            *fa.KERNEL_TILES[RING_D], "cuda")
+    rows = ring_step_check(fa, tables, masks["block_causal"])
+    import torch.nn.functional as F
+    q, k, v = ring_inputs(torch.bfloat16, 253)
+    causal = masks["causal"]
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    mb = torch.as_tensor(causal, device="cuda")
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c,
+                                                          attn_mask=mb)
+    with torch.no_grad():
+        times = {"ring_forward": time_ms(lambda: ring(causal)(q, k, v), 10, 2),
+                 "whole_flash_forward": time_ms(
+                     lambda: fa.flash_attention(q, k, v, causal), 10, 2),
+                 "sdpa_forward": time_ms(lambda: sdpa(qh, kh, vh), 10, 2)}
+    times.update(
+        ring_forward_backward=time_ms(lambda: fwd_bwd(ring(causal), q, k, v),
+                                      10, 2),
+        whole_flash_forward_backward=time_ms(
+            lambda: fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c,
+                                                               causal),
+                            q, k, v), 10, 2),
+        sdpa_forward_backward=time_ms(lambda: fwd_bwd(sdpa, qh, kh, vh),
+                                      10, 2))
+    log(f"  bf16 causal B={RING_B} S={RING_S} H={RING_H} D={RING_D}, ms "
+        f"(CUDA events, median): " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in times.items()))
+    # the same calls' device time (every kernel a call runs): the events
+    # above also hold the host's work, the mask's digest among it
+    dev = {"ring_forward_backward": device_total_ms(
+               lambda: fwd_bwd(ring(causal), q, k, v), 5, 2)[0],
+           "whole_flash_forward_backward": device_total_ms(
+               lambda: fwd_bwd(lambda a, b, c: fa.flash_attention(
+                   a, b, c, causal), q, k, v), 5, 2)[0],
+           "sdpa_forward_backward": device_total_ms(
+               lambda: fwd_bwd(sdpa, qh, kh, vh), 5, 2)[0]}
+    log("  the same, device ms a call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev.items()))
+    crossover = {}
+    for shard in RING_SHARDS:
+        s = shard * RING_P
+        mask = np.tril(np.ones((s, s), dtype=bool))
+        q, k, v = ring_inputs(torch.bfloat16, 254, s=s)
+        t = {impl: time_ms(lambda: fwd_bwd(ring(mask, impl), q, k, v), 5, 2)
+             for impl in ("xla", "flash")}
+        t.update({f"{impl}_device": device_total_ms(
+            lambda: fwd_bwd(ring(mask, impl), q, k, v), 3, 1)[0]
+            for impl in ("xla", "flash")})
+        crossover[shard] = t
+        log(f"  inner block at shard {shard} (S={s}, bf16 causal, forward "
+            f"and backward of the ring): plain {t['xla']:.3f} ms, flash "
+            f"{t['flash']:.3f} ms ({t['xla'] / t['flash']:.2f}x); device "
+            f"plain {t['xla_device']:.3f} ms, flash {t['flash_device']:.3f} "
+            f"ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    wins = [sh for sh in RING_SHARDS
+            if all(crossover[x]["flash"] < crossover[x]["xla"]
+                   for x in RING_SHARDS if x >= sh)]
+    measured = min(wins) if wins else None
+    log(f"  flash wins from shard {measured}; 'auto' takes it at every "
+        f"aligned shard" + ("" if measured == RING_SHARDS[0] else
+                           " (the plain block won below: see PERF.md)"))
+    return {"launches": launches, "errors": errs, "step": rows,
+            "times_ms": times, "device_ms": dev, "crossover_ms": crossover,
+            "flash_wins_from": measured}
+
+
+# -- phase 26: distributed at world 1 -------------------------------------------
+
+DIST_TRAIN_BATCH = 8
+DIST_TRAIN_STEPS = 3
+DIST_TIMED_STEPS = 20
+
+
+def distributed_phase(fa):
+    """initialize_multihost and make_mesh at world 1 on NCCL; fit(mesh=)
+    against fit() bit for bit and their step times in turns;
+    PolicyEngine(mesh=) eager, compiled and cached against the un-meshed
+    engine; ring_attention over the NCCL group at P=1 against
+    flash_attention."""
+    import socket
+    import torch.distributed as dist
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.models.presets import (
+        octo_base)
+    from multi_modal_transformers_tokenmerge_torch.parallel import (
+        distributed as pd, mesh as pm, ring_attention as ra)
+    from multi_modal_transformers_tokenmerge_torch.serve.policy import (
+        PolicyEngine)
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    torch.cuda.set_device(0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    pd.initialize_multihost(f"tcp://localhost:{port}", 1, 0)
+    out = {"backend": dist.get_backend(), "process_info": pd.process_info()}
+    if out["backend"] != "nccl":
+        fail(f"the process group runs {out['backend']}, not nccl")
+    mesh = pm.make_mesh()
+    log(f"  process group {out['backend']}, {out['process_info']}; mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
+    try:
+        cfg = train_config("bfloat16")
+        batches = device_batches(cfg, DIST_TRAIN_BATCH, DIST_TRAIN_STEPS, 26)
+        plain_state, mesh_state = _fresh_train_state(cfg), _fresh_train_state(
+            cfg)
+        steps = {"fit": make_train_step("diffusion"),
+                 "fit_mesh": make_train_step("diffusion", mesh=mesh)}
+        fit(plain_state, iter(batches), "diffusion", DIST_TRAIN_STEPS,
+            step_fn=steps["fit"])
+        fit(mesh_state, iter(batches), "diffusion", DIST_TRAIN_STEPS,
+            mesh=mesh, step_fn=steps["fit_mesh"])
+        torch.cuda.synchronize()
+        diffs = leaf_diffs(plain_state, mesh_state)
+        log(f"  fit(mesh=) against fit(), octo_base bf16 B="
+            f"{DIST_TRAIN_BATCH}, {DIST_TRAIN_STEPS} steps (eager, capture, "
+            f"replay): largest |difference| parameter {diffs[0]:.3e}, moment "
+            f"{diffs[1]:.3e}")
+        if diffs[2] > 1e-6:
+            fail("fit(mesh=) at world 1 differs from fit()")
+        out["fit_diffs"] = diffs
+        window = device_batches(cfg, DIST_TRAIN_BATCH, DIST_TIMED_STEPS, 27)
+        times = {"fit": [], "fit_mesh": []}
+        for _ in range(2):
+            for name, state in (("fit", plain_state),
+                                ("fit_mesh", mesh_state)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fit(state, iter(window), "diffusion", DIST_TIMED_STEPS,
+                    mesh=mesh if name == "fit_mesh" else None,
+                    step_fn=steps[name])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3
+                                   / DIST_TIMED_STEPS)
+        out["ms_per_step"] = times
+        log(f"  compiled steps in turns, {DIST_TIMED_STEPS} a window: fit "
+            f"{times['fit']} ms/step, fit(mesh=) {times['fit_mesh']} ms/step")
+        del plain_state, mesh_state, batches, window
+        torch.cuda.empty_cache()
+
+        scfg = octo_base(dtype="bfloat16")
+        model = Octo(scfg, device="cuda", seed=0).eval()
+        g = np.random.default_rng(26)
+        ids = g.integers(0, scfg.text.vocab_size, (8, scfg.text.max_length))
+        images = random_images(scfg, 8, g)
+        engines = [PolicyEngine(model, batch_size=8, seed=1),
+                   PolicyEngine(model, batch_size=8, seed=1, mesh=mesh)]
+        same = {}
+        for path in ("eager", "compiled", "cached"):
+            if path == "compiled":
+                for e in engines:
+                    e.compile((scfg.text.max_length,),
+                              tuple(images.shape[1:]))
+            if path == "cached":
+                for e in engines:
+                    e.set_instruction(ids)
+            acts = [e(images) if path == "cached" else
+                    e(images, text_tokens=ids) for e in engines]
+            same[path] = bool(torch.equal(acts[0], acts[1]))
+        log(f"  PolicyEngine(mesh=) against the un-meshed engine, octo_base "
+            f"bf16 B=8, the same seed: bit for bit {same}")
+        if not all(same.values()):
+            fail("PolicyEngine(mesh=) differs from the un-meshed engine")
+        out["engine_equal"] = same
+        del engines, model
+        torch.cuda.empty_cache()
+
+        mask = np.tril(np.ones((1024, 1024), dtype=bool))
+        q, k, v = ring_inputs(torch.bfloat16, 260, s=1024)
+        r_out, r_g = fwd_bwd(lambda a, b, c: ra.ring_attention(
+            a, b, c, mask, None, impl="flash"), q, k, v)
+        w_out, w_g = fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c,
+                                                                mask),
+                             q, k, v)
+        ring_diff = max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip((r_out, *r_g), (w_out, *w_g)))
+        log(f"  ring_attention over the NCCL group (P=1) against "
+            f"flash_attention, bf16 B={RING_B} S=1024: largest |difference| "
+            f"of out, dq, dk, dv {ring_diff:.3e}")
+        if ring_diff != 0.0:
+            fail("the ring of one differs from flash_attention")
+        out["ring_p1_diff"] = ring_diff
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# -- phase 27: the legacy model families ----------------------------------------
+
+LEGACY_BATCH = 8
+PCT_POINTS = 1024
+
+
+def legacy_phase():
+    """The legacy families in float32 on the card against the CPU (the same
+    weights and inputs), each within E2E_F32_TOL of the CPU's largest
+    |output|, and each one's time on the card."""
+    from multi_modal_transformers_tokenmerge_torch.models import legacy as L
+    g = np.random.default_rng(27)
+    out = {}
+
+    def held(label, gpu_fn, cpu_fn, iters=10):
+        with torch.no_grad():
+            want = cpu_fn()
+            got = gpu_fn()
+            ms = time_ms(gpu_fn, iters=iters, warmup=2)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max((a.detach().cpu().float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        scale = max(1.0, max(b.float().abs().max().item() for b in want))
+        ok = err <= E2E_F32_TOL * scale and all(
+            torch.isfinite(a.float()).all() for a in got)
+        log(f"  {label}: |cuda-cpu| {err:.3e} (tol {E2E_F32_TOL:g} x "
+            f"{scale:.3g}), {ms:.3f} ms a call on the card "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label}: float32 CUDA and CPU disagree")
+        out[label] = {"err": err, "scale": scale, "ms": ms}
+
+    def pair(make):
+        cpu = make("cpu", 0).eval()
+        gpu = make("cuda", None).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        return gpu, cpu
+
+    pcfg = L.PointCloudTransformerConfig()
+    gpu, cpu = pair(lambda d, s: L.PointCloudTransformer(pcfg, 3, device=d,
+                                                         seed=s))
+    pts = torch.from_numpy(g.standard_normal(
+        (LEGACY_BATCH, PCT_POINTS, 3)).astype(np.float32))
+    pts_gpu = pts.cuda()
+    starts = (5, 7)
+    held(f"PointCloudTransformer (sample {pcfg.sample1}, {pcfg.sample2}, "
+         f"{pcfg.attention_heads} heads x {pcfg.attention_layers}) B="
+         f"{LEGACY_BATCH} N={PCT_POINTS}",
+         lambda: gpu(pts_gpu, starts=starts), lambda: cpu(pts, starts=starts),
+         iters=5)
+    ccfg = L.ConceptLearnerConfig()
+    b = LEGACY_BATCH
+    text = torch.from_numpy(g.integers(1, ccfg.text.vocab_size,
+                                       (b, ccfg.text.max_length)))
+    images = torch.from_numpy(g.uniform(
+        0, 255, (b, ccfg.max_seq_len, *ccfg.images.image_size)).astype(
+            np.float32))
+    actions = torch.from_numpy(g.integers(0, ccfg.num_actions,
+                                          (b, ccfg.max_seq_len)))
+    actions[:, 2:] = 0
+    gpu, cpu = pair(lambda d, s: L.GatoConceptLearner(ccfg, device=d,
+                                                      seed=s))
+    held(f"GatoConceptLearner B={b}",
+         lambda: gpu(text.cuda(), images.cuda(), actions.cuda()),
+         lambda: cpu(text, images, actions))
+    gpu, cpu = pair(lambda d, s: L.SingleImageConceptLearner(ccfg, device=d,
+                                                             seed=s))
+    held(f"SingleImageConceptLearner B={b}",
+         lambda: gpu(text.cuda(), images[:, 0].cuda()),
+         lambda: cpu(text, images[:, 0]))
+    gpu, cpu = pair(lambda d, s: L.ConceptPlanner(ccfg, device=d, seed=s))
+    gen_gpu = lambda: gpu.predict_concept_and_value(images[:, 0].cuda())
+    gen_cpu = lambda: cpu.predict_concept_and_value(images[:, 0])
+    held(f"ConceptPlanner generation (4 tokens) B={b}: log-probabilities "
+         f"and value", lambda: gen_gpu()[1:], lambda: gen_cpu()[1:])
+    with torch.no_grad():
+        if not torch.equal(gen_gpu()[0].cpu(), gen_cpu()[0]):
+            fail("ConceptPlanner's tokens differ between the card and the CPU")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -3380,6 +3874,12 @@ def main():
     exported = export_phase()
     log("phase 24: the mixture-of-experts MLP")
     moe = moe_phase(counters)
+    log("phase 25: ring attention on the card")
+    ring = ring_phase(fa, counters)
+    log("phase 26: distributed at world 1 on NCCL")
+    distributed = distributed_phase(fa)
+    log("phase 27: the legacy model families, float32 against the CPU")
+    legacy = legacy_phase()
 
     ms, call_ms, plain, bnd, by = timings[1]
     kernels = [{
@@ -3471,6 +3971,21 @@ def main():
             moe[k]["replay_profile"]["kernels"]["pool_bwd"]
             for k in ("training", "deep_training")],
     })
+    for kernel, line in (("flash_fwd_lse", 328), ("flash_dq", 383),
+                         ("flash_dkv", 430)):
+        kernels.append({
+            "name": f"{kernel}_f32out", "route": "cuda", "source": flash_src,
+            "replaces": f"{tpu}flash_attention.py:{line}",
+            "launches": ring["launches"][kernel], **ring["step"][kernel],
+            "library": ("SDPA forward" if kernel == "flash_fwd_lse" else
+                        "SDPA backward (dq, dk and dv together)") +
+                       ", boolean mask, on the same tile",
+            "shape": f"one ring step, bf16 in, float32 out, B={RING_B} "
+                     f"S={RING_S // RING_P} H={RING_H} D={RING_D}, query "
+                     f"shard 1 x key shard 1 of the block-causal layout",
+        })
+    log(json.dumps({"ring": ring, "distributed": distributed,
+                    "legacy": legacy, "card": card}))
     log(json.dumps({"flash_ptxas": flash_ptx}))
     log(json.dumps({"serve_ms_per_request": serve_ms,
                     "train_ms_per_step": train_ms,

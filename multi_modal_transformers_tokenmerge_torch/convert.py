@@ -34,7 +34,8 @@ import torch
 
 from .core.config import OctoConfig
 
-__all__ = ["from_flax", "scanned_stacks", "tree_to_state"]
+__all__ = ["from_flax", "from_flax_variables", "scanned_stacks",
+           "tree_to_state", "flax_layout"]
 
 
 def scanned_stacks(cfg: OctoConfig) -> Tuple[Tuple[str, ...], ...]:
@@ -61,14 +62,15 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _kernel(module: str, k: np.ndarray, cfg: OctoConfig) -> np.ndarray:
+def _kernel(module: str, k: np.ndarray, cfg: OctoConfig,
+            parent: str = "resnet") -> np.ndarray:
     if module in ("query", "key", "value", "qkv"):
         return k.reshape(k.shape[0], -1).T
     if module in ("out", "o"):
         return k.reshape(-1, k.shape[-1]).T
     if k.ndim == 4:                                   # conv, HWIO
         return k.transpose(3, 2, 0, 1)
-    if module == "output_dense":
+    if module == "output_dense" and parent == "resnet":
         c = cfg.images.resnet.features
         side = math.isqrt(k.shape[0] // c)
         if side * side * c != k.shape[0]:
@@ -81,11 +83,46 @@ def _kernel(module: str, k: np.ndarray, cfg: OctoConfig) -> np.ndarray:
     raise ValueError(f"unexpected {k.ndim}-D kernel under {module!r}")
 
 
+def flax_layout(module: str, leaf: str, shape: Tuple[int, ...],
+                kind: str = "", heads: Optional[int] = None):
+    """The flax leaf name and shape of a port parameter, and for each flax
+    axis the port axis that holds it (split axes merge into one): the
+    inverse of :func:`_kernel` and :func:`_leaf`, which ``parallel.mesh``
+    uses to apply the JAX sharding rules to the port's parameters.
+    ``kind`` is what holds the parameter: ``'dense'`` (a (out, in) weight),
+    ``'conv'``, ``'embed'``, ``'norm'`` or ``''`` (copied as it is);
+    ``heads`` the head count of an attention projection."""
+    shape = tuple(shape)
+    if kind == "dense" and leaf == "weight":
+        if module in ("query", "key", "value") and heads:
+            hd, e = shape
+            return "kernel", (e, heads, hd // heads), (1, 0, 0)
+        if module == "qkv" and heads:
+            hd3, e = shape
+            return "kernel", (e, 3, heads, hd3 // (3 * heads)), (1, 0, 0, 0)
+        if module in ("out", "o") and heads:
+            e, hd = shape
+            return "kernel", (heads, hd // heads, e), (1, 1, 0)
+        return "kernel", (shape[1], shape[0]), (1, 0)
+    if kind == "dense" and leaf == "bias" and module in (
+            "query", "key", "value") and heads:
+        return "bias", (heads, shape[0] // heads), (0, 0)
+    if kind == "conv" and leaf == "weight":           # OIHW <- HWIO
+        o, i, h, w = shape
+        return "kernel", (h, w, i, o), (2, 3, 1, 0)
+    if kind == "embed" and leaf == "weight":
+        return "embedding", shape, tuple(range(len(shape)))
+    if kind == "norm" and leaf == "weight":
+        return "scale", shape, tuple(range(len(shape)))
+    return leaf, shape, tuple(range(len(shape)))
+
+
 def _leaf(path: Tuple[str, ...], arr: np.ndarray, cfg: OctoConfig):
     *mods, leaf = path
     module = mods[-1] if mods else ""
     if leaf == "kernel":
-        return mods + ["weight"], _kernel(module, arr, cfg)
+        parent = mods[-2] if len(mods) > 1 else ""
+        return mods + ["weight"], _kernel(module, arr, cfg, parent)
     if leaf == "bias" and module in ("query", "key", "value"):
         return mods + ["bias"], arr.reshape(-1)
     if leaf in ("scale", "embedding"):
@@ -129,6 +166,35 @@ def from_flax(params: Mapping, cfg: OctoConfig) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out = tree_to_state(params, scanned_stacks(cfg), cfg)
     expected = Octo(cfg, device="meta", seed=None).state_dict()
+    unknown = sorted(set(out) - set(expected))
+    missing = sorted(set(expected) - set(out))
+    if unknown or missing:
+        raise KeyError(f"flax tree does not match the port: unknown "
+                       f"{unknown}, missing {missing}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(expected[k].shape):
+            raise ValueError(f"{k}: converted shape {tuple(v.shape)}, port "
+                             f"expects {tuple(expected[k].shape)}")
+        out[k] = v.to(expected[k].dtype)
+    return out
+
+
+def from_flax_variables(variables: Mapping, model: torch.nn.Module
+                        ) -> Dict[str, torch.Tensor]:
+    """A flax variables dict (``{'params': ..., 'batch_stats': ...}``) of a
+    model without scanned stacks (the legacy families of
+    ``models.legacy``) -> ``model.state_dict()``-shaped dict, each in the
+    dtype of the port's tensor.  ``batch_stats`` carry flax's
+    ``mean`` and ``var`` (the biased batch variance, updated with flax's
+    momentum) into the port's ``modules.layers.BatchNorm`` buffers of the
+    same names, unchanged.  Layouts as :func:`tree_to_state`; the model's
+    ``config`` sizes an image tower's ``output_dense``."""
+    out: Dict[str, torch.Tensor] = {}
+    cfg = getattr(model, "config", None)
+    for collection in ("params", "batch_stats"):
+        if collection in variables:
+            out.update(tree_to_state(variables[collection], (), cfg))
+    expected = model.state_dict()
     unknown = sorted(set(out) - set(expected))
     missing = sorted(set(expected) - set(out))
     if unknown or missing:

@@ -139,6 +139,11 @@
 //     28-36% in dk/dv at every D = 64 shape timed.  Holding either kernel
 //     to 128 registers (four blocks an SM) spills 72 and 60 bytes and
 //     takes 5-7% (dq) and 14-20% (dk/dv) more time.
+// The ring-step entries (parallel/ring_attention.py) take 16-bit inputs with
+// float32 outputs (out_f32): flash_fwd_lse, dq and dk/dv are instantiated a
+// second time with O = float, which changes only the epilogue's store (the
+// accumulators are float32 already), so a ring's partials are merged or
+// summed before any rounding to the input dtype.
 // float32 keeps the CUDA-core bodies of dq and dk/dv (flash_dq_f32_kernel,
 // flash_dkv_f32_kernel), dispatched by dtype as the forward is.
 //
@@ -556,6 +561,18 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two neighbouring output columns at dst: rounded to T into one 32-bit word,
+// or, with O = float, stored as float32 (the ring-attention partials, which
+// the ring merges or sums before any rounding).
+template <typename T, typename O>
+__device__ __forceinline__ void store2(O* dst, float lo, float hi) {
+  if constexpr (std::is_same<O, float>::value) {
+    *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -614,12 +631,14 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0,
 // on the tensor cores.  Warp w holds rows 16 (w / DS) .. + 15 and output
 // columns (w % DS) D / DS .. + D / DS - 1, and visits the key tiles below
 // k_hi of the mask table tile it lies in.  lse may be null (no statistic
-// stored); DROPOUT compiles the keep bits in.
-template <typename T, int D, int RG, int DS, int BN, bool DROPOUT>
+// stored); DROPOUT compiles the keep bits in.  O is the output's type: T,
+// or float for the ring's float32 partials (the epilogue's store only).
+template <typename T, int D, int RG, int DS, int BN, bool DROPOUT,
+          typename O = T>
 __device__ __forceinline__ void mma_forward_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
-    T* __restrict__ out, float* __restrict__ lse, const Args& a,
+    O* __restrict__ out, float* __restrict__ lse, const Args& a,
     const Dropout& drop) {
   using C = MmaFwd<T, D, RG, DS, BN>;
   constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDM = C::LDM;
@@ -791,11 +810,12 @@ __device__ __forceinline__ void mma_forward_block(
     const int row = q0 + wr + g + 8 * i;
     const float l_safe = fmaxf(l[i], 1e-30f);
     if (row < a.seq) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(
-          out + base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t);
+      O* dst = out + base + static_cast<size_t>(row) * row_stride + dcol0 +
+               2 * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
-        dst[4 * n] = pack2<T>(o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
+        store2<T, O>(dst + 8 * n, o[n][2 * i] / l_safe,
+                     o[n][2 * i + 1] / l_safe);
     }
     if (lse != nullptr && dcol0 == 0 && t == 0)
       lse[static_cast<size_t>(bh) * a.s_pad + row] = m[i] + logf(l_safe);
@@ -810,16 +830,16 @@ constexpr int fwd_min_blocks() {
   return D == 64 && NT == 128 ? 4 : 1;
 }
 
-template <typename T, int D, int RG, int DS, int BN>
+template <typename T, int D, int RG, int DS, int BN, typename O>
 __global__ void __launch_bounds__(32 * RG * DS)
     flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const int8_t* __restrict__ mask,
                          const int32_t* __restrict__ k_hi,
-                         const int64_t* __restrict__ seed, T* __restrict__ out,
+                         const int64_t* __restrict__ seed, O* __restrict__ out,
                          float* __restrict__ lse, Args a, uint32_t threshold,
                          float inv_keep, int dropout) {
-  mma_forward_block<T, D, RG, DS, BN, true>(
+  mma_forward_block<T, D, RG, DS, BN, true, O>(
       q, k, v, mask, k_hi, out, lse, a,
       make_dropout(seed, threshold, inv_keep, dropout));
 }
@@ -1160,7 +1180,7 @@ struct MmaBwd {
 // the faster at D = 64, see the source note).  Warp w holds rows
 // 16 (w / DS) .. + 15 and dQ columns (w % DS) D / DS .. + D / DS - 1; the DS
 // warps of a row group compute the same S and dP (bitwise equal).
-template <typename T, int D, int RG, int DS, int BN>
+template <typename T, int D, int RG, int DS, int BN, typename O>
 __global__ void __launch_bounds__(32 * RG * DS)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -1168,7 +1188,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
                     const float* __restrict__ delta,
                     const int8_t* __restrict__ mask,
                     const int32_t* __restrict__ k_hi,
-                    const int64_t* __restrict__ seed, T* __restrict__ dq,
+                    const int64_t* __restrict__ seed, O* __restrict__ dq,
                     Args a, uint32_t threshold, float inv_keep, int dropout) {
   using C = MmaBwd<T, D, RG, DS, BN>;
   constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDM = BN + 16;
@@ -1316,12 +1336,12 @@ __global__ void __launch_bounds__(32 * RG * DS)
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + wr + g + 8 * i;
     if (row < a.seq) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(
-          dq + base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t);
+      O* dst = dq + base + static_cast<size_t>(row) * row_stride + dcol0 +
+               2 * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
-        dst[4 * n] =
-            pack2<T>(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+        store2<T, O>(dst + 8 * n, acc[n][2 * i] * a.scale,
+                     acc[n][2 * i + 1] * a.scale);
     }
   }
 }
@@ -1333,7 +1353,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
 // over all BN queries, in passes of at most 32 queries (S^T and dP^T of one
 // pass live at a time); with SHARE each computes BN / DS of the queries and
 // the block passes P^T and dS^T, rounded to T, through shared memory.
-template <typename T, int D, int RG, int DS, int BN, bool SHARE>
+template <typename T, int D, int RG, int DS, int BN, bool SHARE, typename O>
 __global__ void __launch_bounds__(32 * RG * DS)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -1341,8 +1361,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
                      const float* __restrict__ delta,
                      const int8_t* __restrict__ mask,
                      const int32_t* __restrict__ q_lo,
-                     const int64_t* __restrict__ seed, T* __restrict__ dk,
-                     T* __restrict__ dv, Args a, uint32_t threshold,
+                     const int64_t* __restrict__ seed, O* __restrict__ dk,
+                     O* __restrict__ dv, Args a, uint32_t threshold,
                      float inv_keep, int dropout) {
   using C = MmaBwd<T, D, RG, DS, BN>;
   constexpr int BM = C::BM, NT = C::NT, LDT = C::LDT, LDP = C::LDP;
@@ -1525,13 +1545,11 @@ __global__ void __launch_bounds__(32 * RG * DS)
     if (row < a.seq) {
       const size_t at =
           base + static_cast<size_t>(row) * row_stride + dcol0 + 2 * t;
-      uint32_t* dst_k = reinterpret_cast<uint32_t*>(dk + at);
-      uint32_t* dst_v = reinterpret_cast<uint32_t*>(dv + at);
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        dst_k[4 * n] = pack2<T>(dk_acc[n][2 * i] * a.scale,
-                                dk_acc[n][2 * i + 1] * a.scale);
-        dst_v[4 * n] = pack2<T>(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+        store2<T, O>(dk + at + 8 * n, dk_acc[n][2 * i] * a.scale,
+                     dk_acc[n][2 * i + 1] * a.scale);
+        store2<T, O>(dv + at + 8 * n, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
       }
     }
   }
@@ -1562,6 +1580,7 @@ struct Launch {
   uint32_t threshold;
   int dropout;
   cudaStream_t stream;
+  int out_f32;  // 16-bit inputs: store the outputs as float32
 };
 
 template <typename Kern>
@@ -1578,7 +1597,7 @@ bool aligned16(const void* p) {
 // One tensor-core forward launch, with LSE (and dropout) or without: four
 // warps a block, at D = 64 four row groups of 16 rows (64 rows, the table
 // tile), at D = 256 two row groups of two warps that split D for P V.
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, typename O = T>
 int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
             const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
             const Launch& L) {
@@ -1594,10 +1613,10 @@ int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
           *vt = static_cast<const T*>(v);
   int err;
   if constexpr (LSE) {
-    auto kern = flash_fwd_lse_kernel<T, D, RG, DS, BN>;
+    auto kern = flash_fwd_lse_kernel<T, D, RG, DS, BN, O>;
     if ((err = launch_config(kern, smem))) return err;
     kern<<<grid, C::NT, smem, L.stream>>>(qt, kt, vt, mask, k_hi, seed,
-                                          static_cast<T*>(out), lse, args,
+                                          static_cast<O*>(out), lse, args,
                                           L.threshold, L.inv_keep, L.dropout);
   } else {
     auto kern = flash_fwd_kernel<T, D, RG, DS, BN>;
@@ -1613,6 +1632,9 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
         const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
         const Launch& L) {
   if constexpr (!std::is_same<T, float>::value) {
+    if (L.out_f32)
+      return mma_fwd<T, D, true, float>(q, k, v, mask, k_hi, seed, out, lse,
+                                        L);
     return mma_fwd<T, D, true>(q, k, v, mask, k_hi, seed, out, lse, L);
   } else {
     using Tl = Tiles<D>;
@@ -1655,7 +1677,7 @@ int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
 // One tensor-core dq launch: four warps a block; at D = 64 four row groups
 // of 16 query rows (64, the table tile), at D = 256 two row groups of two
 // warps that split D for dS K over one recomputed S and dP.
-template <typename T, int D>
+template <typename T, int D, typename O>
 int mma_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int8_t* mask,
            const int32_t* k_hi, const int64_t* seed, void* dqp,
@@ -1666,7 +1688,7 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(mask))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto kern = flash_dq_kernel<T, D, RG_DQ, DS_DQ, BN>;
+  auto kern = flash_dq_kernel<T, D, RG_DQ, DS_DQ, BN, O>;
   const size_t smem = C::dq_smem();
   int err;
   if ((err = launch_config(kern, smem))) return err;
@@ -1674,7 +1696,7 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, C::NT, smem, L.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      k_hi, seed, static_cast<T*>(dqp),
+      k_hi, seed, static_cast<O*>(dqp),
       Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
@@ -1684,7 +1706,7 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
 // keys (64, the table tile); at D = 256 eight warps, two row groups of four
 // that split D for the second products, each computing a quarter of a q
 // tile's S^T and dP^T, P^T and dS^T passed through shared memory.
-template <typename T, int D>
+template <typename T, int D, typename O>
 int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, const int8_t* mask,
             const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
@@ -1696,7 +1718,7 @@ int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(mask) || !aligned16(lse) || !aligned16(delta))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto kern = flash_dkv_kernel<T, D, RG_DKV, DS_DKV, BN, SHARE_DKV>;
+  auto kern = flash_dkv_kernel<T, D, RG_DKV, DS_DKV, BN, SHARE_DKV, O>;
   const size_t smem = C::dkv_smem(SHARE_DKV);
   int err;
   if ((err = launch_config(kern, smem))) return err;
@@ -1704,7 +1726,7 @@ int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, C::NT, smem, L.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      q_lo, seed, static_cast<T*>(dkp), static_cast<T*>(dvp),
+      q_lo, seed, static_cast<O*>(dkp), static_cast<O*>(dvp),
       Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
@@ -1715,7 +1737,11 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, const int8_t* mask,
        const int32_t* k_hi, const int64_t* seed, void* dqp, const Launch& L) {
   if constexpr (!std::is_same<T, float>::value) {
-    return mma_dq<T, D>(q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L);
+    if (L.out_f32)
+      return mma_dq<T, D, float>(q, k, v, dout, lse, delta, mask, k_hi, seed,
+                                 dqp, L);
+    return mma_dq<T, D, T>(q, k, v, dout, lse, delta, mask, k_hi, seed, dqp,
+                           L);
   } else {
     using Tl = Tiles<D>;
     auto kern = flash_dq_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
@@ -1739,8 +1765,11 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
         const Launch& L) {
   if constexpr (!std::is_same<T, float>::value) {
-    return mma_dkv<T, D>(q, k, v, dout, lse, delta, mask, q_lo, seed, dkp,
-                         dvp, L);
+    if (L.out_f32)
+      return mma_dkv<T, D, float>(q, k, v, dout, lse, delta, mask, q_lo, seed,
+                                  dkp, dvp, L);
+    return mma_dkv<T, D, T>(q, k, v, dout, lse, delta, mask, q_lo, seed, dkp,
+                            dvp, L);
   } else {
     using Tl = Tiles<D>;
     auto kern = flash_dkv_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
@@ -1794,6 +1823,9 @@ extern "C" {
 // contiguous in the dtype; lse and delta (B, H, S_pad) float32; mask
 // (S_pad, S_pad) int8; k_hi / q_lo int32; seed two int64 words (read only
 // when dropout is set).  flash_fwd_launch takes no seed and writes no LSE.
+// out_f32 (flash_fwd_lse, dq, dk/dv): 16-bit inputs write out, dq, dk and dv
+// as float32 (the ring-step partials of parallel/ring_attention.py); float32
+// inputs write float32 either way.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const int8_t* mask, const int32_t* k_hi, void* out,
@@ -1811,11 +1843,12 @@ int flash_fwd_lse_launch(const void* q, const void* k, const void* v,
                          const int64_t* seed, void* out, float* lse, int batch,
                          int seq, int heads, int head_dim, int s_pad,
                          int dtype, float scale, float inv_keep,
-                         uint32_t threshold, int dropout, void* stream) {
+                         uint32_t threshold, int dropout, int out_f32,
+                         void* stream) {
   if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream)};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32};
   FLASH_DISPATCH(fwd, q, k, v, mask, k_hi, seed, out, lse, L)
 }
 
@@ -1825,11 +1858,11 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
                     const int64_t* seed, void* dqp, int batch, int seq,
                     int heads, int head_dim, int s_pad, int dtype,
                     float scale, float inv_keep, uint32_t threshold,
-                    int dropout, void* stream) {
+                    int dropout, int out_f32, void* stream) {
   if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream)};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32};
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L)
 }
 
@@ -1839,11 +1872,11 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const int64_t* seed, void* dkp, void* dvp, int batch,
                      int seq, int heads, int head_dim, int s_pad, int dtype,
                      float scale, float inv_keep, uint32_t threshold,
-                     int dropout, void* stream) {
+                     int dropout, int out_f32, void* stream) {
   if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream)};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32};
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, mask, q_lo, seed, dkp, dvp,
                  L)
 }

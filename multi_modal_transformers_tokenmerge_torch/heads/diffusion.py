@@ -40,6 +40,7 @@ from ..core.config import DiffusionHeadConfig
 from ..modules.attention import MLPBlock
 from ..modules.layers import Dense, dropout, init_truncated
 from ..ops.ddpm_sampler import ddpm_sampler_op
+from ..core.global_batch import draw_global
 
 __all__ = ["DiffusionActionHead", "OctoDenoise", "FourierFeatures",
            "cosine_beta_schedule", "ddim_schedule"]
@@ -244,12 +245,14 @@ class DiffusionActionHead(nn.Module):
             if g is None:
                 raise ValueError(f"denoise_loss needs a '{cfg.rng_collection}'"
                                  f" generator or explicit time and noise")
+            # a data-parallel step draws the global batch's
             if time is None:
-                time = torch.randint(0, cfg.diffusion_steps, (b, 1),
-                                     generator=g, device=device)
+                time = draw_global(lambda s: torch.randint(
+                    0, cfg.diffusion_steps, s, generator=g, device=device),
+                    (b, 1))
             if noise is None:
-                noise = torch.randn(actions.shape, generator=g,
-                                    device=device)
+                noise = draw_global(lambda s: torch.randn(
+                    s, generator=g, device=device), actions.shape)
         time = time.to(device=device, dtype=torch.long)
         noise = noise.to(device=device, dtype=torch.float32)
         alpha_hat = self.alpha_hats[time]
@@ -279,15 +282,18 @@ class DiffusionActionHead(nn.Module):
         ddim_steps = ddim_steps if ddim_steps is not None else cfg.ddim_steps
         times, coeffs = self.schedule(ddim_steps)
         steps = times.shape[0]
+        # a data-parallel engine draws the global batch's
         if noisy is None:
-            noisy = torch.randn(b, a, generator=generator, device=device)
+            noisy = draw_global(lambda s: torch.randn(
+                s, generator=generator, device=device), (b, a))
         noisy = noisy.to(device=device, dtype=torch.float32)
         if ddim_steps is None and noise is None:
             if cfg.sampler_rng_mode == "reference":
                 noise = noisy.expand(steps, b, a)
             else:
-                noise = torch.randn(steps, b, a, generator=generator,
-                                    device=device)
+                noise = draw_global(lambda s: torch.randn(
+                    s, generator=generator, device=device), (steps, b, a),
+                    dim=1)
         if noise is not None:
             noise = noise.to(device=device, dtype=torch.float32)
 

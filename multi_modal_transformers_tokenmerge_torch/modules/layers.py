@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "dropout", "init_normal",
-           "init_truncated", "ACTIVATIONS", "activation_fn"]
+from ..core.global_batch import draw_global
+
+__all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "BatchNorm", "dropout",
+           "init_normal", "init_truncated", "ACTIVATIONS", "activation_fn"]
 
 # std correction of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -110,7 +112,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         raise ValueError(f"dropout rate {rate} in train mode needs a "
                          f"'dropout' generator")
     keep_prob = 1.0 - rate
-    keep = keep_mask(x.shape, keep_prob, generator, x.device)
+    # a data-parallel step draws the global batch's mask
+    keep = draw_global(lambda s: keep_mask(s, keep_prob, generator,
+                                           x.device), x.shape)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -119,8 +123,8 @@ class Dense(nn.Module):
     """``y = x @ W.T + b`` in the compute dtype.
 
     ``kernel_init``: 'he' (he_normal, the JAX package's choice for its own
-    layers) or 'lecun' (flax's Dense default).  ``bias_init``: 'normal'
-    (std 1e-2) or 'zeros'."""
+    layers), 'lecun' (flax's Dense default) or 'xavier' (xavier_uniform).
+    ``bias_init``: 'normal' (std 1e-2) or 'zeros'."""
 
     # parameters every forward casts to ``self.dtype`` before use: a serving
     # copy may store them in it (serve.policy.serving_copy)
@@ -142,8 +146,15 @@ class Dense(nn.Module):
 
     def reset_parameters(self, generator) -> None:
         fan_in = self.weight.shape[1]
-        scale = 2.0 if self.kernel_init == "he" else 1.0
-        init_truncated(self.weight, math.sqrt(scale / fan_in), generator)
+        if self.kernel_init == "xavier":
+            bound = math.sqrt(6.0 / (fan_in + self.weight.shape[0]))
+            with torch.no_grad():
+                self.weight.copy_(torch.rand(
+                    self.weight.shape, generator=generator,
+                    device=self.weight.device) * (2 * bound) - bound)
+        else:
+            scale = 2.0 if self.kernel_init == "he" else 1.0
+            init_truncated(self.weight, math.sqrt(scale / fan_in), generator)
         if self.bias is not None:
             if self.bias_init == "normal":
                 init_normal(self.bias, 1e-2, generator)
@@ -245,3 +256,63 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight).to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis (epsilon 1e-5).
+
+    Kept in flax's terms rather than torch's ``BatchNorm1d``, whose
+    momentum is the weight of the new statistic (flax's ``momentum=0.99``
+    is torch's 0.01) and whose running variance is the unbiased one: the
+    buffers ``mean`` and ``var`` are flax's ``batch_stats``, the running
+    mean and the running *biased* variance.  Train mode normalizes by the
+    float32 batch statistics (mean and the clamped E[x^2] - mu^2 over every
+    axis but the last) and updates the buffers in place as
+    ``momentum * old + (1 - momentum) * new``; eval mode normalizes by the
+    buffers.  ``per_example``: statistics over every axis but the first and
+    the last (what the JAX package gets by calling the layer under
+    ``jax.vmap``); the buffers then take the mean of the examples'
+    statistics, where the JAX update leaks a vmap tracer."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-5, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, dtype=param_dtype,
+                                               device=device))
+        self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype,
+                                             device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def reset_parameters(self, generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                per_example: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            dims = tuple(range(1 if per_example else 0, x.dim() - 1))
+            mean = x32.mean(dims, keepdim=per_example)
+            var = ((x32 * x32).mean(dims, keepdim=per_example)
+                   - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                new_mean, new_var = mean.detach(), var.detach()
+                if per_example:
+                    new_mean = new_mean.reshape(-1, x.shape[-1]).mean(0)
+                    new_var = new_var.reshape(-1, x.shape[-1]).mean(0)
+                self.mean.mul_(m).add_(new_mean, alpha=1.0 - m)
+                self.var.mul_(m).add_(new_var, alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(self.dtype)
+

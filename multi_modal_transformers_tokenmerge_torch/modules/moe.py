@@ -21,9 +21,12 @@ encoder block's dense MLP (``TransformerConfig.mlp_type='moe'``):
   top-1 choices before capacity; 1.0 when uniform) is returned beside the
   output.  The stacks sum it, weight it by ``aux_loss_weight`` and hand it
   to the train step, which adds it to the loss (the JAX package's
-  ``'losses'`` collection).
+  ``'losses'`` collection).  In a data-parallel step
+  (``core.global_batch.data_parallel``) both means are taken over the
+  global batch, as the JAX SPMD step takes them.
 
-Expert parallelism waits for the port of ``parallel/``.
+Expert parallelism shards the stacked expert parameters' storage
+(``parallel.mesh.shard_params``); the experts run whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.config import MoEConfig
+from ..core.global_batch import all_reduce_sum, data_group, draw_global
 from .layers import activation_fn, init_normal, init_truncated
 
 __all__ = ["MoEMLPBlock", "moe_capacity", "sum_aux"]
@@ -117,8 +122,8 @@ class MoEMLPBlock(nn.Module):
             if generator is None:
                 raise ValueError("router_noise in train mode needs a "
                                  "'dropout' generator")
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device)
+            u = draw_global(lambda s: torch.rand(
+                s, generator=generator, device=logits.device), logits.shape)
             logits = logits * (u * (2.0 * c.router_noise)
                                + (1.0 - c.router_noise))
         probs = torch.softmax(logits, dim=-1)
@@ -154,7 +159,15 @@ class MoEMLPBlock(nn.Module):
         out = (torch.einsum("ebcf,efd->ebcd", h, self.expert_wo.to(dt))
                + self.expert_bo.to(dt)[:, None, None, :])
         y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), out)
-        # Switch balance loss on the top-1 choices before capacity
+        # Switch balance loss on the top-1 choices before capacity, over
+        # the global batch in a data-parallel step: the means are averaged
+        # over the data ranks before their product
         frac = sel[:, :, 0, :].mean(dim=(0, 1))
-        aux = self.cfg.num_experts * (frac * probs.mean(dim=(0, 1))).sum()
+        mean_prob = probs.mean(dim=(0, 1))
+        group = data_group()
+        if group is not None and dist.get_world_size(group) > 1:
+            inv = 1.0 / dist.get_world_size(group)
+            frac = all_reduce_sum(frac, group) * inv
+            mean_prob = all_reduce_sum(mean_prob, group) * inv
+        aux = self.cfg.num_experts * (frac * mean_prob).sum()
         return y.to(dt), aux.float()

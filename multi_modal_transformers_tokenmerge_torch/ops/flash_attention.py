@@ -15,9 +15,13 @@ the design answers.
   points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
   and raise for anything else.  Each counts its kernel launches in
   ``.launches``.  The two forwards run on the tensor cores in bf16 and
-  fp16 and on the CUDA cores in float32.  :func:`flash_fwd_op` is
-  :func:`flash_fwd` registered as the custom op ``tokenmerge::flash_fwd``
-  (with a shape function), which ``torch.export`` can carry.
+  fp16 and on the CUDA cores in float32.  ``out_dtype=torch.float32``
+  makes :func:`flash_fwd_lse`, :func:`flash_dq` and :func:`flash_dkv` (and
+  :func:`flash_bwd`, the pair) write their outputs in float32 for 16-bit
+  inputs, unrounded: the ring-attention steps' partials.
+  :func:`flash_fwd_op` is :func:`flash_fwd` registered as the custom op
+  ``tokenmerge::flash_fwd`` (with a shape function), which ``torch.export``
+  can carry.
 * The mask and the skip tables are device tensors (``mask_i8`` padded to the
   tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
   tiles, device), so the ring-attention path can later pass its own.
@@ -53,7 +57,8 @@ from .. import _build
 from ..core.hw import on_cuda
 
 __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
-           "flash_fwd_lse", "flash_dq", "flash_dkv", "flash_fwd_reference",
+           "flash_fwd_lse", "flash_dq", "flash_dkv", "flash_bwd",
+           "flash_fwd_reference",
            "flash_fwd_lse_reference",
            "flash_dq_reference", "flash_dkv_reference", "attention_delta",
            "xla_reference_attention", "tile_skip_tables", "mask_tables",
@@ -274,19 +279,29 @@ def flash_fwd_reference(q, k, v, mask_i8, k_hi, *, block_q: int,
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _out_dtype(x: torch.Tensor, out_dtype):
+    """The dtype a kernel writes: ``out_dtype`` (None or float32) or x's."""
+    if out_dtype not in (None, torch.float32):
+        raise ValueError(f"out_dtype must be None or torch.float32, got "
+                         f"{out_dtype}")
+    return out_dtype or x.dtype
+
+
 def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
                             block_q: int, block_k: int,
-                            dropout_rate: float = 0.0):
+                            dropout_rate: float = 0.0, out_dtype=None):
     """Plain version of the forward kernel with LSE.
 
     Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words
     (dropout only).  The accumulator takes ``keep * p / (1 - r)`` cast to
     v's dtype while ``l`` and the LSE use the undropped p.  Returns ``out``
-    (B, S, H, D) in q's dtype and ``lse`` (B, H, S_pad) float32."""
+    (B, S, H, D) in q's dtype (float32 with ``out_dtype=torch.float32``,
+    the cast skipped) and ``lse`` (B, H, S_pad) float32."""
+    dtype = _out_dtype(q, out_dtype)
     out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
                                     block_k, dropout_rate)
     lse = (m + torch.log(l_safe))[..., 0]
-    return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype), lse
+    return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(dtype), lse
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor,
@@ -309,11 +324,13 @@ def _probs(qf, kf, lse, mask_i8, rq, rk, scale):
 
 def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                        block_q: int, block_k: int,
-                       dropout_rate: float = 0.0):
+                       dropout_rate: float = 0.0, out_dtype=None):
     """Plain version of the dq kernel: per q tile over the key tiles below
     ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
     rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
-    ``dq = sm_scale * ds K``.  Returns dq (B, S, H, D) in q's dtype."""
+    ``dq = sm_scale * ds K``.  Returns dq (B, S, H, D) in q's dtype, or
+    float32 with ``out_dtype=torch.float32``."""
+    dtype = _out_dtype(q, out_dtype)
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
     scale = 1.0 / math.sqrt(d)
@@ -336,16 +353,18 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
             ds = (p * (dp - delta[:, :, rq, None])).to(k.dtype).float()
             acc = acc + ds @ kf[:, :, rk]
         dq[:, :, rq] = acc * scale
-    return dq[:, :, :s].permute(0, 2, 1, 3).to(q.dtype)
+    return dq[:, :, :s].permute(0, 2, 1, 3).to(dtype)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                         *, block_q: int, block_k: int,
-                        dropout_rate: float = 0.0):
+                        dropout_rate: float = 0.0, out_dtype=None):
     """Plain version of the dk/dv kernel: per key tile over the q tiles
     from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
     to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
-    sm_scale.  Returns (dk, dv) (B, S, H, D) in k's and v's dtypes."""
+    sm_scale.  Returns (dk, dv) (B, S, H, D) in k's and v's dtypes, or
+    float32 with ``out_dtype=torch.float32``."""
+    _out_dtype(q, out_dtype)
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
     num_q = s_pad // block_q
@@ -377,7 +396,8 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
             acc_k = acc_k + ds.transpose(-1, -2) @ qf[:, :, rq]
         dk[:, :, rk] = acc_k * scale
         dv[:, :, rk] = acc_v
-    unflat = lambda x, like: x[:, :, :s].permute(0, 2, 1, 3).to(like.dtype)
+    unflat = lambda x, like: x[:, :, :s].permute(0, 2, 1, 3).to(
+        _out_dtype(like, out_dtype))
     return unflat(dk, k), unflat(dv, v)
 
 
@@ -412,8 +432,8 @@ def _library():
         vp, ci, cf, cu = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
         # pointers, then batch, seq, heads, head_dim, s_pad, dtype, scale,
-        # inv_keep, threshold, dropout, stream
-        tail = [ci] * 6 + [cf, cf, cu, ci, vp]
+        # inv_keep, threshold, dropout, out_f32, stream
+        tail = [ci] * 6 + [cf, cf, cu, ci, ci, vp]
         # no seed, no LSE, no dropout arguments
         lib.flash_fwd_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
         lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
@@ -499,70 +519,98 @@ def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
     return out
 
 
+def _launch_tail(args, q, out_dtype):
+    """The launchers' trailing scalars: ``_prepare``'s, with the out_f32
+    flag before the stream."""
+    return (*args[:-1], int(_out_dtype(q, out_dtype) != q.dtype), args[-1])
+
+
 def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
-                  block_k: int, dropout_rate: float = 0.0):
+                  block_k: int, dropout_rate: float = 0.0, out_dtype=None):
     """Forward with LSE; arguments and results as for
     :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
     a CUDA device this launches the kernel or raises."""
     if q.device.type == "cpu":
         return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
                                        block_q=block_q, block_k=block_k,
-                                       dropout_rate=dropout_rate)
+                                       dropout_rate=dropout_rate,
+                                       out_dtype=out_dtype)
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
     b, _, h, _, s_pad = args[:5]
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lse = torch.empty(b, h, s_pad, device=q.device, dtype=torch.float32)
     lib = _library()
     _check_rc(lib, "flash_fwd_lse", lib.flash_fwd_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
-        k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(), *args))
+        k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(),
+        *_launch_tail(args, q, out_dtype)))
     flash_fwd_lse.launches += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
-             block_q: int, block_k: int, dropout_rate: float = 0.0):
+             block_q: int, block_k: int, dropout_rate: float = 0.0,
+             out_dtype=None):
     """dQ; arguments and result as for :func:`flash_dq_reference`."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
                                   seed, block_q=block_q, block_k=block_k,
-                                  dropout_rate=dropout_rate)
+                                  dropout_rate=dropout_rate,
+                                  out_dtype=out_dtype)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
     _check_stats(lse, delta, args)
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lib = _library()
     _check_rc(lib, "flash_dq", lib.flash_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
-        k_hi.data_ptr(), _ptr(seed), dq.data_ptr(), *args))
+        k_hi.data_ptr(), _ptr(seed), dq.data_ptr(),
+        *_launch_tail(args, q, out_dtype)))
     flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
-              block_q: int, block_k: int, dropout_rate: float = 0.0):
+              block_q: int, block_k: int, dropout_rate: float = 0.0,
+              out_dtype=None):
     """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
                                    seed, block_q=block_q, block_k=block_k,
-                                   dropout_rate=dropout_rate)
+                                   dropout_rate=dropout_rate,
+                                   out_dtype=out_dtype)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
                     block_q, block_k, dropout_rate)
     _check_stats(lse, delta, args)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty_like(k, dtype=_out_dtype(k, out_dtype))
+    dv = torch.empty_like(v, dtype=_out_dtype(v, out_dtype))
     lib = _library()
     _check_rc(lib, "flash_dkv", lib.flash_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
-        q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(), *args))
+        q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(),
+        *_launch_tail(args, q, out_dtype)))
     flash_dkv.launches += 1
     return dk, dv
+
+
+def flash_bwd(q, k, v, do, lse, delta, mask_i8, k_hi, q_lo, *, block_q: int,
+              block_k: int, out_dtype=None):
+    """(dQ, dK, dV) by the dq and dk/dv kernels with the mask tile and both
+    skip tables handed in: the ring-step counterpart of
+    :func:`flash_fwd_lse` (the JAX package's ``flash_bwd``).  ``lse`` and
+    ``delta`` are the (B, H, S_pad) statistics of the whole softmax, merged
+    across the ring's steps; ``out_dtype=torch.float32`` keeps the partials
+    unrounded.  No dropout."""
+    kw = dict(block_q=block_q, block_k=block_k, out_dtype=out_dtype)
+    dq = flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, **kw)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, **kw)
+    return dq, dk, dv
 
 
 def _check_stats(lse, delta, args):

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.global_batch import draw_global
+
 __all__ = ["patchify", "position_interval_bounds", "eval_position_tokens",
            "sample_position_tokens"]
 
@@ -99,7 +101,9 @@ def sample_position_tokens(
     shape = (*batch_shape, row_lo.shape[0])
 
     def draw(lo, span):
-        u = torch.rand(shape, generator=generator, device=device)
+        # a data-parallel step draws the global batch's positions
+        u = draw_global(lambda s: torch.rand(s, generator=generator,
+                                             device=device), shape)
         off = torch.minimum((u * span).long(), span - 1)
         return lo + off
 

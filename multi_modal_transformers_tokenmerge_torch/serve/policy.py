@@ -23,8 +23,17 @@ image tower on both request paths (through the model's
 ``*_with_modalities`` methods), the text tower wherever an instruction is
 encoded (``set_instruction``, ``encode_instruction``), as the JAX engine
 does.  :meth:`PolicyEngine.load_artifact` serves through programs exported
-by ``serve.export`` instead of the model's own methods.  Meshes come with
-a later part of the port.
+by ``serve.export`` instead of the model's own methods.
+
+``mesh`` (``parallel.mesh.make_mesh``) serves data parallel, as the JAX
+engine's mesh does: the parameters are replicated, every rank is handed
+the global batch of ``batch_size`` rows, runs its rows of the ``data``
+axis (eagerly, or through graphs captured at its share of the batch) and
+all-gathers the result, so every rank returns the global actions.  The
+diffusion head's draws are made for the global batch from the engine's
+generator and cut to the rank's rows (``core.global_batch.
+data_parallel``), so the actions equal an un-meshed engine's; at a data
+size of one nothing is cut or gathered.
 """
 
 from __future__ import annotations
@@ -35,9 +44,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.octo import Octo
+from ..core.global_batch import data_parallel, draw_global
+from ..parallel.mesh import DATA_AXIS, data_info
 from ..utils.debug import jit_enabled
 from .export import (CACHED_PREDICT_METHODS as _CACHED_METHODS, draw_shapes,
                      load_policy, parameters_of)
@@ -73,7 +85,8 @@ class PolicyEngine:
     def __init__(self, model: Octo, head: str = "diffusion",
                  batch_size: int = 1, seed: int = 0, cache_text: bool = True,
                  tokenizer=None, ddim_steps: Optional[int] = None,
-                 image_tower: str = "bf16", text_tower: str = "bf16"):
+                 image_tower: str = "bf16", text_tower: str = "bf16",
+                 mesh=None):
         """``tokenizer``: optional callable mapping a list of strings to
         (B, T) int ids.  ``ddim_steps``: serve with S-step deterministic
         DDIM instead of the full DDPM reverse loop.  ``cache_text``:
@@ -81,7 +94,10 @@ class PolicyEngine:
         ``image_tower``: 'bf16' (the model's own), 'int8' (int8 weights and
         activations, int32 sums) or 'w8' (int8-stored weights, float
         compute).  ``text_tower``: the same three for the T5 tower that
-        encodes instructions; a quantized one needs a 't5' text encoder."""
+        encodes instructions; a quantized one needs a 't5' text encoder.
+        ``mesh``: data-parallel serving (see the module docstring);
+        ``batch_size`` is the global batch and must divide by the data
+        axis."""
         if ddim_steps is not None and head != "diffusion":
             raise ValueError("ddim_steps only applies to the diffusion "
                              f"head, got head={head!r}")
@@ -102,6 +118,14 @@ class PolicyEngine:
             raise ValueError(
                 f"text_tower={text_tower!r} requires a t5 text encoder, got "
                 f"{model.config.text.kind!r}")
+        self.mesh = mesh
+        self._data_rank, self._data_size = data_info(mesh)
+        if batch_size % self._data_size:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh data "
+                f"axis ({self._data_size})")
+        self._local_batch = batch_size // self._data_size
+        self._group = mesh.get_group(DATA_AXIS) if mesh is not None else None
         self.model = model.eval().requires_grad_(False)
         self.image_tower = image_tower
         self.text_tower = text_tower
@@ -249,12 +273,14 @@ class PolicyEngine:
 
     def _run_artifact(self, path, text, images, noisy, noise):
         given = {"noisy": noisy, "noise": noise}
-        draws = [given[name].to(self.device, torch.float32)
-                 if given[name] is not None else
-                 torch.randn(shape, generator=self._generator,
-                             device=self.device)
-                 for name, shape in draw_shapes(
-                     self.model, self.head, images.shape[0]).items()]
+        with data_parallel(self._group):
+            draws = [given[name].to(self.device, torch.float32)
+                     if given[name] is not None else
+                     draw_global(lambda s: torch.randn(
+                         s, generator=self._generator, device=self.device),
+                         shape, dim=1 if name == "noise" else 0)
+                     for name, shape in draw_shapes(
+                         self.model, self.head, images.shape[0]).items()]
         return self._artifacts[path](self._artifact_params, text,
                                      images.to(torch.float32), *draws)
 
@@ -284,7 +310,7 @@ class PolicyEngine:
         warm-up nor the capture consumes the engine's noise stream."""
         self._serve_model = serving_copy(self.model)
         self._graphs = {}
-        b = self.batch_size
+        b = self._local_batch
         text_shape, image_shape = tuple(text_shape), tuple(image_shape)
         images = torch.zeros((b, *image_shape), device=self.device)
         paths = [("full", torch.zeros((b, *text_shape), dtype=torch.long,
@@ -308,9 +334,27 @@ class PolicyEngine:
         self._generator.set_state(saved)
         return self
 
+    def _rows(self, x: torch.Tensor, name: str = "") -> torch.Tensor:
+        """This rank's rows of a global batch tensor (the per-step
+        ``noise`` (T, B, A) along its second axis)."""
+        if self._data_size == 1:
+            return x
+        dim = 1 if name == "noise" else 0
+        n = self._local_batch
+        return x.narrow(dim, self._data_rank * n, n)
+
+    def _gather(self, out: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows, in rank order (``out`` at a data size of
+        one)."""
+        if self._data_size == 1:
+            return out
+        parts = [torch.empty_like(out) for _ in range(self._data_size)]
+        dist.all_gather(parts, out.contiguous(), group=self._group)
+        return torch.cat(parts)
+
     def _predict(self, path, text, images, noisy, noise):
         model = self._model
-        with torch.inference_mode():
+        with torch.inference_mode(), data_parallel(self._group):
             emb = model.encode_text(text) if path == "full" else text
             sample_kw = dict(noisy=noisy, noise=noise,
                              generator=self._generator,
@@ -402,9 +446,17 @@ class PolicyEngine:
                 raise ValueError(
                     "no instruction set: call set_instruction(text_tokens) "
                     "or pass text_tokens / text_embeddings")
+        if self._data_size > 1:
+            text, images = self._rows(text), self._rows(images)
+            noisy = None if noisy is None else self._rows(
+                torch.as_tensor(noisy, device=self.device))
+            noise = None if noise is None else self._rows(
+                torch.as_tensor(noise, device=self.device), "noise")
         if path in self._artifacts:
-            return self._run_artifact(path, text, images, noisy, noise)
-        if (path in self._graphs and noisy is None and noise is None
+            out = self._run_artifact(path, text, images, noisy, noise)
+        elif (path in self._graphs and noisy is None and noise is None
                 and jit_enabled()):
-            return self._replay(path, text, images)
-        return self._predict(path, text, images, noisy, noise)
+            out = self._replay(path, text, images)
+        else:
+            out = self._predict(path, text, images, noisy, noise)
+        return self._gather(out)

@@ -8,6 +8,13 @@ file and renamed into place, so that a reader never sees a torn file.
 Retention, the data-state sidecar and the method names follow the JAX
 class.  Saves are synchronous, so :meth:`CheckpointManager.wait` has
 nothing to wait for.
+
+Under ``torch.distributed``: a state whose parameters are sharded
+(DTensors, ``parallel.mesh.shard_params``) is saved and restored through
+``torch.distributed.checkpoint`` into a directory ``{step}.dcp``, each rank
+writing and reading back its own shards; a replicated (data-parallel)
+state keeps the one-file format, written by rank 0.  Every rank calls
+save and restore.
 """
 
 from __future__ import annotations
@@ -15,13 +22,29 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["CheckpointManager"]
 
-_NAME = re.compile(r"^(\d+)\.pt$")
+_NAME = re.compile(r"^(\d+)\.(pt|dcp)$")
+
+
+def _sharded(state) -> bool:
+    return any(hasattr(p, "placements")
+               for p in getattr(state, "params", {}).values())
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _atomic_write(path: str, write) -> None:
@@ -62,7 +85,9 @@ class CheckpointManager:
     # -- steps on disk ------------------------------------------------------
 
     def _path(self, step: int) -> str:
-        return os.path.join(self.directory, f"{step}.pt")
+        dcp = os.path.join(self.directory, f"{step}.dcp")
+        return dcp if os.path.isdir(dcp) else os.path.join(
+            self.directory, f"{step}.pt")
 
     def _metrics_path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.metrics.json")
@@ -90,17 +115,26 @@ class CheckpointManager:
         ``RecordReader.state()``) is written beside it for
         :meth:`restore_data_state`."""
         step = int(step)
+        _barrier()   # every rank sees the same steps on disk
         if step % self.save_interval_steps or step in self.all_steps():
             return False
-        _atomic_write(self._path(step),
-                      lambda f: torch.save(state.state_dict(), f))
-        _atomic_write(self._metrics_path(step),
-                      lambda f: f.write(json.dumps(metrics).encode()))
-        if data_state is not None:
-            os.makedirs(self._data_dir, exist_ok=True)
-            _atomic_write(os.path.join(self._data_dir, f"{step}.json"),
-                          lambda f: f.write(json.dumps(data_state).encode()))
-        self._prune()
+        if _sharded(state):
+            import torch.distributed.checkpoint as dcp
+            dcp.save(state.state_dict(), checkpoint_id=os.path.join(
+                self.directory, f"{step}.dcp"))
+        elif _rank() == 0:
+            _atomic_write(self._path(step),
+                          lambda f: torch.save(state.state_dict(), f))
+        if _rank() == 0:
+            _atomic_write(self._metrics_path(step),
+                          lambda f: f.write(json.dumps(metrics).encode()))
+            if data_state is not None:
+                os.makedirs(self._data_dir, exist_ok=True)
+                _atomic_write(os.path.join(self._data_dir, f"{step}.json"),
+                              lambda f: f.write(
+                                  json.dumps(data_state).encode()))
+            self._prune()
+        _barrier()
         return True
 
     def restore(self, state, step: Optional[int] = None):
@@ -110,10 +144,17 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        # on the host first: the generators' states are CPU byte tensors;
-        # load_state_dict copies the rest onto the state's device
-        saved = torch.load(self._path(step), map_location="cpu",
-                           weights_only=True)
+        path = self._path(step)
+        if path.endswith(".dcp"):
+            # into the state's own tensors: each rank reads its shards
+            import torch.distributed.checkpoint as dcp
+            saved = state.state_dict()
+            dcp.load(saved, checkpoint_id=path)
+        else:
+            # on the host first: the generators' states are CPU byte
+            # tensors; load_state_dict copies the rest onto the state's
+            # device
+            saved = torch.load(path, map_location="cpu", weights_only=True)
         state.load_state_dict(saved)
         return state
 
@@ -165,5 +206,7 @@ class CheckpointManager:
             if s not in keep:
                 for path in (self._path(s), self._metrics_path(s),
                              os.path.join(self._data_dir, f"{s}.json")):
-                    if os.path.exists(path):
+                    if os.path.isdir(path):
+                        shutil.rmtree(path)
+                    elif os.path.exists(path):
                         os.remove(path)

@@ -4,8 +4,11 @@ Counterpart of the JAX package's ``train/loop.py``: run train steps over a
 batch iterator, logging windowed metrics, with periodic evaluation,
 checkpointing (``train.checkpoint.CheckpointManager``) and a stop hook for
 preemption.  The default step is the compiled one of ``train.steps`` (a
-CUDA graph for a state on the card).  Device meshes are not ported yet; a
-mesh raises.
+CUDA graph for a state on the card).  With a ``mesh`` every rank is handed
+the global batch, as the JAX single controller is, and keeps its rows of
+the ``data`` axis (``parallel.mesh.data_slice``), unless
+``prefetch_to_device(mesh=)`` has cut them already; the step averages the
+gradients over that axis, and ``evaluate`` averages its losses over it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from ..core.global_batch import all_reduce_sum, data_parallel
+from ..parallel.mesh import DATA_AXIS, data_info, data_slice
+from ..utils.data import Prefetched
 from .state import Metrics, OctoTrainState
 from .steps import (LOSS_METHODS, LOSS_METHODS_WITH_TEXT, CapturedStep,
                     make_train_step)
@@ -29,9 +35,25 @@ __all__ = ["fit", "evaluate", "graceful_stop", "to_device", "eval_seed",
 EVAL_FOLD = 0xE7A1
 
 
-def to_device(batch, device):
-    """A host batch (numpy arrays or tensors) as tensors on ``device``."""
-    return tuple(torch.as_tensor(x).to(device, non_blocking=True)
+def _rows_to_cut(batches, mesh):
+    """The mesh whose rows fit and evaluate cut from each batch: None for
+    batches that ``prefetch_to_device(mesh=mesh)`` has cut already.  Such
+    batches with another mesh, or with none, raise: the step would train
+    on a rank's rows as if they were the global batch."""
+    if not isinstance(batches, Prefetched) or batches.rows_of is None:
+        return mesh
+    if mesh is None or batches.rows_of != mesh:
+        raise ValueError("these batches were cut to a rank's rows by "
+                         "prefetch_to_device for another mesh than this "
+                         "call's; pass the same mesh to both")
+    return None
+
+
+def to_device(batch, device, mesh=None):
+    """A host batch (numpy arrays or tensors) as tensors on ``device``;
+    with a ``mesh`` this rank's rows of it."""
+    return tuple(torch.as_tensor(data_slice(x, mesh)).to(device,
+                                                         non_blocking=True)
                  for x in batch)
 
 
@@ -89,18 +111,26 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
     with ``data_state_fn()`` (e.g. ``RecordReader.state``) saved beside
     it.  ``should_stop()`` (e.g. :func:`graceful_stop`) is polled once a
     step; when it turns true the loop saves (with a checkpointer) and
-    returns early."""
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...): device meshes are not "
-                                  "ported yet")
+    returns early.
+
+    ``mesh``: data parallel over its ``data`` axis; each rank keeps its
+    rows of every batch (the batch must divide by the data size; batches
+    from ``prefetch_to_device(mesh=mesh)`` are those rows already) and the
+    default step is ``make_train_step(head, mesh=mesh)``, compiled at a
+    data size of one and eager above it (a CUDA graph does not hold the
+    all-reduce).  A ``step_fn`` of one's own must be made with the same
+    mesh."""
+    data_size = data_info(mesh)[1]
     step = (step_fn if step_fn is not None
-            else make_train_step(head, text_input=text_input))
+            else make_train_step(head, text_input=text_input, mesh=mesh,
+                                 jit=data_size == 1))
     device = next(state.model.parameters()).device
+    cut = _rows_to_cut(batches, mesh)
     it = iter(batches)
     last_eval = None
     t_last = time.perf_counter()
     for i in range(num_steps):
-        state, loss = step(state, *to_device(next(it), device))
+        state, loss = step(state, *to_device(next(it), device, cut))
         if logger is not None and (i + 1) % log_every == 0:
             metrics = {k: float(v) for k, v in
                        state.metrics.compute().items()}
@@ -157,18 +187,21 @@ def _eval_rngs(state: OctoTrainState) -> Dict[str, torch.Generator]:
     return _EVAL_RNGS[state]
 
 
-def _eval_step(head: str, text_input: str) -> CapturedStep:
-    """The eval loss of ``head`` as a captured step (eager on the CPU)."""
-    key = (head, text_input)
+def _eval_step(head: str, text_input: str, mesh=None) -> CapturedStep:
+    """The eval loss of ``head`` as a captured step (eager on the CPU);
+    with a mesh the rank's loss, its draws made for the global batch."""
+    key = (head, text_input, mesh)
     if key not in _EVAL_STEPS:
+        group = mesh.get_group(DATA_AXIS) if mesh is not None else None
         method = (LOSS_METHODS if text_input == "ids"
                   else LOSS_METHODS_WITH_TEXT)[head]
 
         @torch.no_grad()
         def body(state, text, images, actions, *, draws=None):
             loss_fn = getattr(state.model, method)
-            return loss_fn(text, images, actions, False,
-                           rngs=_eval_rngs(state)).mean().float()
+            with data_parallel(group):
+                return loss_fn(text, images, actions, False,
+                               rngs=_eval_rngs(state)).mean().float()
 
         _EVAL_STEPS[key] = CapturedStep(
             body, after=lambda state: None,
@@ -186,22 +219,27 @@ def evaluate(state: OctoTrainState, batches: Iterable, head: str,
     from generators of evaluate's own, seeded for batch ``i`` from each
     training generator's initial seed, :data:`EVAL_FOLD` and ``i``
     (:func:`eval_seed`); the training generators do not advance.  On the
-    card the loss is a captured step, as the train step is."""
-    if mesh is not None:
-        raise NotImplementedError("evaluate(mesh=...): device meshes are not "
-                                  "ported yet")
+    card the loss is a captured step, as the train step is.  With a
+    ``mesh`` each rank evaluates its rows of every batch (the diffusion
+    draws made for the global batch) and the losses are averaged over the
+    data axis, so every rank returns the global average."""
     if head not in LOSS_METHODS:
         raise ValueError(f"unknown head {head!r}; one of "
                          f"{sorted(LOSS_METHODS)}")
+    data_size = data_info(mesh)[1]
     device = next(state.model.parameters()).device
-    step = _eval_step(head, text_input)
+    step = _eval_step(head, text_input, mesh)
     rngs = _eval_rngs(state)
     metrics = Metrics.empty(device, loss="avg")
+    cut = _rows_to_cut(batches, mesh)
     it = iter(batches)
     for i in range(num_batches):
-        batch = to_device(next(it), device)
+        batch = to_device(next(it), device, cut)
         for name, g in rngs.items():
             g.manual_seed(eval_seed(state.rngs[name].initial_seed(), i))
         _, loss = step(state, *batch)
+        if data_size > 1:
+            loss = all_reduce_sum(loss, mesh.get_group(DATA_AXIS)) * (
+                1.0 / data_size)
         metrics.update(loss=loss)
     return {k: float(v) for k, v in metrics.compute().items()}

@@ -23,6 +23,19 @@ norm, optimizer, EMA, metrics, every microbatch) is captured as a
 batch into the graph's input buffers.  The state's generators are
 registered with the graph, so each replay draws fresh numbers, the same
 ones the eager step would draw.  A state on the CPU runs eagerly.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data parallel:
+each rank is handed its rows of the global batch (``parallel.mesh.
+data_slice``) and runs under ``core.global_batch.data_parallel``, so
+its draws (patch positions, dropout masks, the diffusion head's times and
+noise) are made for the global batch and cut to its rows, and the MoE
+balance loss's statistics are taken over the global batch; the loss and
+the gradients are averaged over the ``data`` axis before the update.  A
+step on P ranks so draws what a one-device step draws, except the flash
+kernels' in-kernel attention dropout, whose Philox counters take the
+rank's batch index.  At a data size of one no collective runs.  A CUDA
+graph does not hold the all-reduce: on the card, ``jit=True`` with a data
+axis of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
+from ..core.global_batch import all_reduce_sum, data_parallel
+from ..parallel.mesh import DATA_AXIS, data_info
 from ..utils.debug import jit_enabled
 from .optim import global_norm
 from .state import OctoTrainState
@@ -180,7 +195,7 @@ class CapturedStep:
 
 def make_train_step(head: str, donate: bool = True, jit: bool = True,
                     accum_steps: int = 1,
-                    text_input: str = "ids") -> Callable:
+                    text_input: str = "ids", mesh=None) -> Callable:
     """Build ``step(state, text, images, actions, *, draws=None) ->
     (state, loss)``; the state is updated in place and returned.
 
@@ -193,7 +208,8 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
     ``positions`` ((B, F, P) rows, cols) and, for the diffusion head,
     ``time`` (B, 1) and ``noise`` (B, A).
     ``text_input='embeddings'`` takes the frozen text tower's (B, T, E)
-    output instead of ids."""
+    output instead of ids.  ``mesh``: data-parallel over its ``data`` axis
+    (see the module docstring); the step takes this rank's rows."""
     if text_input not in ("ids", "embeddings"):
         raise ValueError(
             f"text_input must be 'ids' or 'embeddings', got {text_input!r}")
@@ -203,10 +219,28 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
         raise ValueError(f"unknown head {head!r}; one of {sorted(methods)}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps} must be >= 1")
+    if mesh is not None and accum_steps > 1:
+        raise ValueError("accum_steps > 1 under a mesh is not ported: a "
+                         "rank's microbatches are not the global "
+                         "microbatches' rows")
     method = methods[head]
+    group = mesh.get_group(DATA_AXIS) if mesh is not None else None
+    data_size = data_info(mesh)[1]
 
     def body(state: OctoTrainState, text, images, actions, *,
              draws: Optional[Mapping] = None):
+        with data_parallel(group):
+            return _body(state, text, images, actions, draws)
+
+    def reduce_grads(grads):
+        """The average over the data axis (nothing at one rank)."""
+        if data_size == 1:
+            return grads
+        inv = 1.0 / data_size
+        return {n: None if g is None else all_reduce_sum(g, group) * inv
+                for n, g in grads.items()}
+
+    def _body(state: OctoTrainState, text, images, actions, draws):
         model = state.model
         loss_fn = getattr(model, method)
 
@@ -243,7 +277,9 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
             loss = loss * inv
             grads = [None if s is None else (s * inv).to(p.dtype)
                      for s, p in zip(sums, params)]
-        grads = dict(zip(names, grads))
+        grads = reduce_grads(dict(zip(names, grads)))
+        if data_size > 1:
+            loss = all_reduce_sum(loss.detach(), group) * (1.0 / data_size)
         present = [g for g in grads.values() if g is not None]
         grad_norm = (global_norm(present) if present
                      else torch.zeros((), device=actions.device))
@@ -258,7 +294,18 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
         state.step += 1
 
     if jit:
-        return CapturedStep(body, after)
+        captured = CapturedStep(body, after)
+        if data_size == 1:
+            return captured
+
+        def guarded(state, *inputs, draws=None):
+            if next(state.model.parameters()).device.type == "cuda":
+                raise ValueError(
+                    f"make_train_step(jit=True) under a mesh whose data axis "
+                    f"has {data_size} ranks: the CUDA graph would not hold "
+                    f"the gradients' all-reduce; pass jit=False")
+            return captured(state, *inputs, draws=draws)
+        return guarded
 
     def step(state: OctoTrainState, text, images, actions, *,
              draws: Optional[Mapping] = None):

@@ -15,7 +15,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-__all__ = ["prefetch_to_device", "synthetic_octo_batches",
+__all__ = ["prefetch_to_device", "Prefetched", "synthetic_octo_batches",
            "cache_text_embeddings"]
 
 
@@ -35,8 +35,25 @@ def _host_tensor(x) -> torch.Tensor:
                            if isinstance(x, np.ndarray) else x)
 
 
+class Prefetched:
+    """The iterator :func:`prefetch_to_device` returns.  ``rows_of`` is
+    the mesh whose data-axis rows each batch already is (None: whole
+    batches): ``train.loop.fit`` and ``evaluate`` do not cut such batches
+    again."""
+
+    def __init__(self, batches: Iterator, rows_of=None):
+        self._batches = batches
+        self.rows_of = rows_of
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._batches)
+
+
 def prefetch_to_device(iterator: Iterable, size: int = 2,
-                       device="cuda") -> Iterator:
+                       device="cuda", mesh=None) -> Prefetched:
     """Yield batches (tuples, lists or dicts of arrays) as tensors on
     ``device`` with ``size`` more already on their way.
 
@@ -45,9 +62,18 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     waited on by the consumer's stream before the batch is yielded: a step
     never reads a batch before its copy has ended, and the copy of batch
     N+size overlaps the step on batch N.  On the CPU batches are converted
-    in order."""
+    in order.  With a ``mesh`` (``parallel.mesh.make_mesh``) each global
+    batch is cut to this rank's rows of the data axis before its copy,
+    and ``fit(..., mesh=mesh)`` takes the batches as they are."""
     device = torch.device(device)
     it = iter(iterator)
+    if mesh is not None:
+        from ..parallel.mesh import data_slice
+        it = (_map(lambda x: data_slice(x, mesh), batch) for batch in it)
+    return Prefetched(_prefetch(it, size, device), mesh)
+
+
+def _prefetch(it: Iterator, size: int, device: torch.device) -> Iterator:
     if device.type != "cuda":
         for batch in it:
             yield _map(lambda x: _host_tensor(x).to(device), batch)

@@ -187,6 +187,64 @@ def test_flash_backward_reads_new_forward_lse(card, b, seq, h, d, dtype):
 
 
 @pytest.mark.cuda
+@FLASH_SHAPES
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_float32_outputs_match_plain(card, b, seq, h, d, dtype):
+    """out_dtype=float32 for 16-bit inputs (the ring-attention steps'
+    partials): flash_fwd_lse, flash_dq and flash_dkv write float32 from
+    their float32 accumulators, within 2 eps(dtype) (1 + |plain|) of the
+    plain versions' float32 results, with bits below the input dtype's."""
+    fa, (q, k, v, do), (padded, k_hi, q_lo), _, (bq, bk) = _flash_case(
+        card, b, seq, h, d, dtype)
+    kw = dict(block_q=bq, block_k=bk, out_dtype=torch.float32)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi, **kw)
+    assert out.dtype == out_p.dtype == torch.float32
+    _assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    delta = fa.attention_delta(do, out_p, padded.shape[0])
+    grads = fa.flash_bwd(q, k, v, do, lse_p, delta, padded, k_hi, q_lo, **kw)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_dq_reference(q, k, v, do, lse_p, delta, padded, k_hi,
+                                 **kw)
+    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse_p, delta, padded,
+                                        q_lo, **kw)
+    for got, want in zip((out, *grads), (out_p, dq_p, dk_p, dv_p)):
+        assert got.dtype == torch.float32
+        _assert_flash_close(got, want, dtype)
+        assert bool((got != got.to(dtype).float()).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ring_matches_the_plain_ring(card, dtype):
+    """A ring of 4 shards of 256 tokens (D=64) through the kernels against
+    the plain ring: P^2 launches of each kernel, 16-bit tolerances as
+    above (1e-4 in float32)."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as fa)
+    from multi_modal_transformers_tokenmerge_torch.parallel.ring_attention \
+        import ring_attention
+    s = 1024
+    mask = np.tril(np.ones((s, s), dtype=bool))
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(2, s, 4, 64, generator=g, device=card).to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    before = (fa.flash_fwd_lse.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out = ring_attention(q, k, v, mask, 4, impl="flash")
+    grads = torch.autograd.grad(out.float().square().mean(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_lse.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 16 for n in before)
+    out_p = ring_attention(q, k, v, mask, 4, impl="xla")
+    grads_p = torch.autograd.grad(out_p.float().square().mean(), (q, k, v))
+    _assert_flash_close(out, out_p, dtype)
+    for got, want in zip(grads, grads_p):
+        _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stage", [0, 1, 2])
 @pytest.mark.parametrize("b", [1, 8, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

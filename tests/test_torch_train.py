@@ -519,9 +519,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tsteps.make_train_step("diffusion", text_input="tokens")
     state = tstate.create_train_state(model, RecordingOptimizer())
-    with pytest.raises(NotImplementedError):
+    # meshes are ported (tests/test_torch_parallel.py); what is not a
+    # (data, model) DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tloop.fit(state, iter([]), "diffusion", 1, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tloop.evaluate(state, iter([]), "diffusion", 1, mesh=object())
     # checkpointing (fit(checkpointer=...)) and skip_nonfinite_steps are
     # ported: tests/test_torch_checkpoint.py, tests/test_torch_optim.py

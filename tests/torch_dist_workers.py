@@ -1,0 +1,345 @@
+"""What each rank of the port's multi-process tests runs (see
+``torch_dist.launch``).  Imports torch, numpy and the port only: the JAX
+side of every comparison runs in the pytest process, which hands its
+inputs over in ``workdir/inputs.pt``."""
+
+import pathlib
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+from multi_modal_transformers_tokenmerge_torch.parallel import (
+    distributed as pdist)
+from multi_modal_transformers_tokenmerge_torch.parallel.mesh import (
+    make_mesh, shard_params)
+from multi_modal_transformers_tokenmerge_torch.parallel.pipeline import (
+    pipelined_apply, split_stages)
+from multi_modal_transformers_tokenmerge_torch.parallel.ring_attention import (
+    ring_attention)
+from multi_modal_transformers_tokenmerge_torch.serve.policy import (
+    PolicyEngine)
+from multi_modal_transformers_tokenmerge_torch.train import loop, state, steps
+from multi_modal_transformers_tokenmerge_torch.train.checkpoint import (
+    CheckpointManager)
+from multi_modal_transformers_tokenmerge_torch.utils.data import (
+    prefetch_to_device)
+
+
+class SGD:
+    """Plain SGD with the optimizer interface of ``train.state``: updates
+    linear in the gradients, so data-parallel and one-device steps stay
+    comparable (as the JAX tests' ``optax.sgd``).  Keeps the gradients it
+    was handed."""
+
+    def __init__(self, lr: float = 1e-2):
+        self.lr = lr
+        self.grads = []
+
+    def init(self, named_params):
+        self.count = torch.zeros((), dtype=torch.int32)
+
+    def state_dict(self):
+        return {"count": self.count}
+
+    def load_state_dict(self, saved):
+        self.count.copy_(saved["count"])
+
+    @torch.no_grad()
+    def step(self, params, grads):
+        self.grads.append({n: g.detach().clone() for n, g in grads.items()
+                           if g is not None})
+        for n, g in grads.items():
+            if g is not None:
+                params[n].sub_(self.lr * g)
+        self.count += 1
+
+
+def _inputs(workdir):
+    return torch.load(pathlib.Path(workdir) / "inputs.pt", weights_only=False)
+
+
+def _model(case):
+    model = Octo(case["cfg"], device="cpu", seed=None)
+    model.load_state_dict(case["state"])
+    return model
+
+
+def _run(checks):
+    """name -> result of each check; a failing check records its
+    traceback and the others still run."""
+    out = {}
+    for name, fn in checks:
+        try:
+            out[name] = fn()
+        except Exception:
+            out[name] = {"__error__": traceback.format_exc()}
+    return out
+
+
+def _rows(x, rank, world):
+    n = x.shape[0] // world
+    return x[rank * n:(rank + 1) * n]
+
+
+def _params(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+# -- parallel/mesh, train, serve, checkpoint: two ranks -------------------------
+
+def parallel_checks(rank, world, workdir):
+    inp = _inputs(workdir)
+    mesh = make_mesh(data=world)
+
+    def dp_step(case_name):
+        case = inp[case_name]
+        model = _model(case)
+        opt = SGD()
+        st = state.create_train_state(model, opt, rngs=0)
+        step = steps.make_train_step("continuous", jit=False, mesh=mesh)
+        rows, cols = case["positions"]
+        draws = {"positions": (_rows(rows, rank, world),
+                               _rows(cols, rank, world))}
+        _, loss = step(st, *(torch.as_tensor(_rows(x, rank, world))
+                             for x in (case["ids"], case["images"],
+                                       case["actions"])), draws=draws)
+        return {"loss": float(loss), "params": _params(model),
+                "aux": (None if model.moe_aux_loss() is None
+                        else float(model.moe_aux_loss()))}
+
+    def dp_fit():
+        case = inp["fit"]
+        model = _model(case)
+        st = state.create_train_state(model, SGD(), rngs=case["seed"])
+        st = loop.fit(st, iter(case["batches"]), "diffusion",
+                      len(case["batches"]), mesh=mesh)
+        return {"params": _params(model)}
+
+    def dp_evaluate():
+        case = inp["fit"]
+        model = _model(case)
+        st = state.create_train_state(model, SGD(), rngs=case["seed"])
+        return loop.evaluate(st, iter(case["batches"]), "diffusion",
+                             len(case["batches"]), mesh=mesh)
+
+    def dp_prefetched():
+        """fit and evaluate over prefetch_to_device(mesh=)'s batches, which
+        are the rank's rows already; the same batches with no mesh given
+        to fit are refused."""
+        case = inp["fit"]
+        n = len(case["batches"])
+        batches = lambda: prefetch_to_device(iter(case["batches"]),
+                                             device="cpu", mesh=mesh)
+        model = _model(case)
+        st = state.create_train_state(model, SGD(), rngs=case["seed"])
+        loop.fit(st, batches(), "diffusion", n, mesh=mesh)
+        ev = loop.evaluate(
+            state.create_train_state(_model(case), SGD(), rngs=case["seed"]),
+            batches(), "diffusion", n, mesh=mesh)
+        try:
+            loop.fit(state.create_train_state(_model(case), SGD(), rngs=0),
+                     batches(), "diffusion", n)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        return {"params": _params(model), "evaluate": ev,
+                "refused": refused}
+
+    def tp_forward():
+        case = inp["dense"]
+        tp = make_mesh(data=1, model=world)
+        model = shard_params(_model(case), tp)
+        sharded = {n: (tuple(p.to_local().shape), tuple(p.shape),
+                       [str(x) for x in p.placements])
+                   for n, p in model.named_parameters()
+                   if hasattr(p, "placements")}
+        with torch.no_grad():
+            out = model.predict_continuous_action(
+                torch.as_tensor(case["ids"]),
+                torch.as_tensor(case["images"]))
+        return {"out": out, "sharded": sharded}
+
+    def serving():
+        case = inp["dense"]
+        ids, images = case["ids"], case["images"]
+        out = {}
+        for head in ("continuous", "diffusion"):
+            eng = PolicyEngine(_model(case), head=head,
+                               batch_size=ids.shape[0], seed=3, mesh=mesh)
+            out[f"{head}_eager"] = eng(images, text_tokens=ids)
+            eng.compile(ids.shape[1:], images.shape[1:])
+            out[f"{head}_compiled"] = eng(images, text_tokens=ids)
+            eng.set_instruction(ids)
+            out[f"{head}_cached"] = eng(images)
+        try:
+            PolicyEngine(_model(case), head="continuous", batch_size=3,
+                         mesh=mesh)
+            out["not_divisible"] = None
+        except ValueError as e:
+            out["not_divisible"] = str(e)
+        return out
+
+    def sharded_checkpoint():
+        case = inp["dense"]
+        tp = make_mesh(data=1, model=world)
+        model = shard_params(_model(case), tp)
+        st = state.create_train_state(model, SGD(), rngs=0)
+        mgr = CheckpointManager(str(pathlib.Path(workdir) / "ckpt"))
+        saved = {n: p.detach().full_tensor().clone()
+                 if hasattr(p, "full_tensor") else p.detach().clone()
+                 for n, p in st.params.items()}
+        mgr.save(1, st)
+        with torch.no_grad():
+            for p in st.params.values():
+                p.zero_()
+        mgr.restore(st)
+        restored = {n: p.detach().full_tensor()
+                    if hasattr(p, "full_tensor") else p.detach()
+                    for n, p in st.params.items()}
+        local = {n: tuple(p.to_local().shape) for n, p in st.params.items()
+                 if hasattr(p, "to_local")}
+        files = sorted(q.name for q in (pathlib.Path(workdir) / "ckpt"
+                                        / "1.dcp").iterdir())
+        return {"equal": all(torch.equal(saved[n], restored[n])
+                             for n in saved),
+                "local": local, "files": files}
+
+    def process():
+        pdist.initialize_multihost()   # already initialised: a no-op
+        return pdist.process_info()
+
+    return _run([("dp_dense", lambda: dp_step("dense")),
+                 ("dp_moe", lambda: dp_step("moe")),
+                 ("dp_fit", dp_fit), ("dp_evaluate", dp_evaluate),
+                 ("dp_prefetched", dp_prefetched),
+                 ("tp_forward", tp_forward), ("serving", serving),
+                 ("sharded_checkpoint", sharded_checkpoint),
+                 ("process", process)])
+
+
+# -- parallel/ring_attention: two and four ranks ---------------------------------
+
+def _ring_case(q, k, v, mask, group, impl, rank, p, n_total, **kw):
+    """This rank's shard of the output and of dq, dk, dv for the loss
+    mean(out^2) over the whole global output (``n_total`` elements)."""
+    s = q.shape[1] // p
+    sl = slice(rank * s, (rank + 1) * s)
+    qs, ks, vs = (x[:, sl].clone().requires_grad_(True) for x in (q, k, v))
+    out = ring_attention(qs, ks, vs, mask, group, impl=impl, **kw)
+    loss = out.float().square().sum() / float(n_total)
+    grads = torch.autograd.grad(loss, (qs, ks, vs))
+    return {"out": out.detach(), "grads": [g.detach() for g in grads]}
+
+
+def ring_checks(rank, world, workdir):
+    inp = _inputs(workdir)
+    checks = []
+    for name, case in inp["cases"].items():
+        if case["world"] != world:
+            continue
+
+        def run(case=case):
+            q, k, v = (torch.as_tensor(case[x]) for x in ("q", "k", "v"))
+            n_total = q.numel()
+            if case.get("cp_dp"):
+                mesh = init_device_mesh(
+                    "cpu", (2, world // 2), mesh_dim_names=("data", "seq"))
+                d = mesh.get_local_rank("data")
+                s_rank = mesh.get_local_rank("seq")
+                rows = slice(d * q.shape[0] // 2, (d + 1) * q.shape[0] // 2)
+                res = _ring_case(q[rows], k[rows], v[rows], case["mask"],
+                                 mesh, case["impl"], s_rank, world // 2,
+                                 n_total, axis="seq", batch_axis="data",
+                                 **case.get("kw", {}))
+                res["rows"] = (rows.start, rows.stop)
+                res["seq_rank"] = s_rank
+                return res
+            return _ring_case(q, k, v, case["mask"], None, case["impl"],
+                              rank, world, n_total, **case.get("kw", {}))
+        checks.append((name, run))
+
+    def unaligned():
+        if world != 2:
+            return "ring of 2 only"
+        q = torch.zeros(1, 32, 2, 8)
+        try:
+            ring_attention(q, q, q, np.ones((64, 64), bool), None,
+                           impl="flash")
+            return None
+        except ValueError as e:
+            return str(e)
+    checks.append(("unaligned", unaligned))
+    return _run(checks)
+
+
+# -- parallel/pipeline: four ranks -----------------------------------------------
+
+def pipeline_checks(rank, world, workdir):
+    from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+        EncoderBlock)
+    inp = _inputs(workdir)
+    mask = torch.as_tensor(inp["mask"])
+
+    def blocks():
+        out = []
+        for sd in inp["layers"]:
+            blk = EncoderBlock(inp["cfg"], inp["features"])
+            blk.load_state_dict(sd)
+            out.append(blk)
+        return out
+
+    def layer_fn(block, h):
+        return block(h, mask)
+
+    def run_pipe(group, stages, m, x, data_axis=None, loss_rows=None):
+        blks = blocks()
+        out = pipelined_apply(layer_fn, split_stages(blks, stages), x,
+                              group, m, axis="pipe", data_axis=data_axis)
+        n = float(np.prod(inp["x"].shape))
+        loss = out.square().sum() / n
+        named = [(f"{li}.{pn}", q) for li, b in enumerate(blks)
+                 for pn, q in b.named_parameters()]
+        grads = torch.autograd.grad(loss, [q for _, q in named],
+                                    allow_unused=True)
+        return out.detach(), {n_: g for (n_, _), g in zip(named, grads)}
+
+    def grads_by_layer(blks_grads):
+        return {k: (None if g is None else g.detach())
+                for k, g in blks_grads.items()}
+
+    def four_stages():
+        x = torch.as_tensor(inp["x"])
+        out, named = run_pipe(None, world, inp["m4"], x)
+        return {"out": out, "grads": grads_by_layer(named)}
+
+    def two_stages_and_pp_dp():
+        x = torch.as_tensor(inp["x"])
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "pipe"))
+        out2, g2 = run_pipe(mesh, 2, inp["m2"], x)
+        out_dp, g_dp = run_pipe(mesh, 2, inp["m_dp"], x, data_axis="data")
+        # the blocks' gradients are each data rank's share: sum them
+        group = mesh.get_group("data")
+        summed = {}
+        for k, g in g_dp.items():
+            if g is not None:
+                g = g.clone()
+                dist.all_reduce(g, group=group)
+            summed[k] = g
+        try:
+            pipelined_apply(layer_fn, split_stages(blocks(), 2), x[:6],
+                            mesh, 6, axis="pipe", data_axis="data")
+            err = None
+        except ValueError as e:
+            err = str(e)
+        return {"out2": out2, "grads2": grads_by_layer(g2),
+                "out_dp": out_dp, "grads_dp": grads_by_layer(summed),
+                "data_rank": mesh.get_local_rank("data"),
+                "pipe_rank": mesh.get_local_rank("pipe"), "dp_error": err}
+
+    return _run([("four_stages", four_stages),
+                 ("two_stages_and_pp_dp", two_stages_and_pp_dp)])
