@@ -14,7 +14,12 @@ Phases, each of which must pass (any failure exits non-zero):
    flash forward/dq/dk-dv kernels at octo_base training, at the 1024-token
    layout of bench.py's bench_flash and at octo_deep's three stages at its
    training batch, in three dtypes, with dropout 0 and 0.1, attention_delta
-   timed beside dq and dk/dv; the forward without LSE at octo_deep's three
+   timed beside dq and dk/dv; the three training kernels with a batch
+   offset b0 (a data-parallel rank's first global row) in float32, bf16
+   and bf16 with float32 outputs: b0=0 bit for bit with no offset, the
+   offset launch bit for bit with those rows of the whole batch's and
+   against its plain version, each timed with b0 beside b0=0; the forward
+   without LSE at octo_deep's three
    stages (serving batches 1 and 8, training batch 32), octo_base_deep's
    first, the 1024-token layout and a mask with dead rows;
    the max-pool backward at octo_base training, bit for bit, on the layout
@@ -70,9 +75,12 @@ Phases, each of which must pass (any failure exits non-zero):
     five steps from the same state, fit with each in turns, one profiled
     replay (flash_fwd_lse, flash_dq, flash_dkv and pool_bwd at 1, 1, 1, 1
     a step at octo_base and 12, 12, 12, 1 at octo_deep);
-17. checkpoint on the card (after phase 16's octo_base): save at step 3,
-    restore into a fresh state, two more compiled steps, equal to the
-    unbroken run's state after step 5;
+17. checkpoint on the card (after phase 16's octo_base), saves
+    asynchronous: save at step 3 (its stall against the synchronous save's
+    SYNC_SAVE_S), two more compiled steps while it is written, the time
+    until it lands; a restore into a fresh state bit for bit with the
+    state at step 3, two more compiled steps equal to the unbroken run's
+    state after step 5;
 18. configs and the CLI: ``python -m multi_modal_transformers_tokenmerge_torch
     info`` in a subprocess reports cuda and the card; load_config("octo_base",
     ["dtype=bfloat16"]) equals the preset, and builds the next phases' model;
@@ -100,8 +108,10 @@ Phases, each of which must pass (any failure exits non-zero):
     tolerance, text-tower actions reported against it); float32 card
     against CPU: the int8 products bit for bit at the towers' shapes, w8
     actions and int8 text embeddings each within its limit, the bf16 model
-    the planted fault; each tower's device ms (image B=1/8/32, text B=1/8)
-    and the 28224x768 output dense as ``_int_mm`` against a bf16 matmul at
+    the planted fault; the w8 towers in bf16 with their float32 products
+    against the products upcast and, as the planted fault, rounded to
+    bf16; each tower's device ms (image B=1/8/32, text B=1/8), the w8
+    towers' beside their earlier reading, and the 28224x768 output dense as ``_int_mm`` against a bf16 matmul at
     50/400/1600 rows beside their bounds;
 23. export: octo_base bf16's full and cached diffusion programs and
     octo_deep's cached one (``tokenmerge::flash_fwd`` and
@@ -133,14 +143,30 @@ Phases, each of which must pass (any failure exits non-zero):
 26. distributed at world 1 on NCCL: ``initialize_multihost`` and
     ``make_mesh()``; three ``fit(mesh=)`` steps of octo_base bf16 (eager,
     captured, replayed) against ``fit()`` bit for bit, then both in turns
-    for their step times; ``PolicyEngine(mesh=)`` eager, compiled and cached
+    for their step times; ``fit(mesh=, accum_steps=2)`` against
+    ``fit(accum_steps=2)`` bit for bit; ``PolicyEngine(mesh=)`` eager, compiled and cached
     against the un-meshed engine bit for bit; ``ring_attention`` over the
     NCCL group at P=1 against ``flash_attention`` bit for bit;
 27. the legacy families in float32, card against CPU within E2E_F32_TOL of
     the largest |output|: PointCloudTransformer at its default configuration
     on 8 clouds of 1024 points, GatoConceptLearner, SingleImageConceptLearner
     and ConceptPlanner's generation (its tokens equal) at
-    ConceptLearnerConfig's defaults, each timed on the card.
+    ConceptLearnerConfig's defaults, each timed on the card;
+28. rematerialization (``transformer.remat``) on octo_deep bf16 at batch
+    32 as its preset sets attention: remat off and on, eager and captured,
+    with the counts set to 0 before each and read after (remat: 24
+    flash_fwd_lse, 12 flash_dq and 12 flash_dkv a step), peak memory above
+    the state and ms a step in turns; the captured remat step within
+    GRAPH_TRAIN_TOL of the eager one; a float32 step of the per-layer
+    cadence whose every recompute merges as its forward did; one float32
+    remat step against the CPU under TRAIN_REF_LIMITS;
+29. the port's drives as subprocesses: ``python -m
+    multi_modal_transformers_tokenmerge_torch.examples.train_octo`` on
+    octo_deep bf16 at batch 32 (flash kernels, ``--remat``,
+    ``--accum-steps 2``, ``--ckpt``, ``--recordio``) stopped by a SIGTERM
+    (a last checkpoint, ``final:``, exit code 0), then ``--resume`` (both
+    ``resumed ...`` lines); ``examples.serve_octo`` on octo_base bf16 at
+    batch 8.
 
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -704,19 +730,32 @@ def flash_timings(fa, name, mask, b, h, d):
     lib_bwd = max(lib_both - lib_fwd, 0.0)
     delta_ms, delta_names = device_total_ms(
         lambda: fa.attention_delta(do, out, padded.shape[0]))
+    # the same launches with the batch offset of a data-parallel rank's
+    # rows (b0 = B, the second of two ranks), timed in turns with b0 = 0
+    offset = {
+        "flash_fwd_lse": lambda: fa.flash_fwd_lse(q, k, v, padded, k_hi,
+                                                  seed, b0=b, **kw),
+        "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, padded,
+                                        k_hi, seed, b0=b, **kw),
+        "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, padded,
+                                          q_lo, seed, b0=b, **kw)}
     rows = {}
     for kernel, (call, plain, kind) in calls.items():
         ms = device_ms(call, f"{kernel}_kernel")
+        ms_b0 = device_ms(offset[kernel], f"{kernel}_kernel")
+        ms_again = device_ms(call, f"{kernel}_kernel")
         call_ms = time_ms(call)
         plain_ms = time_ms(plain, iters=3, warmup=1)
         nbytes, flops = flash_bytes_flops(b, s, h, d, nnz, dtype, kind)
         bnd, by = bound(nbytes, flops, dtype)
         lib = lib_fwd if kind == "fwd" else lib_bwd
         rows[kernel] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                            bound_ms=bnd, bound_by=by, library_ms=lib)
+                            bound_ms=bnd, bound_by=by, library_ms=lib,
+                            ms_b0=ms_b0, ms_again=ms_again)
         log(f"  {kernel:13s} {name:15s} bf16 B={b} S={s} H={h} D={d} "
             f"r={TRAIN_DROPOUT}: kernel {ms:.4f} ms on the device "
-            f"({call_ms:.4f} ms a wrapper call), plain {plain_ms:.3f} ms, "
+            f"(b0={b}: {ms_b0:.4f} ms, then b0=0 again {ms_again:.4f} ms; "
+            f"{call_ms:.4f} ms a wrapper call), plain {plain_ms:.3f} ms, "
             f"bound {bnd:.5f} ms ({by}; {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP), SDPA "
             f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
@@ -731,6 +770,69 @@ def flash_timings(fa, name, mask, b, h, d):
     log(f"  SDPA kernels, forward: {fwd_names}; forward+backward: "
         f"{both_names}")
     return rows, {"forward": fwd_names, "forward_backward": both_names}
+
+
+def flash_offset_check(fa, name, mask, b, h, d):
+    """The three training kernels with a batch offset ``b0`` (the rank's
+    first global row of a data-parallel step), dropout 0.1, in float32,
+    bf16 and bf16 with float32 outputs: the call with ``b0=0`` equals the
+    call without it bit for bit; rows [b0, B) of the batch launched with
+    ``b0`` equal those rows of the whole batch's launch bit for bit (the
+    Philox counters count global rows); the offset launch against its
+    plain version under ``rel_gate``.  Returns the largest float32 error
+    of each kernel."""
+    seed = torch.tensor([0x2468ACE, 0x13579BD], dtype=torch.int64,
+                        device="cuda")
+    f32_err = dict.fromkeys(("flash_fwd_lse", "flash_dq", "flash_dkv"), 0.0)
+    b0 = b // 2
+    for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
+                             (torch.bfloat16, torch.float32)):
+        mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
+            fa, mask, b, h, d, dtype, seed=8)
+        kw = dict(block_q=tiles[0], block_k=tiles[1],
+                  dropout_rate=TRAIN_DROPOUT, out_dtype=out_dtype)
+
+        def launch(rows, **extra):
+            sl = lambda t: t[rows].contiguous()
+            out, lse = fa.flash_fwd_lse(sl(q), sl(k), sl(v), padded, k_hi,
+                                        seed, **extra, **kw)
+            delta = fa.attention_delta(sl(do), out, padded.shape[0])
+            args = (sl(q), sl(k), sl(v), sl(do), lse, delta, padded)
+            dq = fa.flash_dq(*args, k_hi, seed, **extra, **kw)
+            dk, dv = fa.flash_dkv(*args, q_lo, seed, **extra, **kw)
+            return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv, args=args)
+
+        whole = launch(slice(None))
+        zero = launch(slice(None), b0=0)
+        part = launch(slice(b0, b), b0=b0)
+        keys = ("out", "lse", "dq", "dk", "dv")
+        same_zero = all(torch.equal(whole[key], zero[key]) for key in keys)
+        same_rows = all(torch.equal(whole[key][b0:], part[key])
+                        for key in keys)
+        args = part["args"]
+        want = dict(out=fa.flash_fwd_lse_reference(
+            *args[:3], padded, k_hi, seed, b0=b0, **kw)[0],
+            dq=fa.flash_dq_reference(*args, k_hi, seed, b0=b0, **kw))
+        want["dk"], want["dv"] = fa.flash_dkv_reference(
+            *args, q_lo, seed, b0=b0, **kw)
+        owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
+                 "dv": "flash_dkv"}
+        parts, ok_all = [], same_zero and same_rows
+        for key, kernel in owner.items():
+            ok, err, units = rel_gate(part[key], want[key], dtype)
+            ok_all &= ok
+            if dtype == torch.float32:
+                f32_err[kernel] = max(f32_err[kernel], err)
+            parts.append(f"{key} {err:.2e} ({units:.3f})")
+        label = str(dtype)[6:] + ("->f32" if out_dtype else "")
+        log(f"  flash {name:15s} {label:10s} r={TRAIN_DROPOUT} b0={b0}: "
+            f"b0=0 bit for bit with no offset {same_zero}; rows {b0}.. "
+            f"launched with b0={b0} bit for bit with the whole batch's "
+            f"{same_rows}; |kernel-plain| {', '.join(parts)} "
+            f"{'ok' if ok_all else 'FAIL'}")
+        if not ok_all:
+            fail(f"flash {name} {label} with a batch offset")
+    return f32_err
 
 
 BASE_DEEP_SPEC = (OCTO_SPEC,
@@ -2012,55 +2114,115 @@ class _NullLogger:
         pass
 
 
+# the synchronous save of the octo_base bf16 train state (0.72 GiB) that fit
+# waited for at every save before saves were asynchronous (PERF.md section
+# 5; NVIDIA H100 80GB HBM3, 700 W)
+SYNC_SAVE_S = 1.33
+
+
 def checkpoint_phase(cfg, k=3, batch=8):
-    """On the card: a captured run of k + 2 steps against k captured steps,
-    a save, a restore into a fresh state (other weights and generator
-    seeds) and 2 more steps of the compiled step (a warm-up, then a new
-    capture and its replay): the same parameters, moments, count and
-    generator states, bit for bit."""
+    """On the card, with asynchronous saves: k captured steps, a save, and
+    2 more captured steps run while the writer writes; the stall of
+    ``save`` (what ``fit`` waits for at each save, against SYNC_SAVE_S) and
+    the time until the save lands (``wait``).  The run then equals an
+    unbroken run of k + 2 steps; a restore into a fresh state (other
+    weights and generator seeds) equals a run of k steps (parameters,
+    moments, count, generator states, bit for bit), and 2 more compiled
+    steps of it (a warm-up, then a new capture and its replay) equal the
+    unbroken run.  Then compiled ``fit`` with ``checkpoint_every=1``, whose
+    first save's writer copies to the host while the step is captured,
+    equals ``fit`` without saves bit for bit."""
     import tempfile
     from multi_modal_transformers_tokenmerge_torch.train.checkpoint import (
         CheckpointManager)
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
     from multi_modal_transformers_tokenmerge_torch.train.steps import (
         make_train_step)
     batches = device_batches(cfg, batch, k + 2, seed=13)
     step = make_train_step("diffusion")
-    unbroken = _fresh_train_state(cfg, 0, 5)
-    for bt in batches:
+    unbroken, at_k = _fresh_train_state(cfg, 0, 5), _fresh_train_state(cfg,
+                                                                        0, 5)
+    for i, bt in enumerate(batches):
         step(unbroken, *bt)
+        if i < k:
+            step(at_k, *bt)
+
+    def equal(a, b):
+        diff, moments, _ = leaf_diffs(a, b)
+        return (diff == 0 and moments == 0 and a.step == b.step
+                and torch.equal(a.optimizer.count, b.optimizer.count)
+                and all(torch.equal(g.get_state(), b.rngs[n].get_state())
+                        for n, g in a.rngs.items())), diff
+
     with tempfile.TemporaryDirectory() as d:
         mgr = CheckpointManager(d, max_to_keep=1)
         first = _fresh_train_state(cfg, 0, 5)
         for bt in batches[:k]:
             step(first, *bt)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         mgr.save(first.step, first)
-        save_s = time.perf_counter() - t0
-        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-        del first
+        stall_s = time.perf_counter() - t0
+        for bt in batches[k:]:
+            step(first, *bt)
+        in_flight = mgr._writer is not None and mgr._writer.is_alive()
+        mgr.wait()
+        landed_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+                   if f.endswith(".pt"))
         fresh = _fresh_train_state(cfg, 9, 9)
         t0 = time.perf_counter()
         mgr.restore(fresh)
         restore_s = time.perf_counter() - t0
+        mgr.close()
+    torch.cuda.synchronize()
+    restored_ok, restored_diff = equal(fresh, at_k)
+    ran_on_ok, _ = equal(first, unbroken)
+    del first, at_k
     for bt in batches[k:]:
         step(fresh, *bt)
     torch.cuda.synchronize()
     captured = "graph" in next(iter(step._graphs[fresh].values()))
-    diff, moments, _ = leaf_diffs(unbroken, fresh)
-    same = (diff == 0 and moments == 0
-            and fresh.step == unbroken.step == k + 2
-            and torch.equal(fresh.optimizer.count, unbroken.optimizer.count)
-            and all(torch.equal(g.get_state(),
-                                unbroken.rngs[n].get_state())
-                    for n, g in fresh.rngs.items()))
-    log(f"  checkpoint at step {k} ({size / 2 ** 30:.2f} GiB, saved in "
-        f"{save_s:.2f} s, restored in {restore_s:.2f} s), restored into a "
-        f"fresh state, 2 more compiled steps (captured anew: {captured}): "
-        f"max parameter difference from the unbroken run {diff}")
-    if not (same and captured):
-        fail("the resumed compiled run differs from the unbroken one")
-    return {"k": k, "batch": batch, "bytes": size, "save_s": save_s,
-            "restore_s": restore_s, "max_param_diff": diff}
+    resumed_ok, diff = equal(fresh, unbroken)
+    log(f"  asynchronous save at step {k} ({size / 2 ** 30:.2f} GiB): "
+        f"save() returned in {stall_s:.4f} s (the synchronous save: "
+        f"{SYNC_SAVE_S} s), landed {landed_s:.2f} s after it began, 2 "
+        f"steps run meanwhile (the writer still busy after them: "
+        f"{in_flight}); the run after them equals the unbroken run: "
+        f"{ran_on_ok}; restored in {restore_s:.2f} s into a fresh state, "
+        f"bit for bit with the state at step {k}: {restored_ok} (largest "
+        f"parameter difference {restored_diff}); 2 more compiled steps "
+        f"(captured anew: {captured}): max parameter difference from the "
+        f"unbroken run {diff}")
+    if not (restored_ok and ran_on_ok and resumed_ok and captured):
+        fail("the checkpoint or the resumed compiled run differs")
+    del fresh, unbroken
+    torch.cuda.empty_cache()
+    plain = _fresh_train_state(cfg, 0, 5)
+    fit(plain, iter(batches), "diffusion", len(batches))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, max_to_keep=1)
+        saved = _fresh_train_state(cfg, 0, 5)
+        t0 = time.perf_counter()
+        fit(saved, iter(batches), "diffusion", len(batches),
+            checkpointer=mgr, checkpoint_every=1)
+        fit_saving_s = time.perf_counter() - t0
+        saves = mgr.all_steps()
+    torch.cuda.synchronize()
+    fit_ok, fit_diff = equal(saved, plain)
+    log(f"  compiled fit over {len(batches)} steps saving every step (the "
+        f"first save's writer copying while the step is captured) in "
+        f"{fit_saving_s:.2f} s, last save at step {saves}: equal to fit "
+        f"without saves: {fit_ok} (largest parameter difference "
+        f"{fit_diff})")
+    if not fit_ok or saves != [len(batches)]:
+        fail("compiled fit saving every step differs from fit without "
+             "saves")
+    return {"k": k, "batch": batch, "bytes": size, "save_stall_s": stall_s,
+            "landed_s": landed_s, "in_flight_after_2_steps": in_flight,
+            "sync_save_s": SYNC_SAVE_S, "restore_s": restore_s,
+            "max_param_diff": diff, "fit_saving_every_step_equal": fit_ok,
+            "fit_saving_every_step_s": fit_saving_s}
 
 
 # -- phases 18-21: configs and the CLI, the server, the closed loop, and ----
@@ -2700,7 +2862,16 @@ def quantized_phase(counters):
                  f"their limits")
     out["against_bf16_towers"] = track
     out["f32_reference"] = quantized_reference(ids, g)
+    out["w8_bf16_products"] = w8_product_check(model, cfg, g)
     out["tower_ms"] = tower_timings(model, cfg, g)
+    for tower, rows in out["tower_ms"].items():
+        log(f"  w8 {tower} tower, device ms against the earlier reading "
+            f"with bf16-rounded products (the ratio to the bf16 tower "
+            f"beside each): " + ", ".join(
+                f"B={b} {row['w8']:.4f} ({row['w8'] / row['bf16']:.2f}x; "
+                f"earlier {ROUNDED_W8_MS[tower][b]:.4f}, "
+                f"{ROUNDED_W8_MS[tower][b] / ROUNDED_BF16_MS[tower][b]:.2f}x)"
+                for b, row in rows.items()))
     out["dense_gemm"] = dense_gemm_timings(q.quantize_image_tower(model))
     del model, base
     torch.cuda.empty_cache()
@@ -2818,6 +2989,69 @@ def int8_exactness(gpu, cpu, g):
     log(f"  int8 on the card against the CPU, bit for bit: "
         f"{[name for name, _, _ in pairs]}")
     return [name for name, _, _ in pairs]
+
+
+# the towers' device ms read by this script when the w8 products were
+# rounded to bf16 before the scale (PERF.md section 5; NVIDIA H100 80GB
+# HBM3, 700 W)
+ROUNDED_W8_MS = {"image": {1: 0.4793, 8: 2.1760, 32: 8.1804},
+                 "text": {1: 1.4079, 8: 1.6117}}
+ROUNDED_BF16_MS = {"image": {1: 0.4297, 8: 1.8651, 32: 7.1893},
+                   "text": {1: 1.0722, 8: 1.2354}}
+
+
+def w8_product_check(model, cfg, g):
+    """The w8 towers in bf16 at batch 8, their products float32 on this
+    torch's route (``quantize.W8_PRODUCT_ROUTE``: ``torch.mm(out_dtype=)``
+    where it has a CUDA kernel), against the same towers with the products'
+    operands upcast to float32 (the plain path) and with the products
+    rounded to bf16 before the scale (as they were computed before, the
+    planted fault).  The route's relative L2 distance from the plain path must be
+    at most half the fault's, and the product float32."""
+    from multi_modal_transformers_tokenmerge_torch.serve import quantize as q
+    img_qp = q.quantize_image_tower(model)
+    txt_qp = q.quantize_t5_params(model.text_encoder.t5_encoder)
+    tc, dt = cfg.text, cfg.compute_dtype
+    images = random_images(cfg, 8, g)
+    ids = torch.from_numpy(g.integers(0, tc.vocab_size,
+                                      (8, tc.max_length))).cuda()
+    kw = dict(rel_pos_buckets=tc.t5_rel_pos_buckets,
+              rel_pos_max_distance=tc.t5_rel_pos_max_distance, dtype=dt,
+              mode="w8")
+
+    def towers():
+        with torch.inference_mode():
+            return (q.image_embed_w8(img_qp, images, cfg.images, dt).float(),
+                    q.t5_encode_int8(txt_qp, ids, **kw).float())
+
+    a = torch.randn(16, 768, device="cuda", dtype=dt)
+    product_dtype = q.float32_product(a, txt_qp["layers"][0]["qkv"].q.to(
+        dt)).dtype
+    route = towers()
+    on_route, product = q._MM_OUT_DTYPE_ON_CUDA, q.float32_product
+    try:
+        q._MM_OUT_DTYPE_ON_CUDA = False
+        plain = towers()
+        q.float32_product = lambda x, w: torch.matmul(x, w).float()
+        fault = towers()
+    finally:
+        q._MM_OUT_DTYPE_ON_CUDA, q.float32_product = on_route, product
+    rel = lambda x, ref: float(torch.linalg.vector_norm(x - ref)
+                               / torch.linalg.vector_norm(ref))
+    out = {"route": q.W8_PRODUCT_ROUTE, "product_dtype": str(product_dtype)}
+    for i, tower in enumerate(("image", "text")):
+        out[tower] = {"route_rel": rel(route[i], plain[i]),
+                      "fault_rel": rel(fault[i], plain[i])}
+        log(f"  w8 {tower} tower bf16 B=8, products on the "
+            f"{q.W8_PRODUCT_ROUTE} route ({product_dtype}) against the "
+            f"float32 upcast: relative L2 {out[tower]['route_rel']:.3e}; the "
+            f"bf16-rounded products (planted fault) "
+            f"{out[tower]['fault_rel']:.3e}")
+        if not (product_dtype == torch.float32
+                and out[tower]["route_rel"] <= 0.5 * out[tower]["fault_rel"]):
+            fail(f"the w8 {tower} tower's products are not the float32 "
+                 f"products")
+    return out
 
 
 def tower_timings(model, cfg, g):
@@ -3508,6 +3742,24 @@ def distributed_phase(fa):
         if diffs[2] > 1e-6:
             fail("fit(mesh=) at world 1 differs from fit()")
         out["fit_diffs"] = diffs
+        # gradient accumulation under the mesh: the compiled step of each
+        # (at a data size of one the mesh adds no collective)
+        accum = {name: _fresh_train_state(cfg) for name in ("fit", "mesh")}
+        fit(accum["fit"], iter(batches), "diffusion", DIST_TRAIN_STEPS,
+            accum_steps=2)
+        fit(accum["mesh"], iter(batches), "diffusion", DIST_TRAIN_STEPS,
+            mesh=mesh, accum_steps=2)
+        torch.cuda.synchronize()
+        adiffs = leaf_diffs(accum["fit"], accum["mesh"])
+        log(f"  fit(mesh=, accum_steps=2) against fit(accum_steps=2), "
+            f"octo_base bf16 B={DIST_TRAIN_BATCH}, {DIST_TRAIN_STEPS} steps: "
+            f"largest |difference| parameter {adiffs[0]:.3e}, moment "
+            f"{adiffs[1]:.3e}")
+        if adiffs[:2] != (0.0, 0.0):
+            fail("fit(mesh=, accum_steps=2) at world 1 is not fit("
+                 "accum_steps=2) bit for bit")
+        out["fit_accum_diffs"] = adiffs
+        del accum
         window = device_batches(cfg, DIST_TRAIN_BATCH, DIST_TIMED_STEPS, 27)
         times = {"fit": [], "fit_mesh": []}
         for _ in range(2):
@@ -3656,6 +3908,272 @@ def legacy_phase():
     return out
 
 
+# -- phase 28: rematerialization ------------------------------------------------
+
+REMAT_CHECK_STEPS = 3   # captured remat steps held against eager remat
+REMAT_WINDOW = 20       # steps a turn of the four variants
+REMAT_LAYERS_BATCH = 8  # the per-layer compressed check's batch
+# the per-layer cadence at octo_deep's width and depth: every block merges
+# 6 image tokens of each frame (100 -> 28), so each block's recompute merges
+PER_LAYER_COMPRESSION = "[TaskDescriptionPrefix{0}] [Image{6};Readout{0}]*2"
+
+
+def remat_config(dtype, remat=True):
+    cfg = deep_pallas_config(dtype)
+    return cfg.replace(transformer=cfg.transformer.replace(remat=remat))
+
+
+@contextlib.contextmanager
+def recorded_merge_plans():
+    """Within the block every merge plan the ToMe stack makes (unmerged,
+    merged sources, their destinations) is appended to the list yielded,
+    in the order made: a rematerialized block's forward, then its
+    recompute."""
+    from multi_modal_transformers_tokenmerge_torch.modules import tome_stack
+    original = tome_stack.bipartite_soft_matching
+    plans = []
+
+    def recording(metric, r, **kw):
+        plan = original(metric, r, **kw)
+        plans.append(tuple(t.cpu() for t in (plan.unm_idx, plan.src_idx,
+                                              plan.dst_idx)))
+        return plan
+
+    tome_stack.bipartite_soft_matching = recording
+    try:
+        yield plans
+    finally:
+        tome_stack.bipartite_soft_matching = original
+
+
+def remat_phase(counters):
+    """``transformer.remat`` on octo_deep bf16 at B=32 as its preset sets
+    attention (the flash kernels with their dropout 0.1): remat off and on,
+    each eager and captured, every block's recompute replaying the
+    forward's draws.  Launches a step (remat: 24 flash_fwd_lse, 12 flash_dq
+    and 12 flash_dkv, or the run fails; the captured step from one profiled
+    replay), peak memory above the state and ms a step of the four, the
+    step times in turns; the captured remat step against the eager one
+    and the eager remat step against the eager step without remat after
+    REMAT_CHECK_STEPS steps (each GRAPH_TRAIN_TOL); a float32 step of the per-layer
+    cadence (``tome_merge_every=1``, ``attention_impl='auto'``, dropout
+    0.1) whose recomputes must merge as their forwards did; one float32
+    remat step against the CPU under TRAIN_REF_LIMITS."""
+    import itertools
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    blocks = remat_config("bfloat16").transformer.num_blocks
+    batches = device_batches(remat_config("bfloat16"), TRAIN_BATCH, 4,
+                             seed=28)
+    cycle = itertools.cycle(batches)
+    variants = {"off_eager": (False, False), "on_eager": (True, False),
+                "off_captured": (False, True), "on_captured": (True, True)}
+    states, steps, out = {}, {}, {"variants": {}}
+    flash = ("flash_fwd_lse", "flash_dq", "flash_dkv")
+    for name, (remat, captured) in variants.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        states[name] = _fresh_train_state(remat_config("bfloat16", remat))
+        state_bytes = torch.cuda.memory_allocated() - base
+        steps[name] = make_train_step("diffusion", jit=captured)
+        for c in counters.values():
+            c.launches = 0
+        for i in range(REMAT_CHECK_STEPS):
+            steps[name](states[name], *batches[i])
+        torch.cuda.synchronize()
+        launched = {k: counters[k].launches / REMAT_CHECK_STEPS
+                    for k in flash}
+        peak = torch.cuda.max_memory_allocated() - base - state_bytes
+        row = {"peak_gib_above_state": peak / 2 ** 30,
+               "state_gib": state_bytes / 2 ** 30}
+        want = {"flash_fwd_lse": 2 * blocks if remat else blocks,
+                "flash_dq": blocks, "flash_dkv": blocks}
+        if captured:
+            # the warm-up is eager, the capture launches nothing; replays
+            # are read from the device records
+            row["replay_profile"] = replay_profile(
+                lambda: steps[name](states[name], *batches[0]), 3,
+                {**want, "pool_bwd": 1}, f"octo_deep remat={remat} captured")
+            launched = {k: row["replay_profile"]["kernels"][k] for k in flash}
+        elif launched != want:
+            fail(f"octo_deep remat={remat} eager step launched {launched} "
+                 f"a step; expected {want}")
+        row["launches_per_step"] = launched
+        out["variants"][name] = row
+    # the step times, in turns
+    order = list(variants) + list(reversed(variants))
+    ms = {name: [] for name in variants}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(states[name], cycle, "diffusion", REMAT_WINDOW,
+            step_fn=steps[name], logger=_NullLogger(), log_every=10)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / REMAT_WINDOW)
+    for name, row in out["variants"].items():
+        row["ms_per_step"] = ms[name]
+        log(f"  octo_deep bf16 B={TRAIN_BATCH} {name}: peak memory "
+            f"{row['peak_gib_above_state']:.2f} GiB above the state "
+            f"({row['state_gib']:.2f} GiB), {[round(x, 4) for x in ms[name]]}"
+            f" ms/step in turns, launches a step {row['launches_per_step']}"
+            + (f", one replay {row['replay_profile']['device_ms']:.4f} ms "
+               f"on the device" if "replay_profile" in row else ""))
+    del states, steps
+    torch.cuda.empty_cache()
+
+    # captured against eager with remat, and eager remat against no remat
+    check = {name: _fresh_train_state(remat_config("bfloat16", remat))
+             for name, remat in (("eager", True), ("captured", True),
+                                 ("plain", False))}
+    eager_step = make_train_step("diffusion", jit=False)
+    capt_step = make_train_step("diffusion")
+    for i in range(REMAT_CHECK_STEPS):
+        for name, st in check.items():
+            (capt_step if name == "captured" else eager_step)(st,
+                                                              *batches[i])
+    torch.cuda.synchronize()
+    cap = leaf_diffs(check["eager"], check["captured"])
+    plain = leaf_diffs(check["plain"], check["eager"])
+    out["captured_vs_eager"], out["remat_vs_plain_eager"] = cap, plain
+    log(f"  after {REMAT_CHECK_STEPS} steps: captured remat against eager "
+        f"remat {cap[0]} (parameters), {cap[1]} (moments), {cap[2]:.2e} of a "
+        f"leaf (limit {GRAPH_TRAIN_TOL}; bit for bit: "
+        f"{cap[:2] == (0.0, 0.0)}); eager remat against eager without "
+        f"remat {plain[0]}, {plain[1]}, {plain[2]:.2e}")
+    if not cap[2] <= GRAPH_TRAIN_TOL:
+        fail("the captured remat step differs from the eager remat step")
+    if not plain[2] <= GRAPH_TRAIN_TOL:
+        fail("the eager remat step differs from the eager step without "
+             "remat")
+    del check
+    torch.cuda.empty_cache()
+
+    # the per-layer cadence: every block merges inside its recompute
+    base = remat_config("float32")
+    lcfg = base.replace(
+        compression_sequence=PER_LAYER_COMPRESSION,
+        transformer=base.transformer.replace(tome_merge_every=1,
+                                             attention_impl="auto"))
+    state = _fresh_train_state(lcfg)
+    lb = device_batches(lcfg, REMAT_LAYERS_BATCH, 1, seed=29)[0]
+    with recorded_merge_plans() as plans:
+        make_train_step("diffusion", jit=False)(state, *lb)
+    torch.cuda.synchronize()
+    n = lcfg.transformer.num_blocks
+    # m plans a block (one a merged set): the forwards in block order, then
+    # the recomputes in the backward's, the last block's first
+    m = len(plans) // (2 * n)
+    block = lambda i: plans[i * m:(i + 1) * m]
+    same = [all(torch.equal(a, b) for pf, pr in zip(block(i),
+                                                    block(2 * n - 1 - i))
+                for a, b in zip(pf, pr)) for i in range(n)] if m else []
+    out["per_layer_recompute_same_plans"] = same
+    log(f"  per-layer cadence, float32 B={REMAT_LAYERS_BATCH}, {n} blocks "
+        f"each merging {m} sets: {len(plans)} merge plans made (forward "
+        f"and recompute); each recompute's plans equal to its forward's: "
+        f"{same}")
+    if not m or len(plans) != 2 * n * m or not all(same):
+        fail("a rematerialized block merged other tokens in its recompute")
+    del state
+    torch.cuda.empty_cache()
+
+    out["train_reference"] = train_reference_phase(
+        remat_config("float32"), counters, "octo_deep",
+        {"flash_fwd_lse": 2 * blocks, "flash_dq": blocks,
+         "flash_dkv": blocks, "pool_bwd": 1})
+    return out
+
+
+# -- phase 29: the port's drives -------------------------------------------------
+
+DRIVE_BATCH = 32
+DRIVE_TIMEOUT = 420
+DRIVE = "multi_modal_transformers_tokenmerge_torch.examples."
+DRIVE_DEEP = ["--preset", "octo_deep", "--head", "diffusion", "--batch",
+              str(DRIVE_BATCH), "--remat", "--accum-steps", "2",
+              "--override", "dtype=bfloat16",
+              "--override", "transformer.attention_impl=flash",
+              "--override", "images.resnet.pool_vjp=pallas"]
+
+
+def _drive(args, sigterm_after_metrics=False):
+    """One drive as a user runs it (``python -m``, on the card); with
+    ``sigterm_after_metrics`` a SIGTERM once its first metrics line shows
+    fit running.  (exit code, output, seconds)."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-u", "-m", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = []
+    try:
+        if sigterm_after_metrics:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("{") and '"loss"' in line:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+        rest, _ = proc.communicate(timeout=DRIVE_TIMEOUT)
+        lines.append(rest)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, "".join(lines), time.perf_counter() - t0
+
+
+def drive_phase():
+    """The train drive on octo_deep bf16 at batch 32 with its preset's
+    attention in the flash kernels, ``--remat``, ``--accum-steps 2``,
+    ``--ckpt`` and ``--recordio`` (in a temporary directory): a SIGTERM
+    once it trains must give a last checkpoint, ``final:`` and exit code
+    0; ``--resume`` must then print ``resumed train state from step N``
+    and ``resumed data stream at batch N + 2`` and end as well.  Then the
+    serve drive on octo_base bf16 at batch 8."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        common = [*DRIVE_DEEP, "--ckpt", os.path.join(d, "ckpt"),
+                  "--recordio", os.path.join(d, "data.rec")]
+        rc, text, secs = _drive([DRIVE + "train_octo", "--steps", "100000",
+                                 *common], sigterm_after_metrics=True)
+        log("  train drive, SIGTERM once it trained: exit code "
+            f"{rc} in {secs:.1f} s; its last lines:")
+        for line in text.strip().splitlines()[-6:]:
+            log(f"    {line[:200]}")
+        saved = sorted(int(f[:-3]) for f in os.listdir(os.path.join(
+            d, "ckpt")) if f.endswith(".pt"))
+        if rc != 0 or "final:" not in text or not saved:
+            fail("the train drive did not stop cleanly on SIGTERM")
+        stopped = saved[-1]
+        rc2, text2, secs2 = _drive([DRIVE + "train_octo", "--steps", "3",
+                                    "--resume", *common])
+        log(f"  train drive --resume --steps 3: exit code {rc2} in "
+            f"{secs2:.1f} s; its last lines:")
+        for line in text2.strip().splitlines()[-5:]:
+            log(f"    {line[:200]}")
+        want = (f"resumed train state from step {stopped}",
+                f"resumed data stream at batch {stopped + 2}")
+        if rc2 != 0 or "final:" not in text2 or not all(
+                w in text2 for w in want):
+            fail(f"the resumed train drive did not print {want} and end")
+        out["train"] = {"stopped_at_step": stopped, "sigterm_run_s": secs,
+                        "resume_run_s": secs2}
+    rc, text, secs = _drive([DRIVE + "serve_octo", "--preset", "octo_base",
+                             "--head", "diffusion", "--batch", "8",
+                             "--requests", "32", "--override",
+                             "dtype=bfloat16"])
+    log(f"  serve drive, octo_base bf16 B=8, 32 requests: exit code {rc} in "
+        f"{secs:.1f} s; {text.strip().splitlines()[-1][:200]}")
+    if rc != 0 or "requests in" not in text:
+        fail("the serve drive failed")
+    out["serve"] = {"s": secs, "last_line": text.strip().splitlines()[-1]}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -3718,10 +4236,11 @@ def main():
 
     log("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
-    flash_err, flash_rows, sdpa_kernels = {}, {}, {}
+    flash_err, flash_rows, sdpa_kernels, offset_err = {}, {}, {}, {}
     for name, (b, strings, stage, h, d) in FLASH_SHAPES.items():
         mask = stage_mask(strings, stage)
         flash_err[name] = flash_check(fa, name, mask, b, h, d)
+        offset_err[name] = flash_offset_check(fa, name, mask, b, h, d)
         flash_rows[name], sdpa_kernels[name] = flash_timings(
             fa, name, mask, b, h, d)
     fwd_err = flash_fwd_check(fa)
@@ -3880,6 +4399,10 @@ def main():
     distributed = distributed_phase(fa)
     log("phase 27: the legacy model families, float32 against the CPU")
     legacy = legacy_phase()
+    log("phase 28: rematerialization, octo_deep bf16 B=32")
+    remat = remat_phase(counters)
+    log("phase 29: the port's train and serve drives")
+    drives = drive_phase()
 
     ms, call_ms, plain, bnd, by = timings[1]
     kernels = [{
@@ -3951,6 +4474,12 @@ def main():
             "launches_per_compiled_step_moe": [
                 moe[k]["replay_profile"]["kernels"][kernel]
                 for k in ("training", "deep_training")],
+            "launches_per_step_octo_deep_remat": remat["variants"][
+                "on_eager"]["launches_per_step"][kernel],
+            "launches_per_compiled_step_octo_deep_remat": remat["variants"][
+                "on_captured"]["launches_per_step"][kernel],
+            "max_abs_err_batch_offset": max(e[kernel]
+                                            for e in offset_err.values()),
             "other_shapes": {name: rows[kernel]
                              for name, rows in flash_rows.items()
                              if name != "octo_base_train"},
@@ -3986,6 +4515,8 @@ def main():
         })
     log(json.dumps({"ring": ring, "distributed": distributed,
                     "legacy": legacy, "card": card}))
+    log(json.dumps({"remat": remat, "drives": drives,
+                    "checkpoint": compiled["checkpoint"], "card": card}))
     log(json.dumps({"flash_ptxas": flash_ptx}))
     log(json.dumps({"serve_ms_per_request": serve_ms,
                     "train_ms_per_step": train_ms,

@@ -7,8 +7,10 @@ packages.  Dtype strings map to torch dtypes.  ``attention_impl``,
 they do in the JAX package (``modules.attention.select_attention_fn``,
 ``modules.image_tokenizer``), and raise where the choice is not ported.
 Fields that only select a JAX layout or compilation (``conv_layout``,
-``sampler_impl``, ``t5_scan_unroll``, ``remat``) are accepted and do not
-change the port's arithmetic.
+``sampler_impl``, ``t5_scan_unroll``) are accepted and do not change the
+port's arithmetic.  ``remat`` rematerializes the transformer blocks in
+the backward (``core.replay.checkpointed``), as ``nn.remat`` does: less
+memory, one more forward a block, the same results.
 """
 
 from __future__ import annotations

@@ -13,7 +13,15 @@ what the one-device step takes over the whole batch:
   rows, so a step on P ranks draws what a one-device step draws.  Each
   rank thus draws P times what it keeps (ROADMAP queue 1b);
 * ``modules.moe`` takes its balance statistics over the global batch with
-  :func:`all_reduce_sum`.
+  :func:`all_reduce_sum`;
+* the flash kernels' in-kernel attention dropout, whose Philox counter
+  takes a row's index in the batch, offsets it by :func:`row_offset`, the
+  rank's first row of the global batch.
+
+A step that accumulates over microbatches under a mesh is handed each
+rank's rows of every global microbatch (``parallel.mesh.data_slice(...,
+microbatches=)``), so that the draws and the offset above, taken per
+microbatch, are those of the one-device step's microbatch k.
 
 It lives here, below ``ops`` and ``modules``, so that they need nothing of
 ``parallel``; the process groups themselves are ``parallel.distributed``'s.
@@ -27,7 +35,8 @@ from typing import List
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce_sum", "data_parallel", "data_group", "draw_global"]
+__all__ = ["all_reduce_sum", "data_parallel", "data_group", "draw_global",
+           "row_offset"]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -85,3 +94,13 @@ def draw_global(draw, shape, dim: int = 0) -> torch.Tensor:
     n = shape[dim]
     full = draw(shape[:dim] + (n * size,) + shape[dim + 1:])
     return full.narrow(dim, dist.get_rank(group) * n, n)
+
+
+def row_offset(rows: int) -> int:
+    """The first row, in the global batch, of this rank's ``rows`` rows:
+    0 outside :func:`data_parallel` or at a group of one, else the rank
+    times ``rows`` (every rank holds as many rows)."""
+    group = data_group()
+    if group is None or dist.get_world_size(group) == 1:
+        return 0
+    return dist.get_rank(group) * rows

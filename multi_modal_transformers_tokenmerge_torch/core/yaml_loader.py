@@ -44,7 +44,8 @@ from .config import (
     TransformerConfig,
 )
 
-__all__ = ["load_config", "config_from_dict", "CONFIG_DIR"]
+__all__ = ["load_config", "config_from_dict", "apply_overrides",
+           "CONFIG_DIR"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -141,6 +142,21 @@ def _parse_value(text: str) -> Any:
     return yaml.safe_load(text)
 
 
+def _split_override(ov: str):
+    if "=" not in ov:
+        raise ValueError(f"override {ov!r} must look like key=value")
+    key, _, val = ov.partition("=")
+    return key.strip(), val.strip()
+
+
+def _override_tree(tree: Dict[str, Any], overrides: Sequence[str]):
+    """Apply ``key.path=value`` overrides to the config tree, the values
+    parsed as YAML."""
+    for ov in overrides:
+        key, val = _split_override(ov)
+        _apply_override(tree, key, _parse_value(val))
+
+
 _INTERP_RE = re.compile(r"^\$\{([a-zA-Z0-9_.]+)\}$")
 
 
@@ -197,11 +213,9 @@ def load_config(name: str,
     # group swaps from overrides happen before group files load
     value_overrides: List[str] = []
     for ov in overrides or []:
-        if "=" not in ov:
-            raise ValueError(f"override {ov!r} must look like key=value")
-        key, _, val = ov.partition("=")
-        if key in _GROUPS and "." not in key:
-            defaults[key] = val.strip()
+        key, val = _split_override(ov)
+        if key in _GROUPS:
+            defaults[key] = val
         else:
             value_overrides.append(ov)
 
@@ -218,10 +232,7 @@ def load_config(name: str,
         else:
             tree[k] = v
 
-    for ov in value_overrides:
-        key, _, val = ov.partition("=")
-        _apply_override(tree, key.strip(), _parse_value(val.strip()))
-
+    _override_tree(tree, value_overrides)
     _resolve_interpolations(tree)
 
     # heads group: {continuous: {...}, diffusion: {...}} with nulls allowed
@@ -239,3 +250,19 @@ def load_config(name: str,
             tree[field_name] = config_from_dict(cls, tree.pop(group))
 
     return config_from_dict(OctoConfig, tree)
+
+
+def apply_overrides(cfg: OctoConfig,
+                    overrides: Optional[Sequence[str]]) -> OctoConfig:
+    """``cfg`` with ``key.path=value`` overrides applied as
+    :func:`load_config` applies them, e.g.
+    ``["dtype=bfloat16", "transformer.attention_impl=flash"]``; a group
+    swap needs :func:`load_config`."""
+    if not overrides:
+        return cfg
+    swaps = [ov for ov in overrides if _split_override(ov)[0] in _GROUPS]
+    if swaps:
+        raise ValueError(f"group swaps {swaps} need load_config")
+    tree = dataclasses.asdict(cfg)
+    _override_tree(tree, overrides)
+    return config_from_dict(type(cfg), tree)

@@ -24,9 +24,11 @@
 // Dropout is rebuilt, not copied: the TPU re-seeds its hardware PRNG per
 // tile, a stream nothing else reproduces.  The keep bit of element
 // (b, h, row, col) is word (col & 3) of Philox4x32-10 at counter
-// (col >> 2, row, b*H + h, 0) under the key (seed[0], seed[1]); the element
-// is kept when that word is >= threshold.  Every pass regenerates the same
-// mask whatever its tiles or fragment layout.
+// (col >> 2, row, (b0 + b)*H + h, 0) under the key (seed[0], seed[1]); the
+// element is kept when that word is >= threshold.  b0 is the launch's first
+// row in the global batch (0 on one device; a data-parallel rank's offset,
+// so that P ranks draw the one-device step's mask).  Every pass regenerates
+// the same mask whatever its tiles or fragment layout.
 //
 // The forward in bf16 and fp16 (flash_fwd_kernel, the server's forward and
 // that of the recompute backward, no seed, no LSE; flash_fwd_lse_kernel,
@@ -218,11 +220,13 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 
 struct Dropout {
   uint32_t k0, k1, threshold;
+  uint32_t bh0;  // added to a launch's b*H + h in the Philox counter
   float inv_keep;
   bool on;
   __device__ __forceinline__ bool keep(uint32_t bh, uint32_t row,
                                        uint32_t col) const {
-    const uint4 w = philox4x32_10(make_uint4(col >> 2, row, bh, 0u), k0, k1);
+    const uint4 w =
+        philox4x32_10(make_uint4(col >> 2, row, bh + bh0, 0u), k0, k1);
     const uint32_t lane = col & 3u;
     const uint32_t bits =
         lane == 0 ? w.x : (lane == 1 ? w.y : (lane == 2 ? w.z : w.w));
@@ -232,11 +236,13 @@ struct Dropout {
 
 __device__ __forceinline__ Dropout make_dropout(const int64_t* seed,
                                                 uint32_t threshold,
-                                                float inv_keep, int on) {
+                                                float inv_keep, int on,
+                                                uint32_t bh0) {
   Dropout d;
   d.on = on != 0;
   d.k0 = d.on ? static_cast<uint32_t>(seed[0]) : 0u;
   d.k1 = d.on ? static_cast<uint32_t>(seed[1]) : 0u;
+  d.bh0 = bh0;
   d.threshold = threshold;
   d.inv_keep = inv_keep;
   return d;
@@ -313,6 +319,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct Args {
   int batch, seq, heads, s_pad;
   float scale;
+  uint32_t bh0;  // b0 * heads: the dropout counter's batch-head offset
 };
 
 // The mask tables' tiles (KERNEL_TILES of ops/flash_attention.py) and the
@@ -465,7 +472,7 @@ __global__ void __launch_bounds__(NT)
                              int dropout) {
   forward_block<float, D, BQ, BK, NT, true>(
       q, k, v, mask, k_hi, out, lse, a,
-      make_dropout(seed, threshold, inv_keep, dropout));
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0));
 }
 
 template <int D, int BQ, int BK, int NT>
@@ -766,7 +773,8 @@ __device__ __forceinline__ void mma_forward_block(
         // two words of the partner's columns
         const bool odd = t & 1;
         const uint4 w = philox4x32_10(
-            make_uint4(ctr, row + (odd ? 8u : 0u), bh, 0u), drop.k0, drop.k1);
+            make_uint4(ctr, row + (odd ? 8u : 0u), bh + drop.bh0, 0u),
+            drop.k0, drop.k1);
         const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
         const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
         // [row g, row g + 8][column 2t, 2t + 1]
@@ -841,7 +849,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
                          float inv_keep, int dropout) {
   mma_forward_block<T, D, RG, DS, BN, true, O>(
       q, k, v, mask, k_hi, out, lse, a,
-      make_dropout(seed, threshold, inv_keep, dropout));
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0));
 }
 
 // The forward without LSE and without dropout: what the JAX package's
@@ -892,7 +900,8 @@ __global__ void __launch_bounds__(NT)
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
                       static_cast<size_t>(h) * D;
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const Dropout drop =
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
 
   load_tile<T, D, BQ, NT>(sQ, q + base, q0, a.seq, row_stride);
   load_tile<T, D, BQ, NT>(sO, dout + base, q0, a.seq, row_stride);
@@ -989,7 +998,8 @@ __global__ void __launch_bounds__(NT)
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
                       static_cast<size_t>(h) * D;
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const Dropout drop =
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
 
   load_tile<T, D, BK, NT>(sK, k + base, k0, a.seq, row_stride);
   load_tile<T, D, BK, NT>(sV, v + base, k0, a.seq, row_stride);
@@ -1206,7 +1216,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
   T* sV = sK + 2 * BN * LDT;
   int8_t* sM = reinterpret_cast<int8_t*>(sV + 2 * BN * LDT);  // [2][BM][LDM]
 
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const Dropout drop =
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
@@ -1301,7 +1312,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
         for (int j = 0; j < NC; ++j) {
           const uint4 w = philox4x32_10(
               make_uint4(static_cast<uint32_t>(k0 + kp + 8 * j + 2 * t) >> 2,
-                         qrow, bh, 0u),
+                         qrow, bh + drop.bh0, 0u),
               drop.k0, drop.k1);
           const uint32_t x0 =
               __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
@@ -1387,7 +1398,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
   float* sD = sL + 2 * BN;                              // [2][BN] each
   int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * BN);  // [2][BN][LDM]
 
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout);
+  const Dropout drop =
+      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
@@ -1468,8 +1480,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
           const uint32_t key4 =
               static_cast<uint32_t>(k0 + wr + g + 8 * (jj >> 1)) >> 2;
           const uint4 w = philox4x32_10(
-              make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)), bh,
-                         0u),
+              make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)),
+                         bh + drop.bh0, 0u),
               drop.k0, drop.k1);
           const uint32_t words[4] = {w.x, w.y, w.z, w.w};
           uint32_t got[4];
@@ -1581,6 +1593,7 @@ struct Launch {
   int dropout;
   cudaStream_t stream;
   int out_f32;  // 16-bit inputs: store the outputs as float32
+  uint32_t bh0;  // b0 * heads (Args::bh0)
 };
 
 template <typename Kern>
@@ -1608,7 +1621,7 @@ int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
     return static_cast<int>(cudaErrorMisalignedAddress);
   const size_t smem = C::smem();
   const dim3 grid(L.s_pad / C::BM, L.heads, L.batch);
-  const Args args{L.batch, L.seq, L.heads, L.s_pad, L.scale};
+  const Args args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0};
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v);
   int err;
@@ -1647,7 +1660,7 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, k_hi, seed,
         static_cast<float*>(out), lse,
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1697,7 +1710,7 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       k_hi, seed, static_cast<O*>(dqp),
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1727,7 +1740,7 @@ int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       q_lo, seed, static_cast<O*>(dkp), static_cast<O*>(dvp),
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1753,7 +1766,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, mask, k_hi, seed, static_cast<float*>(dqp),
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1782,7 +1795,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, mask, q_lo, seed, static_cast<float*>(dkp),
         static_cast<float*>(dvp),
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1825,7 +1838,9 @@ extern "C" {
 // when dropout is set).  flash_fwd_launch takes no seed and writes no LSE.
 // out_f32 (flash_fwd_lse, dq, dk/dv): 16-bit inputs write out, dq, dk and dv
 // as float32 (the ring-step partials of parallel/ring_attention.py); float32
-// inputs write float32 either way.
+// inputs write float32 either way.  b0 >= 0 (the same three): the first row
+// of the launch's batch in the global batch, which offsets the dropout
+// counter.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const int8_t* mask, const int32_t* k_hi, void* out,
@@ -1844,11 +1859,12 @@ int flash_fwd_lse_launch(const void* q, const void* k, const void* v,
                          int seq, int heads, int head_dim, int s_pad,
                          int dtype, float scale, float inv_keep,
                          uint32_t threshold, int dropout, int out_f32,
-                         void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
+                         int b0, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream), out_f32};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32,
+                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
   FLASH_DISPATCH(fwd, q, k, v, mask, k_hi, seed, out, lse, L)
 }
 
@@ -1858,11 +1874,12 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
                     const int64_t* seed, void* dqp, int batch, int seq,
                     int heads, int head_dim, int s_pad, int dtype,
                     float scale, float inv_keep, uint32_t threshold,
-                    int dropout, int out_f32, void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
+                    int dropout, int out_f32, int b0, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream), out_f32};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32,
+                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L)
 }
 
@@ -1872,11 +1889,12 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const int64_t* seed, void* dkp, void* dvp, int batch,
                      int seq, int heads, int head_dim, int s_pad, int dtype,
                      float scale, float inv_keep, uint32_t threshold,
-                     int dropout, int out_f32, void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed))
+                     int dropout, int out_f32, int b0, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
-                 dropout, static_cast<cudaStream_t>(stream), out_f32};
+                 dropout, static_cast<cudaStream_t>(stream), out_f32,
+                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, mask, q_lo, seed, dkp, dvp,
                  L)
 }

@@ -32,12 +32,13 @@ from torch import nn
 
 from ..core.config import AttentionConfig, TransformerConfig
 from ..core.hw import kernel_device
+from ..core.replay import checkpointed
 from .layers import (Dense, LayerNorm, activation_fn, dropout, init_normal,
                      init_truncated)
 from .moe import MoEMLPBlock, sum_aux
 
 __all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock", "make_mlp",
-           "mlp_branch",
+           "mlp_branch", "call_block",
            "TransformerStack", "AddPositionEmbedding",
            "MultiHeadAttentionPooling", "masked_attention",
            "select_attention_fn", "layer_norm_dim", "capture_intermediates"]
@@ -285,6 +286,29 @@ def mlp_branch(mlp: nn.Module, y, dropout_rate: float, train: bool,
     return dropout(y, dropout_rate, train, rng)
 
 
+def call_block(block: nn.Module, remat: bool, x, other, train: bool,
+               rng: Optional[torch.Generator], aux: Optional[list]):
+    """``block(x, other, train, rng, aux)`` for an :class:`EncoderBlock`
+    (``other``: the mask) or a compressed block (``other``: the token
+    sizes).  With ``remat`` (the JAX stacks' ``nn.remat``) the block's
+    activations are recomputed in the backward (``core.replay.
+    checkpointed``), its dropout draws replayed from ``rng``; its MoE
+    balance loss is an output of the checkpointed call, appended to
+    ``aux`` once, not again by the recompute."""
+    if not remat:
+        return block(x, other, train, rng, aux)
+
+    def run(x, other):
+        local = []
+        out = block(x, other, train, rng, local)
+        return out, (local[0] if local else None)
+
+    out, loss = checkpointed(run, [rng] if train else [], x, other)
+    if loss is not None and aux is not None:
+        aux.append(loss)
+    return out
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN block: x + Dropout(attn(LN(x))), then x + mlp(LN(x)).  With
     ``mlp_type='moe'`` the MLP is ``moe`` (the flax name) and its balance
@@ -336,11 +360,13 @@ class AddPositionEmbedding(nn.Module):
 class TransformerStack(nn.Module):
     """Position embedding + encoder blocks (+ optional final LayerNorm).
     ``cfg.compression_mode`` is not read here: the compressed stack is
-    ``modules.tome_stack.CompressedTransformerStack``."""
+    ``modules.tome_stack.CompressedTransformerStack``.  ``cfg.remat``
+    recomputes each block in the backward (:func:`call_block`)."""
 
     def __init__(self, cfg: TransformerConfig, seq_len: int, features: int,
                  attention_fn: Optional[Callable] = None, **kw):
         super().__init__()
+        self.remat = cfg.remat
         self.aux_loss_weight = cfg.moe.aux_loss_weight
         self.moe_aux = None
         self.posembed_input = AddPositionEmbedding(seq_len, features, **kw)
@@ -358,7 +384,7 @@ class TransformerStack(nn.Module):
         x = self.posembed_input(x)
         aux = []
         for block in self.blocks:
-            x = block(x, mask, train, rng, aux)
+            x = call_block(block, self.remat, x, mask, train, rng, aux)
         self.moe_aux = sum_aux(aux, self.aux_loss_weight)
         if self.final_norm is not None:
             x = self.final_norm(x)

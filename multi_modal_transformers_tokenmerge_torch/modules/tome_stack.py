@@ -23,8 +23,11 @@ the flash kernels on its own mask, whose device tables are built here,
 when the stack is built.
 
 Every rejection of the JAX stack raises here when the stack is built, not
-at its first call.  ``cfg.remat`` is accepted and ignored: it trades memory
-for compute in the JAX package and has no effect on results.
+at its first call.  ``cfg.remat`` recomputes every block in the backward,
+in both cadences (``attention.call_block``), as the JAX stack's
+``nn.remat``: a per-layer block's merge plan and token sizes are outputs
+of the recomputed call, which must make the forward's plan again; the
+events between stages are not recomputed.
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ from ..ops.pruning import prune_gather, topk_tokens_per_set
 from ..ops.tome import bipartite_soft_matching, merge_wavg
 from ..sequence.dsl import KIND_TEXT
 from ..sequence.layout import SequenceLayout
-from .attention import (AddPositionEmbedding, EncoderBlock, layer_norm_dim,
-                        make_mlp, masked_attention, mlp_branch,
-                        select_attention_fn)
+from .attention import (AddPositionEmbedding, EncoderBlock, call_block,
+                        layer_norm_dim, make_mlp, masked_attention,
+                        mlp_branch, select_attention_fn)
 from .layers import Dense, LayerNorm, dropout
 from .moe import sum_aux
 
@@ -245,14 +248,15 @@ class CompressedTransformerStack(nn.Module):
         aux = []
         if self.off:
             x, size = self._event(x, size, 0)
+        remat = self.cfg.remat
         if self.num_stages == 0:
             for layer in range(self.cfg.num_blocks):
-                x, size = getattr(self, f"block_{layer}")(x, size, train, rng,
-                                                          aux)
+                x, size = call_block(getattr(self, f"block_{layer}"), remat,
+                                     x, size, train, rng, aux)
         for stage in range(self.num_stages):
             mask = getattr(self, f"mask_{stage}")
             for block in getattr(self, f"stage_{stage}"):
-                x = block(x, mask, train, rng, aux)
+                x = call_block(block, remat, x, mask, train, rng, aux)
             if stage < self.num_stages - 1:
                 x, size = self._event(x, size, stage + self.off)
         self.moe_aux = sum_aux(aux, self.cfg.moe.aux_loss_weight)

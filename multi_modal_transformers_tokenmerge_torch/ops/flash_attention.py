@@ -28,11 +28,16 @@ the design answers.
 * Dropout of the attention weights is rebuilt, not copied: the TPU kernel
   re-seeds its hardware PRNG per tile, a stream nothing else reproduces.
   Here the keep bit of element (b, h, row, col) is word ``col & 3`` of
-  Philox4x32-10 at counter ``(col >> 2, row, b*H + h, 0)`` under the key of
-  two 32-bit seed words; an element is kept when that word is at least
-  :func:`dropout_threshold`.  Forward, dq and dk/dv regenerate the same mask
-  whatever their tile sizes, and :func:`dropout_keep_mask` computes the same
-  bits in torch integer arithmetic.
+  Philox4x32-10 at counter ``(col >> 2, row, (b0 + b)*H + h, 0)`` under the
+  key of two 32-bit seed words; an element is kept when that word is at
+  least :func:`dropout_threshold`.  ``b0`` is the call's first row in the
+  global batch: 0 on one device, and inside a data-parallel step
+  (``core.global_batch.data_parallel``) the rank's offset, which
+  :func:`flash_attention` and the hook of :func:`make_attention_fn` take
+  from ``core.global_batch.row_offset``, so that P ranks draw the mask of
+  the one-device step.  Forward, dq and dk/dv regenerate the same mask
+  whatever their tile sizes, and :func:`dropout_keep_mask` computes the
+  same bits in torch integer arithmetic.
 * :func:`flash_attention` is the differentiable entry on the JAX layout
   (B, S, H, D).  ``backward='pallas'`` saves the LSE and runs the dq and
   dk/dv kernels; ``backward='xla'`` runs :func:`flash_fwd`, which writes no
@@ -54,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..core.global_batch import row_offset
 from ..core.hw import on_cuda
 
 __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
@@ -191,12 +197,13 @@ def _philox4x32(c0, c1, c2, c3, k0, k1):
 
 def dropout_keep_mask(seed: torch.Tensor, batch: int, heads: int,
                       rows: torch.Tensor, cols: torch.Tensor,
-                      rate: float) -> torch.Tensor:
+                      rate: float, b0: int = 0) -> torch.Tensor:
     """(B, H, len(rows), len(cols)) bool keep mask of the global query
-    ``rows`` and key ``cols``: the kernels' Philox bits, on seed's device."""
+    ``rows`` and key ``cols`` of batch rows ``b0`` to ``b0 + B``: the
+    kernels' Philox bits, on seed's device."""
     dev = seed.device
     k0, k1 = (seed.to(torch.int64) & _MASK32).unbind()
-    bh = torch.arange(batch * heads, device=dev,
+    bh = torch.arange(b0 * heads, (b0 + batch) * heads, device=dev,
                       dtype=torch.int64).view(batch, heads, 1, 1)
     r = rows.to(device=dev, dtype=torch.int64).view(1, 1, -1, 1)
     c = cols.to(device=dev, dtype=torch.int64).view(1, 1, 1, -1)
@@ -223,7 +230,7 @@ def _rows(i: int, block: int, device) -> torch.Tensor:
 
 
 def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
-                   dropout_rate):
+                   dropout_rate, b0=0):
     """The forward kernels' loop: float32 (out (B, H, S_pad, D), running
     max m, running sum l clamped at 1e-30 (B, H, S_pad, 1))."""
     b, s, h, d = q.shape
@@ -251,7 +258,7 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate)
+                                         dropout_rate, b0)
                 p = torch.where(keep, p, 0.0) * inv_keep
             acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, rk]
             m = m_new
@@ -289,17 +296,18 @@ def _out_dtype(x: torch.Tensor, out_dtype):
 
 def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
                             block_q: int, block_k: int,
-                            dropout_rate: float = 0.0, out_dtype=None):
+                            dropout_rate: float = 0.0, out_dtype=None,
+                            b0: int = 0):
     """Plain version of the forward kernel with LSE.
 
     Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words
-    (dropout only).  The accumulator takes ``keep * p / (1 - r)`` cast to
+    and ``b0``, the batch's first global row (dropout only).  The accumulator takes ``keep * p / (1 - r)`` cast to
     v's dtype while ``l`` and the LSE use the undropped p.  Returns ``out``
     (B, S, H, D) in q's dtype (float32 with ``out_dtype=torch.float32``,
     the cast skipped) and ``lse`` (B, H, S_pad) float32."""
     dtype = _out_dtype(q, out_dtype)
     out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
-                                    block_k, dropout_rate)
+                                    block_k, dropout_rate, b0)
     lse = (m + torch.log(l_safe))[..., 0]
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(dtype), lse
 
@@ -324,7 +332,8 @@ def _probs(qf, kf, lse, mask_i8, rq, rk, scale):
 
 def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                        block_q: int, block_k: int,
-                       dropout_rate: float = 0.0, out_dtype=None):
+                       dropout_rate: float = 0.0, out_dtype=None,
+                       b0: int = 0):
     """Plain version of the dq kernel: per q tile over the key tiles below
     ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
     rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
@@ -348,7 +357,7 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate)
+                                         dropout_rate, b0)
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             ds = (p * (dp - delta[:, :, rq, None])).to(k.dtype).float()
             acc = acc + ds @ kf[:, :, rk]
@@ -358,7 +367,8 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
 
 def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                         *, block_q: int, block_k: int,
-                        dropout_rate: float = 0.0, out_dtype=None):
+                        dropout_rate: float = 0.0, out_dtype=None,
+                        b0: int = 0):
     """Plain version of the dk/dv kernel: per key tile over the q tiles
     from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
     to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
@@ -385,7 +395,7 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate)
+                                         dropout_rate, b0)
                 p_drop = torch.where(keep, p, 0.0) * inv_keep
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             else:
@@ -432,8 +442,8 @@ def _library():
         vp, ci, cf, cu = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
         # pointers, then batch, seq, heads, head_dim, s_pad, dtype, scale,
-        # inv_keep, threshold, dropout, out_f32, stream
-        tail = [ci] * 6 + [cf, cf, cu, ci, ci, vp]
+        # inv_keep, threshold, dropout, out_f32, b0, stream
+        tail = [ci] * 6 + [cf, cf, cu, ci, ci, ci, vp]
         # no seed, no LSE, no dropout arguments
         lib.flash_fwd_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
         lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
@@ -519,14 +529,18 @@ def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
     return out
 
 
-def _launch_tail(args, q, out_dtype):
+def _launch_tail(args, q, out_dtype, b0):
     """The launchers' trailing scalars: ``_prepare``'s, with the out_f32
-    flag before the stream."""
-    return (*args[:-1], int(_out_dtype(q, out_dtype) != q.dtype), args[-1])
+    flag and the batch offset before the stream."""
+    if b0 < 0:
+        raise ValueError(f"batch offset b0={b0} must be >= 0")
+    return (*args[:-1], int(_out_dtype(q, out_dtype) != q.dtype), int(b0),
+            args[-1])
 
 
 def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
-                  block_k: int, dropout_rate: float = 0.0, out_dtype=None):
+                  block_k: int, dropout_rate: float = 0.0, out_dtype=None,
+                  b0: int = 0):
     """Forward with LSE; arguments and results as for
     :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
     a CUDA device this launches the kernel or raises."""
@@ -534,7 +548,7 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
         return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
                                        block_q=block_q, block_k=block_k,
                                        dropout_rate=dropout_rate,
-                                       out_dtype=out_dtype)
+                                       out_dtype=out_dtype, b0=b0)
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
@@ -545,20 +559,20 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
     _check_rc(lib, "flash_fwd_lse", lib.flash_fwd_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
         k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(),
-        *_launch_tail(args, q, out_dtype)))
+        *_launch_tail(args, q, out_dtype, b0)))
     flash_fwd_lse.launches += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
              block_q: int, block_k: int, dropout_rate: float = 0.0,
-             out_dtype=None):
+             out_dtype=None, b0: int = 0):
     """dQ; arguments and result as for :func:`flash_dq_reference`."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
                                   seed, block_q=block_q, block_k=block_k,
                                   dropout_rate=dropout_rate,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, b0=b0)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
@@ -569,20 +583,20 @@ def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
         k_hi.data_ptr(), _ptr(seed), dq.data_ptr(),
-        *_launch_tail(args, q, out_dtype)))
+        *_launch_tail(args, q, out_dtype, b0)))
     flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
               block_q: int, block_k: int, dropout_rate: float = 0.0,
-              out_dtype=None):
+              out_dtype=None, b0: int = 0):
     """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
                                    seed, block_q=block_q, block_k=block_k,
                                    dropout_rate=dropout_rate,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, b0=b0)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
                     block_q, block_k, dropout_rate)
@@ -594,7 +608,7 @@ def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
         q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(),
-        *_launch_tail(args, q, out_dtype)))
+        *_launch_tail(args, q, out_dtype, b0)))
     flash_dkv.launches += 1
     return dk, dv
 
@@ -653,28 +667,28 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_i8, k_hi, q_lo, seed, block_q, block_k,
-                dropout_rate):
+                dropout_rate, b0):
         out, lse = flash_fwd_lse(q, k, v, mask_i8, k_hi, seed,
                                  block_q=block_q, block_k=block_k,
-                                 dropout_rate=dropout_rate)
+                                 dropout_rate=dropout_rate, b0=b0)
         ctx.save_for_backward(q, k, v, out, lse, mask_i8, k_hi, q_lo)
         ctx.seed = seed
-        ctx.config = (block_q, block_k, dropout_rate)
+        ctx.config = (block_q, block_k, dropout_rate, b0)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, mask_i8, k_hi, q_lo = ctx.saved_tensors
-        block_q, block_k, rate = ctx.config
+        block_q, block_k, rate, b0 = ctx.config
         g = g.contiguous()
         # with dropout O already holds the dropped weights, so delta =
         # rowsum(dO * O) still equals sum_j P_ij dP_ij
         delta = attention_delta(g, out, mask_i8.shape[0])
-        kw = dict(block_q=block_q, block_k=block_k, dropout_rate=rate)
+        kw = dict(block_q=block_q, block_k=block_k, dropout_rate=rate, b0=b0)
         dq = flash_dq(q, k, v, g, lse, delta, mask_i8, k_hi, ctx.seed, **kw)
         dk, dv = flash_dkv(q, k, v, g, lse, delta, mask_i8, q_lo, ctx.seed,
                            **kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 class _FlashAttentionRecompute(torch.autograd.Function):
@@ -722,9 +736,13 @@ def _attend(q, k, v, mask: np.ndarray, tables, block_q, block_k, backward,
     if backward == "xla":
         return _FlashAttentionRecompute.apply(q, k, v, mask_i8, k_hi,
                                               block_q, block_k)
-    return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo,
-                                 dropout_seed if dropout_rate > 0 else None,
-                                 block_q, block_k, dropout_rate)
+    if dropout_rate == 0.0:
+        return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo, None,
+                                     block_q, block_k, 0.0, 0)
+    # inside a data-parallel step the rank's first row of the global batch
+    return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo, dropout_seed,
+                                 block_q, block_k, dropout_rate,
+                                 row_offset(q.shape[0]))
 
 
 def flash_attention(q, k, v, mask: np.ndarray, *,
@@ -740,7 +758,8 @@ def flash_attention(q, k, v, mask: np.ndarray, *,
     LSE and recomputes the gradients through
     :func:`xla_reference_attention`; it takes no dropout.
     ``dropout_rate`` > 0 drops attention weights after the softmax with the
-    Philox mask of ``dropout_seed`` ((2,) int64 words on q's device).
+    Philox mask of ``dropout_seed`` ((2,) int64 words on q's device), of
+    the rows of the global batch this call holds (``row_offset``).
     Tiles default to the kernel's; CPU tensors take the plain versions at
     any tiles."""
     if not isinstance(mask, np.ndarray):

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``ops/pruning.py``.  The token counts per
 set are Python ints from the sequence layout, so the pruned sequence has a
-static shape.  Among equal scores the lower index is kept first, as
-``jax.lax.top_k`` does (``torch.topk`` promises no order): the selection is
-a stable descending sort.
+static shape.  The selection is :func:`top_k_order`, ``jax.lax.top_k``'s
+order (``torch.topk`` promises none): descending, ``+0.0`` above ``-0.0``,
+and among equal scores the lower index first.
 """
 
 from __future__ import annotations
@@ -13,7 +13,19 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["topk_tokens_per_set", "prune_gather"]
+__all__ = ["topk_tokens_per_set", "prune_gather", "top_k_order"]
+
+
+def top_k_order(scores: torch.Tensor) -> torch.Tensor:
+    """int64 indices that sort ``scores`` along the last axis as
+    ``jax.lax.top_k`` ranks them: descending in the total order of the
+    floats, in which ``+0.0`` ranks above ``-0.0`` (a plain float sort
+    ties them), equal values keeping the lower index first.  Each value
+    is ranked by its float32 bits mapped to an int32 that orders as the
+    floats do (the low 31 bits of a negative value flipped)."""
+    bits = scores.float().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices
 
 
 def topk_tokens_per_set(importance: torch.Tensor,
@@ -37,8 +49,7 @@ def topk_tokens_per_set(importance: torch.Tensor,
                                     device=importance.device).expand(b, size))
             continue
         scores = importance[:, start:start + size]
-        idx = torch.sort(scores, dim=-1, descending=True,
-                         stable=True).indices[:, :k]
+        idx = top_k_order(scores)[:, :k]
         if sort_kept:
             idx = torch.sort(idx, dim=-1).values
         ids.append(idx + start)

@@ -11,9 +11,10 @@ functions are reproduced, not left to ``torch.topk``:
   (``argmax``);
 * ``ordering='score'`` ranks sources by a stable ascending sort reversed,
   so among equal scores the HIGHER index ranks first;
-* ``ordering='stable'`` takes ``top_k``, which puts the LOWER index first
-  among equal scores, and keeps the unmerged tokens in their original
-  order.
+* ``ordering='stable'`` takes ``top_k`` (``ops.pruning.top_k_order``:
+  ``+0.0`` above ``-0.0``, the LOWER index first among equal scores), and
+  keeps the unmerged tokens in their original order.  ``'score'``'s
+  ``argsort`` ties the two zeros, as ``jnp.argsort`` does.
 
 The merge sums the ``r`` sources of each destination in one one-hot
 product accumulated in float32 and rounded once to the tokens' dtype
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .pruning import top_k_order
 
 __all__ = ["BipartiteMatching", "bipartite_soft_matching", "apply_merge",
            "merge_wavg"]
@@ -81,8 +84,7 @@ def bipartite_soft_matching(metric: torch.Tensor, r: int,
         unm_idx = edge_idx[..., r:]
         src_idx = edge_idx[..., :r]
     else:
-        order = torch.sort(node_max, dim=-1, descending=True,
-                           stable=True).indices
+        order = top_k_order(node_max)
         src_idx = order[..., :r]
         unm_idx = torch.sort(order[..., r:], dim=-1).values
     dst_idx = torch.gather(node_idx, -1, src_idx)

@@ -96,21 +96,28 @@ def data_info(mesh, axis: str = DATA_AXIS) -> Tuple[int, int]:
         mesh.mesh_dim_names.index(axis))
 
 
-def data_slice(x, mesh, dim: int = 0, axis: str = DATA_AXIS):
+def data_slice(x, mesh, dim: int = 0, axis: str = DATA_AXIS,
+               microbatches: int = 1):
     """This rank's rows of a global batch array along ``dim`` (x itself at
-    a data size of one).  Raises when the batch does not divide."""
+    a data size of one).  With ``microbatches`` M, its rows of each of the
+    M global microbatches (rows ``[k B/M, (k+1) B/M)``), microbatch after
+    microbatch: what ``make_train_step(accum_steps=M, mesh=)`` takes.
+    Raises when the batch does not divide."""
     rank, size = data_info(mesh, axis)
     b = x.shape[dim]
-    if b % size:
+    if b % (size * microbatches):
         raise ValueError(f"batch {b} not divisible by the data axis "
-                         f"({size})")
+                         f"({size}) times {microbatches} microbatches")
     if size == 1:
         return x
-    n = b // size
-    if isinstance(x, torch.Tensor):
+    n = b // (size * microbatches)
+    if isinstance(x, torch.Tensor) and microbatches == 1:
         return x.narrow(dim, rank * n, n)
-    return np.take(np.asarray(x), np.arange(rank * n, (rank + 1) * n),
-                   axis=dim)
+    rows = (np.arange(microbatches)[:, None] * (b // microbatches)
+            + rank * n + np.arange(n)).reshape(-1)
+    if isinstance(x, torch.Tensor):
+        return x.index_select(dim, torch.as_tensor(rows, device=x.device))
+    return np.take(np.asarray(x), rows, axis=dim)
 
 
 def _jax_spec(tail: str, shape, model_parallel: bool, fsdp: bool,

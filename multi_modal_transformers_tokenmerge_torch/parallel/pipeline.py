@@ -13,7 +13,14 @@ input it saved (GPipe's rematerialization) and sending its input's
 gradient back one stage, so each stage's blocks get their gradients where
 they live.  The recompute draws what the forward drew: the states of the
 generators the blocks draw from (``generators``) are saved before each
-stage's forward at each tick and put back for its recompute.
+stage's forward at each tick and put back for its recompute
+(``core.replay.replayed``).
+
+With a data axis (PP x DP) each data rank runs its rows of every
+microbatch, and the output is gathered over the data axis into the global
+(B, ...) output that every rank returns, as the JAX function returns it
+(sharded over the data axis there); the gather's backward hands each rank
+the gradient of its own rows.
 
 A stage computes only on ticks where it holds a microbatch (the JAX scan
 computes on every tick and drops the bubble's results), which changes no
@@ -22,12 +29,13 @@ result.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..core.replay import replayed
 from .distributed import Ring
 from .ring_attention import ring_of
 
@@ -69,10 +77,12 @@ def pipelined_apply(layer_fn: Callable, stage_params: Sequence[Sequence],
     listed would give the recompute other masks, and the gradients of
     another function than the one run forward.
 
-    Returns the (B, ...) outputs on every stage; with ``data_axis`` (PP x
-    DP over a mesh) each rank runs its rows of every microbatch and
-    returns those rows, microbatch after microbatch, and the blocks'
-    gradients are its rows' share, to be summed over the data axis."""
+    Returns the (B, ...) outputs on every stage.  With ``data_axis`` (PP x
+    DP over a mesh) each rank runs its rows of every microbatch, and the
+    output is gathered over the data axis: every rank returns the global
+    (B, ...) output; a loss taken on it by every rank gives each rank the
+    gradient of its own rows, and the blocks' gradients are those rows'
+    share, to be summed over the data axis."""
     ring: Ring = ring_of(group_or_mesh, axis)
     p = ring.size
     if len(stage_params) != p:
@@ -82,6 +92,7 @@ def pipelined_apply(layer_fn: Callable, stage_params: Sequence[Sequence],
     if b % m:
         raise ValueError(f"batch {b} not divisible by M={m}")
     mbs = list(x.chunk(m))
+    group = None
     if data_axis is not None:
         from .mesh import data_slice
         mesh = group_or_mesh
@@ -94,12 +105,39 @@ def pipelined_apply(layer_fn: Callable, stage_params: Sequence[Sequence],
             raise ValueError(f"microbatch size {b // m} not divisible by "
                              f"the data axis ({d})")
         mbs = [data_slice(mb, mesh, axis=data_axis) for mb in mbs]
+        group = mesh.get_group(data_axis) if d > 1 else None
     # each process hands the autograd function the parameters of the stages
     # it holds, so their gradients come back through its backward
     params = [list(_stage_parameters(stage_params[i])) for i in ring.indices]
     flat = [t for ps in params for t in ps]
-    return _GPipe.apply(ring, layer_fn, stage_params, m, tuple(generators),
-                        torch.stack(mbs), len(flat), *flat)
+    out = _GPipe.apply(ring, layer_fn, stage_params, m, tuple(generators),
+                       torch.stack(mbs), len(flat), *flat)
+    return out if group is None else _GatherRows.apply(out, group, m)
+
+
+class _GatherRows(torch.autograd.Function):
+    """A data rank's rows of each of M microbatches, (M * b, ...), as the
+    global (M * b * D, ...) output, microbatch k being the D ranks' rows of
+    it in rank order (the JAX output's layout).  Backward: each rank takes
+    the gradient of its own rows (every rank holds the whole output's
+    gradient, taken on the same global loss)."""
+
+    @staticmethod
+    def forward(ctx, rows, group, m):
+        d = dist.get_world_size(group)
+        parts = [torch.empty_like(rows) for _ in range(d)]
+        dist.all_gather(parts, rows.contiguous(), group=group)
+        ctx.rank, ctx.m, ctx.d = dist.get_rank(group), m, d
+        b = rows.shape[0] // m
+        per_mb = [p.reshape(m, b, *rows.shape[1:]) for p in parts]
+        return torch.cat(per_mb, dim=1).reshape(m * b * d, *rows.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        m, d = ctx.m, ctx.d
+        b = g.shape[0] // (m * d)
+        mine = g.reshape(m, d, b, *g.shape[1:])[:, ctx.rank]
+        return mine.reshape(m * b, *g.shape[1:]), None, None
 
 
 def _stage_parameters(stage):
@@ -111,20 +149,6 @@ def _stage_fn(layer_fn, stage, h):
     for block in stage:
         h = layer_fn(block, h)
     return h
-
-
-@contextlib.contextmanager
-def _replayed(generators, states):
-    """Within the block ``generators`` are at ``states``; after it, back
-    where they were."""
-    now = [g.get_state() for g in generators]
-    for g, st in zip(generators, states):
-        g.set_state(st)
-    try:
-        yield
-    finally:
-        for g, st in zip(generators, now):
-            g.set_state(st)
 
 
 class _GPipe(torch.autograd.Function):
@@ -188,7 +212,7 @@ class _GPipe(torch.autograd.Function):
                     d_in.append((zeros,))
                     continue
                 h, states = ctx.saved[i][t]
-                with torch.enable_grad(), _replayed(ctx.generators, states):
+                with torch.enable_grad(), replayed(ctx.generators, states):
                     h = h.detach().requires_grad_(True)
                     out = _stage_fn(ctx.layer_fn, ctx.stages[i], h)
                     grads = torch.autograd.grad(out, [h] + params[i],

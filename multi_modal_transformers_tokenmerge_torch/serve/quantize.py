@@ -14,7 +14,9 @@ modules:
   Winograd or FFT, and at the output dense's 28224-long contraction only an
   int32 accumulator is exact);
 * ``'w8'`` mode: weights stored int8 and converted to the compute dtype at
-  every call, activations float; the per-channel scale applies to the
+  every call, activations float; the matrix products return float32
+  unrounded, as JAX's ``preferred_element_type=float32`` (see
+  :func:`float32_product`), and the per-channel scale applies to that
   output;
 * everything else (norms, softmax, pool, GELU, residuals, embeddings, the
   relative-position bias) stays float as in the float towers.
@@ -22,9 +24,7 @@ modules:
 Rounding is half to even in both frameworks and every scale is a correctly
 rounded quotient, so the quantized weights, the activation scales and the
 int32 accumulators equal the JAX package's on the same float inputs, and
-the card's equal the CPU's bit for bit.  ``w8`` in bfloat16 differs from JAX in
-one place: JAX takes bf16 operands and a float32 result, a torch bf16
-product rounds its result to bf16.
+the card's equal the CPU's bit for bit.
 
 Layouts: a quantized matrix is (K, N) as in JAX (the port's ``Dense``
 weight transposed), a quantized convolution kernel is the port's OIHW with
@@ -55,7 +55,15 @@ __all__ = ["QTensor", "quantize_matrix", "int8_matmul", "matmul_w8",
            "dequant", "conv_w8_hwcn", "matmul_w8_tn",
            "quantize_image_tower", "image_embed_int8", "image_embed_w8",
            "make_int8_image_embedder", "make_w8_image_embedder", "int_mm",
-           "card_operands"]
+           "card_operands", "float32_product", "W8_PRODUCT_ROUTE"]
+
+# whether this torch has a CUDA kernel for ``torch.mm(..., out_dtype=)``
+# (``aten::mm.dtype``: 16-bit operands, a float32 result from the float32
+# accumulator).  Read once here: every w8 product on the card takes the
+# same route, and none falls back after an error.
+_MM_OUT_DTYPE_ON_CUDA = torch._C._dispatch_has_kernel_for_dispatch_key(
+    "aten::mm.dtype", "CUDA")
+W8_PRODUCT_ROUTE = "mm_out_dtype" if _MM_OUT_DTYPE_ON_CUDA else "upcast"
 
 @dataclass
 class QTensor:
@@ -143,13 +151,28 @@ def int8_matmul(a: torch.Tensor, w: QTensor) -> torch.Tensor:
     return acc.float() * a_scale * w.scale
 
 
+def float32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two operands of one dtype, (..., K) x (K, N), as an
+    unrounded float32 result: JAX's ``dot_general(...,
+    preferred_element_type=float32)``.  On the card 16-bit operands go to
+    ``torch.mm(..., out_dtype=torch.float32)`` where this torch registers
+    it for CUDA (:data:`W8_PRODUCT_ROUTE`), and are upcast to float32
+    otherwise; on the CPU they are upcast, which is exact (an int8 value
+    or a 16-bit activation is a float32 value, their product too)."""
+    if (a.dtype == torch.float32 or a.device.type != "cuda"
+            or not _MM_OUT_DTYPE_ON_CUDA):
+        return torch.matmul(a.float(), b.float())
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
 def matmul_w8(a: torch.Tensor, w: QTensor,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
     """``a @ w`` with the int8-stored kernel converted to ``compute_dtype``
-    at the call (int8 values are exact there); the scale applies to the
-    float32 output."""
-    acc = torch.matmul(a.to(compute_dtype), w.q.to(compute_dtype))
-    return acc.float() * w.scale
+    at the call (int8 values are exact there), the product in float32
+    (:func:`float32_product`); the scale applies to that output."""
+    acc = float32_product(a.to(compute_dtype), w.q.to(compute_dtype))
+    return acc * w.scale
 
 
 def _quant_act_lanes(x: torch.Tensor):
@@ -230,9 +253,10 @@ def conv_w8_hwcn(x: torch.Tensor, w: QTensor, strides, padding: str,
 def matmul_w8_tn(a: torch.Tensor, w: QTensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(K, N) float activations x int8-stored (K, M) kernel -> (N, M)
-    float32; the per-channel scale applies to the output."""
-    acc = torch.matmul(a.t().to(compute_dtype), w.q.to(compute_dtype))
-    return acc.float() * w.scale[None, :]
+    float32, the product unrounded (:func:`float32_product`); the
+    per-channel scale applies to the output."""
+    acc = float32_product(a.t().to(compute_dtype), w.q.to(compute_dtype))
+    return acc * w.scale[None, :]
 
 
 # -- the T5 text tower -------------------------------------------------------

@@ -35,25 +35,30 @@ __all__ = ["fit", "evaluate", "graceful_stop", "to_device", "eval_seed",
 EVAL_FOLD = 0xE7A1
 
 
-def _rows_to_cut(batches, mesh):
+def _rows_to_cut(batches, mesh, microbatches: int = 1):
     """The mesh whose rows fit and evaluate cut from each batch: None for
     batches that ``prefetch_to_device(mesh=mesh)`` has cut already.  Such
-    batches with another mesh, or with none, raise: the step would train
-    on a rank's rows as if they were the global batch."""
+    batches with another mesh, or with none, or cut into another number of
+    microbatches, raise: the step would train on other rows than its
+    own."""
     if not isinstance(batches, Prefetched) or batches.rows_of is None:
         return mesh
-    if mesh is None or batches.rows_of != mesh:
+    if (mesh is None or batches.rows_of != mesh
+            or batches.microbatches != microbatches):
         raise ValueError("these batches were cut to a rank's rows by "
-                         "prefetch_to_device for another mesh than this "
-                         "call's; pass the same mesh to both")
+                         "prefetch_to_device for another mesh or number of "
+                         "microbatches than this call's; pass the same "
+                         "mesh, and accum_steps as its microbatches")
     return None
 
 
-def to_device(batch, device, mesh=None):
+def to_device(batch, device, mesh=None, microbatches: int = 1):
     """A host batch (numpy arrays or tensors) as tensors on ``device``;
-    with a ``mesh`` this rank's rows of it."""
-    return tuple(torch.as_tensor(data_slice(x, mesh)).to(device,
-                                                         non_blocking=True)
+    with a ``mesh`` this rank's rows of it (of each of ``microbatches``
+    global microbatches, ``parallel.mesh.data_slice``)."""
+    return tuple(torch.as_tensor(data_slice(x, mesh,
+                                            microbatches=microbatches)).to(
+                     device, non_blocking=True)
                  for x in batch)
 
 
@@ -91,7 +96,8 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
         checkpoint_every: int = 1000, step_fn: Optional[Callable] = None,
         eval_fn: Optional[Callable] = None, eval_every: int = 0,
         text_input: str = "ids", data_state_fn: Optional[Callable] = None,
-        should_stop: Optional[Callable] = None) -> OctoTrainState:
+        should_stop: Optional[Callable] = None,
+        accum_steps: int = 1) -> OctoTrainState:
     """Run ``num_steps`` train steps on ``batches`` of ``(text, images,
     actions)``, moved to the model's device.
 
@@ -103,19 +109,25 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
     state returned holds the last window's metrics.
 
     ``step_fn`` replaces the default step (``make_train_step(head,
-    text_input=text_input)``).  ``eval_fn(state) -> dict`` runs every
+    text_input=text_input, accum_steps=accum_steps)``; ``accum_steps`` is
+    the JAX step's option, which the JAX ``fit`` reaches through its
+    ``step_fn``).  ``eval_fn(state) -> dict`` runs every
     ``eval_every`` steps and is logged under ``eval/``; the latest result
     rides along with every checkpoint save, so a ``CheckpointManager`` with
     ``best_metric`` keeps the best checkpoints.  ``checkpointer.save`` runs
     every ``checkpoint_every`` steps and once at the end (then ``wait()``),
     with ``data_state_fn()`` (e.g. ``RecordReader.state``) saved beside
-    it.  ``should_stop()`` (e.g. :func:`graceful_stop`) is polled once a
-    step; when it turns true the loop saves (with a checkpointer) and
-    returns early.
+    it.  A ``CheckpointManager`` saves asynchronously: the loop goes on
+    while a save is written, and the final ``wait()`` returns once the
+    last one has landed.  ``should_stop()`` (e.g. :func:`graceful_stop`)
+    is polled once a step; when it turns true the loop saves (with a
+    checkpointer), waits for the save and returns early.
 
     ``mesh``: data parallel over its ``data`` axis; each rank keeps its
-    rows of every batch (the batch must divide by the data size; batches
-    from ``prefetch_to_device(mesh=mesh)`` are those rows already) and the
+    rows of every batch, of each of its ``accum_steps`` microbatches (the
+    batch must divide by the data size times ``accum_steps``; batches from
+    ``prefetch_to_device(mesh=mesh, microbatches=accum_steps)`` are those
+    rows already) and the
     default step is ``make_train_step(head, mesh=mesh)``, compiled at a
     data size of one and eager above it (a CUDA graph does not hold the
     all-reduce).  A ``step_fn`` of one's own must be made with the same
@@ -123,14 +135,16 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
     data_size = data_info(mesh)[1]
     step = (step_fn if step_fn is not None
             else make_train_step(head, text_input=text_input, mesh=mesh,
-                                 jit=data_size == 1))
+                                 jit=data_size == 1,
+                                 accum_steps=accum_steps))
     device = next(state.model.parameters()).device
-    cut = _rows_to_cut(batches, mesh)
+    cut = _rows_to_cut(batches, mesh, accum_steps)
     it = iter(batches)
     last_eval = None
     t_last = time.perf_counter()
     for i in range(num_steps):
-        state, loss = step(state, *to_device(next(it), device, cut))
+        state, loss = step(state, *to_device(next(it), device, cut,
+                                             accum_steps))
         if logger is not None and (i + 1) % log_every == 0:
             metrics = {k: float(v) for k, v in
                        state.metrics.compute().items()}

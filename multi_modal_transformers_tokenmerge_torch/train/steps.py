@@ -9,7 +9,8 @@ A mixture-of-experts transformer adds its pre-weighted balance loss
 (``Octo.moe_aux_loss``, the JAX step's ``'losses'`` collection) to each
 loss before the gradients, without reading it back to the host.
 
-With ``accum_steps`` > 1 the batch splits into that many microbatches,
+With ``accum_steps`` > 1 the batch splits into that many microbatches
+(microbatch k is rows ``[k B/A, (k+1) B/A)``, the JAX step's reshape),
 each with fresh draws from the generators; their gradients are summed in
 float32, averaged and cast to the parameter dtype, and the loss averaged,
 before one update.
@@ -22,20 +23,26 @@ norm, optimizer, EMA, metrics, every microbatch) is captured as a
 ``torch.cuda.CUDAGraph``, which every later call replays after copying its
 batch into the graph's input buffers.  The state's generators are
 registered with the graph, so each replay draws fresh numbers, the same
-ones the eager step would draw.  A state on the CPU runs eagerly.
+ones the eager step would draw; with ``cfg.remat`` the recomputes draw
+from spare generators set before each replay (``core.replay.
+RecomputePlan``).  A state on the CPU runs eagerly.
 
 With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data parallel:
 each rank is handed its rows of the global batch (``parallel.mesh.
 data_slice``) and runs under ``core.global_batch.data_parallel``, so
 its draws (patch positions, dropout masks, the diffusion head's times and
-noise) are made for the global batch and cut to its rows, and the MoE
-balance loss's statistics are taken over the global batch; the loss and
-the gradients are averaged over the ``data`` axis before the update.  A
-step on P ranks so draws what a one-device step draws, except the flash
-kernels' in-kernel attention dropout, whose Philox counters take the
-rank's batch index.  At a data size of one no collective runs.  A CUDA
-graph does not hold the all-reduce: on the card, ``jit=True`` with a data
-axis of more than one rank raises.
+noise) are made for the global batch and cut to its rows, the flash
+kernels' in-kernel attention dropout counts the rank's rows from its
+first global row (``row_offset``), and the MoE balance loss's statistics
+are taken over the global batch; the loss and the gradients are averaged
+over the ``data`` axis before the update.  A step on P ranks so draws
+what a one-device step draws.  With ``accum_steps`` > 1 a rank is handed
+its rows of each global microbatch, microbatch after microbatch
+(``data_slice(..., microbatches=accum_steps)``), so that its microbatch k
+is its rows of global microbatch k, its draws made for that microbatch.
+At a data size of one no collective runs.  A CUDA graph does
+not hold the all-reduce: on the card, ``jit=True`` with a data axis of
+more than one rank raises.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from typing import Callable, Dict, List, Mapping, Optional
 import torch
 
 from ..core.global_batch import all_reduce_sum, data_parallel
+from ..core.replay import RecomputePlan
 from ..parallel.mesh import DATA_AXIS, data_info
 from ..utils.debug import jit_enabled
 from .optim import global_norm
@@ -95,7 +103,9 @@ class CapturedStep:
     are registered with each graph, so that a replay advances them as the
     eager call would.  The first ``WARMUP_CALLS`` calls for a (state,
     shapes) run ``body`` eagerly on a side stream; the next captures it and
-    replays it; later calls replay.  A call with explicit ``draws`` runs
+    replays it; later calls replay.  The warm-up measures and the capture
+    registers what the recomputes of rematerialized blocks draw
+    (``core.replay.RecomputePlan``).  A call with explicit ``draws`` runs
     eagerly, as does every call while ``utils.debug`` runs the compiled
     paths eagerly.  A failed capture raises.  A state restored since its
     capture (``state.restored`` changed) is captured anew; a ``Metrics``
@@ -133,11 +143,13 @@ class CapturedStep:
             per_state.clear()
             entry = None
         if entry is None:
-            entry = {"calls": 0, "restored": state.restored}
+            entry = {"calls": 0, "restored": state.restored,
+                     "plan": RecomputePlan()}
             per_state[key] = entry
         if entry["calls"] < self.WARMUP_CALLS:
             entry["calls"] += 1
-            out = self._eager_on_side_stream(state, tensors)
+            with entry["plan"].measuring(list(self.generators(state))):
+                out = self._eager_on_side_stream(state, tensors)
             self.after(state)
             return state, out
         if "graph" not in entry:
@@ -146,6 +158,7 @@ class CapturedStep:
             for dst, src in zip(entry["inputs"], tensors):
                 dst.copy_(src)
             self._adopt_metrics(entry, state)
+        entry["plan"].before_replay()
         entry["graph"].replay()
         self.after(state)
         return state, entry["output"].clone()
@@ -169,9 +182,14 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators(state):
             graph.register_generator_state(gen)
+        plan = entry["plan"]
+        plan.register(graph)
         # a private memory pool per graph: graphs of other shapes or states
-        # replay in any order
-        with torch.cuda.graph(graph, stream=stream):
+        # replay in any order.  Only this thread is held to the capture's
+        # rules: a checkpoint writer copying a snapshot to the host on a
+        # stream of its own (train.checkpoint) may run through it
+        with plan.capturing(), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
             out = self.body(state, *static)
         entry.update(graph=graph, inputs=static, output=out,
                      metrics=state.metrics)
@@ -209,7 +227,8 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
     ``time`` (B, 1) and ``noise`` (B, A).
     ``text_input='embeddings'`` takes the frozen text tower's (B, T, E)
     output instead of ids.  ``mesh``: data-parallel over its ``data`` axis
-    (see the module docstring); the step takes this rank's rows."""
+    (see the module docstring); the step takes this rank's rows, and any
+    explicit ``draws`` are cut as the batch is."""
     if text_input not in ("ids", "embeddings"):
         raise ValueError(
             f"text_input must be 'ids' or 'embeddings', got {text_input!r}")
@@ -219,10 +238,6 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
         raise ValueError(f"unknown head {head!r}; one of {sorted(methods)}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps} must be >= 1")
-    if mesh is not None and accum_steps > 1:
-        raise ValueError("accum_steps > 1 under a mesh is not ported: a "
-                         "rank's microbatches are not the global "
-                         "microbatches' rows")
     method = methods[head]
     group = mesh.get_group(DATA_AXIS) if mesh is not None else None
     data_size = data_info(mesh)[1]

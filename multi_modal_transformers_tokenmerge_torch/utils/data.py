@@ -38,12 +38,14 @@ def _host_tensor(x) -> torch.Tensor:
 class Prefetched:
     """The iterator :func:`prefetch_to_device` returns.  ``rows_of`` is
     the mesh whose data-axis rows each batch already is (None: whole
-    batches): ``train.loop.fit`` and ``evaluate`` do not cut such batches
-    again."""
+    batches), of ``microbatches`` global microbatches:
+    ``train.loop.fit`` and ``evaluate`` do not cut such batches again."""
 
-    def __init__(self, batches: Iterator, rows_of=None):
+    def __init__(self, batches: Iterator, rows_of=None,
+                 microbatches: int = 1):
         self._batches = batches
         self.rows_of = rows_of
+        self.microbatches = microbatches
 
     def __iter__(self):
         return self
@@ -53,7 +55,8 @@ class Prefetched:
 
 
 def prefetch_to_device(iterator: Iterable, size: int = 2,
-                       device="cuda", mesh=None) -> Prefetched:
+                       device="cuda", mesh=None,
+                       microbatches: int = 1) -> Prefetched:
     """Yield batches (tuples, lists or dicts of arrays) as tensors on
     ``device`` with ``size`` more already on their way.
 
@@ -62,21 +65,38 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     waited on by the consumer's stream before the batch is yielded: a step
     never reads a batch before its copy has ended, and the copy of batch
     N+size overlaps the step on batch N.  On the CPU batches are converted
-    in order.  With a ``mesh`` (``parallel.mesh.make_mesh``) each global
-    batch is cut to this rank's rows of the data axis before its copy,
-    and ``fit(..., mesh=mesh)`` takes the batches as they are."""
+    in order, ``size`` ahead as on the card.  With a ``mesh``
+    (``parallel.mesh.make_mesh``) each global batch is cut to this rank's
+    rows of the data axis before its copy (of each of ``microbatches``
+    global microbatches, ``parallel.mesh.data_slice``), and
+    ``fit(..., mesh=mesh, accum_steps=microbatches)`` takes the batches as
+    they are."""
     device = torch.device(device)
     it = iter(iterator)
     if mesh is not None:
         from ..parallel.mesh import data_slice
-        it = (_map(lambda x: data_slice(x, mesh), batch) for batch in it)
-    return Prefetched(_prefetch(it, size, device), mesh)
+        cut = lambda x: data_slice(x, mesh, microbatches=microbatches)
+        it = (_map(cut, batch) for batch in it)
+    return Prefetched(_prefetch(it, size, device), mesh, microbatches)
 
 
 def _prefetch(it: Iterator, size: int, device: torch.device) -> Iterator:
     if device.type != "cuda":
-        for batch in it:
-            yield _map(lambda x: _host_tensor(x).to(device), batch)
+        # no copy to overlap, but the same look-ahead: ``size`` batches are
+        # taken from the source before the first is yielded, as on the card
+        # (a reader's ``state()`` counts them)
+        place = lambda batch: _map(lambda x: _host_tensor(x).to(device),
+                                   batch)
+        if size <= 0:
+            yield from map(place, it)
+            return
+        queue = collections.deque(place(b)
+                                  for b in itertools.islice(it, size))
+        while queue:
+            nxt = next(it, None)
+            if nxt is not None:
+                queue.append(place(nxt))
+            yield queue.popleft()
         return
     stream = torch.cuda.Stream(device)
 

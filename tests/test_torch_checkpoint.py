@@ -277,3 +277,112 @@ def test_evaluate_inside_fit_leaves_training_unchanged():
     _assert_states_equal(hooked, plain)
     assert [s for s, _ in logger.logged] == [2, 4]
     assert all(np.isfinite(m["eval/loss"]) for _, m in logger.logged)
+
+
+# -- asynchronous saves ----------------------------------------------------------
+
+class _HeldWriter:
+    """Holds the writer thread's ``torch.save`` until released, so a test
+    can act while a save is in flight."""
+
+    def __init__(self, monkeypatch, fail=False):
+        import threading
+        from multi_modal_transformers_tokenmerge_torch.train import (
+            checkpoint as tckpt)
+        self.release = threading.Event()
+        self.started = threading.Event()
+        original = tckpt.torch.save
+
+        def save(obj, f):
+            self.started.set()
+            assert self.release.wait(30), "the held save was never released"
+            if fail:
+                raise OSError("disk full")
+            return original(obj, f)
+
+        monkeypatch.setattr(tckpt.torch, "save", save)
+
+
+def test_save_returns_before_the_write_lands(tmp_path, monkeypatch):
+    """``save`` returns with the write held in flight: no step is visible
+    yet, the state keeps training (three more steps, updated in place),
+    and once ``wait`` has joined the writer a restore equals the state at
+    the saved step bit for bit, not the later one."""
+    batches = _batches(5)
+    state = fit(_state(0, 3), iter(batches[:2]), "diffusion", 2)
+    saved = _state(0, 3)
+    saved.load_state_dict(state.state_dict())
+    held = _HeldWriter(monkeypatch)
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(state.step, state)
+    assert held.started.wait(30)
+    assert mgr.all_steps() == [] and mgr.latest_step() is None
+    assert not any(n.endswith(".pt") for n in os.listdir(tmp_path))
+    state = fit(state, iter(batches[2:]), "diffusion", 3)
+    assert state.step == 5
+    held.release.set()
+    mgr.wait()
+    assert mgr.all_steps() == [2]
+    restored = mgr.restore(_state(11, 99))
+    _assert_states_equal(restored, saved)
+    assert not torch.equal(restored.params["readout_encoder.pos_embedding"],
+                           state.params["readout_encoder.pos_embedding"])
+
+
+def test_a_second_save_waits_for_the_first(tmp_path, monkeypatch):
+    import threading
+    state = _state(0, 3)
+    held = _HeldWriter(monkeypatch)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    mgr.save(1, state)
+    assert held.started.wait(30)
+    done = threading.Event()
+    second = threading.Thread(target=lambda: (mgr.save(2, state),
+                                              done.set()))
+    second.start()
+    assert not done.wait(0.3)        # blocked behind the save in flight
+    held.release.set()
+    second.join(30)
+    assert done.is_set()
+    mgr.wait()
+    # retention pruned step 1 once step 2 had landed
+    assert mgr.all_steps() == [2]
+
+
+def test_a_writer_fault_surfaces_at_wait(tmp_path, monkeypatch):
+    """An error of the writer thread is raised by the next ``wait`` (once),
+    and leaves no checkpoint and no temporary file behind as a step."""
+    state = _state(0, 3)
+    held = _HeldWriter(monkeypatch, fail=True)
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(1, state)
+    held.release.set()
+    with pytest.raises(RuntimeError, match="save") as err:
+        mgr.wait()
+    assert isinstance(err.value.__cause__, OSError)
+    assert mgr.all_steps() == []
+    mgr.wait()                        # raised once
+    monkeypatch.undo()
+    assert mgr.save(1, state)
+    mgr.close()
+    assert mgr.all_steps() == [1]
+
+
+def test_a_writer_fault_surfaces_at_the_next_save(tmp_path, monkeypatch):
+    state = _state(0, 3)
+    held = _HeldWriter(monkeypatch, fail=True)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    held.release.set()
+    with pytest.raises(RuntimeError, match="save"):
+        mgr.save(2, state)
+
+
+def test_fit_waits_for_its_last_save(tmp_path):
+    """fit returns once its last save has landed: the step is on disk."""
+    mgr = CheckpointManager(str(tmp_path))
+    state = fit(_state(0, 3), iter(_batches(3)), "diffusion", 3,
+                checkpointer=mgr, checkpoint_every=2)
+    assert mgr._writer is None
+    assert os.path.exists(tmp_path / "3.pt") and mgr.all_steps() == [2, 3]
+    assert state.step == 3

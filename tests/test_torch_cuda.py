@@ -427,6 +427,42 @@ def test_pool_bwd_kernel_matches_plain_exactly(card, dtype, layout):
     assert torch.equal(dx, pool.pool_bwd_reference(x, gy, (3, 3)))
 
 
+@pytest.mark.cuda
+@FLASH_SHAPES
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_with_a_batch_offset_match_plain(card, b, seq, h, d,
+                                                       out_f32, dtype):
+    """``b0``: dropout 0.1 counted from global row b0, kernels against
+    their plain versions with the same offset; ``b0=0`` is the call
+    without it, bit for bit; another offset draws another mask."""
+    if out_f32 and dtype == torch.float32:
+        pytest.skip("the float32-output variants take 16-bit inputs")
+    fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
+        card, b, seq, h, d, dtype)
+    kw = dict(block_q=bq, block_k=bk, dropout_rate=0.1,
+              out_dtype=torch.float32 if out_f32 else None)
+    out0, lse0 = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, b0=0, **kw)
+    assert torch.equal(out, out0) and torch.equal(lse, lse0)
+    b0 = 5
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, b0=b0, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi, seed,
+                                              b0=b0, **kw)
+    _assert_flash_close(out, out_p, dtype)
+    assert not torch.equal(out, out0)
+    delta = fa.attention_delta(do, out_p, padded.shape[0])
+    args = (q, k, v, do, lse_p, delta, padded)
+    dq = fa.flash_dq(*args, k_hi, seed, b0=b0, **kw)
+    dk, dv = fa.flash_dkv(*args, q_lo, seed, b0=b0, **kw)
+    dq_p = fa.flash_dq_reference(*args, k_hi, seed, b0=b0, **kw)
+    dk_p, dv_p = fa.flash_dkv_reference(*args, q_lo, seed, b0=b0, **kw)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _assert_flash_close(got, want, dtype)
+    assert torch.equal(fa.flash_dq(*args, k_hi, seed, **kw),
+                       fa.flash_dq(*args, k_hi, seed, b0=0, **kw))
+
+
 # -- CUDA graphs: the compiled train step and engine ------------------------------
 
 def _bf16_train_config():
@@ -501,6 +537,33 @@ def test_captured_train_step_equals_the_eager_step(card):
 
 
 @pytest.mark.cuda
+def test_captured_remat_step_equals_the_eager_remat_step(card):
+    """``transformer.remat`` with dropout 0.1 in the flash kernels: the
+    captured step's recompute draws from the spare generators of its
+    RecomputePlan what the eager step's recompute draws, so after 4 steps
+    the states are equal bit for bit; and the eager remat step equals the
+    eager step without remat."""
+    from multi_modal_transformers_tokenmerge_torch import make_train_step
+    base = _bf16_train_config()
+    cfg = base.replace(transformer=base.transformer.replace(remat=True))
+    batches = _device_batches(cfg, 4, 4, seed=2)
+    plain, eager, captured = (_train_state(base), _train_state(cfg),
+                              _train_state(cfg))
+    step_p = make_train_step("diffusion", jit=False)
+    step_c = make_train_step("diffusion")
+    for bt in batches:
+        step_p(plain, *bt)
+        step_p(eager, *bt)
+        step_c(captured, *bt)
+    torch.cuda.synchronize()
+    (entry,) = step_c._graphs[captured].values()
+    assert "graph" in entry and len(entry["plan"].spares) == \
+        cfg.transformer.num_blocks
+    _assert_same_state(eager, captured)
+    _assert_same_state(plain, eager)
+
+
+@pytest.mark.cuda
 def test_restored_state_is_captured_anew(card, tmp_path):
     """Save after 2 compiled steps, restore into a fresh state, 2 more:
     the unbroken compiled run's state after step 4."""
@@ -523,6 +586,30 @@ def test_restored_state_is_captured_anew(card, tmp_path):
     (entry,) = step._graphs[fresh].values()
     assert "graph" in entry
     _assert_same_state(unbroken, fresh)
+
+
+@pytest.mark.cuda
+def test_fit_saving_every_step_equals_fit_without_saves(card, tmp_path):
+    """Compiled fit with checkpoint_every=1: the writer of the save after
+    the eager warm-up copies its snapshot to the host while the next call
+    captures the step, and every later save runs beside a replay; the
+    state equals a fit without saves bit for bit, and the last save
+    restores it."""
+    from multi_modal_transformers_tokenmerge_torch import (
+        CheckpointManager, fit)
+    cfg = _bf16_train_config()
+    batches = _device_batches(cfg, 4, 4, seed=3)
+    plain, saved = _train_state(cfg), _train_state(cfg)
+    fit(plain, iter(batches), "diffusion", len(batches))
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    fit(saved, iter(batches), "diffusion", len(batches), checkpointer=mgr,
+        checkpoint_every=1)
+    torch.cuda.synchronize()
+    _assert_same_state(plain, saved)
+    assert mgr.all_steps() == [len(batches)]
+    restored = mgr.restore(_train_state(cfg, 5, 5))
+    for n, p in plain.params.items():
+        assert torch.equal(p, restored.params[n]), n
 
 
 @pytest.mark.cuda

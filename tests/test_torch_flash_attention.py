@@ -259,6 +259,70 @@ def test_keep_rate(rate):
     assert torch.equal(sub, keep[:, :, 40:72, 8:24])
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_batch_offset_draws_the_global_rows(rate):
+    """``b0``: the plain forward, dq and dk/dv of rows b0.. of a batch, with
+    b0 passed, equal those rows of the whole batch's call (the Philox
+    counters count global rows), for every batch offset; b0=0 is the call
+    without it, bit for bit; under ``data_parallel`` of ranks holding two
+    rows each, ``flash_attention`` offsets rank r by 2r."""
+    mask = _mask("octo")
+    q, k, v, do = (torch.tensor(x) for x in _qkv(mask.shape[0], seed=4,
+                                                b=4))
+    seed = torch.tensor([99, 2 ** 31 + 5], dtype=torch.int64)
+    padded, k_hi, q_lo = (torch.tensor(a)
+                          for a in tfa.mask_tables(mask, 16, 16))
+    kw = dict(block_q=16, block_k=16, dropout_rate=rate)
+    out, lse = tfa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+    delta = tfa.attention_delta(do, out, padded.shape[0])
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, padded, k_hi, seed, **kw)
+    dk, dv = tfa.flash_dkv(q, k, v, do, lse, delta, padded, q_lo, seed, **kw)
+    for b0 in (0, 1, 2):
+        rows = slice(b0, b0 + 2)
+        part = lambda t: t[rows].contiguous()
+        o2, l2 = tfa.flash_fwd_lse(part(q), part(k), part(v), padded, k_hi,
+                                   seed, b0=b0, **kw)
+        assert torch.equal(o2, out[rows]) and torch.equal(l2, lse[rows])
+        args = (part(q), part(k), part(v), part(do), part(lse), part(delta),
+                padded)
+        assert torch.equal(tfa.flash_dq(*args, k_hi, seed, b0=b0, **kw),
+                           dq[rows])
+        dk2, dv2 = tfa.flash_dkv(*args, q_lo, seed, b0=b0, **kw)
+        assert torch.equal(dk2, dk[rows]) and torch.equal(dv2, dv[rows])
+        if rate and b0:
+            # without the offset the rows draw other masks
+            other = tfa.flash_fwd_lse(part(q), part(k), part(v), padded,
+                                      k_hi, seed, **kw)[0]
+            assert not torch.equal(other, out[rows])
+    idx = torch.arange(8)
+    assert torch.equal(
+        tfa.dropout_keep_mask(seed, 2, 3, idx, idx, 0.1, b0=2),
+        tfa.dropout_keep_mask(seed, 4, 3, idx, idx, 0.1)[2:])
+
+
+class _TwoRanks:
+    """A stand-in for a two-rank process group (rank 1)."""
+
+
+def test_flash_attention_takes_the_rank_offset(monkeypatch):
+    from multi_modal_transformers_tokenmerge_torch.core import global_batch
+    mask = _mask("octo")
+    q, k, v = (torch.tensor(x) for x in _qkv(mask.shape[0], seed=5, n=3,
+                                            b=4))
+    seed = torch.tensor([3, 4], dtype=torch.int64)
+    kw = dict(block_q=16, block_k=16, dropout_rate=0.1, dropout_seed=seed)
+    whole = tfa.flash_attention(q, k, v, mask, **kw)
+    group = _TwoRanks()
+    monkeypatch.setattr(global_batch.dist, "get_world_size",
+                        lambda g=None: 2)
+    monkeypatch.setattr(global_batch.dist, "get_rank", lambda g=None: 1)
+    assert global_batch.row_offset(2) == 0
+    with global_batch.data_parallel(group):
+        assert global_batch.row_offset(2) == 2
+        mine = tfa.flash_attention(q[2:], k[2:], v[2:], mask, **kw)
+    assert torch.equal(mine, whole[2:])
+
+
 def test_philox_known_answers():
     """The Philox4x32-10 of the kernels against Random123's known-answer
     vectors."""

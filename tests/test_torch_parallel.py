@@ -8,11 +8,18 @@ needs more than one rank runs once for the module on two gloo ranks
 (``torch_dist.launch``: spawned children, a file rendezvous, a time limit)
 and each check below reads its result.  Tolerances are the JAX tests'
 (``tests/test_parallel.py``): loss rtol 2e-5, parameters after an SGD step
-2e-4 / 1e-5, the tensor-parallel forward 2e-5 / 1e-6, serving 1e-5."""
+2e-4 / 1e-5, the tensor-parallel forward 2e-5 / 1e-6, serving 1e-5.  The
+accumulated step under a mesh is held against the JAX one-device
+accumulated step, run op by op (``jax.disable_jit``) so that each
+microbatch takes its own injected draws; the steps with dropout against
+the port's one-process steps."""
+
+import collections
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 import torch.distributed as dist
@@ -33,9 +40,12 @@ from multi_modal_transformers_tokenmerge_torch.serve.policy import (
     PolicyEngine)
 from multi_modal_transformers_tokenmerge_torch.train import loop as tloop
 from multi_modal_transformers_tokenmerge_torch.train import state as tstate
+from multi_modal_transformers_tokenmerge_torch.train import steps as tsteps
 from multi_modal_transformers_tokenmerge_tpu.models import presets as jpre
 from multi_modal_transformers_tokenmerge_tpu.models.octo import Octo as JOcto
 from multi_modal_transformers_tokenmerge_tpu.parallel import mesh as jmesh
+from multi_modal_transformers_tokenmerge_tpu.train import state as jstate
+from multi_modal_transformers_tokenmerge_tpu.train import steps as jsteps
 
 LOSS_RTOL = 2e-5
 PARAM_RTOL, PARAM_ATOL = 2e-4, 1e-5
@@ -173,6 +183,29 @@ def test_data_slice_refuses_an_indivisible_batch():
     assert np.array_equal(tmesh.data_slice(np.arange(6), Two()), [3, 4, 5])
     with pytest.raises(ValueError, match="not divisible"):
         tmesh.data_slice(np.arange(5), Two())
+    with pytest.raises(ValueError, match="not divisible"):
+        tmesh.data_slice(np.arange(6), Two(), microbatches=2)
+
+
+def test_data_slice_cuts_each_microbatch():
+    """With microbatches M, rank r of P takes its rows of each global
+    microbatch [k B/M, (k+1) B/M), microbatch after microbatch."""
+    class Two:
+        mesh_dim_names = ("data", "model")
+
+        def get_local_rank(self, axis):
+            return 1
+
+        def size(self, dim):
+            return 2
+    want = [2, 3, 6, 7]
+    assert np.array_equal(
+        tmesh.data_slice(np.arange(8), Two(), microbatches=2), want)
+    x = torch.arange(16).reshape(8, 2)
+    assert torch.equal(tmesh.data_slice(x, Two(), microbatches=2),
+                       x[want])
+    assert torch.equal(tmesh.data_slice(x.T, Two(), dim=1, microbatches=2),
+                       x[want].T)
 
 
 # -- two ranks ----------------------------------------------------------------------
@@ -184,6 +217,60 @@ def _dense_cfg():
 def _sgd_params(params, grads):
     return jax.tree.map(lambda p, g: np.asarray(p) - LR * np.asarray(g),
                         params, grads)
+
+
+def _jax_accumulated_step(mp, jm, v, ids, images, actions, mb_draws):
+    """The JAX package's make_train_step('continuous', accum_steps=2) with
+    optax.sgd, op by op: its microbatch k (rows [2k, 2k + 2)) draws the
+    patch positions of ``mb_draws[k]``.  (loss, parameters)."""
+    queue = collections.deque(
+        a for d in mb_draws for a in (d["rows"], d["cols"]))
+
+    def randint(key, shape, *a, **k):
+        value = queue.popleft()
+        assert tuple(shape) == value.shape
+        return jnp.asarray(value)
+
+    key = jax.random.PRNGKey(0)
+    st = jstate.create_train_state(jm, v, optax.sgd(LR),
+                                   rngs={"dropout": key,
+                                         "patch_encoding": key})
+    with mp.context() as m:
+        m.setattr(jax.random, "randint", randint)
+        with jax.disable_jit():
+            st, loss = jsteps.make_train_step(
+                "continuous", jit=False, accum_steps=len(mb_draws))(
+                    st, jnp.asarray(ids), jnp.asarray(images),
+                    jnp.asarray(actions))
+    assert not queue, "a JAX draw was not consumed"
+    return float(loss), jax.tree.map(np.asarray, st.params)
+
+
+def _one_process(case, accum, head="continuous"):
+    """The port's one-process step (and fit over both batches) of the
+    dropout case: what each rank's data-parallel run must equal.  The
+    continuous head: the diffusion head's Fourier time features carry a
+    step's float rounding into larger differences in the next."""
+    def model():
+        m = TOcto(case["cfg"], device="cpu", seed=None)
+        m.load_state_dict(case["state"])
+        return m
+    out = {}
+    for a in accum:
+        m = model()
+        st = tstate.create_train_state(m, SGD(), rngs=case["seed"])
+        _, loss = tsteps.make_train_step(head, jit=False, accum_steps=a)(
+            st, *(torch.as_tensor(x) for x in case["batches"][0]))
+        out[a] = {"loss": float(loss),
+                  "params": {n: p.detach().clone()
+                             for n, p in m.named_parameters()}}
+    m = model()
+    st = tstate.create_train_state(m, SGD(), rngs=case["seed"])
+    tloop.fit(st, iter(case["batches"]), head, len(case["batches"]),
+              accum_steps=2)
+    out["fit"] = {"params": {n: p.detach().clone()
+                             for n, p in m.named_parameters()}}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -212,6 +299,16 @@ def two_ranks(tmp_path_factory):
                          "images": images, "actions": actions,
                          "positions": (torch.tensor(d["rows"]),
                                        torch.tensor(d["cols"]))}
+            if name == "dense":
+                # two microbatches of two rows, each with its draws
+                mb = [_draws(jcfg, B // 2, 76 + k) for k in range(2)]
+                loss, params = _jax_accumulated_step(mp, jm, v, ids, images,
+                                                     actions, mb)
+                ref["accum"] = {"loss": loss,
+                                "params": convert.from_flax(params, tc)}
+                inp[name]["accum_positions"] = tuple(
+                    torch.tensor(np.concatenate([m[k] for m in mb]))
+                    for k in ("rows", "cols"))
     # fit and evaluate with the generators and dropout on, against the
     # port's own one-process runs
     fcfg = octo_micro_t5()
@@ -221,6 +318,15 @@ def two_ranks(tmp_path_factory):
                     -1, 1, (B, 4)).astype(np.float32)) for i in range(2)]
     inp["fit"] = {"cfg": to_torch_config(fcfg), "state": fm.state_dict(),
                   "batches": batches, "seed": 5}
+    # every dropout at 0.1, the attention's in the flash kernels (their
+    # plain versions here)
+    dcfg = to_torch_config(fcfg)
+    dcfg = dcfg.replace(transformer=dcfg.transformer.replace(
+        attention_impl="flash", flash_backward="pallas"))
+    assert dcfg.transformer.attention.dropout_rate == 0.1
+    inp["dropout"] = {"cfg": dcfg, "state": fm.state_dict(),
+                      "batches": batches, "seed": 6}
+    ref["dropout"] = _one_process(inp["dropout"], (1, 2))
     torch.save(inp, work / "inputs.pt")
     ranks = launch("parallel_checks", WORLD, work)
 
@@ -272,6 +378,56 @@ def test_data_parallel_step_matches_jax(two_ranks, case):
             _close(p, ref[case]["params"][n], PARAM_RTOL, PARAM_ATOL)
     if case == "moe":
         assert got[0]["aux"] is not None and got[0]["aux"] == got[1]["aux"]
+
+
+def test_accumulated_step_with_a_mesh_matches_jax(two_ranks):
+    """accum_steps=2 on 2 ranks of 2 rows: each rank's microbatch k is its
+    row of global microbatch k, with that microbatch's draws; loss and
+    parameters equal the JAX one-device accumulated step's."""
+    ranks, ref = two_ranks
+    for r in results(ranks, "dp_accum"):
+        assert abs(r["loss"] - ref["accum"]["loss"]) <= LOSS_RTOL * abs(
+            ref["accum"]["loss"])
+        for n, p in r["params"].items():
+            _close(p, ref["accum"]["params"][n], PARAM_RTOL, PARAM_ATOL)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_data_parallel_kernel_dropout_matches_one_process(two_ranks, accum):
+    """Attention dropout 0.1 inside the flash kernels (plain versions):
+    each rank's Philox counters start at its first global row of the
+    (micro)batch, so 2 ranks draw the one-process step's masks and reach
+    its loss and parameters."""
+    ranks, ref = two_ranks
+    want = ref["dropout"][accum]
+    for r in results(ranks, "dp_dropout"):
+        got = r[accum]
+        assert abs(got["loss"] - want["loss"]) <= LOSS_RTOL * abs(
+            want["loss"])
+        for n, p in got["params"].items():
+            _close(p, want["params"][n], PARAM_RTOL, PARAM_ATOL)
+
+
+def test_fit_with_a_mesh_and_accumulation_matches_one_process(two_ranks):
+    """fit(mesh=, accum_steps=2) over two batches with every dropout on
+    equals the one-process fit(accum_steps=2)."""
+    ranks, ref = two_ranks
+    for r in results(ranks, "dp_dropout"):
+        for n, want in ref["dropout"]["fit"]["params"].items():
+            _close(r["fit"]["params"][n], want, PARAM_RTOL, PARAM_ATOL)
+
+
+def test_fit_over_prefetched_microbatches_matches_one_process(two_ranks):
+    """fit(prefetch_to_device(..., mesh=mesh, microbatches=2), mesh=mesh,
+    accum_steps=2): batches cut to the rank's rows of each global
+    microbatch equal the one-process fit(accum_steps=2); batches cut as one
+    microbatch are refused."""
+    ranks, ref = two_ranks
+    for r in results(ranks, "dp_dropout"):
+        for n, want in ref["dropout"]["fit"]["params"].items():
+            _close(r["fit_prefetched"]["params"][n], want, PARAM_RTOL,
+                   PARAM_ATOL)
+        assert r["refused"] is not None and "microbatches" in r["refused"]
 
 
 def test_fit_with_a_mesh_matches_one_process(two_ranks):

@@ -7,7 +7,8 @@ JAX package's, on the same float inputs made with numpy.
   accumulators are equal, and so are the float results (the same
   multiplications in the same order).
 * The towers in float32, within float32 summation error (``TOL``, the
-  port's module tolerance).  The int8 towers quantize activations that
+  port's module tolerance); the w8 towers also in bfloat16, against the
+  JAX towers run op by op (``BF16_DIFF_SHARE``, ``BF16_STEP``).  The int8 towers quantize activations that
   come out of float reductions (RMSNorm, GroupNorm, softmax), which the two
   frameworks sum in different orders; an ulp there could move a value
   across an int8 rounding boundary (a near-tie) and change it by one int8
@@ -135,6 +136,64 @@ def test_int8_conv_hwcn_matches_jax(kernel, strides, padding):
                            compute_dtype=jnp.float32)
     np.testing.assert_allclose(_np(w8), np.asarray(w8_j), rtol=TOL,
                                atol=TOL)
+
+
+# w8 towers in bfloat16 against the JAX towers run op by op
+# (``jax.disable_jit``: jitted, XLA's CPU backend fuses the bf16 elementwise
+# ops in float32 and skips roundings the functions write): at most
+# BF16_DIFF_SHARE of the elements differ, each by at most BF16_STEP of the
+# largest |value| (one bf16 rounding step).  With the products rounded to
+# bf16 before the scale, as the port's were, 32-74% of the elements
+# differ, by up to 0.0093 (text) and 0.0044 (image) of the largest value.
+BF16_DIFF_SHARE, BF16_STEP = 0.01, 2.0 ** -8
+
+
+@pytest.mark.parametrize("tower", ["text", "image"])
+def test_w8_towers_match_jax_in_bfloat16(pair, tower):
+    """The w8 products return float32 unrounded, as JAX's
+    ``preferred_element_type=float32``: the bf16 towers agree."""
+    cfg, jm, v, tm, ids, images = pair
+    with jax.disable_jit():
+        if tower == "text":
+            t = cfg.text
+            kw = dict(rel_pos_buckets=t.t5_rel_pos_buckets,
+                      rel_pos_max_distance=t.t5_rel_pos_max_distance,
+                      mode="w8")
+            got = tq.t5_encode_int8(
+                tq.quantize_t5_params(tm.text_encoder.t5_encoder),
+                torch.tensor(ids, dtype=torch.long), dtype=torch.bfloat16,
+                **kw)
+            want = jq.t5_encode_int8(
+                jq.quantize_t5_params(
+                    v["params"]["text_encoder"]["t5_encoder"]),
+                jnp.asarray(ids), dtype=jnp.bfloat16, **kw)
+        else:
+            got = tq.image_embed_w8(tq.quantize_image_tower(tm),
+                                    torch.tensor(images), tm.config.images,
+                                    dtype=torch.bfloat16)
+            want = jq.image_embed_w8(jq.quantize_image_tower(jm, v),
+                                     jnp.asarray(images), cfg.images,
+                                     dtype=jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = _np(got.float())
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got - want)
+    assert (diff > 0).mean() <= BF16_DIFF_SHARE
+    assert diff.max() <= BF16_STEP * np.abs(want).max()
+
+
+def test_w8_product_is_float32_and_unrounded():
+    """bf16 operands: the product is float32 and equals the float32
+    product of the same values (an int8 kernel is exact in bf16)."""
+    rng = np.random.default_rng(10)
+    _, wt, _ = _int8_pair(rng, 64, 24)
+    a = torch.tensor(rng.normal(0, 1.0, (5, 64)).astype(np.float32)
+                     ).bfloat16()
+    out = tq.float32_product(a, wt.q.bfloat16())
+    assert out.dtype == torch.float32
+    assert torch.equal(out, a.float() @ wt.q.float())
+    assert tq.W8_PRODUCT_ROUTE in ("mm_out_dtype", "upcast")
+    assert tq.matmul_w8(a, wt).dtype == torch.float32
 
 
 def test_w8_matmuls_match_jax_in_float32():

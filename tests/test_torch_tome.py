@@ -203,3 +203,73 @@ def test_topk_raises_on_too_many():
     imp = torch.zeros(1, 30)
     with pytest.raises(ValueError, match="cannot keep"):
         tprune.topk_tokens_per_set(imp, SETS, (5, 10, 3, 10, 3))
+
+
+# -- signed zeros: jax.lax.top_k ranks +0.0 above -0.0 ---------------------------
+
+def test_top_k_order_ranks_signed_zeros_as_lax_top_k():
+    import jax
+    x = np.array([[0.0, -0.0, 0.0, -0.0, -1.0],
+                  [-0.0, 2.0, 0.0, -0.0, -0.0]], np.float32)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(x), 5)[1])
+    np.testing.assert_array_equal(want[0], [0, 2, 1, 3, 4])
+    np.testing.assert_array_equal(tprune.top_k_order(torch.tensor(x)).numpy(),
+                                  want)
+
+
+def _signed_zero_metric():
+    """(1, 8, 2) tokens with signed zero components: sources (even
+    positions) (1, 0), (-1, 0), (0, -1), (0, 1) against destinations (odd
+    positions) all (-0, -1): products -0.0 and -0.0, +0.0 and -0.0, then
+    1 and -1."""
+    src = [[1.0, 0.0], [-1.0, 0.0], [0.0, -1.0], [0.0, 1.0]]
+    x = np.zeros((1, 8, 2), np.float32)
+    x[0, 0::2] = src
+    x[0, 1::2] = [-0.0, -1.0]
+    return x
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_stable_matching_ranks_signed_zeros_as_jax(r):
+    """'stable' ordering takes top_k (``top_k_order``) on the sources' best
+    scores.  Tokens with signed zero components: both frameworks sum a
+    dot product from +0.0, so these scores are +0.0 and tie, and the lower
+    index merges first in both."""
+    x = _signed_zero_metric()
+    pj = jtome.bipartite_soft_matching(jnp.asarray(x), r, ordering="stable")
+    pt = ttome.bipartite_soft_matching(torch.tensor(x), r, ordering="stable")
+    _same_plan(pt, pj)
+    xt = torch.tensor(np.random.default_rng(3).normal(size=(1, 8, 3)),
+                      dtype=torch.float32)
+    np.testing.assert_allclose(
+        ttome.merge_wavg(pt, xt)[0].numpy(),
+        np.asarray(jtome.merge_wavg(pj, jnp.asarray(xt.numpy()))[0]),
+        rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("sort_kept", [True, False])
+def test_topk_tokens_per_set_ranks_signed_zeros_as_jax(sort_kept):
+    imp = np.array([[-0.0, 0.0, -0.0, 0.0, -1.0, 2.0,
+                     0.0, -0.0, -0.0, 0.0, 3.0, -0.0]], np.float32)
+    sets, keep = ((0, 6), (6, 6)), (3, 2)
+    want = jprune.topk_tokens_per_set(jnp.asarray(imp), sets, keep,
+                                      sort_kept=sort_kept)
+    got = tprune.topk_tokens_per_set(torch.tensor(imp), sets, keep,
+                                     sort_kept=sort_kept)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if sort_kept:
+        np.testing.assert_array_equal(got.numpy(), [[1, 3, 5, 6, 10]])
+
+
+def test_compute_top_k_tokens_ranks_signed_zeros_as_jax():
+    from multi_modal_transformers_tokenmerge_torch import compat as tcompat
+    from multi_modal_transformers_tokenmerge_tpu import compat as jcompat
+    scores = np.array([-0.0, 0.0, 1.0, -0.0, 0.0, -0.0, 0.0, -2.0],
+                      np.float32)
+    emb = np.random.default_rng(4).normal(size=(8, 3)).astype(np.float32)
+    idx, k = ((0, 4), (4, 4)), (2, 3)
+    want = jcompat.compute_top_k_tokens(jnp.asarray(emb), jnp.asarray(scores),
+                                        idx, k)
+    got = tcompat.compute_top_k_tokens(torch.tensor(emb),
+                                       torch.tensor(scores), idx, k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -15,7 +15,7 @@ from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
 from multi_modal_transformers_tokenmerge_torch.parallel import (
     distributed as pdist)
 from multi_modal_transformers_tokenmerge_torch.parallel.mesh import (
-    make_mesh, shard_params)
+    data_slice, make_mesh, shard_params)
 from multi_modal_transformers_tokenmerge_torch.parallel.pipeline import (
     pipelined_apply, split_stages)
 from multi_modal_transformers_tokenmerge_torch.parallel.ring_attention import (
@@ -110,6 +110,57 @@ def parallel_checks(rank, world, workdir):
         return {"loss": float(loss), "params": _params(model),
                 "aux": (None if model.moe_aux_loss() is None
                         else float(model.moe_aux_loss()))}
+
+    def dp_accum():
+        """accum_steps=2 under the mesh, explicit draws: this rank's rows of
+        each global microbatch, of the batch and of the draws alike."""
+        case = inp["dense"]
+        model = _model(case)
+        st = state.create_train_state(model, SGD(), rngs=0)
+        step = steps.make_train_step("continuous", jit=False, mesh=mesh,
+                                     accum_steps=2)
+        cut = lambda x: torch.as_tensor(data_slice(x, mesh, microbatches=2))
+        draws = {"positions": tuple(cut(x) for x in case["accum_positions"])}
+        _, loss = step(st, *(cut(x) for x in (case["ids"], case["images"],
+                                              case["actions"])),
+                       draws=draws)
+        return {"loss": float(loss), "params": _params(model)}
+
+    def dp_dropout():
+        """Every dropout at 0.1, the attention's in the flash kernels'
+        plain versions, drawn from the generators: a continuous-head step
+        at accum_steps=1 and 2, and fit(accum_steps=2) over two batches,
+        given whole or as prefetch_to_device(microbatches=2)'s rows; fit
+        refuses batches cut for another number of microbatches."""
+        case = inp["dropout"]
+        n = len(case["batches"])
+        out = {}
+        for accum in (1, 2):
+            model = _model(case)
+            st = state.create_train_state(model, SGD(), rngs=case["seed"])
+            step = steps.make_train_step("continuous", jit=False,
+                                         mesh=mesh, accum_steps=accum)
+            _, loss = step(st, *(torch.as_tensor(data_slice(
+                x, mesh, microbatches=accum)) for x in case["batches"][0]))
+            out[accum] = {"loss": float(loss), "params": _params(model)}
+        for name, batches in (
+                ("fit", iter(case["batches"])),
+                ("fit_prefetched", prefetch_to_device(
+                    iter(case["batches"]), device="cpu", mesh=mesh,
+                    microbatches=2))):
+            model = _model(case)
+            st = state.create_train_state(model, SGD(), rngs=case["seed"])
+            loop.fit(st, batches, "continuous", n, mesh=mesh, accum_steps=2)
+            out[name] = {"params": _params(model)}
+        try:
+            loop.fit(state.create_train_state(_model(case), SGD(), rngs=0),
+                     prefetch_to_device(iter(case["batches"]), device="cpu",
+                                        mesh=mesh),
+                     "continuous", n, mesh=mesh, accum_steps=2)
+            out["refused"] = None
+        except ValueError as e:
+            out["refused"] = str(e)
+        return out
 
     def dp_fit():
         case = inp["fit"]
@@ -214,6 +265,7 @@ def parallel_checks(rank, world, workdir):
 
     return _run([("dp_dense", lambda: dp_step("dense")),
                  ("dp_moe", lambda: dp_step("moe")),
+                 ("dp_accum", dp_accum), ("dp_dropout", dp_dropout),
                  ("dp_fit", dp_fit), ("dp_evaluate", dp_evaluate),
                  ("dp_prefetched", dp_prefetched),
                  ("tp_forward", tp_forward), ("serving", serving),
@@ -322,7 +374,8 @@ def pipeline_checks(rank, world, workdir):
                                 mesh_dim_names=("data", "pipe"))
         out2, g2 = run_pipe(mesh, 2, inp["m2"], x)
         out_dp, g_dp = run_pipe(mesh, 2, inp["m_dp"], x, data_axis="data")
-        # the blocks' gradients are each data rank's share: sum them
+        # every rank takes the loss on the global output; the blocks'
+        # gradients are each data rank's share of it: sum them
         group = mesh.get_group("data")
         summed = {}
         for k, g in g_dp.items():
