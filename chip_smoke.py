@@ -166,8 +166,23 @@ Phases, each of which must pass (any failure exits non-zero):
     ``--accum-steps 2``, ``--ckpt``, ``--recordio``) stopped by a SIGTERM
     (a last checkpoint, ``final:``, exit code 0), then ``--resume`` (both
     ``resumed ...`` lines); ``examples.serve_octo`` on octo_base bf16 at
-    batch 8.
+    batch 8;
+30. training on sharded parameters: the three training kernels on the
+    head slices of a tensor-parallel attention (P = 2 and 4, rank k
+    launching heads [k H/P, (k+1) H/P) with h0 = k H/P and heads_total =
+    H) at octo_deep's three training shapes (bf16, B=32, r=0.1) and the
+    float32-output ring tile: each slice bit for bit with those heads of
+    the whole-head launch and against its plain version, the device ms of
+    rank 1 of 2 beside the same heads without the offset, in turns; then
+    octo_deep bf16 at batch 32 as its preset sets attention, through
+    ``shard_params(make_mesh() on NCCL at world 1, model_parallel=True,
+    fsdp=True)`` and ``fit(mesh=)``, eager (every count set to 0 before
+    it and read after: 12 flash_fwd_lse, 12 flash_dq, 12 flash_dkv and 1
+    pool_bwd a step) and captured, each against ``fit()`` without a mesh
+    (and the eager one against a second ``fit()``, the run-to-run spread),
+    the captured steps timed in turns and one replay's launches counted.
 
+Each phase logs its seconds when it ends ("phase N: ... done in X s").
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 result when no CUDA device is present.
@@ -219,6 +234,24 @@ def log(*a):
 def fail(msg):
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+# the open phase's label and start, and every finished phase's seconds
+_PHASE = {"label": None, "t0": 0.0, "seconds": []}
+
+
+def phase(label):
+    """Log ``label`` ("phase N: ...") as that phase begins, after a line
+    with the seconds of the phase before it ("phase M: ... done in X s");
+    ``phase(None)`` ends the last one."""
+    now = time.perf_counter()
+    if _PHASE["label"] is not None:
+        secs = now - _PHASE["t0"]
+        log(f"{_PHASE['label']} done in {secs:.1f} s")
+        _PHASE["seconds"].append((_PHASE["label"], round(secs, 1)))
+    _PHASE.update(label=label, t0=now)
+    if label is not None:
+        log(label)
 
 
 def card_line():
@@ -4174,6 +4207,288 @@ def drive_phase():
     return out
 
 
+# -- phase 30: training on sharded parameters -----------------------------------
+
+HEAD_SPLITS = (2, 4)        # P of a tensor-parallel attention's heads
+SHARDED_CHECK_STEPS = 3     # fit steps held against fit() without a mesh
+SHARDED_WINDOW = 10         # captured steps a turn, timed
+
+
+def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
+                      seed=30):
+    """The three training kernels, dropout 0.1, on the heads of each rank
+    of a tensor-parallel attention (P of HEAD_SPLITS; rank k holds heads
+    [k H/P, (k+1) H/P) and launches with h0 = k H/P, heads_total = H):
+    each slice's outputs bit for bit with those heads of the whole-head
+    launch (dq and dk/dv handed those heads of its LSE and delta), and
+    against its plain version under rel_gate.  Then the device ms of rank
+    1 of 2 beside the same heads launched without the offset (h0 = 0,
+    heads_total = H/2), in turns.  Returns (each kernel's largest |kernel
+    - plain| and rel_gate units, the timings of rank 1 of 2 with its
+    operands)."""
+    mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
+        fa, mask, b, h, d, dtype, seed)
+    words = torch.tensor([0x5EED123, 0x0FF5E7], dtype=torch.int64,
+                         device="cuda")
+    kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=TRAIN_DROPOUT,
+              out_dtype=out_dtype)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, words, **kw)
+    delta = fa.attention_delta(do, out, padded.shape[0])
+    whole = {"out": out, "lse": lse,
+             "dq": fa.flash_dq(q, k, v, do, lse, delta, padded, k_hi, words,
+                               **kw)}
+    whole["dk"], whole["dv"] = fa.flash_dkv(q, k, v, do, lse, delta, padded,
+                                            q_lo, words, **kw)
+    owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
+             "dv": "flash_dkv"}
+    worst = {kernel: [0.0, 0.0] for kernel in owner.values()}
+
+    def operands(heads):
+        sl = lambda t: t[:, :, heads].contiguous()
+        return (sl(q), sl(k), sl(v), sl(do), lse[:, heads].contiguous(),
+                delta[:, heads].contiguous(), padded)
+
+    for p in HEAD_SPLITS:
+        for rank in range(p):
+            heads = slice(rank * h // p, (rank + 1) * h // p)
+            extra = dict(h0=heads.start, heads_total=h)
+            args = operands(heads)
+            got = {}
+            got["out"], got["lse"] = fa.flash_fwd_lse(
+                *args[:3], padded, k_hi, words, **extra, **kw)
+            got["dq"] = fa.flash_dq(*args, k_hi, words, **extra, **kw)
+            got["dk"], got["dv"] = fa.flash_dkv(*args, q_lo, words, **extra,
+                                                **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(
+                got[key], whole[key][:, heads] if key == "lse"
+                else whole[key][:, :, heads]) for key in got)
+            want = {"out": fa.flash_fwd_lse_reference(
+                *args[:3], padded, k_hi, words, **extra, **kw)[0],
+                "dq": fa.flash_dq_reference(*args, k_hi, words, **extra,
+                                            **kw)}
+            want["dk"], want["dv"] = fa.flash_dkv_reference(
+                *args, q_lo, words, **extra, **kw)
+            parts, ok_all = [], same
+            for key, kernel in owner.items():
+                ok, err, units = rel_gate(got[key], want[key], dtype)
+                ok_all &= ok
+                worst[kernel] = [max(worst[kernel][0], err),
+                                 max(worst[kernel][1], units)]
+                parts.append(f"{key} {err:.2e} ({units:.3f})")
+            log(f"  flash {label:15s} P={p} rank {rank} (heads "
+                f"{heads.start}-{heads.stop - 1} of {h}): bit for bit with "
+                f"the whole-head launch's heads {same}; |kernel-plain| "
+                f"{', '.join(parts)} {'ok' if ok_all else 'FAIL'}")
+            if not ok_all:
+                fail(f"flash {label} P={p} rank {rank} with a head offset")
+    args = operands(slice(h // 2, h))
+    calls = {"flash_fwd_lse": lambda **e: fa.flash_fwd_lse(
+                 *args[:3], padded, k_hi, words, **e, **kw),
+             "flash_dq": lambda **e: fa.flash_dq(*args, k_hi, words, **e,
+                                                 **kw),
+             "flash_dkv": lambda **e: fa.flash_dkv(*args, q_lo, words, **e,
+                                                   **kw)}
+    offset = dict(h0=h // 2, heads_total=h)
+    rows = {}
+    for kernel, call in calls.items():
+        ms = device_ms(call, f"{kernel}_kernel")
+        ms_h0 = device_ms(lambda: call(**offset), f"{kernel}_kernel")
+        ms_again = device_ms(call, f"{kernel}_kernel")
+        rows[kernel] = dict(ms_no_offset=ms, ms=ms_h0, ms_again=ms_again,
+                            max_abs_err=worst[kernel][0],
+                            gate_units=worst[kernel][1])
+        log(f"  {kernel:13s} {label:15s} rank 1 of 2, B={b} H={h // 2} of "
+            f"{h}: {ms_h0:.4f} ms on the device with h0={h // 2}, "
+            f"{ms:.4f} / {ms_again:.4f} ms without (before / after)")
+    return rows, (calls, offset, args, (padded, k_hi, q_lo), tiles)
+
+
+def head_offset_yardsticks(fa, mask, b, h, d, rows, held):
+    """For the kernels line: the plain versions' times, the bounds and
+    SDPA on rank 1 of 2's heads (octo_deep S=224, bf16, r=0.1)."""
+    import torch.nn.functional as F
+    calls, offset, args, (padded, k_hi, q_lo), tiles = held
+    kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=TRAIN_DROPOUT,
+              **offset)
+    words = torch.tensor([0x5EED123, 0x0FF5E7], dtype=torch.int64,
+                         device="cuda")
+    plain = {"flash_fwd_lse": lambda: fa.flash_fwd_lse_reference(
+                 *args[:3], padded, k_hi, words, **kw),
+             "flash_dq": lambda: fa.flash_dq_reference(*args, k_hi, words,
+                                                       **kw),
+             "flash_dkv": lambda: fa.flash_dkv_reference(*args, q_lo, words,
+                                                         **kw)}
+    q, k, v, do = args[:4]
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    m = torch.as_tensor(mask, device="cuda")
+    sdpa = lambda a, bb, c: F.scaled_dot_product_attention(
+        a, bb, c, attn_mask=m, dropout_p=TRAIN_DROPOUT)
+    lib_fwd, _ = device_total_ms(lambda: sdpa(qh, kh, vh))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    lib_both, _ = device_total_ms(
+        lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), doh))
+    s, nnz = mask.shape[0], int(mask.sum())
+    for kernel, kind in (("flash_fwd_lse", "fwd"), ("flash_dq", "dq"),
+                         ("flash_dkv", "dkv")):
+        nbytes, flops = flash_bytes_flops(b, s, h // 2, d, nnz,
+                                          torch.bfloat16, kind)
+        bnd, by = bound(nbytes, flops, torch.bfloat16)
+        rows[kernel].update(
+            plain_ms=time_ms(plain[kernel], iters=3, warmup=1),
+            bound_ms=bnd, bound_by=by,
+            library_ms=lib_fwd if kind == "fwd" else max(lib_both - lib_fwd,
+                                                         0.0))
+        log(f"  {kernel:13s} rank 1 of 2 at S={s}: plain "
+            f"{rows[kernel]['plain_ms']:.3f} ms, bound {bnd:.5f} ms ({by}), "
+            f"SDPA {'forward' if kind == 'fwd' else 'backward'} on those "
+            f"heads {rows[kernel]['library_ms']:.4f} ms")
+
+
+def _nccl_world_of_one():
+    """initialize_multihost at world 1 on NCCL (a free local port)."""
+    import socket
+    from multi_modal_transformers_tokenmerge_torch.parallel import (
+        distributed as pd)
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pd.initialize_multihost(f"tcp://localhost:{port}", 1, 0)
+
+
+def sharded_state(cfg, mesh=None):
+    """octo_deep's train state as _fresh_train_state makes it; with a
+    ``mesh`` the model goes through shard_params(model_parallel=True,
+    fsdp=True) first.  (state, how many parameters came out sharded)."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.parallel.mesh import (
+        shard_params)
+    from multi_modal_transformers_tokenmerge_torch.train.optim import (
+        make_optimizer)
+    from multi_modal_transformers_tokenmerge_torch.train.state import (
+        create_train_state)
+    model = Octo(cfg, device="cuda", seed=0)
+    if mesh is not None:
+        shard_params(model, mesh, model_parallel=True, fsdp=True)
+    sharded = sum(hasattr(p, "placements") for p in model.parameters())
+    tx = make_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=1000,
+                        params=model, frozen_prefixes=("text_encoder",))
+    return create_train_state(model, tx, rngs=0), sharded
+
+
+def sharded_phase(fa, counters):
+    """The three kernels with a head offset (head_offset_check at
+    octo_deep's training shapes and the ring tile), then octo_deep bf16 at
+    B=32 as its preset sets attention through shard_params on a NCCL mesh
+    of one rank and fit(mesh=), eager and captured, against fit()."""
+    import itertools
+    import torch.distributed as dist
+    from multi_modal_transformers_tokenmerge_torch.parallel import mesh as pm
+    from multi_modal_transformers_tokenmerge_torch.train.loop import fit
+    from multi_modal_transformers_tokenmerge_torch.train.steps import (
+        make_train_step)
+    out = {"offset": {}}
+    for stage, s in enumerate((224, 160, 96)):
+        b, strings, st, h, d = FLASH_SHAPES[f"octo_deep_S{s}"]
+        rows, held = head_offset_check(fa, f"octo_deep_S{s}",
+                                       stage_mask(strings, st), b, h, d,
+                                       torch.bfloat16)
+        if s == 224:
+            head_offset_yardsticks(fa, stage_mask(strings, st), b, h, d,
+                                   rows, held)
+        out["offset"][f"octo_deep_S{s}"] = rows
+    ring_tile = layout_mask(RING_BLOCK_SPEC)[1024:2048, 1024:2048]
+    out["offset"]["ring_tile_f32out"], _ = head_offset_check(
+        fa, "ring tile", ring_tile, RING_B, RING_H, RING_D, torch.bfloat16,
+        out_dtype=torch.float32)
+    torch.cuda.empty_cache()
+
+    _nccl_world_of_one()
+    try:
+        mesh = pm.make_mesh()
+        cfg = deep_pallas_config("bfloat16")
+        blocks = cfg.transformer.num_blocks
+        per_step = {"flash_fwd_lse": blocks, "flash_dq": blocks,
+                    "flash_dkv": blocks, "pool_bwd": 1}
+        batches = device_batches(cfg, TRAIN_BATCH, SHARDED_CHECK_STEPS,
+                                 seed=30)
+        n = SHARDED_CHECK_STEPS
+        # eager: the main path, every count set to 0 before it
+        sharded, count = sharded_state(cfg, mesh)
+        for c in counters.values():
+            c.launches = 0
+        fit(sharded, iter(batches), "diffusion", n, mesh=mesh,
+            step_fn=make_train_step("diffusion", jit=False, mesh=mesh))
+        torch.cuda.synchronize()
+        launches = {k: counters[k].launches for k in per_step}
+        out["launches"] = launches
+        if launches != {k: v * n for k, v in per_step.items()}:
+            fail(f"sharded fit at world 1 launched {launches} in {n} steps; "
+                 f"expected {per_step} a step")
+        eager = {}
+        for name in ("fit", "fit_again"):
+            eager[name] = sharded_state(cfg)[0]
+            fit(eager[name], iter(batches), "diffusion", n,
+                step_fn=make_train_step("diffusion", jit=False))
+        torch.cuda.synchronize()
+        out["eager_diffs"] = leaf_diffs(eager["fit"], sharded)
+        out["eager_spread"] = leaf_diffs(eager["fit"], eager["fit_again"])
+        del eager
+        torch.cuda.empty_cache()
+        # captured: the default step of fit at a mesh of one rank
+        steps = {"fit": make_train_step("diffusion"),
+                 "fit_mesh": make_train_step("diffusion", mesh=mesh)}
+        states = {"fit": sharded_state(cfg)[0],
+                  "fit_mesh": sharded_state(cfg, mesh)[0]}
+        for name, st in states.items():
+            fit(st, iter(batches), "diffusion", n,
+                mesh=mesh if name == "fit_mesh" else None,
+                step_fn=steps[name])
+        torch.cuda.synchronize()
+        out["captured_diffs"] = leaf_diffs(states["fit"], states["fit_mesh"])
+        for key, label in (("eager_diffs", "eager"),
+                           ("captured_diffs", "captured")):
+            par, mom, rel = out[key]
+            log(f"  octo_deep bf16 B={TRAIN_BATCH}, {count} parameters "
+                f"sharded at world 1: fit(mesh=) {label} against fit() "
+                f"after {n} steps: largest |difference| parameter {par}, "
+                f"moment {mom} (bit for bit: {(par, mom) == (0.0, 0.0)}; "
+                f"{rel:.2e} of a leaf, limit {GRAPH_TRAIN_TOL})")
+            if count or not rel <= GRAPH_TRAIN_TOL:
+                fail(f"the sharded fit at world 1 ({label}) differs from "
+                     f"fit()")
+        par, mom, rel = out["eager_spread"]
+        log(f"  fit() against a second fit(), eager: parameter {par}, moment "
+            f"{mom} (the run-to-run spread of octo_deep's backward sums)")
+        out["replay_profile"] = replay_profile(
+            lambda: steps["fit_mesh"](states["fit_mesh"], *batches[0]), 3,
+            per_step, "octo_deep sharded at world 1, captured")
+        cycle = itertools.cycle(batches)
+        ms = {"fit": [], "fit_mesh": []}
+        for name in ("fit", "fit_mesh", "fit_mesh", "fit"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(states[name], cycle, "diffusion", SHARDED_WINDOW,
+                mesh=mesh if name == "fit_mesh" else None,
+                step_fn=steps[name])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3
+                            / SHARDED_WINDOW)
+        out["ms_per_step"] = ms
+        log(f"  captured steps in turns, {SHARDED_WINDOW} a window: fit "
+            f"{[round(x, 4) for x in ms['fit']]} ms/step, fit(mesh=) on the "
+            f"sharded model {[round(x, 4) for x in ms['fit_mesh']]} ms/step; "
+            f"eager launches in {n} steps {launches}, one replay "
+            f"{out['replay_profile']['kernels']} "
+            f"({out['replay_profile']['device_ms']:.4f} ms on the device)")
+        del states, steps, sharded
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -4202,7 +4517,7 @@ def main():
     profile_session(lambda: None)
     log(f"profiler guard: {GUARD_LAUNCHES} launches of "
         f"{_GUARD['key'][:100]}")
-    log("phase 1: build")
+    phase("phase 1: build")
     t0 = time.perf_counter()
     reports = _build.build_all()
     for name in reports:
@@ -4234,7 +4549,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters())} parameters)")
 
-    log("phase 2: kernels")
+    phase("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
     flash_err, flash_rows, sdpa_kernels, offset_err = {}, {}, {}, {}
     for name, (b, strings, stage, h, d) in FLASH_SHAPES.items():
@@ -4248,50 +4563,50 @@ def main():
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
     auto_gate_check(fa)
 
-    log("phase 3: serving")
+    phase("phase 3: serving")
     serve_ms, serve_launches = serve_phase(
         model, cfg, counters, "octo_base bf16", SERVE_REQUESTS,
         {"ddpm_sampler": 1})
 
-    log("phase 4: reference")
+    phase("phase 4: reference")
     reference_phase(octo_base(dtype="float32"))
 
-    log("phase 5: profile")
+    phase("phase 5: profile")
     profile_phase(model, cfg, serve_ms[1]["median_ms"])
 
-    log("phase 15: compiled serving, octo_base")
+    phase("phase 15: compiled serving, octo_base")
     compiled = {"octo_base_serving": compiled_serve_phase(
         {"octo_base": model}, cfg, "octo_base bf16", {"ddpm_sampler": 1})}
     del model
     torch.cuda.empty_cache()
 
-    log("phase 6: training")
+    phase("phase 6: training")
     tcfg = train_config("bfloat16")
     state, train_ms, train_launches = train_phase(tcfg, counters)
     pool_row["main_path_layout"] = check_pool_layout(pool, "octo_base "
                                                      "training")
 
-    log("phase 7: training reference")
+    phase("phase 7: training reference")
     blocks = tcfg.transformer.num_blocks
     train_ref = train_reference_phase(
         train_config("float32"), counters, "octo_base",
         {"flash_fwd_lse": blocks, "flash_dq": blocks, "flash_dkv": blocks,
          "pool_bwd": 1})
 
-    log("phase 8: training profile")
+    phase("phase 8: training profile")
     train_prof = train_profile_phase(state, tcfg, train_ms["ms_per_step"],
                                      train_kernels)
     del state
     torch.cuda.empty_cache()
 
-    log("phase 16: compiled training, octo_base")
+    phase("phase 16: compiled training, octo_base")
     compiled["octo_base_training"] = compiled_train_phase(
         tcfg, "octo_base", {"flash_fwd_lse": blocks, "flash_dq": blocks,
                             "flash_dkv": blocks, "pool_bwd": 1})
-    log("phase 17: checkpoint on the card")
+    phase("phase 17: checkpoint on the card")
     compiled["checkpoint"] = checkpoint_phase(tcfg)
 
-    log("phase 9: ToMe serving")
+    phase("phase 9: ToMe serving")
     dcfg = deep_config("bfloat16")
     t0 = time.perf_counter()
     deep = Octo(dcfg, device="cuda", seed=0).eval()
@@ -4308,14 +4623,14 @@ def main():
                     device="cuda", seed=0).eval()
     merge_ms = merge_compare_phase(deep, baseline, dcfg, DEEP_REQUESTS)
 
-    log("phase 10: ToMe reference")
+    phase("phase 10: ToMe reference")
     deep_ref = tome_reference_phase(deep_config("float32"), counters)
 
-    log("phase 11: ToMe profile")
+    phase("phase 11: ToMe profile")
     deep_prof = profile_phase(deep, dcfg, deep_ms[1]["median_ms"],
                               "octo_deep bf16", "profile_deep_b1.txt")
 
-    log("phase 15: compiled serving, octo_deep beside its unmerged twin")
+    phase("phase 15: compiled serving, octo_deep beside its unmerged twin")
     compiled["octo_deep_serving"] = compiled_serve_phase(
         {"merged": deep, "unmerged": baseline}, dcfg, "octo_deep bf16",
         {"flash_fwd": deep_blocks, "ddpm_sampler": 1},
@@ -4323,7 +4638,7 @@ def main():
     del deep, baseline
     torch.cuda.empty_cache()
 
-    log("phase 12: ToMe training")
+    phase("phase 12: ToMe training")
     deep_steps = {"flash_fwd": deep_blocks, "pool_bwd": 1}
     state, deep_train_ms, deep_train_launches = train_phase(
         dcfg, counters, "octo_deep", deep_steps, DEEP_TRAIN_STEPS,
@@ -4337,7 +4652,7 @@ def main():
     deep_train_ref = train_reference_phase(
         deep_config("float32"), counters, "octo_deep", deep_steps)
 
-    log("phase 13: ToMe training, flash_backward='pallas'")
+    phase("phase 13: ToMe training, flash_backward='pallas'")
     pcfg = deep_pallas_config("bfloat16")
     if pcfg.transformer.attention.dropout_rate != TRAIN_DROPOUT:
         fail(f"octo_deep's attention dropout is "
@@ -4352,7 +4667,7 @@ def main():
         "octo_deep (flash/pallas)", "profile_deep_train_pallas.txt")
     del state
     torch.cuda.empty_cache()
-    log("phase 16: compiled training, octo_deep (flash/pallas)")
+    phase("phase 16: compiled training, octo_deep (flash/pallas)")
     compiled["octo_deep_training_pallas"] = compiled_train_phase(
         pcfg, "octo_deep (flash/pallas)",
         {"flash_fwd_lse": deep_blocks, "flash_dq": deep_blocks,
@@ -4364,7 +4679,7 @@ def main():
         f"attention dropout 0) {deep_train_ms['ms_per_step']:.4f} ms/step, "
         f"device {deep_train_prof['device_ms']:.4f} ms/step")
 
-    log("phase 14: octo_small, continuous head")
+    phase("phase 14: octo_small, continuous head")
     scfg = octo_small(dtype="bfloat16")
     small = Octo(scfg, device="cuda", seed=0).eval()
     small_ms, _ = serve_phase(small, scfg, counters,
@@ -4372,37 +4687,40 @@ def main():
                               {}, head="continuous")
     del small
 
-    log("phase 18: configs and the CLI on the card")
+    phase("phase 18: configs and the CLI on the card")
     ycfg, cli_info = config_cli_phase()
     ymodel = Octo(ycfg, device="cuda", seed=0).eval()
 
-    log("phase 19: PolicyServer under load (compiled octo_base bf16, B=8)")
+    phase("phase 19: PolicyServer under load (compiled octo_base bf16, B=8)")
     server_eng, server = server_phase(ymodel, ycfg, counters)
 
-    log("phase 20: the closed loop (ReachTask through the compiled engine)")
+    phase("phase 20: the closed loop (ReachTask through the compiled engine)")
     closed_loop = closed_loop_phase(server_eng, ycfg)
     del server_eng, ymodel
     torch.cuda.empty_cache()
 
-    log("phase 21: the configuration the port refused before")
+    phase("phase 21: the configuration the port refused before")
     refused = refused_phase(counters)
 
-    log("phase 22: the int8 and w8 serving towers")
+    phase("phase 22: the int8 and w8 serving towers")
     quantized = quantized_phase(counters)
-    log("phase 23: export and load_artifact")
+    phase("phase 23: export and load_artifact")
     exported = export_phase()
-    log("phase 24: the mixture-of-experts MLP")
+    phase("phase 24: the mixture-of-experts MLP")
     moe = moe_phase(counters)
-    log("phase 25: ring attention on the card")
+    phase("phase 25: ring attention on the card")
     ring = ring_phase(fa, counters)
-    log("phase 26: distributed at world 1 on NCCL")
+    phase("phase 26: distributed at world 1 on NCCL")
     distributed = distributed_phase(fa)
-    log("phase 27: the legacy model families, float32 against the CPU")
+    phase("phase 27: the legacy model families, float32 against the CPU")
     legacy = legacy_phase()
-    log("phase 28: rematerialization, octo_deep bf16 B=32")
+    phase("phase 28: rematerialization, octo_deep bf16 B=32")
     remat = remat_phase(counters)
-    log("phase 29: the port's train and serve drives")
+    phase("phase 29: the port's train and serve drives")
     drives = drive_phase()
+    phase("phase 30: training on sharded parameters, octo_deep bf16 B=32")
+    sharded = sharded_phase(fa, counters)
+    phase(None)
 
     ms, call_ms, plain, bnd, by = timings[1]
     kernels = [{
@@ -4513,6 +4831,36 @@ def main():
                      f"S={RING_S // RING_P} H={RING_H} D={RING_D}, query "
                      f"shard 1 x key shard 1 of the block-causal layout",
         })
+    for kernel, line in (("flash_fwd_lse", 328), ("flash_dq", 383),
+                         ("flash_dkv", 430)):
+        row = sharded["offset"]["octo_deep_S224"][kernel]
+        kernels.append({
+            "name": f"{kernel}_head_offset", "route": "cuda",
+            "source": flash_src,
+            "replaces": f"{tpu}flash_attention.py:{line}",
+            "launches": sharded["launches"][kernel],
+            "max_abs_err": max(rows[kernel]["max_abs_err"]
+                               for rows in sharded["offset"].values()),
+            **{key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ms_no_offset", "ms_again")},
+            "library": ("SDPA forward" if kernel == "flash_fwd_lse" else
+                        "SDPA backward (dq, dk and dv together)") +
+                       ", boolean mask, dropout 0.1, on the same heads",
+            "shape": "rank 1 of 2 of a tensor-parallel attention: octo_deep "
+                     "train bf16 B=32 S=224, heads 6-11 of 12 (h0=6), D=64, "
+                     f"r={TRAIN_DROPOUT}",
+            "launches_from": "phase 30's eager fit(mesh=) of octo_deep bf16 "
+                             "B=32 at world 1, 3 steps (h0=0, 12 of 12 "
+                             "heads: nothing is sharded at one rank)",
+            "launches_per_compiled_step_sharded_world_1": sharded[
+                "replay_profile"]["kernels"][kernel],
+            "other_shapes": {name: rows[kernel] for name, rows in
+                             sharded["offset"].items()
+                             if name != "octo_deep_S224"},
+        })
+    log(json.dumps({"sharded": sharded, "phase_seconds": _PHASE["seconds"],
+                    "card": card}))
     log(json.dumps({"ring": ring, "distributed": distributed,
                     "legacy": legacy, "card": card}))
     log(json.dumps({"remat": remat, "drives": drives,

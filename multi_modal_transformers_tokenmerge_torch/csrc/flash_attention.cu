@@ -24,11 +24,15 @@
 // Dropout is rebuilt, not copied: the TPU re-seeds its hardware PRNG per
 // tile, a stream nothing else reproduces.  The keep bit of element
 // (b, h, row, col) is word (col & 3) of Philox4x32-10 at counter
-// (col >> 2, row, (b0 + b)*H + h, 0) under the key (seed[0], seed[1]); the
-// element is kept when that word is >= threshold.  b0 is the launch's first
-// row in the global batch (0 on one device; a data-parallel rank's offset,
-// so that P ranks draw the one-device step's mask).  Every pass regenerates
-// the same mask whatever its tiles or fragment layout.
+// (col >> 2, row, (b0 + b)*H_total + h0 + h, 0) under the key (seed[0],
+// seed[1]); the element is kept when that word is >= threshold.  b0 is the
+// launch's first row in the global batch (0 on one device; a data-parallel
+// rank's offset), h0 its first head among H_total (0 and H on one device; a
+// tensor-parallel rank holds heads [h0, h0 + H)), so that P ranks draw the
+// one-device step's mask.  The launch folds (b0, h0, H_total) into one
+// offset per block (make_dropout): one multiply-add a block, none a
+// counter.  Every pass regenerates the same mask whatever its tiles or
+// fragment layout.
 //
 // The forward in bf16 and fp16 (flash_fwd_kernel, the server's forward and
 // that of the recompute backward, no seed, no LSE; flash_fwd_lse_kernel,
@@ -220,7 +224,9 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 
 struct Dropout {
   uint32_t k0, k1, threshold;
-  uint32_t bh0;  // added to a launch's b*H + h in the Philox counter
+  // added to the block's b*H + h in the Philox counter: (b0 + b)*H_total +
+  // h0 - b*H, so that the counter is (b0 + b)*H_total + h0 + h
+  uint32_t bh0;
   float inv_keep;
   bool on;
   __device__ __forceinline__ bool keep(uint32_t bh, uint32_t row,
@@ -234,15 +240,24 @@ struct Dropout {
   }
 };
 
+struct Args {
+  int batch, seq, heads, s_pad;
+  float scale;
+  uint32_t bh0;          // b0 * heads_total + h0: the launch's first counter
+  uint32_t heads_total;  // the heads of the whole attention (H_total)
+};
+
+// Every grid is (tiles, heads, batch): blockIdx.z is the block's batch row.
 __device__ __forceinline__ Dropout make_dropout(const int64_t* seed,
                                                 uint32_t threshold,
                                                 float inv_keep, int on,
-                                                uint32_t bh0) {
+                                                const Args& a) {
   Dropout d;
   d.on = on != 0;
   d.k0 = d.on ? static_cast<uint32_t>(seed[0]) : 0u;
   d.k1 = d.on ? static_cast<uint32_t>(seed[1]) : 0u;
-  d.bh0 = bh0;
+  d.bh0 = a.bh0 +
+          blockIdx.z * (a.heads_total - static_cast<uint32_t>(a.heads));
   d.threshold = threshold;
   d.inv_keep = inv_keep;
   return d;
@@ -315,12 +330,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-struct Args {
-  int batch, seq, heads, s_pad;
-  float scale;
-  uint32_t bh0;  // b0 * heads: the dropout counter's batch-head offset
-};
 
 // The mask tables' tiles (KERNEL_TILES of ops/flash_attention.py) and the
 // CUDA-core kernels' threads.
@@ -472,7 +481,7 @@ __global__ void __launch_bounds__(NT)
                              int dropout) {
   forward_block<float, D, BQ, BK, NT, true>(
       q, k, v, mask, k_hi, out, lse, a,
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0));
+      make_dropout(seed, threshold, inv_keep, dropout, a));
 }
 
 template <int D, int BQ, int BK, int NT>
@@ -849,7 +858,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
                          float inv_keep, int dropout) {
   mma_forward_block<T, D, RG, DS, BN, true, O>(
       q, k, v, mask, k_hi, out, lse, a,
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0));
+      make_dropout(seed, threshold, inv_keep, dropout, a));
 }
 
 // The forward without LSE and without dropout: what the JAX package's
@@ -901,7 +910,7 @@ __global__ void __launch_bounds__(NT)
   const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
                       static_cast<size_t>(h) * D;
   const Dropout drop =
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
+      make_dropout(seed, threshold, inv_keep, dropout, a);
 
   load_tile<T, D, BQ, NT>(sQ, q + base, q0, a.seq, row_stride);
   load_tile<T, D, BQ, NT>(sO, dout + base, q0, a.seq, row_stride);
@@ -999,7 +1008,7 @@ __global__ void __launch_bounds__(NT)
   const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
                       static_cast<size_t>(h) * D;
   const Dropout drop =
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
+      make_dropout(seed, threshold, inv_keep, dropout, a);
 
   load_tile<T, D, BK, NT>(sK, k + base, k0, a.seq, row_stride);
   load_tile<T, D, BK, NT>(sV, v + base, k0, a.seq, row_stride);
@@ -1217,7 +1226,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
   int8_t* sM = reinterpret_cast<int8_t*>(sV + 2 * BN * LDT);  // [2][BM][LDM]
 
   const Dropout drop =
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
+      make_dropout(seed, threshold, inv_keep, dropout, a);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
@@ -1399,7 +1408,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
   int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * BN);  // [2][BN][LDM]
 
   const Dropout drop =
-      make_dropout(seed, threshold, inv_keep, dropout, a.bh0);
+      make_dropout(seed, threshold, inv_keep, dropout, a);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / DS) * 16, dcol0 = (warp % DS) * DO;
@@ -1593,7 +1602,8 @@ struct Launch {
   int dropout;
   cudaStream_t stream;
   int out_f32;  // 16-bit inputs: store the outputs as float32
-  uint32_t bh0;  // b0 * heads (Args::bh0)
+  uint32_t bh0;          // b0 * heads_total + h0 (Args::bh0)
+  uint32_t heads_total;  // Args::heads_total
 };
 
 template <typename Kern>
@@ -1621,7 +1631,8 @@ int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
     return static_cast<int>(cudaErrorMisalignedAddress);
   const size_t smem = C::smem();
   const dim3 grid(L.s_pad / C::BM, L.heads, L.batch);
-  const Args args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0};
+  const Args args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+                  L.heads_total};
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v);
   int err;
@@ -1660,7 +1671,8 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, k_hi, seed,
         static_cast<float*>(out), lse,
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+             L.heads_total}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1682,7 +1694,8 @@ int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
     kern<<<grid, Tl::NT, smem, L.stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, k_hi, static_cast<float*>(out),
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale});
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, 0u,
+             L.heads_total});
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1710,7 +1723,8 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       k_hi, seed, static_cast<O*>(dqp),
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
+      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+             L.heads_total}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1740,7 +1754,8 @@ int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       q_lo, seed, static_cast<O*>(dkp), static_cast<O*>(dvp),
-      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
+      Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+             L.heads_total}, L.threshold,
       L.inv_keep, L.dropout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1766,7 +1781,8 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, mask, k_hi, seed, static_cast<float*>(dqp),
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+             L.heads_total}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1795,10 +1811,15 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, mask, q_lo, seed, static_cast<float*>(dkp),
         static_cast<float*>(dvp),
-        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0}, L.threshold,
+        Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+             L.heads_total}, L.threshold,
         L.inv_keep, L.dropout);
     return static_cast<int>(cudaGetLastError());
   }
+}
+
+bool offsets_ok(int b0, int h0, int heads, int heads_total) {
+  return b0 >= 0 && h0 >= 0 && heads_total >= h0 + heads;
 }
 
 bool shapes_ok(int head_dim, int s_pad, int seq) {
@@ -1840,7 +1861,9 @@ extern "C" {
 // as float32 (the ring-step partials of parallel/ring_attention.py); float32
 // inputs write float32 either way.  b0 >= 0 (the same three): the first row
 // of the launch's batch in the global batch, which offsets the dropout
-// counter.
+// counter.  h0 >= 0 and heads_total >= h0 + heads (the same three): the
+// launch holds heads [h0, h0 + heads) of heads_total, which place its
+// dropout counters among the whole attention's.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const int8_t* mask, const int32_t* k_hi, void* out,
@@ -1849,7 +1872,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (!shapes_ok(head_dim, s_pad, seq))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, 1.f, 0u, 0,
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<cudaStream_t>(stream), 0, 0u,
+                 static_cast<uint32_t>(heads)};
   FLASH_DISPATCH(fwd_plain, q, k, v, mask, k_hi, out, L)
 }
 
@@ -1859,12 +1883,16 @@ int flash_fwd_lse_launch(const void* q, const void* k, const void* v,
                          int seq, int heads, int head_dim, int s_pad,
                          int dtype, float scale, float inv_keep,
                          uint32_t threshold, int dropout, int out_f32,
-                         int b0, void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
+                         int b0, int h0, int heads_total, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
                  dropout, static_cast<cudaStream_t>(stream), out_f32,
-                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
+                 static_cast<uint32_t>(b0) *
+                         static_cast<uint32_t>(heads_total) +
+                     static_cast<uint32_t>(h0),
+                 static_cast<uint32_t>(heads_total)};
   FLASH_DISPATCH(fwd, q, k, v, mask, k_hi, seed, out, lse, L)
 }
 
@@ -1874,12 +1902,17 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
                     const int64_t* seed, void* dqp, int batch, int seq,
                     int heads, int head_dim, int s_pad, int dtype,
                     float scale, float inv_keep, uint32_t threshold,
-                    int dropout, int out_f32, int b0, void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
+                    int dropout, int out_f32, int b0, int h0,
+                    int heads_total, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
                  dropout, static_cast<cudaStream_t>(stream), out_f32,
-                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
+                 static_cast<uint32_t>(b0) *
+                         static_cast<uint32_t>(heads_total) +
+                     static_cast<uint32_t>(h0),
+                 static_cast<uint32_t>(heads_total)};
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L)
 }
 
@@ -1889,12 +1922,17 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const int64_t* seed, void* dkp, void* dvp, int batch,
                      int seq, int heads, int head_dim, int s_pad, int dtype,
                      float scale, float inv_keep, uint32_t threshold,
-                     int dropout, int out_f32, int b0, void* stream) {
-  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) || b0 < 0)
+                     int dropout, int out_f32, int b0, int h0,
+                     int heads_total, void* stream) {
+  if (!shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{batch, seq, heads, s_pad, scale, inv_keep, threshold,
                  dropout, static_cast<cudaStream_t>(stream), out_f32,
-                 static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads)};
+                 static_cast<uint32_t>(b0) *
+                         static_cast<uint32_t>(heads_total) +
+                     static_cast<uint32_t>(h0),
+                 static_cast<uint32_t>(heads_total)};
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, mask, q_lo, seed, dkp, dvp,
                  L)
 }

@@ -18,6 +18,19 @@ dropout site of the JAX blocks: after the MLP activation and after its
 output projection, after the attention block, and on the attention weights
 (in the flash kernel through its hook, or on the explicit weights of the
 plain path).
+
+Under ``parallel.mesh.shard_params`` with a model axis, the attention and
+the MLP split their products as the JAX package's XLA does
+(``core.tensor_parallel``): ``query``, ``key``, ``value`` and ``dense_in``
+are column-parallel (a rank computes its ``num_heads / P`` heads, its
+``mlp_dim / P`` hidden columns), ``out`` and ``dense_out`` row-parallel
+(the partial products summed over ``model``, the bias added once).  The
+attention core runs on the rank's heads inside ``head_slice``, so its
+dropout draws are those of those heads; the hidden columns' dropout mask
+is drawn whole and cut.  An MLP whose activation works over the last axis
+(``glu``, the softmaxes, ``standardize``) cannot split its hidden layer:
+its layers gather their outputs instead (``Dense.forward``).  Probes
+report every head.
 """
 
 from __future__ import annotations
@@ -33,8 +46,10 @@ from torch import nn
 from ..core.config import AttentionConfig, TransformerConfig
 from ..core.hw import kernel_device
 from ..core.replay import checkpointed
-from .layers import (Dense, LayerNorm, activation_fn, dropout, init_normal,
-                     init_truncated)
+from ..core.tensor_parallel import (gather_model, head_offset, head_slice,
+                                    to_model)
+from .layers import (ROW_ACTIVATIONS, Dense, LayerNorm, activation_fn,
+                     dropout, init_normal, init_truncated)
 from .moe import MoEMLPBlock, sum_aux
 
 __all__ = ["MLPBlock", "MultiHeadAttention", "EncoderBlock", "make_mlp",
@@ -116,8 +131,10 @@ def masked_attention(q, k, v, mask: Optional[torch.Tensor],
     if mask is not None:
         neg = -0.7 * torch.finfo(torch.float32).max
         logits = logits.masked_fill(~mask, neg)
+    # heads [h0, h0 + H) of a split attention draw those heads' mask
+    h0, total = head_offset(q.shape[2])
     probs = dropout(torch.softmax(logits, dim=-1), dropout_rate,
-                    dropout_rate > 0.0, generator)
+                    dropout_rate > 0.0, generator, cut=(1, h0, total))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
@@ -138,14 +155,33 @@ class MLPBlock(nn.Module):
                                  f"{mlp_dim} is odd")
             hidden = mlp_dim // 2
         self.dropout_rate = dropout_rate
+        self.elementwise = activation not in ROW_ACTIVATIONS
         self.dense_in = Dense(in_dim, mlp_dim, **kw)
         self.dense_out = Dense(hidden, out_dim, **kw)
 
+    def split(self):
+        """The model-axis split of the hidden layer: ``dense_in``
+        column-parallel and ``dense_out`` row-parallel under an
+        elementwise activation; else None (whole layers, or layers that
+        gather)."""
+        s_in, s_out = self.dense_in.split(), self.dense_out.split()
+        if (self.elementwise and s_in is not None and s_out is not None
+                and (s_in.dim, s_out.dim) == (0, 1)):
+            return s_in
+        return None
+
     def forward(self, x, train: bool = False,
                 rng: Optional[torch.Generator] = None):
-        x = dropout(self.act(self.dense_in(x)), self.dropout_rate, train,
-                    rng)
-        return dropout(self.dense_out(x), self.dropout_rate, train, rng)
+        split = self.split()
+        if split is None:
+            x = dropout(self.act(self.dense_in(x)), self.dropout_rate,
+                        train, rng)
+            return dropout(self.dense_out(x), self.dropout_rate, train, rng)
+        h = self.act(self.dense_in.column(to_model(x, split)))
+        n = h.shape[-1]
+        h = dropout(h, self.dropout_rate, train, rng,
+                    cut=(h.dim() - 1, split.rank * n, n * split.size))
+        return dropout(self.dense_out.row(h), self.dropout_rate, train, rng)
 
 
 class MultiHeadAttention(nn.Module):
@@ -170,9 +206,10 @@ class MultiHeadAttention(nn.Module):
         # a list while capture_intermediates records this module's weights
         self.probe = None
 
-    def record_weights(self, q, k, mask):
+    def record_weights(self, q, k, mask, split=None):
         """The JAX module's sown ``attention_weights``: float32 logits
-        over sqrt(head_dim), masked with finfo(float32).min, softmax."""
+        over sqrt(head_dim), masked with finfo(float32).min, softmax; a
+        rank of a split attention records every rank's heads."""
         if _capturing():
             raise RuntimeError("attention probes are eager only: they cannot "
                                "be recorded inside a CUDA-graph capture")
@@ -180,28 +217,44 @@ class MultiHeadAttention(nn.Module):
         logits = logits / math.sqrt(self.head_dim)
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-        self.probe.append(torch.softmax(logits, dim=-1).detach())
+        weights = torch.softmax(logits, dim=-1).detach()
+        self.probe.append(gather_model(weights, split, dim=1))
+
+    def split(self):
+        """The model-axis split of the heads: ``query``, ``key`` and
+        ``value`` column-parallel and ``out`` row-parallel; else None."""
+        splits = [self.query.split(), self.key.split(), self.value.split()]
+        s_out = self.out.split()
+        if (s_out is not None and s_out.dim == 1
+                and all(s is not None and s.dim == 0 for s in splits)):
+            return s_out
+        return None
 
     def forward(self, x, mask=None, train: bool = False,
                 rng: Optional[torch.Generator] = None):
         b, t, _ = x.shape
-        split = lambda y: y.reshape(b, t, self.num_heads, self.head_dim)
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        split = self.split()
+        heads = self.num_heads // (1 if split is None else split.size)
+        x = to_model(x, split)
+        proj = lambda d: d.column(x).reshape(b, t, heads, self.head_dim)
+        q, k, v = proj(self.query), proj(self.key), proj(self.value)
         if self.probe is not None:
-            self.record_weights(q, k, mask)
+            self.record_weights(q, k, mask, split)
         stochastic = train and self.dropout_rate > 0.0
         if stochastic and rng is None:
             raise ValueError(f"attention dropout rate {self.dropout_rate} in "
                              f"train mode needs a 'dropout' generator")
-        if self.attention_fn is not None:
-            out = self.attention_fn(q, k, v, mask,
-                                    dropout_generator=rng if stochastic
-                                    else None)
-        else:
-            out = masked_attention(q, k, v, mask,
-                                   self.dropout_rate if stochastic else 0.0,
-                                   rng)
-        return self.out(out.reshape(b, t, -1))
+        with (contextlib.nullcontext() if split is None
+              else head_slice(split.rank * heads, self.num_heads)):
+            if self.attention_fn is not None:
+                out = self.attention_fn(q, k, v, mask,
+                                        dropout_generator=rng if stochastic
+                                        else None)
+            else:
+                out = masked_attention(
+                    q, k, v, mask, self.dropout_rate if stochastic else 0.0,
+                    rng)
+        return self.out.row(out.reshape(b, t, -1))
 
 
 def _capturing() -> bool:

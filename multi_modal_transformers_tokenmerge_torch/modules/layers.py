@@ -14,16 +14,20 @@ from one too.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from ..core.global_batch import draw_global
+from ..core.tensor_parallel import (draw_cut, from_model, gather_model,
+                                    local, model_split, to_model)
 
 __all__ = ["Dense", "Conv2d", "LayerNorm", "Embed", "BatchNorm", "dropout",
-           "init_normal", "init_truncated", "ACTIVATIONS", "activation_fn"]
+           "init_normal", "init_truncated", "ACTIVATIONS", "ROW_ACTIVATIONS",
+           "activation_fn"]
 
 # std correction of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -82,6 +86,12 @@ ACTIVATIONS = {
 }
 
 
+# the activations that work over the last axis: a hidden layer split over
+# its columns cannot apply them
+ROW_ACTIVATIONS = frozenset({"softmax", "log_softmax", "standardize",
+                             "normalize", "glu"})
+
+
 def activation_fn(name: str):
     """The torch function of a flax activation name; any other name (one
     the JAX block cannot apply either: ``one_hot``, ``logsumexp``,
@@ -100,10 +110,14 @@ def keep_mask(shape, keep_prob: float, generator: torch.Generator,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            cut: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode with ``rate`` > 0, kept elements
     are scaled by 1/(1 - rate) and the rest zeroed; otherwise ``x``.  The
-    mask comes from ``generator``, which train mode then requires."""
+    mask comes from ``generator``, which train mode then requires.
+    ``cut`` = (dim, offset, total): ``x`` holds ``[offset, offset + n)`` of
+    ``total`` along ``dim`` (a rank's heads or columns of a split
+    product), and the mask is drawn whole and cut to them."""
     if not train or rate == 0.0:
         return x
     if rate == 1.0:
@@ -113,8 +127,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
                          f"'dropout' generator")
     keep_prob = 1.0 - rate
     # a data-parallel step draws the global batch's mask
-    keep = draw_global(lambda s: keep_mask(s, keep_prob, generator,
-                                           x.device), x.shape)
+    draw = lambda s: keep_mask(s, keep_prob, generator, x.device)
+    if cut is not None:
+        whole = draw
+        draw = lambda s: draw_cut(whole, s, *cut)
+    keep = draw_global(draw, x.shape)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -162,9 +179,54 @@ class Dense(nn.Module):
                 with torch.no_grad():
                     self.bias.zero_()
 
+    def split(self):
+        """The model-axis split of the weight (``core.tensor_parallel``),
+        or None: a weight left whole or gathered where it is used."""
+        if parametrize.is_parametrized(self, "weight"):
+            return None
+        return model_split(self.weight)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        """Whole input to whole output, whatever the weight's split: a
+        column-parallel weight's columns are gathered, a row-parallel one
+        takes its columns of the input."""
+        split = self.split()
+        if split is None:
+            b = None if self.bias is None else self.bias.to(self.dtype)
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        x = to_model(x, split)
+        if split.dim == 0:
+            return gather_model(self._column(x, split), split)
+        n = local(self.weight).shape[1]
+        return self._row(x.narrow(-1, split.rank * n, n), split)
+
+    def column(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel layer's output columns on this rank, from the
+        replicated ``x`` that went through ``to_model`` (the whole output
+        of a weight left whole)."""
+        split = self.split()
+        return self.forward(x) if split is None else self._column(x, split)
+
+    def row(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel layer's whole output from this rank's columns of
+        its input: the partial products summed over the model axis, the
+        bias added once (``forward`` for a weight left whole)."""
+        split = self.split()
+        return self.forward(x) if split is None else self._row(x, split)
+
+    def _column(self, x, split):
+        w = local(self.weight).to(self.dtype)
+        b = self.bias
+        if b is not None:
+            # a replicated bias: its gradient is summed over the ranks
+            n = w.shape[0]
+            b = to_model(b.to(self.dtype), split).narrow(0, split.rank * n, n)
+        return F.linear(x.to(self.dtype), w, b)
+
+    def _row(self, x, split):
+        y = from_model(F.linear(x.to(self.dtype),
+                                local(self.weight).to(self.dtype)), split)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Conv2d(nn.Module):

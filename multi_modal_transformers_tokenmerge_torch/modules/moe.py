@@ -25,8 +25,13 @@ encoder block's dense MLP (``TransformerConfig.mlp_type='moe'``):
   (``core.global_batch.data_parallel``) both means are taken over the
   global batch, as the JAX SPMD step takes them.
 
-Expert parallelism shards the stacked expert parameters' storage
-(``parallel.mesh.shard_params``); the experts run whole on every rank.
+Expert parallelism (``parallel.mesh.shard_params`` with a model axis,
+the JAX rules' expert dim over ``model``): each rank holds and runs its
+``E / P`` experts on the tokens dispatched to them, the combine contracts
+over its experts, and the partial outputs are summed over ``model``
+(``core.tensor_parallel``).  The router is replicated, so every rank
+computes the same dispatch, capacity and balance loss; the gradient that
+reaches the router through the combine weights is summed over ``model``.
 """
 
 from __future__ import annotations
@@ -37,9 +42,11 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.nn.utils import parametrize
 
 from ..core.config import MoEConfig
 from ..core.global_batch import all_reduce_sum, data_group, draw_global
+from ..core.tensor_parallel import from_model, local, model_split, to_model
 from .layers import activation_fn, init_normal, init_truncated
 
 __all__ = ["MoEMLPBlock", "moe_capacity", "sum_aux"]
@@ -147,18 +154,37 @@ class MoEMLPBlock(nn.Module):
         combine = torch.einsum("bsk,bskec->bsec", gate, slot)
         return dispatch, combine, probs, sel
 
+    def split(self):
+        """The model-axis split of the expert stacks (the expert dim), or
+        None when every rank holds every expert."""
+        splits = [None if parametrize.is_parametrized(self, n)
+                  else model_split(getattr(self, n))
+                  for n in self.CAST_PARAMS]
+        if all(s is not None and s.dim == 0 for s in splits):
+            return splits[0]
+        return None
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = self.dtype
         dispatch, combine, probs, sel = self.route(x, train, generator)
+        split = self.split()
+        wi, bi, wo, bo = (local(getattr(self, n)).to(dt)
+                          for n in self.CAST_PARAMS)
+        if split is not None:
+            # this rank's experts; the combine weights' gradient from them
+            # is summed over the model axis before it reaches the router
+            e0, n = split.rank * wi.shape[0], wi.shape[0]
+            x = to_model(x, split)
+            dispatch = dispatch.narrow(2, e0, n)
+            combine = to_model(combine, split).narrow(2, e0, n)
         xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x.to(dt))
-        h = self.act(torch.einsum("ebcd,edf->ebcf", xin,
-                                  self.expert_wi.to(dt))
-                     + self.expert_bi.to(dt)[:, None, None, :])
-        out = (torch.einsum("ebcf,efd->ebcd", h, self.expert_wo.to(dt))
-               + self.expert_bo.to(dt)[:, None, None, :])
-        y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), out)
+        h = self.act(torch.einsum("ebcd,edf->ebcf", xin, wi)
+                     + bi[:, None, None, :])
+        out = torch.einsum("ebcf,efd->ebcd", h, wo) + bo[:, None, None, :]
+        y = from_model(torch.einsum("bsec,ebcd->bsd", combine.to(dt), out),
+                       split)
         # Switch balance loss on the top-1 choices before capacity, over
         # the global batch in a data-parallel step: the means are averaged
         # over the data ranks before their product

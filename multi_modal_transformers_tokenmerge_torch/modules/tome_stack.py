@@ -13,6 +13,10 @@ Counterpart of the JAX package's ``modules/tome_stack.py``.
   hidden state itself (cosine metric, or L2-norm importance).
 * ``merge_wavg`` size tracking carries through the whole stack, in the
   compute dtype; proportional attention adds ``log(size)`` to the logits.
+* Under a model axis (``parallel.mesh.shard_params``) a per-layer block
+  splits its heads as ``attention.MultiHeadAttention`` does; its merge
+  metric and pruning importance, means over every head, are its heads'
+  sums summed over the model axis, so every rank takes the same plan.
 * With ``mlp_type='moe'`` every block's MLP is the routed ``moe`` block;
   its capacity follows each layer's or stage's token count, and the stack
   hands the pre-weighted balance loss on in ``moe_aux``.
@@ -43,9 +47,11 @@ from ..ops.pruning import prune_gather, topk_tokens_per_set
 from ..ops.tome import bipartite_soft_matching, merge_wavg
 from ..sequence.dsl import KIND_TEXT
 from ..sequence.layout import SequenceLayout
-from .attention import (AddPositionEmbedding, EncoderBlock, call_block,
-                        layer_norm_dim, make_mlp, masked_attention,
-                        mlp_branch, select_attention_fn)
+from ..core.tensor_parallel import from_model, to_model
+from .attention import (AddPositionEmbedding, EncoderBlock,
+                        MultiHeadAttention, call_block, layer_norm_dim,
+                        make_mlp, masked_attention, mlp_branch,
+                        select_attention_fn)
 from .layers import Dense, LayerNorm, dropout
 from .moe import sum_aux
 
@@ -115,15 +121,22 @@ class CompressedEncoderBlock(nn.Module):
         self.register_buffer("mask", _mask_buffer(layout, layer, device),
                              persistent=False)
 
+    def split(self):
+        """The model-axis split of the heads, as
+        ``MultiHeadAttention.split``; None when the block is whole."""
+        return MultiHeadAttention.split(self)
+
     def forward(self, x, size, train: bool = False,
                 rng: Optional[torch.Generator] = None,
                 aux: Optional[list] = None):
         c = self.cfg
         rate = c.attention.dropout_rate
         b, t, _ = x.shape
-        y = self.ln_attention(x)
-        split = lambda z: z.reshape(b, t, self.num_heads, self.head_dim)
-        q, k, v = (split(proj(y))
+        split = self.split()
+        heads = self.num_heads // (1 if split is None else split.size)
+        h0 = 0 if split is None else split.rank * heads
+        y = to_model(self.ln_attention(x), split)
+        q, k, v = (proj.column(y).reshape(b, t, heads, self.head_dim)
                    for proj in (self.query, self.key, self.value))
 
         need_weights = (c.compression_mode == "prune"
@@ -138,20 +151,32 @@ class CompressedEncoderBlock(nn.Module):
                                         torch.finfo(torch.float32).min)
             # the pruning importance reads the pre-dropout weights
             clean_weights = torch.softmax(logits, dim=-1)
-            weights = dropout(clean_weights, rate, train, rng)
+            # a split block draws every head's mask and keeps its heads'
+            weights = dropout(clean_weights, rate, train, rng,
+                              cut=(1, h0, self.num_heads))
             attn_out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
         else:
             clean_weights = None
             attn_out = masked_attention(q, k, v, self.mask)
 
-        y = self.out(attn_out.reshape(b, t, -1))
+        y = self.out.row(attn_out.reshape(b, t, -1))
         x = x + dropout(y, c.dropout_rate, train, rng)
 
+        # the metric and the importance are means over every head: a split
+        # block sums its heads', sums those over the model axis and divides,
+        # so that every rank takes the same plan
         if c.compression_mode == "merge":
-            metric = k.mean(dim=-2)          # key mean over heads (B, S, D)
+            if split is None:
+                metric = k.mean(dim=-2)      # key mean over heads (B, S, D)
+            else:
+                metric = from_model(k.sum(dim=-2), split) / self.num_heads
             x, size = _merge_sets(x, size, metric, self.layout, self.layer)
         else:
-            importance = clean_weights.mean(dim=(1, 2))          # (B, K)
+            if split is None:
+                importance = clean_weights.mean(dim=(1, 2))      # (B, K)
+            else:
+                importance = from_model(clean_weights.sum(dim=(1, 2)),
+                                        split) / (self.num_heads * t)
             x, size = _prune_sets(x, size, importance, self.layout,
                                   self.layer)
         return x + mlp_branch(getattr(self, self.mlp_name), self.ln_mlp(x),

@@ -28,14 +28,17 @@ the design answers.
 * Dropout of the attention weights is rebuilt, not copied: the TPU kernel
   re-seeds its hardware PRNG per tile, a stream nothing else reproduces.
   Here the keep bit of element (b, h, row, col) is word ``col & 3`` of
-  Philox4x32-10 at counter ``(col >> 2, row, (b0 + b)*H + h, 0)`` under the
-  key of two 32-bit seed words; an element is kept when that word is at
-  least :func:`dropout_threshold`.  ``b0`` is the call's first row in the
-  global batch: 0 on one device, and inside a data-parallel step
-  (``core.global_batch.data_parallel``) the rank's offset, which
-  :func:`flash_attention` and the hook of :func:`make_attention_fn` take
-  from ``core.global_batch.row_offset``, so that P ranks draw the mask of
-  the one-device step.  Forward, dq and dk/dv regenerate the same mask
+  Philox4x32-10 at counter ``(col >> 2, row, (b0 + b)*H_total + h0 + h,
+  0)`` under the key of two 32-bit seed words; an element is kept when
+  that word is at least :func:`dropout_threshold`.  ``b0`` is the call's
+  first row in the global batch: 0 on one device, and inside a
+  data-parallel step (``core.global_batch.data_parallel``) the rank's
+  offset, which :func:`flash_attention` and the hook of
+  :func:`make_attention_fn` take from ``core.global_batch.row_offset``.
+  ``h0`` and ``H_total`` place the call's H heads among all heads: (0, H)
+  on one device, and for a rank of a tensor-parallel attention, which
+  holds heads ``[h0, h0 + H)``, ``core.tensor_parallel.head_offset``.  So
+  P ranks, over rows or heads, draw the mask of the one-device step.  Forward, dq and dk/dv regenerate the same mask
   whatever their tile sizes, and :func:`dropout_keep_mask` computes the
   same bits in torch integer arithmetic.
 * :func:`flash_attention` is the differentiable entry on the JAX layout
@@ -61,6 +64,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..core.global_batch import row_offset
 from ..core.hw import on_cuda
+from ..core.tensor_parallel import head_offset
 
 __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "flash_fwd_lse", "flash_dq", "flash_dkv", "flash_bwd",
@@ -197,14 +201,18 @@ def _philox4x32(c0, c1, c2, c3, k0, k1):
 
 def dropout_keep_mask(seed: torch.Tensor, batch: int, heads: int,
                       rows: torch.Tensor, cols: torch.Tensor,
-                      rate: float, b0: int = 0) -> torch.Tensor:
+                      rate: float, b0: int = 0, h0: int = 0,
+                      heads_total: Optional[int] = None) -> torch.Tensor:
     """(B, H, len(rows), len(cols)) bool keep mask of the global query
-    ``rows`` and key ``cols`` of batch rows ``b0`` to ``b0 + B``: the
-    kernels' Philox bits, on seed's device."""
+    ``rows`` and key ``cols`` of batch rows ``b0`` to ``b0 + B`` and heads
+    ``h0`` to ``h0 + H`` of ``heads_total`` (default H): the kernels'
+    Philox bits, on seed's device."""
     dev = seed.device
     k0, k1 = (seed.to(torch.int64) & _MASK32).unbind()
-    bh = torch.arange(b0 * heads, (b0 + batch) * heads, device=dev,
-                      dtype=torch.int64).view(batch, heads, 1, 1)
+    total = heads if heads_total is None else heads_total
+    arange = lambda n: torch.arange(n, device=dev, dtype=torch.int64)
+    bh = ((b0 + arange(batch)).view(batch, 1, 1, 1) * total
+          + h0 + arange(heads).view(1, heads, 1, 1))
     r = rows.to(device=dev, dtype=torch.int64).view(1, 1, -1, 1)
     c = cols.to(device=dev, dtype=torch.int64).view(1, 1, 1, -1)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -230,7 +238,7 @@ def _rows(i: int, block: int, device) -> torch.Tensor:
 
 
 def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
-                   dropout_rate, b0=0):
+                   dropout_rate, b0=0, h0=0, heads_total=None):
     """The forward kernels' loop: float32 (out (B, H, S_pad, D), running
     max m, running sum l clamped at 1e-30 (B, H, S_pad, 1))."""
     b, s, h, d = q.shape
@@ -258,7 +266,7 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate, b0)
+                                         dropout_rate, b0, h0, heads_total)
                 p = torch.where(keep, p, 0.0) * inv_keep
             acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, rk]
             m = m_new
@@ -297,17 +305,21 @@ def _out_dtype(x: torch.Tensor, out_dtype):
 def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
                             block_q: int, block_k: int,
                             dropout_rate: float = 0.0, out_dtype=None,
-                            b0: int = 0):
+                            b0: int = 0, h0: int = 0,
+                            heads_total: Optional[int] = None):
     """Plain version of the forward kernel with LSE.
 
-    Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words
-    and ``b0``, the batch's first global row (dropout only).  The accumulator takes ``keep * p / (1 - r)`` cast to
+    Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words,
+    ``b0``, the batch's first global row, and ``h0`` / ``heads_total``,
+    the first of the call's heads among all heads (dropout only).  The
+    accumulator takes ``keep * p / (1 - r)`` cast to
     v's dtype while ``l`` and the LSE use the undropped p.  Returns ``out``
     (B, S, H, D) in q's dtype (float32 with ``out_dtype=torch.float32``,
     the cast skipped) and ``lse`` (B, H, S_pad) float32."""
     dtype = _out_dtype(q, out_dtype)
     out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
-                                    block_k, dropout_rate, b0)
+                                    block_k, dropout_rate, b0, h0,
+                                    heads_total)
     lse = (m + torch.log(l_safe))[..., 0]
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(dtype), lse
 
@@ -333,7 +345,8 @@ def _probs(qf, kf, lse, mask_i8, rq, rk, scale):
 def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                        block_q: int, block_k: int,
                        dropout_rate: float = 0.0, out_dtype=None,
-                       b0: int = 0):
+                       b0: int = 0, h0: int = 0,
+                       heads_total: Optional[int] = None):
     """Plain version of the dq kernel: per q tile over the key tiles below
     ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
     rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
@@ -357,7 +370,7 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate, b0)
+                                         dropout_rate, b0, h0, heads_total)
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             ds = (p * (dp - delta[:, :, rq, None])).to(k.dtype).float()
             acc = acc + ds @ kf[:, :, rk]
@@ -368,7 +381,8 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
 def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                         *, block_q: int, block_k: int,
                         dropout_rate: float = 0.0, out_dtype=None,
-                        b0: int = 0):
+                        b0: int = 0, h0: int = 0,
+                        heads_total: Optional[int] = None):
     """Plain version of the dk/dv kernel: per key tile over the q tiles
     from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
     to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
@@ -395,7 +409,7 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
                                          _rows(ki, block_k, q.device),
-                                         dropout_rate, b0)
+                                         dropout_rate, b0, h0, heads_total)
                 p_drop = torch.where(keep, p, 0.0) * inv_keep
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             else:
@@ -442,8 +456,8 @@ def _library():
         vp, ci, cf, cu = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
         # pointers, then batch, seq, heads, head_dim, s_pad, dtype, scale,
-        # inv_keep, threshold, dropout, out_f32, b0, stream
-        tail = [ci] * 6 + [cf, cf, cu, ci, ci, ci, vp]
+        # inv_keep, threshold, dropout, out_f32, b0, h0, heads_total, stream
+        tail = [ci] * 6 + [cf, cf, cu, ci, ci, ci, ci, ci, vp]
         # no seed, no LSE, no dropout arguments
         lib.flash_fwd_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
         lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
@@ -529,18 +543,24 @@ def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
     return out
 
 
-def _launch_tail(args, q, out_dtype, b0):
+def _launch_tail(args, q, out_dtype, b0, h0, heads_total):
     """The launchers' trailing scalars: ``_prepare``'s, with the out_f32
-    flag and the batch offset before the stream."""
+    flag, the batch offset and the head offset and count before the
+    stream."""
+    heads = args[2]
+    total = heads if heads_total is None else heads_total
     if b0 < 0:
         raise ValueError(f"batch offset b0={b0} must be >= 0")
+    if h0 < 0 or h0 + heads > total:
+        raise ValueError(f"heads [{h0}, {h0 + heads}) outside the "
+                         f"{total} heads")
     return (*args[:-1], int(_out_dtype(q, out_dtype) != q.dtype), int(b0),
-            args[-1])
+            int(h0), int(total), args[-1])
 
 
 def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
                   block_k: int, dropout_rate: float = 0.0, out_dtype=None,
-                  b0: int = 0):
+                  b0: int = 0, h0: int = 0, heads_total: Optional[int] = None):
     """Forward with LSE; arguments and results as for
     :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
     a CUDA device this launches the kernel or raises."""
@@ -548,7 +568,8 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
         return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
                                        block_q=block_q, block_k=block_k,
                                        dropout_rate=dropout_rate,
-                                       out_dtype=out_dtype, b0=b0)
+                                       out_dtype=out_dtype, b0=b0, h0=h0,
+                                       heads_total=heads_total)
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
@@ -559,20 +580,22 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
     _check_rc(lib, "flash_fwd_lse", lib.flash_fwd_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
         k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0)))
+        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
     flash_fwd_lse.launches += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
              block_q: int, block_k: int, dropout_rate: float = 0.0,
-             out_dtype=None, b0: int = 0):
+             out_dtype=None, b0: int = 0, h0: int = 0,
+             heads_total: Optional[int] = None):
     """dQ; arguments and result as for :func:`flash_dq_reference`."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
                                   seed, block_q=block_q, block_k=block_k,
                                   dropout_rate=dropout_rate,
-                                  out_dtype=out_dtype, b0=b0)
+                                  out_dtype=out_dtype, b0=b0, h0=h0,
+                                  heads_total=heads_total)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate)
@@ -583,20 +606,22 @@ def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
         k_hi.data_ptr(), _ptr(seed), dq.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0)))
+        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
     flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
               block_q: int, block_k: int, dropout_rate: float = 0.0,
-              out_dtype=None, b0: int = 0):
+              out_dtype=None, b0: int = 0, h0: int = 0,
+              heads_total: Optional[int] = None):
     """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
                                    seed, block_q=block_q, block_k=block_k,
                                    dropout_rate=dropout_rate,
-                                   out_dtype=out_dtype, b0=b0)
+                                   out_dtype=out_dtype, b0=b0, h0=h0,
+                                   heads_total=heads_total)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
                     block_q, block_k, dropout_rate)
@@ -608,7 +633,7 @@ def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
         q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0)))
+        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
     flash_dkv.launches += 1
     return dk, dv
 
@@ -667,28 +692,30 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_i8, k_hi, q_lo, seed, block_q, block_k,
-                dropout_rate, b0):
+                dropout_rate, b0, h0, heads_total):
         out, lse = flash_fwd_lse(q, k, v, mask_i8, k_hi, seed,
                                  block_q=block_q, block_k=block_k,
-                                 dropout_rate=dropout_rate, b0=b0)
+                                 dropout_rate=dropout_rate, b0=b0, h0=h0,
+                                 heads_total=heads_total)
         ctx.save_for_backward(q, k, v, out, lse, mask_i8, k_hi, q_lo)
         ctx.seed = seed
-        ctx.config = (block_q, block_k, dropout_rate, b0)
+        ctx.config = (block_q, block_k, dropout_rate, b0, h0, heads_total)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, mask_i8, k_hi, q_lo = ctx.saved_tensors
-        block_q, block_k, rate, b0 = ctx.config
+        block_q, block_k, rate, b0, h0, heads_total = ctx.config
         g = g.contiguous()
         # with dropout O already holds the dropped weights, so delta =
         # rowsum(dO * O) still equals sum_j P_ij dP_ij
         delta = attention_delta(g, out, mask_i8.shape[0])
-        kw = dict(block_q=block_q, block_k=block_k, dropout_rate=rate, b0=b0)
+        kw = dict(block_q=block_q, block_k=block_k, dropout_rate=rate, b0=b0,
+                  h0=h0, heads_total=heads_total)
         dq = flash_dq(q, k, v, g, lse, delta, mask_i8, k_hi, ctx.seed, **kw)
         dk, dv = flash_dkv(q, k, v, g, lse, delta, mask_i8, q_lo, ctx.seed,
                            **kw)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 10
 
 
 class _FlashAttentionRecompute(torch.autograd.Function):
@@ -738,11 +765,13 @@ def _attend(q, k, v, mask: np.ndarray, tables, block_q, block_k, backward,
                                               block_q, block_k)
     if dropout_rate == 0.0:
         return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo, None,
-                                     block_q, block_k, 0.0, 0)
-    # inside a data-parallel step the rank's first row of the global batch
+                                     block_q, block_k, 0.0, 0, 0, None)
+    # inside a data-parallel step the rank's first row of the global batch,
+    # inside a tensor-parallel attention its first head of all heads
+    h0, heads_total = head_offset(q.shape[2])
     return _FlashAttention.apply(q, k, v, mask_i8, k_hi, q_lo, dropout_seed,
                                  block_q, block_k, dropout_rate,
-                                 row_offset(q.shape[0]))
+                                 row_offset(q.shape[0]), h0, heads_total)
 
 
 def flash_attention(q, k, v, mask: np.ndarray, *,
@@ -759,7 +788,8 @@ def flash_attention(q, k, v, mask: np.ndarray, *,
     :func:`xla_reference_attention`; it takes no dropout.
     ``dropout_rate`` > 0 drops attention weights after the softmax with the
     Philox mask of ``dropout_seed`` ((2,) int64 words on q's device), of
-    the rows of the global batch this call holds (``row_offset``).
+    the rows of the global batch this call holds (``row_offset``) and of
+    its heads among all heads (``head_offset``).
     Tiles default to the kernel's; CPU tensors take the plain versions at
     any tiles."""
     if not isinstance(mask, np.ndarray):

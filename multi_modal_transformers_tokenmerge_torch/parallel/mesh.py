@@ -17,10 +17,31 @@ tensor-parallel / FSDP rules for parameters, as DTensor placements.
   port splits scanned stacks into layers), so where JAX would shard a
   stack's layer axis the port shards a per-layer axis.
 * :func:`shard_params` stores each sharded parameter as a DTensor of its
-  placements and gathers it (``full_tensor``, an all-gather) where the
-  module uses it, through a parametrization: the model's ops have no
-  sharded rules here, so the gathered parameter is what XLA's inserted
-  all-gather hands the op in JAX.  Storage is sharded; compute is not.
+  placements, and the model computes on the shards
+  (``core.tensor_parallel``):
+
+  - what is split: a parameter sharded over ``model`` is never gathered.
+    The attention and MLP blocks (``modules.attention``, the per-layer
+    ToMe blocks) split their products as XLA does for the JAX package:
+    ``query``/``key``/``value`` and ``dense_in`` column-parallel, a rank
+    computing its ``num_heads / P`` heads (the flash kernels launched on
+    them, with its head offset) and its ``mlp_dim / P`` hidden columns;
+    ``out`` and ``dense_out`` row-parallel, the partial products summed
+    over ``model``.  The MoE blocks run their ``E / P`` experts and sum the
+    combined outputs over ``model``.  A lone ``Dense`` whose weight is
+    split (the frozen T5 tower's ``o``, ``wi`` and ``wo``, a MAP head's
+    projections, an MLP whose activation works over the last axis)
+    computes its product split and gathers or sums its output, so that
+    its caller sees the whole output;
+  - what is gathered: a parameter sharded over ``data`` (FSDP) is
+    all-gathered where its module reads it, through a parametrization,
+    and its gradient comes back reduce-scattered over ``data`` (the
+    gradient of the gather is a ``Partial`` sum over the data ranks), so
+    each rank holds its rows of the data-summed gradient.
+
+  The optimizer keeps its moments on the same shards (``train.optim``),
+  and the step reduces over ``data`` only the gradients that the gather's
+  backward has not (``train.steps``).
 * :func:`data_slice` is a rank's share of a global batch: every rank is
   handed the global batch, as the JAX single controller is, and keeps its
   rows of the data axis.
@@ -35,15 +56,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..core.tensor_parallel import DATA_AXIS, MODEL_AXIS
 from .distributed import ensure_world
 
 __all__ = ["make_mesh", "batch_sharding", "replicated", "spec_for_param",
            "param_specs", "param_shardings", "shard_params", "data_slice",
-           "data_info", "DATA_AXIS", "MODEL_AXIS"]
-
-DATA_AXIS = "data"
-MODEL_AXIS = "model"
-
+           "data_info", "mesh_size", "DATA_AXIS", "MODEL_AXIS"]
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
               device_type: Optional[str] = None):
@@ -94,6 +112,13 @@ def data_info(mesh, axis: str = DATA_AXIS) -> Tuple[int, int]:
                         f"axis (parallel.mesh.make_mesh); got {mesh!r}")
     return mesh.get_local_rank(axis), mesh.size(
         mesh.mesh_dim_names.index(axis))
+
+
+def mesh_size(mesh) -> int:
+    """The ranks of a (data, model) mesh, 1 without one; anything else
+    raises as :func:`data_info` does."""
+    data_info(mesh)
+    return 1 if mesh is None else mesh.size()
 
 
 def data_slice(x, mesh, dim: int = 0, axis: str = DATA_AXIS,
@@ -225,21 +250,30 @@ def param_shardings(model: nn.Module, mesh, model_parallel: bool = True,
 
 
 class _Gathered(nn.Module):
-    """A parametrization that hands the module the whole parameter."""
+    """A parametrization that hands the module the whole parameter; the
+    gradient returns as the sum over the ranks that split it, each rank
+    keeping its part (a reduce-scatter)."""
 
     def forward(self, x):
-        return x.full_tensor() if hasattr(x, "full_tensor") else x
+        from torch.distributed.tensor import Partial, Replicate
+        grads = [Partial() if p.is_shard() else Replicate()
+                 for p in x.placements]
+        return x.full_tensor(grad_placements=grads)
 
 
 def shard_params(model: nn.Module, mesh, model_parallel: bool = True,
                  fsdp: bool = False, fsdp_min_size: int = 2 ** 16):
     """Store each parameter that the rules shard as a DTensor on ``mesh``
-    (each rank keeps its shard) and gather it where the module reads it.
-    Replicated parameters stay plain tensors.  Returns ``model``."""
+    (each rank keeps its shard).  A parameter split over ``model`` (every
+    one a ``Dense`` weight or an MoE expert stack, layers that compute on
+    their shards) stays split; one split over ``data`` is gathered where
+    its module reads it (see the module docstring).  Replicated parameters
+    stay plain tensors.  Returns ``model``."""
     from torch.distributed.tensor import distribute_tensor
     from torch.nn.utils import parametrize
     shardings = param_shardings(model, mesh, model_parallel, fsdp,
                                 fsdp_min_size)
+    model_dim = mesh.mesh_dim_names.index(MODEL_AXIS)
     for name, placements in shardings.items():
         if all(p.is_replicate() for p in placements):
             continue
@@ -250,6 +284,7 @@ def shard_params(model: nn.Module, mesh, model_parallel: bool = True,
         with torch.no_grad():
             setattr(module, leaf, nn.Parameter(
                 sharded, requires_grad=param.requires_grad))
-        parametrize.register_parametrization(module, leaf, _Gathered(),
-                                             unsafe=True)
+        if not placements[model_dim].is_shard():
+            parametrize.register_parametrization(module, leaf, _Gathered(),
+                                                 unsafe=True)
     return model

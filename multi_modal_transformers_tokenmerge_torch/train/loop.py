@@ -9,6 +9,8 @@ the global batch, as the JAX single controller is, and keeps its rows of
 the ``data`` axis (``parallel.mesh.data_slice``), unless
 ``prefetch_to_device(mesh=)`` has cut them already; the step averages the
 gradients over that axis, and ``evaluate`` averages its losses over it.
+A model sharded on the mesh (``parallel.mesh.shard_params``) trains and
+evaluates on its shards through the same calls.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from ..core.global_batch import all_reduce_sum, data_parallel
-from ..parallel.mesh import DATA_AXIS, data_info, data_slice
+from ..parallel.mesh import DATA_AXIS, data_info, data_slice, mesh_size
 from ..utils.data import Prefetched
 from .state import Metrics, OctoTrainState
 from .steps import (LOSS_METHODS, LOSS_METHODS_WITH_TEXT, CapturedStep,
@@ -129,13 +131,12 @@ def fit(state: OctoTrainState, batches: Iterable, head: str, num_steps: int,
     ``prefetch_to_device(mesh=mesh, microbatches=accum_steps)`` are those
     rows already) and the
     default step is ``make_train_step(head, mesh=mesh)``, compiled at a
-    data size of one and eager above it (a CUDA graph does not hold the
-    all-reduce).  A ``step_fn`` of one's own must be made with the same
-    mesh."""
-    data_size = data_info(mesh)[1]
+    mesh of one rank and eager above it (a CUDA graph does not hold the
+    collectives).  A model sharded on the mesh trains on its shards.  A
+    ``step_fn`` of one's own must be made with the same mesh."""
     step = (step_fn if step_fn is not None
             else make_train_step(head, text_input=text_input, mesh=mesh,
-                                 jit=data_size == 1,
+                                 jit=mesh_size(mesh) == 1,
                                  accum_steps=accum_steps))
     device = next(state.model.parameters()).device
     cut = _rows_to_cut(batches, mesh, accum_steps)
@@ -190,7 +191,8 @@ def eval_seed(seed: int, i: int) -> int:
 # state -> {collection: generator}: evaluate's own generators, reseeded for
 # every batch, never the training ones
 _EVAL_RNGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-# (head, text_input) -> CapturedStep of the eval loss
+# (head, text_input, mesh) -> the eval loss's step (a CapturedStep, eager
+# under a mesh of more than one rank)
 _EVAL_STEPS: Dict = {}
 
 
@@ -201,7 +203,7 @@ def _eval_rngs(state: OctoTrainState) -> Dict[str, torch.Generator]:
     return _EVAL_RNGS[state]
 
 
-def _eval_step(head: str, text_input: str, mesh=None) -> CapturedStep:
+def _eval_step(head: str, text_input: str, mesh=None) -> Callable:
     """The eval loss of ``head`` as a captured step (eager on the CPU);
     with a mesh the rank's loss, its draws made for the global batch."""
     key = (head, text_input, mesh)
@@ -217,9 +219,15 @@ def _eval_step(head: str, text_input: str, mesh=None) -> CapturedStep:
                 return loss_fn(text, images, actions, False,
                                rngs=_eval_rngs(state)).mean().float()
 
-        _EVAL_STEPS[key] = CapturedStep(
-            body, after=lambda state: None,
-            generators=lambda state: _eval_rngs(state).values())
+        if mesh_size(mesh) > 1:
+            # eager: a CUDA graph does not hold a sharded model's
+            # collectives
+            _EVAL_STEPS[key] = lambda state, *batch: (state,
+                                                      body(state, *batch))
+        else:
+            _EVAL_STEPS[key] = CapturedStep(
+                body, after=lambda state: None,
+                generators=lambda state: _eval_rngs(state).values())
     return _EVAL_STEPS[key]
 
 

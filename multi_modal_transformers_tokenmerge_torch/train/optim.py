@@ -26,6 +26,13 @@ tree per step).  Its step count lives on the device, and the learning rate
 and the bias corrections are computed from it there, so one update reads
 nothing back from the device and a CUDA graph that captures it (the
 compiled step of ``train.steps``) replays every later update correctly.
+
+For a sharded model (``parallel.mesh.shard_params``) it works on each
+rank's shards, as optax works on sharded leaves: the moments are created
+on the parameter's shards (1/P of its memory a rank), the update reads
+the local shards of parameters and gradients, and the global norm and the
+finite check sum each rank's local squares and all-reduce that sum, every
+element counted once (``global_norm``).
 """
 
 from __future__ import annotations
@@ -35,10 +42,15 @@ import math
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..core.tensor_parallel import (copy_into, local, named_params,
+                                    param_name, replicas)
+
 __all__ = ["warmup_cosine_schedule", "make_optimizer", "decay_mask",
-           "trainable_mask", "mask_frozen", "global_norm", "Optimizer"]
+           "trainable_mask", "mask_frozen", "global_norm", "shard_replicas",
+           "Optimizer"]
 
 
 def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
@@ -84,13 +96,13 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     are 1-D and do not decay."""
     from ..convert import scanned_stacks
     from ..modules.layers import Embed
-    embeddings = {id(m.weight) for m in model.modules()
-                  if isinstance(m, Embed)}
+    embeddings = {f"{n}.weight" if n else "weight"
+                  for n, m in model.named_modules() if isinstance(m, Embed)}
     scanned = tuple(".".join(s) + "." for s in scanned_stacks(model.config))
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in named_params(model):
         parts = name.split(".")
-        if id(p) in embeddings or parts[-1] == "pos_embedding":
+        if name in embeddings or parts[-1] == "pos_embedding":
             out[name] = False
             continue
         head_bias = (parts[-1] == "bias" and len(parts) > 1
@@ -106,7 +118,7 @@ def trainable_mask(model: nn.Module,
                    ) -> Dict[str, bool]:
     """Parameter name -> False under a frozen top-level module."""
     return {name: name.split(".")[0] not in frozen_prefixes
-            for name, _ in model.named_parameters()}
+            for name, _ in named_params(model)}
 
 
 class Optimizer:
@@ -117,7 +129,8 @@ class Optimizer:
     :meth:`init` creates the moments of the trainable parameters and the
     step count (int32, on the parameters' device); :meth:`step` applies one
     update in place.  Frozen parameters carry no state and are never
-    changed.
+    changed.  A sharded parameter (a DTensor) has its moments as DTensors
+    of the same placements; the arithmetic runs on the local shards.
 
     ``skip_nonfinite`` = n > 0 is optax's ``apply_if_finite(tx, n)``: an
     update whose gradients hold an inf or a NaN leaves the parameters, the
@@ -145,15 +158,17 @@ class Optimizer:
         self.nu: List[torch.Tensor] = []
         self.notfinite_count = self.last_finite = None
         self.total_notfinite = None
+        self.replicas: Optional[List[int]] = None
 
     def init(self, named_params: Iterable) -> None:
-        params = dict(named_params)
+        params = {param_name(n): p for n, p in named_params}
         device = next(iter(params.values())).device if params else None
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.names = [n for n in params
                       if self.trainable is None or self.trainable[n]]
-        self.mu = [torch.zeros_like(params[n]) for n in self.names]
-        self.nu = [torch.zeros_like(params[n]) for n in self.names]
+        self.mu = [_zeros_on_shards(params[n]) for n in self.names]
+        self.nu = [_zeros_on_shards(params[n]) for n in self.names]
+        self.replicas = shard_replicas([params[n] for n in self.names])
         if self.skip_nonfinite:
             self.notfinite_count = torch.zeros((), dtype=torch.int32,
                                                device=device)
@@ -180,7 +195,7 @@ class Optimizer:
         for name, mine in self.state_dict().items():
             if isinstance(mine, dict):
                 for n, t in mine.items():
-                    t.copy_(state[name][n])
+                    copy_into(t, state[name][n])
             else:
                 mine.copy_(state[name])
 
@@ -195,28 +210,35 @@ class Optimizer:
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, Optional[torch.Tensor]]) -> None:
         """One update of ``params`` (name -> tensor) from ``grads`` (name ->
-        gradient, or None for none); the gradients may be scaled in place."""
-        p = [params[n] for n in self.names]
-        g = [grads.get(n) if grads.get(n) is not None
-             else torch.zeros_like(params[n]) for n in self.names]
+        gradient, or None for none); the gradients may be scaled in place.
+        A sharded parameter's gradient is this rank's shard of it, a plain
+        tensor of the shard's shape (``train.steps``)."""
+        p = [local(params[n]) for n in self.names]
+        g = [local(grads[n]) if grads.get(n) is not None
+             else torch.zeros_like(p[i]) for i, n in enumerate(self.names)]
         apply = None
         if self.skip_nonfinite:
+            # every gradient handed in counts, frozen ones too (optax's
+            # apply_if_finite wraps the masked chain)
+            present = [n for n, t in grads.items() if t is not None]
             apply = self._check_finite(
-                [t for t in grads.values() if t is not None])
+                [local(grads[n]) for n in present],
+                shard_replicas([params[n] for n in present]))
         if self.clip_norm is not None and g:
-            norm = global_norm(g)
+            norm = global_norm(g, self.replicas)
             scale = torch.where(norm < self.clip_norm, 1.0,
                                 self.clip_norm / norm)
             torch._foreach_mul_(g, scale)
         b1, b2 = self.b1, self.b2
         lr, bc1, bc2 = self.hyperparameters(self.count)
+        moments = ([local(m) for m in self.mu], [local(v) for v in self.nu])
         if apply is None:
-            mu, nu = self.mu, self.nu
+            mu, nu = moments
             torch._foreach_mul_(mu, b1)
             torch._foreach_mul_(nu, b2)
         else:
-            mu = torch._foreach_mul(self.mu, b1)
-            nu = torch._foreach_mul(self.nu, b2)
+            mu = torch._foreach_mul(moments[0], b1)
+            nu = torch._foreach_mul(moments[1], b2)
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
         m_hat = torch._foreach_div(mu, bc1)
@@ -235,7 +257,7 @@ class Optimizer:
         if apply is not None:
             # a rejected update leaves moments, parameters and count as
             # they were (optax returns zero updates and the old state)
-            for old, new in ((self.mu, mu), (self.nu, nu)):
+            for old, new in zip(moments, (mu, nu)):
                 for o, n in zip(old, new):
                     o.copy_(torch.where(apply, n, o))
             upd = [torch.where(apply, u, 0.0) for u in upd]
@@ -244,14 +266,20 @@ class Optimizer:
             self.count.add_(1)
         torch._foreach_add_(p, upd)
 
-    def _check_finite(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def _check_finite(self, grads: List[torch.Tensor],
+                      reps: Optional[List[int]]) -> torch.Tensor:
         """Advance optax's counters on the device; True where the update
         applies (finite, or past ``skip_nonfinite`` bad updates in a
-        row)."""
+        row).  ``reps``: :func:`global_norm`'s, so that every rank of a
+        sharded model takes the same choice."""
         zeros = torch._foreach_mul(grads, 0.0)   # NaN where not finite
-        finite = (torch.stack(torch._foreach_norm(zeros)).sum() == 0
-                  if zeros else torch.ones((), dtype=torch.bool,
-                                           device=self.count.device))
+        if not zeros:
+            finite = torch.ones((), dtype=torch.bool,
+                                device=self.count.device)
+        elif reps is None:
+            finite = torch.stack(torch._foreach_norm(zeros)).sum() == 0
+        else:
+            finite = global_norm(zeros, reps) == 0
         self.notfinite_count.copy_(torch.where(
             finite, 0, self.notfinite_count + 1))
         self.total_notfinite.add_((~finite).int())
@@ -259,10 +287,42 @@ class Optimizer:
         return finite | (self.notfinite_count > self.skip_nonfinite)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every element of ``tensors`` (float32)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors: Sequence[torch.Tensor],
+                replicas: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """sqrt(sum of squares) over every element of ``tensors`` (float32).
+
+    ``replicas`` (from :func:`shard_replicas`): the tensors are this
+    rank's shards of a sharded model's tensors, tensor i held alike on
+    ``replicas[i]`` ranks.  Each rank sums its squares, each weighted by
+    1 / replicas, and the sum is all-reduced over the world, so that every
+    element counts once and every rank gets the same norm."""
+    norms = torch._foreach_norm([local(t).float() for t in tensors])
+    if replicas is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    weights = torch.tensor([1.0 / r for r in replicas],
+                           device=norms[0].device)
+    total = (torch.stack(norms).square() * weights).sum()
+    dist.all_reduce(total)
+    return total.sqrt()
+
+
+def shard_replicas(tensors: Sequence[torch.Tensor]) -> Optional[List[int]]:
+    """On how many ranks each tensor's elements live
+    (``core.tensor_parallel.replicas``), or None when none is sharded: the
+    ``replicas`` of :func:`global_norm`."""
+    if not any(hasattr(t, "placements") for t in tensors):
+        return None
+    return [replicas(t) for t in tensors]
+
+
+def _zeros_on_shards(p: torch.Tensor) -> torch.Tensor:
+    """Zeros of ``p``'s shape, on its shards for a DTensor (each rank
+    allocates its shard only)."""
+    if not hasattr(p, "placements"):
+        return torch.zeros_like(p)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(torch.zeros_like(p.to_local()), p.device_mesh,
+                              p.placements, run_check=False)
 
 
 def mask_frozen(tx: Optimizer, model: nn.Module,

@@ -10,6 +10,11 @@ the host, and every device value the step changes is changed in place
 (the metrics' sums and counts too), so a CUDA graph of the step replays
 onto the same tensors.  The step count stays a Python int, advanced once
 per step by the step's Python wrapper.
+
+Parameters are named without a gathering parametrization's path
+(``core.tensor_parallel.param_name``), so that a sharded state and a
+whole one share names (their checkpoints, masks and gradients).  For a
+sharded model the update and the EMA run on each rank's local shards.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Dict, Mapping, Optional, Union
 import torch
 from torch import nn
 
+from ..core.tensor_parallel import copy_into, local, named_params
 from .optim import Optimizer
 
 __all__ = ["Metrics", "OctoTrainState", "create_train_state",
@@ -87,7 +93,7 @@ class OctoTrainState:
         self.rngs = rngs
         self.metrics = Metrics.empty(next(model.parameters()).device)
         self.ema_decay = ema_decay
-        self.params = dict(model.named_parameters())
+        self.params = dict(named_params(model))
         self.ema_params: Optional[Dict[str, torch.Tensor]] = (
             {n: p.detach().clone() for n, p in self.params.items()}
             if ema_decay > 0 else None)
@@ -102,9 +108,9 @@ class OctoTrainState:
         self.optimizer.step(self.params, grads)
         if self.ema_params is not None:
             d = self.ema_decay
-            ema = list(self.ema_params.values())
+            ema = [local(e) for e in self.ema_params.values()]
             torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, [self.params[n] for n in
+            torch._foreach_add_(ema, [local(self.params[n]) for n in
                                       self.ema_params], alpha=1.0 - d)
 
     def apply_gradients(self, grads: Dict[str, Optional[torch.Tensor]]):
@@ -127,16 +133,18 @@ class OctoTrainState:
     def load_state_dict(self, state: Mapping[str, object]) -> None:
         """Copy ``state`` (from :meth:`state_dict`) into this state's
         tensors in place and set its generators; the metrics take the saved
-        declaration."""
+        declaration.  Tensors go to the state's layout: a whole tensor into
+        a sharded state's shard (a replicated checkpoint restored into a
+        tensor-parallel or FSDP state)."""
         for n, p in self.params.items():
-            p.copy_(state["params"][n])
+            copy_into(p, state["params"][n])
         self.optimizer.load_state_dict(state["optimizer"])
         if (self.ema_params is None) != (state["ema_params"] is None):
             raise ValueError("the checkpoint and the state disagree on "
                              "whether an EMA is kept")
         if self.ema_params is not None:
             for n, e in self.ema_params.items():
-                e.copy_(state["ema_params"][n])
+                copy_into(e, state["ema_params"][n])
         saved = state["metrics"]
         metrics = Metrics(saved["kinds"], self.metrics.device)
         for n in metrics.kinds:
@@ -164,5 +172,5 @@ def create_train_state(model: nn.Module, optimizer: Optimizer,
             g = torch.Generator(device=device)
             g.manual_seed(seed * len(RNG_COLLECTIONS) + i)
             rngs[name] = g
-    optimizer.init(model.named_parameters())
+    optimizer.init(named_params(model))
     return OctoTrainState(model, optimizer, dict(rngs), ema_decay=ema_decay)

@@ -40,9 +40,22 @@ what a one-device step draws.  With ``accum_steps`` > 1 a rank is handed
 its rows of each global microbatch, microbatch after microbatch
 (``data_slice(..., microbatches=accum_steps)``), so that its microbatch k
 is its rows of global microbatch k, its draws made for that microbatch.
-At a data size of one no collective runs.  A CUDA graph does
-not hold the all-reduce: on the card, ``jit=True`` with a data axis of
-more than one rank raises.
+At a data size of one no collective runs.
+
+A model sharded by ``parallel.mesh.shard_params`` trains through the same
+step, as in the JAX package (``core.tensor_parallel``): the split layers
+compute on their shards and sum or gather over ``model`` inside the
+forward and backward; the gradients are taken on each rank's shards (a
+DTensor parameter's gradient is its local shard) and ``reduce_grads``
+averages over ``data`` only what the shards' backward has not summed
+already (an FSDP parameter's gradient comes back reduce-scattered over
+``data``; it is only divided).  The global norm sums the local squares
+and all-reduces them, each element counted once (``optim.global_norm``),
+and the optimizer updates the local shards.  The loss and the grad norm
+come out as on one device.  A CUDA graph does not hold the collectives:
+on the card, ``jit=True`` under a mesh of more than one rank (on either
+axis) raises; at a mesh of one rank nothing is sharded and the step is
+captured as without a mesh.
 """
 
 from __future__ import annotations
@@ -54,9 +67,10 @@ import torch
 
 from ..core.global_batch import all_reduce_sum, data_parallel
 from ..core.replay import RecomputePlan
-from ..parallel.mesh import DATA_AXIS, data_info
+from ..core.tensor_parallel import local, sharded_over
+from ..parallel.mesh import DATA_AXIS, data_info, mesh_size
 from ..utils.debug import jit_enabled
-from .optim import global_norm
+from .optim import global_norm, shard_replicas
 from .state import OctoTrainState
 
 __all__ = ["make_train_step", "LOSS_METHODS", "LOSS_METHODS_WITH_TEXT"]
@@ -228,7 +242,8 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
     ``text_input='embeddings'`` takes the frozen text tower's (B, T, E)
     output instead of ids.  ``mesh``: data-parallel over its ``data`` axis
     (see the module docstring); the step takes this rank's rows, and any
-    explicit ``draws`` are cut as the batch is."""
+    explicit ``draws`` are cut as the batch is.  A model sharded on the
+    mesh (``shard_params``) trains on its shards."""
     if text_input not in ("ids", "embeddings"):
         raise ValueError(
             f"text_input must be 'ids' or 'embeddings', got {text_input!r}")
@@ -247,12 +262,16 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
         with data_parallel(group):
             return _body(state, text, images, actions, draws)
 
-    def reduce_grads(grads):
-        """The average over the data axis (nothing at one rank)."""
+    def reduce_grads(grads, params):
+        """The average over the data axis (nothing at one rank): summed
+        over it, unless the parameter is split over ``data`` (its gather's
+        backward summed it already), and divided by its size."""
         if data_size == 1:
             return grads
         inv = 1.0 / data_size
-        return {n: None if g is None else all_reduce_sum(g, group) * inv
+        return {n: None if g is None else
+                (g if sharded_over(params[n], DATA_AXIS)
+                 else all_reduce_sum(g, group)) * inv
                 for n, g in grads.items()}
 
     def _body(state: OctoTrainState, text, images, actions, draws):
@@ -271,10 +290,13 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
         if b % accum_steps:
             raise ValueError(
                 f"batch {b} not divisible by accum_steps={accum_steps}")
+        # a sharded parameter's gradient: this rank's shard of it
+        grad = lambda l: [None if g is None else local(g) for g in
+                          torch.autograd.grad(l, params, allow_unused=True)]
         if accum_steps == 1:
             loss = with_aux(loss_fn(text, images, actions, True,
                                     rngs=state.rngs, **(draws or {})))
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = grad(loss)
         else:
             loss = torch.zeros((), device=actions.device)
             sums = [None] * len(params)
@@ -283,7 +305,7 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
                 l_i = with_aux(loss_fn(
                     mb(text), mb(images), mb(actions), True, rngs=state.rngs,
                     **_split_draws(draws, i, accum_steps)))
-                g_i = torch.autograd.grad(l_i, params, allow_unused=True)
+                g_i = grad(l_i)
                 loss = loss + l_i.detach()
                 sums = [s if g is None else
                         (g.float() if s is None else s + g.float())
@@ -292,12 +314,14 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
             loss = loss * inv
             grads = [None if s is None else (s * inv).to(p.dtype)
                      for s, p in zip(sums, params)]
-        grads = reduce_grads(dict(zip(names, grads)))
+        grads = reduce_grads(dict(zip(names, grads)), state.params)
         if data_size > 1:
             loss = all_reduce_sum(loss.detach(), group) * (1.0 / data_size)
-        present = [g for g in grads.values() if g is not None]
-        grad_norm = (global_norm(present) if present
-                     else torch.zeros((), device=actions.device))
+        present = [n for n, g in grads.items() if g is not None]
+        grad_norm = (
+            global_norm([grads[n] for n in present],
+                        shard_replicas([state.params[n] for n in present]))
+            if present else torch.zeros((), device=actions.device))
         state.update_parameters(grads)
         loss = loss.detach()
         std = {k: v for k, v in (("loss", loss), ("grad_norm", grad_norm))
@@ -310,15 +334,17 @@ def make_train_step(head: str, donate: bool = True, jit: bool = True,
 
     if jit:
         captured = CapturedStep(body, after)
-        if data_size == 1:
+        ranks = mesh_size(mesh)
+        if ranks == 1:
             return captured
 
         def guarded(state, *inputs, draws=None):
             if next(state.model.parameters()).device.type == "cuda":
                 raise ValueError(
-                    f"make_train_step(jit=True) under a mesh whose data axis "
-                    f"has {data_size} ranks: the CUDA graph would not hold "
-                    f"the gradients' all-reduce; pass jit=False")
+                    f"make_train_step(jit=True) under a mesh of {ranks} "
+                    f"ranks ({dict(zip(mesh.mesh_dim_names, mesh.shape))}): "
+                    f"the CUDA graph would not hold the collectives; pass "
+                    f"jit=False")
             return captured(state, *inputs, draws=draws)
         return guarded
 

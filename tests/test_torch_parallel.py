@@ -469,8 +469,9 @@ def test_tensor_parallel_forward_matches_replicated(two_ranks):
     ranks, ref = two_ranks
     for r in results(ranks, "tp_forward"):
         _close(r["out"], ref["forward"], FWD_RTOL, FWD_ATOL)
-        name = "transformer.blocks.0.mlp.dense_in.parametrizations.weight." \
-               "original"
+        # split over model, computed on its shard: no gathering
+        # parametrization, so the parameter keeps its own name
+        name = "transformer.blocks.0.mlp.dense_in.weight"
         local, full, placements = r["sharded"][name]
         assert local[0] * WORLD == full[0] and placements == ["R", "S(0)"]
 

@@ -50,11 +50,15 @@ class SGD:
 
     @torch.no_grad()
     def step(self, params, grads):
+        """A sharded parameter (a DTensor) is updated on its local shard,
+        the gradient it is handed."""
         self.grads.append({n: g.detach().clone() for n, g in grads.items()
                            if g is not None})
         for n, g in grads.items():
             if g is not None:
-                params[n].sub_(self.lr * g)
+                p = params[n]
+                (p.to_local() if hasattr(p, "to_local") else p).sub_(
+                    self.lr * g)
         self.count += 1
 
 
@@ -396,3 +400,270 @@ def pipeline_checks(rank, world, workdir):
 
     return _run([("four_stages", four_stages),
                  ("two_stages_and_pp_dp", two_stages_and_pp_dp)])
+
+
+# -- training on sharded parameters: two and four ranks ---------------------------
+
+FSDP_MIN_SIZE = 256
+
+
+def _whole(t):
+    t = t.detach()
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).clone()
+
+
+def _layout(model, mesh, fsdp):
+    """name -> expected local shape under ``param_shardings`` (taken on
+    the unsharded model) and whether the parameter is split over model."""
+    from multi_modal_transformers_tokenmerge_torch.parallel.mesh import (
+        param_shardings)
+    out = {}
+    for n, placements in param_shardings(model, mesh, True, fsdp,
+                                         FSDP_MIN_SIZE).items():
+        p = model.get_parameter(n)
+        shape = list(p.shape)
+        for i, pl in enumerate(placements):
+            if pl.is_shard():
+                shape[pl.dim] //= mesh.size(i)
+        out[n] = (tuple(shape), placements[
+            mesh.mesh_dim_names.index("model")].is_shard())
+    return out
+
+
+def _storage(layout, named):
+    """Local shapes that differ from ``layout`` (expected empty) and the
+    number of tensors held as 1/P shards."""
+    wrong = [(n, tuple(_local(t).shape), layout[n][0])
+             for n, t in named.items()
+             if tuple(_local(t).shape) != layout[n][0]]
+    split = sum(tuple(_local(t).shape) != tuple(t.shape)
+                for t in named.values())
+    return {"wrong": wrong, "split": split}
+
+
+class _Spy:
+    """Records DTensor.full_tensor calls (by tensor id) and the heads of
+    every flash_fwd_lse launch while active."""
+
+    def __init__(self):
+        self.gathered, self.flash = [], []
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        from multi_modal_transformers_tokenmerge_torch.ops import (
+            flash_attention as fa)
+        self._full, self._fwd = DTensor.full_tensor, fa.flash_fwd_lse
+        spy = self
+
+        def full_tensor(t, *a, **k):
+            spy.gathered.append(id(t))
+            return spy._full(t, *a, **k)
+
+        def fwd(q, *a, **k):
+            spy.flash.append((q.shape[2], k.get("h0", 0),
+                              k.get("heads_total")))
+            return spy._fwd(q, *a, **k)
+        DTensor.full_tensor = full_tensor
+        fa.flash_fwd_lse = fwd
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import DTensor
+        from multi_modal_transformers_tokenmerge_torch.ops import (
+            flash_attention as fa)
+        DTensor.full_tensor = self._full
+        fa.flash_fwd_lse = self._fwd
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def sharded_checks(rank, world, workdir):
+    from multi_modal_transformers_tokenmerge_torch.train.optim import (
+        make_optimizer)
+    inp = _inputs(workdir)
+
+    def sharded(case):
+        """(mesh, the sharded model, its expected layout)."""
+        mesh = make_mesh(*case["mesh"])
+        model = _model(case)
+        layout = _layout(model, mesh, case["fsdp"])
+        return mesh, shard_params(model, mesh, fsdp=case["fsdp"],
+                                  fsdp_min_size=FSDP_MIN_SIZE), layout
+
+    def sgd_step(case):
+        """The sharded forward with its attention probes, then one SGD
+        step with the JAX case's draws: the whole parameters and gradients
+        after it, the storage, the parameters gathered during the step."""
+        from multi_modal_transformers_tokenmerge_torch.modules.attention import (
+            capture_intermediates)
+        mesh, model, layout = sharded(case)
+        with torch.no_grad(), capture_intermediates(model) as probes:
+            fwd = model.predict_continuous_action(
+                torch.as_tensor(case["ids"]), torch.as_tensor(case["images"]))
+        st = state.create_train_state(model, SGD(), rngs=0)
+        step = steps.make_train_step("continuous", jit=False, mesh=mesh)
+        cut = lambda x: torch.as_tensor(data_slice(x, mesh))
+        draws = {"positions": tuple(cut(x) for x in case["positions"])}
+        with _Spy() as spy:
+            _, loss = step(st, *(cut(case[x]) for x in ("ids", "images",
+                                                        "actions")),
+                           draws=draws)
+        names = {id(p): n for n, p in st.params.items()}
+        grads = {}
+        for n, g in st.optimizer.grads[0].items():
+            p = st.params[n]
+            if hasattr(p, "placements"):
+                from torch.distributed.tensor import DTensor
+                g = DTensor.from_local(g, p.device_mesh, p.placements,
+                                       run_check=False).full_tensor()
+            grads[n] = g
+        return {"loss": float(loss),
+                "params": {n: _whole(p) for n, p in st.params.items()},
+                "grads": grads, "forward": fwd, "probes": probes,
+                "storage": _storage(layout, st.params),
+                "gathered_split": sorted(
+                    names[i] for i in spy.gathered
+                    if i in names and layout[names[i]][1]),
+                "parametrized_split": sorted(
+                    n for n, p in model.named_parameters()
+                    if "parametrizations" in n and layout[
+                        n.replace(".parametrizations.", ".").replace(
+                            ".original", "")][1])}
+
+    def drop_step(case):
+        """One continuous-head step with every dropout at 0.1, drawn from
+        the generators; the flash launches' heads."""
+        mesh, model, layout = sharded(case)
+        st = state.create_train_state(model, SGD(), rngs=case["seed"])
+        step = steps.make_train_step(case.get("head", "continuous"),
+                                     jit=False, mesh=mesh)
+        with _Spy() as spy:
+            _, loss = step(st, *(torch.as_tensor(data_slice(x, mesh))
+                                 for x in case["batch"]))
+        return {"loss": float(loss),
+                "params": {n: _whole(p) for n, p in st.params.items()},
+                "flash": spy.flash, "storage": _storage(layout, st.params)}
+
+    def adamw():
+        """One AdamW step (decay mask and frozen text tower by name) on the
+        sharded model: its moments gathered and their local shapes."""
+        case = inp["adam"]
+        mesh, model, layout = sharded(case)
+        tx = make_optimizer(1e-3, 0, 10, params=model,
+                            frozen_prefixes=("text_encoder",))
+        st = state.create_train_state(model, tx, rngs=case["seed"])
+        steps.make_train_step("continuous", jit=False, mesh=mesh)(
+            st, *(torch.as_tensor(data_slice(x, mesh))
+                  for x in case["batch"]))
+        sd = tx.state_dict()
+        whole = make_optimizer(1e-3, 0, 10, params=_model(case),
+                               frozen_prefixes=("text_encoder",))
+        return {"masks_by_name": (tx.decay, tx.trainable) == (
+                    whole.decay, whole.trainable),
+                "mu": {n: _whole(t) for n, t in sd["mu"].items()},
+                "nu": {n: _whole(t) for n, t in sd["nu"].items()},
+                "count": int(sd["count"]),
+                "storage": [_storage(layout, sd[k]) for k in ("mu", "nu")],
+                "grad_norm": float(st.metrics.compute()["grad_norm"])}
+
+    def fit_evaluate():
+        """fit(mesh=) over two continuous-head steps with dropout on, then
+        evaluate(mesh=) of the diffusion head, on the tensor-parallel
+        model."""
+        case = inp["fit"]
+        mesh, model, _ = sharded(case)
+        st = state.create_train_state(model, SGD(), rngs=case["seed"])
+        loop.fit(st, iter(case["batches"]), "continuous",
+                 len(case["batches"]), mesh=mesh)
+        mesh2, model2, _ = sharded(case)
+        ev = loop.evaluate(
+            state.create_train_state(model2, SGD(), rngs=case["seed"]),
+            iter(case["batches"]), "diffusion", len(case["batches"]),
+            mesh=mesh2)
+        return {"params": {n: _whole(p) for n, p in st.params.items()},
+                "evaluate": ev}
+
+    def serving():
+        case = inp["serve"]
+        ids, images = case["ids"], case["images"]
+        out = {}
+        for head in ("continuous", "diffusion"):
+            _, model, _ = sharded(case)
+            eng = PolicyEngine(model, head=head, batch_size=ids.shape[0],
+                               seed=3)
+            out[f"{head}_eager"] = eng(images, text_tokens=ids)
+            eng.compile(ids.shape[1:], images.shape[1:])
+            out[f"{head}_compiled"] = eng(images, text_tokens=ids)
+        return out
+
+    def checkpoints():
+        """A replicated AdamW state saved as one file restores into the
+        tensor-parallel and the FSDP layouts; a sharded state round-trips
+        through .dcp with its moments on their shards."""
+        case = inp["adam"]
+        root = pathlib.Path(workdir) / "ckpt_sharded"
+        whole_model = _model(case)
+        tx = make_optimizer(1e-3, 0, 10, params=whole_model)
+        st = state.create_train_state(whole_model, tx, rngs=case["seed"])
+        steps.make_train_step("continuous", jit=False)(
+            st, *(torch.as_tensor(x) for x in case["batch"]))
+        want = {"params": {n: _whole(p) for n, p in st.params.items()},
+                "mu": {n: _whole(t) for n, t in tx.state_dict()["mu"].items()}}
+        mgr = CheckpointManager(str(root / "replicated"))
+        mgr.save(1, st)
+        mgr.wait()      # rank 0 writes the one file
+        dist.barrier()
+        out = {"files": sorted(q.name for q in (root / "replicated").iterdir())}
+        for name, (data, model_size, fsdp) in (("tp", (1, world, False)),
+                                               ("fsdp", (world, 1, True))):
+            c = dict(case, mesh=(data, model_size), fsdp=fsdp)
+            mesh, model, layout = sharded(c)
+            tx2 = make_optimizer(1e-3, 0, 10, params=model)
+            st2 = state.create_train_state(model, tx2, rngs=0)
+            mgr.restore(st2)
+            got_p = {n: _whole(p) for n, p in st2.params.items()}
+            got_mu = {n: _whole(t)
+                      for n, t in tx2.state_dict()["mu"].items()}
+            out[name] = {
+                "masks_by_name": tx2.decay == tx.decay,
+                "equal": all(torch.equal(got_p[n], want["params"][n])
+                             for n in want["params"]) and all(
+                    torch.equal(got_mu[n], want["mu"][n])
+                    for n in want["mu"]),
+                "split": _storage(layout, st2.params)["split"]}
+        # the tensor-parallel state through .dcp
+        mesh, model, layout = sharded(dict(case, mesh=(1, world),
+                                           fsdp=False))
+        tx3 = make_optimizer(1e-3, 0, 10, params=model)
+        st3 = state.create_train_state(model, tx3, rngs=0)
+        steps.make_train_step("continuous", jit=False, mesh=mesh)(
+            st3, *(torch.as_tensor(x) for x in case["batch"]))
+        saved = {n: _whole(t) for n, t in tx3.state_dict()["nu"].items()}
+        mgr3 = CheckpointManager(str(root / "sharded"))
+        mgr3.save(2, st3)
+        with torch.no_grad():
+            for t in tx3.state_dict()["nu"].values():
+                _local(t).zero_()
+        mgr3.restore(st3)
+        out["dcp"] = {
+            "equal": all(torch.equal(_whole(t), saved[n]) for n, t in
+                         tx3.state_dict()["nu"].items()),
+            "files": sorted(q.name for q in (root / "sharded" / "2.dcp")
+                            .iterdir()),
+            "moments_split": _storage(layout, tx3.state_dict()["nu"])}
+        return out
+
+    checks = []
+    for name, case in inp["sgd"].items():
+        if case["world"] == world:
+            checks.append((f"sgd_{name}", lambda case=case: sgd_step(case)))
+    for name, case in inp["drop"].items():
+        if case["world"] == world:
+            checks.append((f"drop_{name}",
+                           lambda case=case: drop_step(case)))
+    if world == 2:
+        checks += [("adamw", adamw), ("fit_evaluate", fit_evaluate),
+                   ("serving", serving), ("checkpoints", checkpoints)]
+    return _run(checks)
