@@ -18,10 +18,16 @@ Phases, each of which must pass (any failure exits non-zero):
    offset b0 (a data-parallel rank's first global row) in float32, bf16
    and bf16 with float32 outputs: b0=0 bit for bit with no offset, the
    offset launch bit for bit with those rows of the whole batch's and
-   against its plain version, each timed with b0 beside b0=0; the forward
+   against its plain version, each timed with b0 beside b0=0; the same at
+   head dims 128 (octo_deep_h128's three stages, B=32, 6 heads), 32 (B=32,
+   24 heads) and 80 (B=8, 16 heads, which the wrapper runs zero-padded to
+   128), with the head slices of P=2 (h0) in bf16 and with float32
+   outputs bit for bit with the whole-head launch; the forward
    without LSE at octo_deep's three
-   stages (serving batches 1 and 8, training batch 32), octo_base_deep's
-   first, the 1024-token layout and a mask with dead rows;
+   stages (serving batches 1 and 8, training batch 32), octo_deep_h128's
+   (batches 1 and 8), head dims 32 and 80, octo_base_deep's
+   first, the 1024-token layout and a mask with dead rows; what the padding
+   costs at D=80 against D=128 (kernel and whole-call device times);
    the max-pool backward at octo_base training, bit for bit, on the layout
    the embedder hands it (x channels_last, g NCHW; checked again after
    phases 6 and 12), on NCHW and on channels_last, one call on the main
@@ -180,7 +186,17 @@ Phases, each of which must pass (any failure exits non-zero):
     it and read after: 12 flash_fwd_lse, 12 flash_dq, 12 flash_dkv and 1
     pool_bwd a step) and captured, each against ``fit()`` without a mesh
     (and the eager one against a second ``fit()``, the run-to-run spread),
-    the captured steps timed in turns and one replay's launches counted.
+    the captured steps timed in turns and one replay's launches counted;
+31. octo_deep_h128: octo_deep with ``transformer.attention.num_heads=6``
+    (6 heads of 128 over its 768 features) from ``load_config``, on the
+    head dim 128 kernels: served in bf16 through PolicyEngine at batch 1
+    and 8 (every count set to 0 before and read after: 12 flash_fwd and 1
+    ddpm_sampler launches a request), compiled (replays bit for bit with
+    the eager calls), float32 against the CPU under phase 10's limit;
+    trained in bf16 at batch 32 through fit with dropout 0.1 in the kernels
+    (12 flash_fwd_lse, 12 flash_dq, 12 flash_dkv and 1 pool_bwd a step),
+    captured against the eager step, one float32 step against the CPU
+    under TRAIN_REF_LIMITS.
 
 Each phase logs its seconds when it ends ("phase N: ... done in X s").
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
@@ -218,7 +234,9 @@ F32_TOL = 1e-4
 LOW_ULPS = 2.0
 E2E_F32_TOL = 1e-3      # CUDA vs CPU, float32 (see phases 4 and 10)
 SERVE_REQUESTS = 300    # per batch size, after two warm-up requests
-DEEP_REQUESTS = 200     # octo_deep and its unmerged baseline, per batch size
+# octo_deep and its unmerged baseline, per batch size: enough for a median,
+# few enough to keep the whole run inside its time budget
+DEEP_REQUESTS = 100
 OUT_DIR = "chiprun_out"
 
 
@@ -601,11 +619,21 @@ DEEP_SPEC = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
              "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2")
 # name -> (batch, layout strings, stage, heads, head_dim): octo_base
 # training, the 1024-token layout, octo_deep's three stages at its training
-# batch (its blocks under flash_backward='pallas')
+# batch (its blocks under flash_backward='pallas'); the same three with 6
+# heads of 128 (octo_deep_h128, phase 31), head dim 32 at octo_deep's first
+# stage (24 heads over its 768 features) and head dim 80, which the kernels
+# run zero-padded to 128 (16 heads of 80, 1280 features: ViT-H/14's heads)
 FLASH_SHAPES = {"octo_base_train": (32, (OCTO_SPEC,), 0, 3, 256),
                 "long_context": (8, (LONG_SPEC,), 0, 12, 64),
                 **{f"octo_deep_S{s}": (32, DEEP_SPEC, stage, 12, 64)
-                   for stage, s in enumerate((224, 160, 96))}}
+                   for stage, s in enumerate((224, 160, 96))},
+                **{f"deep_h128_S{s}": (32, DEEP_SPEC, stage, 6, 128)
+                   for stage, s in enumerate((224, 160, 96))},
+                "d32_S224": (32, DEEP_SPEC, 0, 24, 32),
+                "d80_S224": (8, DEEP_SPEC, 0, 16, 80)}
+# head dims whose head slices (h0) phase 2 holds at P = 2, in bf16 and with
+# float32 outputs (phase 30 holds D = 64's at P = 2 and 4)
+HEAD_SLICE_DIMS = (32, 80, 128)
 TRAIN_DROPOUT = 0.1     # the attention.dropout_rate of octo_base and octo_deep
 
 
@@ -664,7 +692,7 @@ def flash_case(fa, mask, b, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
-    bq, bk = fa.KERNEL_TILES[d]
+    bq, bk = fa.kernel_tiles(d)
     tables = fa.device_tables(mask, bq, bk, "cuda")
     return mask, (q, k, v, do), tables, (bq, bk)
 
@@ -868,6 +896,56 @@ def flash_offset_check(fa, name, mask, b, h, d):
     return f32_err
 
 
+def padding_cost(fa, b=8, h=16):
+    """What running head dim 80 padded to 128 costs: at octo_deep's first
+    stage (S=224, bf16, dropout 0.1 in the training kernels), B=b, H=h,
+    D=80 beside D=128, each kernel's device time alone and one wrapper
+    call's whole device time (the kernel, the zero-padded copies of its
+    operands and the cut of its outputs at D=80), taken in turns (80, 128,
+    128, 80), and the wrapper's host time."""
+    mask = stage_mask(DEEP_SPEC, 0)
+    seed = torch.tensor([7, 8], dtype=torch.int64, device="cuda")
+    calls = {}
+    for d in (80, 128):
+        _, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
+            fa, mask, b, h, d, torch.bfloat16, seed=17)
+        kw = dict(block_q=tiles[0], block_k=tiles[1],
+                  dropout_rate=TRAIN_DROPOUT)
+        out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+        delta = fa.attention_delta(do, out, padded.shape[0])
+        bind = lambda f, *a, **k: (lambda: f(*a, **k))
+        calls[d] = {
+            "flash_fwd": bind(fa.flash_fwd, q, k, v, padded, k_hi,
+                              block_q=tiles[0], block_k=tiles[1]),
+            "flash_fwd_lse": bind(fa.flash_fwd_lse, q, k, v, padded, k_hi,
+                                  seed, **kw),
+            "flash_dq": bind(fa.flash_dq, q, k, v, do, lse, delta, padded,
+                             k_hi, seed, **kw),
+            "flash_dkv": bind(fa.flash_dkv, q, k, v, do, lse, delta, padded,
+                              q_lo, seed, **kw)}
+    rows = {}
+    for kernel in calls[80]:
+        got = {80: [], 128: []}
+        for d in (80, 128, 128, 80):
+            call = calls[d][kernel]
+            got[d].append((device_ms(call, f"{kernel}_kernel"),
+                           device_total_ms(call)[0]))
+        row = {f"d{d}_{what}_ms": statistics.mean(x[i] for x in got[d])
+               for d in (80, 128) for i, what in enumerate(("kernel",
+                                                            "call"))}
+        row.update({f"d{d}_wrapper_ms": time_ms(calls[d][kernel])
+                    for d in (80, 128)})
+        rows[kernel] = row
+        log(f"  padding {kernel:13s} bf16 B={b} S={mask.shape[0]} H={h}: "
+            f"D=80 (run at 128) kernel {row['d80_kernel_ms']:.4f} ms, whole "
+            f"call on the device {row['d80_call_ms']:.4f} ms, wrapper "
+            f"{row['d80_wrapper_ms']:.4f} ms; D=128 kernel "
+            f"{row['d128_kernel_ms']:.4f} ms, whole call "
+            f"{row['d128_call_ms']:.4f} ms, wrapper "
+            f"{row['d128_wrapper_ms']:.4f} ms")
+    return rows
+
+
 BASE_DEEP_SPEC = (OCTO_SPEC,
                   "[TaskDescriptionPrefix{0}] [Image{4};Readout{0}]*2")
 
@@ -886,13 +964,20 @@ def dead_row_mask(s=224):
 def fwd_shapes():
     """name -> (mask, batch, heads, head_dim) of the forward without LSE:
     octo_deep's three stages at the serving batches and at the training
-    batch, octo_base_deep's first stage, the 1024-token layout and dead
-    rows."""
+    batch, and with 6 heads of 128 at the serving batches; head dims 32
+    and 80 (padded to 128) at its first stage; octo_base_deep's first
+    stage, the 1024-token layout and dead rows."""
     shapes = {}
     for stage, s in enumerate((224, 160, 96)):
         for b in (1, 8, TRAIN_BATCH):
             shapes[f"octo_deep_S{s}_B{b}"] = (stage_mask(DEEP_SPEC, stage),
                                               b, 12, 64)
+    for stage, s in enumerate((224, 160, 96)):
+        for b in (1, 8):
+            shapes[f"deep_h128_S{s}_B{b}"] = (stage_mask(DEEP_SPEC, stage),
+                                              b, 6, 128)
+    shapes["d32_S224_B32"] = (stage_mask(DEEP_SPEC, 0), TRAIN_BATCH, 24, 32)
+    shapes["d80_S224_B8"] = (stage_mask(DEEP_SPEC, 0), 8, 16, 80)
     shapes["octo_base_deep_S74_B1"] = (stage_mask(BASE_DEEP_SPEC, 0), 1, 3,
                                        256)
     shapes["long_context_S1024_B8"] = (layout_mask(LONG_SPEC), 8, 12, 64)
@@ -905,7 +990,7 @@ def fwd_case(fa, mask, b, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
                for _ in range(3))
-    bq, bk = fa.KERNEL_TILES[d]
+    bq, bk = fa.kernel_tiles(d)
     padded, k_hi, _ = fa.device_tables(mask, bq, bk, "cuda")
     return (q, k, v, padded, k_hi), dict(block_q=bq, block_k=bk)
 
@@ -913,8 +998,9 @@ def fwd_case(fa, mask, b, h, d, dtype, seed):
 def flash_fwd_check(fa):
     """flash_fwd against flash_fwd_reference in three dtypes at every shape
     of fwd_shapes(), under the limits of the other flash kernels; dead rows
-    must come out as zeros.  Returns the largest float32 |kernel - plain|."""
-    f32_err = 0.0
+    must come out as zeros.  Returns each shape's largest float32 |kernel -
+    plain|."""
+    f32_err = {}
     for name, (mask, b, h, d) in fwd_shapes().items():
         parts, ok_all = [], True
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -927,7 +1013,7 @@ def flash_fwd_check(fa):
             ok &= not bool(out[:, dead].any())
             ok_all &= ok
             if dtype == torch.float32:
-                f32_err = max(f32_err, err)
+                f32_err[name] = err
             parts.append(f"{str(dtype)[6:]} {err:.2e} ({units:.3f})")
         log(f"  flash_fwd {name:22s} H={h} D={d}: |kernel-plain| "
             f"{', '.join(parts)}; dead rows {int((~mask.any(axis=1)).sum())} "
@@ -1345,9 +1431,10 @@ def compare_merge_events(got, want, label):
 
 # -- phase 10: octo_deep float32, CUDA vs CPU ------------------------------------
 
-def tome_reference_phase(cfg32, counters):
-    """octo_deep in float32 on the card (kernels) against the CPU (plain
-    versions): the same weights, inputs and noise.  Which tokens merge is a
+def tome_reference_phase(cfg32, counters, label="octo_deep"):
+    """octo_deep (or another ToMe configuration, named ``label``) in
+    float32 on the card (kernels) against the CPU (plain versions): the
+    same weights, inputs and noise.  Which tokens merge is a
     discrete choice, so every event's plan is compared and its smallest
     score margin printed beside the output difference; the same request in
     bfloat16 is the planted fault the limit must see."""
@@ -1384,21 +1471,21 @@ def tome_reference_phase(cfg32, counters):
                         != before[k]}
     blocks = cfg32.transformer.num_blocks
     if launched != {"flash_fwd": blocks, "ddpm_sampler": 1}:
-        fail(f"the float32 CUDA request of octo_deep launched {launched}")
+        fail(f"the float32 CUDA request of {label} launched {launched}")
     flips = compare_merge_events(events["cuda"], events["cpu"],
-                                 "octo_deep f32 request")
+                                 f"{label} f32 request")
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
     err_fault = (outs["cuda_bf16_fault"] - outs["cpu"]).abs().max().item()
-    log(f"  octo_deep f32 predict_diffusion_action B={b}: |cuda-cpu|="
+    log(f"  {label} f32 predict_diffusion_action B={b}: |cuda-cpu|="
         f"{err:.3e} (tol {E2E_F32_TOL:g}), {flips} of "
         f"{len(events['cuda'])} merge events chose other tokens; the same "
         f"request in bfloat16 (planted fault): {err_fault:.3e}")
     if not err <= E2E_F32_TOL:
-        fail("octo_deep: float32 CUDA and CPU disagree"
+        fail(f"{label}: float32 CUDA and CPU disagree"
              + (f" ({flips} merge events chose other tokens; see their "
                 f"margins)" if flips else ""))
     if not err_fault > E2E_F32_TOL:
-        fail("the planted bfloat16 fault passes octo_deep's float32 limit")
+        fail(f"the planted bfloat16 fault passes {label}'s float32 limit")
     del gpu, cpu, fault
     return dict(err=err, fault_err=err_fault, flipped_events=flips,
                 merge_events=len(events["cuda"]),
@@ -1635,6 +1722,9 @@ TRAIN_REF_LIMITS = {
     # gradients reach the flipped positions than octo_base's), so octo_deep's
     # image limit, which answers the same flips; octo_base's for the rest
     "octo_base_moe": dict(rest=1e-3, image=1e-2, l2=None),
+    # phase 31: octo_deep with 6 heads of 128: octo_deep's image tower,
+    # blocks, MLPs and merges (the same ReLU near-ties), so its limits
+    "octo_deep_h128": dict(rest=5e-2, image=1e-2, l2=5e-3),
 }
 
 
@@ -4215,17 +4305,17 @@ SHARDED_WINDOW = 10         # captured steps a turn, timed
 
 
 def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
-                      seed=30):
+                      seed=30, splits=HEAD_SPLITS, timed=True):
     """The three training kernels, dropout 0.1, on the heads of each rank
-    of a tensor-parallel attention (P of HEAD_SPLITS; rank k holds heads
+    of a tensor-parallel attention (P of ``splits``; rank k holds heads
     [k H/P, (k+1) H/P) and launches with h0 = k H/P, heads_total = H):
     each slice's outputs bit for bit with those heads of the whole-head
     launch (dq and dk/dv handed those heads of its LSE and delta), and
-    against its plain version under rel_gate.  Then the device ms of rank
-    1 of 2 beside the same heads launched without the offset (h0 = 0,
-    heads_total = H/2), in turns.  Returns (each kernel's largest |kernel
-    - plain| and rel_gate units, the timings of rank 1 of 2 with its
-    operands)."""
+    against its plain version under rel_gate.  Then, when ``timed``, the
+    device ms of rank 1 of 2 beside the same heads launched without the
+    offset (h0 = 0, heads_total = H/2), in turns.  Returns (each kernel's
+    largest |kernel - plain| and rel_gate units, with the timings of rank
+    1 of 2 when ``timed``; the operands of those timings)."""
     mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
         fa, mask, b, h, d, dtype, seed)
     words = torch.tensor([0x5EED123, 0x0FF5E7], dtype=torch.int64,
@@ -4248,7 +4338,7 @@ def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
         return (sl(q), sl(k), sl(v), sl(do), lse[:, heads].contiguous(),
                 delta[:, heads].contiguous(), padded)
 
-    for p in HEAD_SPLITS:
+    for p in splits:
         for rank in range(p):
             heads = slice(rank * h // p, (rank + 1) * h // p)
             extra = dict(h0=heads.start, heads_total=h)
@@ -4282,6 +4372,9 @@ def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
                 f"{', '.join(parts)} {'ok' if ok_all else 'FAIL'}")
             if not ok_all:
                 fail(f"flash {label} P={p} rank {rank} with a head offset")
+    if not timed:
+        return {kernel: dict(max_abs_err=err, gate_units=units)
+                for kernel, (err, units) in worst.items()}, None
     args = operands(slice(h // 2, h))
     calls = {"flash_fwd_lse": lambda **e: fa.flash_fwd_lse(
                  *args[:3], padded, k_hi, words, **e, **kw),
@@ -4489,6 +4582,82 @@ def sharded_phase(fa, counters):
     return out
 
 
+# -- phase 31: octo_deep with 6 heads of 128 -----------------------------------
+
+# octo_deep_h128: octo_deep's 768 features split into 6 heads of 128, the
+# most common head dim of public transformers, as a user builds it from the
+# YAML config; the flash kernels in every block, the max-pool backward kernel
+H128_OVERRIDES = ["transformer.attention.num_heads=6",
+                  "transformer.attention_impl=flash",
+                  "images.resnet.pool_vjp=pallas"]
+H128_REQUESTS = 50      # eager requests a batch size; compiled: in turns
+H128_TRAIN_STEPS = 10   # the fit window, then as many synced steps
+
+
+def h128_config(dtype, serving):
+    """octo_deep_h128 from ``load_config``: served as phase 9 serves
+    octo_deep (``flash_backward='xla'``, attention dropout 0: the forward
+    kernel without LSE), trained as its preset sets attention
+    (``flash_backward='pallas'``, dropout 0.1 in the kernels)."""
+    from multi_modal_transformers_tokenmerge_torch.core.yaml_loader import (
+        load_config)
+    extra = (["transformer.flash_backward=xla",
+              "transformer.attention.dropout_rate=0.0"] if serving else
+             ["transformer.flash_backward=pallas"])
+    return load_config("octo_deep", [f"dtype={dtype}", *H128_OVERRIDES,
+                                     *extra])
+
+
+def head_dim_phase(counters):
+    """octo_deep_h128 at full width on the D=128 kernels: served in bf16
+    at batch 1 and 8 (every count set to 0 before and read after: 12
+    flash_fwd and 1 ddpm_sampler launches a request), compiled (replays bit
+    for bit with the eager calls, in turns with them, 12 flash_fwd a
+    replay), in float32 against the CPU under phase 10's limit; trained in
+    bf16 at batch 32 through fit (12 flash_fwd_lse, 12 flash_dq, 12
+    flash_dkv and 1 pool_bwd launches a step, dropout 0.1 in the kernels),
+    captured against the eager step, and one float32 step against the CPU
+    under TRAIN_REF_LIMITS."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    scfg = h128_config("bfloat16", serving=True)
+    att = scfg.transformer.attention
+    if (att.num_heads, att.qkv_features // att.num_heads) != (6, 128):
+        fail(f"octo_deep_h128 has {att.num_heads} heads of "
+             f"{att.qkv_features // att.num_heads}")
+    blocks = scfg.transformer.num_blocks
+    serving = {"flash_fwd": blocks, "ddpm_sampler": 1}
+    training = {"flash_fwd_lse": blocks, "flash_dq": blocks,
+                "flash_dkv": blocks, "pool_bwd": 1}
+    model = Octo(scfg, device="cuda", seed=0).eval()
+    serve_ms, serve_launches = serve_phase(
+        model, scfg, counters, "octo_deep_h128 bf16 (ToMe, flash/xla)",
+        H128_REQUESTS, serving)
+    compiled = compiled_serve_phase({"octo_deep_h128": model}, scfg,
+                                    "octo_deep_h128 bf16", serving,
+                                    requests=H128_REQUESTS)
+    del model
+    torch.cuda.empty_cache()
+    reference = tome_reference_phase(h128_config("float32", serving=True),
+                                     counters, "octo_deep_h128")
+    tcfg = h128_config("bfloat16", serving=False)
+    if tcfg.transformer.attention.dropout_rate != TRAIN_DROPOUT:
+        fail(f"octo_deep_h128's attention dropout is "
+             f"{tcfg.transformer.attention.dropout_rate}")
+    state, train_ms, train_launches = train_phase(
+        tcfg, counters, "octo_deep_h128 (flash/pallas)", training,
+        H128_TRAIN_STEPS, H128_TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    compiled_train = compiled_train_phase(
+        tcfg, "octo_deep_h128 (flash/pallas)", training)
+    train_ref = train_reference_phase(h128_config("float32", serving=False),
+                                      counters, "octo_deep_h128", training)
+    return dict(serve_ms_per_request=serve_ms, serve_launches=serve_launches,
+                compiled_serving=compiled, reference=reference,
+                train_ms_per_step=train_ms, train_launches=train_launches,
+                compiled_training=compiled_train, train_reference=train_ref)
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -4552,14 +4721,23 @@ def main():
     phase("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
     flash_err, flash_rows, sdpa_kernels, offset_err = {}, {}, {}, {}
+    head_err = {}
     for name, (b, strings, stage, h, d) in FLASH_SHAPES.items():
         mask = stage_mask(strings, stage)
         flash_err[name] = flash_check(fa, name, mask, b, h, d)
         offset_err[name] = flash_offset_check(fa, name, mask, b, h, d)
+        if d in HEAD_SLICE_DIMS:
+            head_err[name] = {
+                label: head_offset_check(fa, name, mask, b, h, d,
+                                         torch.bfloat16, out_dtype,
+                                         splits=(2,), timed=False)[0]
+                for label, out_dtype in (("bf16", None),
+                                         ("bf16_f32out", torch.float32))}
         flash_rows[name], sdpa_kernels[name] = flash_timings(
             fa, name, mask, b, h, d)
     fwd_err = flash_fwd_check(fa)
     fwd_rows = flash_fwd_timings(fa)
+    pad_cost = padding_cost(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
     auto_gate_check(fa)
 
@@ -4720,6 +4898,8 @@ def main():
     drives = drive_phase()
     phase("phase 30: training on sharded parameters, octo_deep bf16 B=32")
     sharded = sharded_phase(fa, counters)
+    phase("phase 31: octo_deep with 6 heads of 128 (octo_deep_h128)")
+    h128 = head_dim_phase(counters)
     phase(None)
 
     ms, call_ms, plain, bnd, by = timings[1]
@@ -4754,7 +4934,8 @@ def main():
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": flash_src,
         "replaces": f"{tpu}flash_attention.py:60",
-        "launches": deep_launches["flash_fwd"], "max_abs_err": fwd_err,
+        "launches": deep_launches["flash_fwd"],
+        "max_abs_err": max(fwd_err.values()),
         **fwd_rows["octo_deep_S224_B1"],
         "library": "SDPA forward, boolean mask",
         "shape": "octo_deep serving bf16 B=1 S=224 H=12 D=64 (stage 0 of 3)",
@@ -4859,6 +5040,52 @@ def main():
                              sharded["offset"].items()
                              if name != "octo_deep_S224"},
         })
+    # the flash kernels at head dim 128 on octo_deep_h128's path (phase 31),
+    # with head dims 32 and 80 (padded to 128) held and timed beside them
+    new_dim = ("deep_h128", "d32", "d80")
+    for kernel, line in (("flash_fwd", 60), ("flash_fwd_lse", 328),
+                         ("flash_dq", 383), ("flash_dkv", 430)):
+        if kernel == "flash_fwd":
+            row, first = fwd_rows["deep_h128_S224_B1"], "deep_h128_S224_B1"
+            others = fwd_rows
+            err = max(e for n, e in fwd_err.items() if n.startswith(new_dim))
+            extra = {
+                "launches_per_compiled_request": h128["compiled_serving"][1][
+                    "replay_profile"]["kernels"][kernel],
+                "shape": "octo_deep_h128 serving bf16 B=1 S=224 H=6 D=128 "
+                         "(stage 0 of 3)",
+                "library": "SDPA forward, boolean mask"}
+            launches = h128["serve_launches"][kernel]
+        else:
+            row, first = flash_rows["deep_h128_S224"][kernel], "deep_h128_S224"
+            others = {n: rows[kernel] for n, rows in flash_rows.items()}
+            err = max(e[kernel] for n, e in flash_err.items()
+                      if n.startswith(new_dim))
+            extra = {
+                "launches_per_compiled_step": h128["compiled_training"][
+                    "replay_profile"]["kernels"][kernel],
+                "max_abs_err_batch_offset": max(
+                    e[kernel] for n, e in offset_err.items()
+                    if n.startswith(new_dim)),
+                "bf16_err_head_offset": max(
+                    rows[kernel]["max_abs_err"] for e in head_err.values()
+                    for rows in e.values()),
+                "shape": f"octo_deep_h128 train bf16 B=32 S=224 H=6 D=128 "
+                         f"r={TRAIN_DROPOUT}",
+                "library": ("SDPA forward, boolean mask, dropout 0.1"
+                            if kernel == "flash_fwd_lse" else
+                            "SDPA backward (dq, dk and dv together)")}
+            launches = h128["train_launches"][kernel]
+        kernels.append({
+            "name": f"{kernel}_d128", "route": "cuda", "source": flash_src,
+            "replaces": f"{tpu}flash_attention.py:{line}",
+            "launches": launches, "max_abs_err": err, **row, **extra,
+            "padding_d80_vs_d128": pad_cost[kernel],
+            "other_shapes": {n: r for n, r in others.items()
+                             if n.startswith(new_dim) and n != first},
+        })
+    log(json.dumps({"head_dims": h128, "head_offset_errors": head_err,
+                    "padding_cost": pad_cost, "card": card}))
     log(json.dumps({"sharded": sharded, "phase_seconds": _PHASE["seconds"],
                     "card": card}))
     log(json.dumps({"ring": ring, "distributed": distributed,

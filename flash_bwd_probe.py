@@ -41,26 +41,28 @@ import torch
 import chip_smoke as cs
 from flash_fwd_probe import run
 
-_SHARE = "  constexpr bool SHARE_DKV = D == 256;\n"
-_DKV_WARPS = ("constexpr int RG_DKV = D == 64 ? 4 : 2, "
-              "DS_DKV = D == 64 ? 1 : 4;")
+_SHARE = "  constexpr bool SHARE_DKV = Traits<D>::DKV_SHARE;\n"
+_DKV_WARPS = ("constexpr int RG_DKV = Traits<D>::DKV_RG, "
+              "DS_DKV = Traits<D>::DKV_DS;")
 # name -> [(text of csrc/flash_attention.cu, its replacement)], each text
 # found exactly once
 PATCHES = {
     "dkv_recompute": [(_SHARE, "  constexpr bool SHARE_DKV = false;\n")],
     "dkv_recompute_ds2": [
         (_SHARE, "  constexpr bool SHARE_DKV = false;\n"),
-        (_DKV_WARPS, _DKV_WARPS.replace("? 1 : 4", "? 1 : 2"))],
+        (_DKV_WARPS, _DKV_WARPS.replace("DS_DKV = ",
+                                        "DS_DKV = D == 256 ? 2 : "))],
     "rows32": [
-        ("constexpr int RG_DQ = D == 64 ? 4 : 2,", "constexpr int RG_DQ = 2,"),
-        ("constexpr int RG_DKV = D == 64 ? 4 : 2,",
-         "constexpr int RG_DKV = 2,")],
+        ("constexpr int RG_DQ = Traits<D>::DQ_RG,",
+         "constexpr int RG_DQ = D == 64 ? 2 : Traits<D>::DQ_RG,"),
+        ("constexpr int RG_DKV = Traits<D>::DKV_RG,",
+         "constexpr int RG_DKV = D == 64 ? 2 : Traits<D>::DKV_RG,")],
     "philox_each": [(
         """          const uint32_t key4 =
               static_cast<uint32_t>(k0 + wr + g + 8 * (jj >> 1)) >> 2;
           const uint4 w = philox4x32_10(
-              make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)), bh,
-                         0u),
+              make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)),
+                         bh + drop.bh0, 0u),
               drop.k0, drop.k1);
           const uint32_t words[4] = {w.x, w.y, w.z, w.w};
           uint32_t got[4];
@@ -77,7 +79,8 @@ PATCHES = {
             const uint4 w = philox4x32_10(
                 make_uint4(
                     static_cast<uint32_t>(k0 + wr + g + 8 * (e >> 1)) >> 2,
-                    static_cast<uint32_t>(q0 + qc + (e & 1)), bh, 0u),
+                    static_cast<uint32_t>(q0 + qc + (e & 1)),
+                    bh + drop.bh0, 0u),
                 drop.k0, drop.k1);
             const uint32_t words[4] = {w.x, w.y, w.z, w.w};
             kb[e] = pick4(words, jj);
@@ -86,7 +89,7 @@ PATCHES = {
     "one_pass": [("  constexpr int NC = NQ > 4 ? 4 : NQ;",
                   "  constexpr int NC = NQ;")],
     "dkv_pass16": [("  constexpr int NC = NQ > 4 ? 4 : NQ;",
-                    "  constexpr int NC = NQ > 2 ? 2 : NQ;")],
+                    "  constexpr int NC = SHARE || NQ <= 2 ? NQ : 2;")],
     "dq_pass32": [("  constexpr int NC = NS;      // ... in a pass",
                    "  constexpr int NC = NS > 4 ? 4 : NS;")],
     "blocks4": [(f"__launch_bounds__(32 * RG * DS)\n    flash_{k}_kernel(",

@@ -37,12 +37,14 @@ import chip_smoke as cs
 # found exactly once
 PATCHES = {
     "rows32": [(
-        "constexpr int RG = D == 64 ? 4 : 2, DS = D == 64 ? 1 : 2;",
-        "constexpr int RG = 2, DS = D == 64 ? 1 : 2;")],
+        "constexpr int RG = Traits<D>::FWD_RG, DS = Traits<D>::FWD_DS;",
+        "constexpr int RG = D == 64 ? 2 : Traits<D>::FWD_RG, "
+        "DS = Traits<D>::FWD_DS;")],
     "philox_twice": [(
         """        const bool odd = t & 1;
         const uint4 w = philox4x32_10(
-            make_uint4(ctr, row + (odd ? 8u : 0u), bh, 0u), drop.k0, drop.k1);
+            make_uint4(ctr, row + (odd ? 8u : 0u), bh + drop.bh0, 0u),
+            drop.k0, drop.k1);
         const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
         const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
         // [row g, row g + 8][column 2t, 2t + 1]
@@ -52,8 +54,9 @@ PATCHES = {
         """        uint32_t bits[2][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const uint4 w = philox4x32_10(make_uint4(ctr, row + 8u * i, bh, 0u),
-                                        drop.k0, drop.k1);
+          const uint4 w = philox4x32_10(
+              make_uint4(ctr, row + 8u * i, bh + drop.bh0, 0u), drop.k0,
+              drop.k1);
           bits[i][0] = (t & 1) ? w.z : w.x;
           bits[i][1] = (t & 1) ? w.w : w.y;
         }

@@ -12,8 +12,13 @@
 // static mask is an int8 (S_pad, S_pad) tile-aligned square (zero past S)
 // with per-tile skip tables: k_hi[q tile] key tiles are visited by the
 // forward and dq passes, the dk/dv pass visits q tiles from q_lo[k tile].
-// The tables' tiles (Tiles<D>: 64 x 64 at D = 64, 32 x 32 at D = 256) fix
-// S_pad, k_hi and the (B, H, S_pad) LSE that dq and dk/dv read.
+// The tables' tiles (Traits<D>: 64 x 64 at D = 32, 64 and 128, 32 x 32 at
+// D = 256) fix S_pad, k_hi and the (B, H, S_pad) LSE that dq and dk/dv read.
+// Head dims 32, 64, 128 and 256 are compiled, as the Pallas kernels take
+// any D; the wrapper runs every other D up to 256 at the next compiled one,
+// its operands zero-padded along D and 1/sqrt(D) of the true D passed as
+// the scale (zero columns add nothing to a logit, so the softmax and LSE
+// are unchanged; the outputs' extra columns are zero and are cut off).
 // Logits are float32 sums of input-dtype products times 1/sqrt(D), masked
 // to -1e30.  Online max and sum are float32; p = exp(s - max(m, -5e29))
 // keeps rows with no live key at p = 0, so they emit zeros and an LSE of
@@ -160,7 +165,35 @@
 // distinct banks; each thread owns one column (key or feature) and a stride
 // of rows.  Register budget: with D = 256 a 64 x 256 float32 accumulator
 // would take 128 registers a thread at 128 threads, so D = 256 uses 32 x 32
-// tiles and 256 threads; D = 64 uses 64 x 64 tiles and 128 threads.
+// tiles and 256 threads; D = 64 uses 64 x 64 tiles and 128 threads.  At
+// D = 128 dk/dv's two 64 x 128 accumulators would take 128 registers a
+// thread at 128 threads, so 64 x 64 tiles take 256 threads (32 + 32 a
+// thread, the forward's and dq's 32); its shared memory is the largest,
+// 4 ((2 BQ + 2 BK)(D + 4) + 2 BQ (BK + 4) + 2 BQ) = 170,496 bytes, one
+// block an SM.  D = 32 takes D = 64's tiles and threads (16 + 16).
+//
+// Head dims 32 and 128 on the tensor cores (Traits<32>, Traits<128>),
+// correct first versions on the D = 64 and D = 256 designs, not tuned:
+//   * D = 32 is D = 64 at half the depth: 64-row blocks of four warps, the
+//     output accumulator 16 registers (32 at D = 64), flash_fwd_kernel held
+//     to 128 registers for four blocks an SM; shared memory 35,840 bytes
+//     (forward), 40,960 (dq) and 41,984 (dk/dv) a block at rows of 40
+//     elements (80 bytes: the 8 rows of an ldmatrix fall in distinct banks).
+//   * D = 128 forward and dq: 64-row blocks of four warps, one warp 16 rows
+//     of all 128 columns: the O or dQ accumulator is 16 x 128 / 32 = 64
+//     float32 registers a thread beside 32 (S) or 64 (S and dP), as at
+//     D = 64 plus 32; no bound on blocks an SM.  Shared memory, rows of 136
+//     elements (272 bytes, so the 8 rows of an ldmatrix fall in distinct
+//     banks): 2 (64 + 4 x 64) 136 + 2 x 64 x 80 = 97,280 bytes for the
+//     forward and 2 (2 x 64 + 4 x 64) 136 + 10,240 = 114,688 for dq, two
+//     blocks an SM.
+//   * D = 128 dk/dv: two 16 x 128 accumulators would be 128 registers a
+//     thread on top of S^T and dP^T, so, as at D = 256, the warps split D:
+//     four row groups of 16 keys, two warps each holding 64 columns of dK
+//     and dV (64 registers), each computing half a q tile's S^T and dP^T
+//     and passing P^T and dS^T through shared memory: 8 warps, 134,144
+//     bytes (K, V 34,816; Q, dO ring 69,632; P^T, dS^T 18,432; LSE and
+//     delta 1,024; mask ring 10,240), one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -331,17 +364,59 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The mask tables' tiles (KERNEL_TILES of ops/flash_attention.py) and the
-// CUDA-core kernels' threads.
+// Every choice that depends on the head dim, one specialisation a compiled
+// dim (the source note gives the reasoning):
+//   BQ, BK      the mask tables' tiles (KERNEL_TILES of
+//               ops/flash_attention.py); every kernel steps by them;
+//   NT          the CUDA-core (float32) kernels' threads;
+//   *_RG, *_DS  a tensor-core kernel's row groups of 16 rows (one warp
+//               each) and the warps that split D among them;
+//   FWD_MIN,    blocks an SM of flash_fwd_kernel and of
+//   LSE_MIN     flash_fwd_lse_kernel (__launch_bounds__): at D = 32 and 64
+//               four, so at most 128 registers a thread (flash_fwd_kernel
+//               at D = 64 takes 140 left alone, three blocks, and more
+//               time: PERF.md section 6); at D = 256 flash_fwd_lse_kernel's
+//               three are the blocks ptxas reaches unbounded (163
+//               registers; 168 with the bound, the same time); at D = 128
+//               one: unbounded, ptxas aims flash_fwd_lse_kernel at three
+//               blocks (168 registers) and spills, where shared memory
+//               holds two (218 registers with the bound, no spill);
+//   DKV_SHARE   dk/dv passes P^T and dS^T through shared memory, each of
+//               the DKV_DS warps of a row group computing its share of the
+//               q tile's S^T and dP^T.
 template <int D>
-struct Tiles;
+struct Traits;
 template <>
-struct Tiles<64> {
+struct Traits<32> {
   static constexpr int BQ = 64, BK = 64, NT = 128;
+  static constexpr int FWD_RG = 4, FWD_DS = 1, FWD_MIN = 4, LSE_MIN = 4;
+  static constexpr int DQ_RG = 4, DQ_DS = 1;
+  static constexpr int DKV_RG = 4, DKV_DS = 1;
+  static constexpr bool DKV_SHARE = false;
 };
 template <>
-struct Tiles<256> {
+struct Traits<64> {
+  static constexpr int BQ = 64, BK = 64, NT = 128;
+  static constexpr int FWD_RG = 4, FWD_DS = 1, FWD_MIN = 4, LSE_MIN = 4;
+  static constexpr int DQ_RG = 4, DQ_DS = 1;
+  static constexpr int DKV_RG = 4, DKV_DS = 1;
+  static constexpr bool DKV_SHARE = false;
+};
+template <>
+struct Traits<128> {
+  static constexpr int BQ = 64, BK = 64, NT = 256;
+  static constexpr int FWD_RG = 4, FWD_DS = 1, FWD_MIN = 1, LSE_MIN = 1;
+  static constexpr int DQ_RG = 4, DQ_DS = 1;
+  static constexpr int DKV_RG = 4, DKV_DS = 2;
+  static constexpr bool DKV_SHARE = true;
+};
+template <>
+struct Traits<256> {
   static constexpr int BQ = 32, BK = 32, NT = 256;
+  static constexpr int FWD_RG = 2, FWD_DS = 2, FWD_MIN = 1, LSE_MIN = 3;
+  static constexpr int DQ_RG = 2, DQ_DS = 2;
+  static constexpr int DKV_RG = 2, DKV_DS = 4;
+  static constexpr bool DKV_SHARE = true;
 };
 
 // The forward pass of one (batch, head, q tile) block.  With DROPOUT the
@@ -661,8 +736,8 @@ __device__ __forceinline__ void mma_forward_block(
   constexpr int NS = BN / 8;  // n8 tiles of S a warp
   constexpr int DO = D / DS;  // output columns a warp
   constexpr int NO = DO / 8;  // n8 tiles of O a warp
-  constexpr int TBQ = Tiles<D>::BQ;
-  static_assert(BN == Tiles<D>::BK && TBQ % BM == 0, "tiles of the tables");
+  constexpr int TBQ = Traits<D>::BQ;
+  static_assert(BN == Traits<D>::BK && TBQ % BM == 0, "tiles of the tables");
   static_assert(NS % 2 == 0 && NO % 2 == 0 && D % 16 == 0, "mma tiles");
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);
@@ -839,16 +914,8 @@ __device__ __forceinline__ void mma_forward_block(
   }
 }
 
-// Blocks a multiprocessor should hold of flash_fwd_kernel: four 64-row
-// blocks at D = 64, so at most 128 registers a thread (it takes 140 left
-// alone, and three blocks; PERF.md, PR 4); else no bound.
-template <int D, int NT>
-constexpr int fwd_min_blocks() {
-  return D == 64 && NT == 128 ? 4 : 1;
-}
-
 template <typename T, int D, int RG, int DS, int BN, typename O>
-__global__ void __launch_bounds__(32 * RG * DS)
+__global__ void __launch_bounds__(32 * RG * DS, Traits<D>::LSE_MIN)
     flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const int8_t* __restrict__ mask,
@@ -865,7 +932,7 @@ __global__ void __launch_bounds__(32 * RG * DS)
 // _flash_kernel computes.  A __global__ entry of its own that takes no seed,
 // compiles no Philox code and stores no row statistic.
 template <typename T, int D, int RG, int DS, int BN>
-__global__ void __launch_bounds__(32 * RG * DS, fwd_min_blocks<D, 32 * RG * DS>())
+__global__ void __launch_bounds__(32 * RG * DS, Traits<D>::FWD_MIN)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int8_t* __restrict__ mask,
                      const int32_t* __restrict__ k_hi, T* __restrict__ out,
@@ -1215,8 +1282,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
   constexpr int NC = NS;      // ... in a pass
   constexpr int DO = D / DS;            // dQ columns a warp
   constexpr int NO = DO / 8;  // n8 tiles of dQ a warp
-  constexpr int TBQ = Tiles<D>::BQ;
-  static_assert(BN == Tiles<D>::BK && TBQ % BM == 0, "tiles of the tables");
+  constexpr int TBQ = Traits<D>::BQ;
+  static_assert(BN == Traits<D>::BK && TBQ % BM == 0, "tiles of the tables");
   static_assert(NS % NC == 0 && NC % 2 == 0 && NO % 2 == 0, "mma tiles");
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);
@@ -1391,8 +1458,8 @@ __global__ void __launch_bounds__(32 * RG * DS)
   constexpr int NC = NQ > 4 ? 4 : NQ;  // n8 tiles of S^T a pass
   constexpr int DO = D / DS;  // dK and dV columns a warp
   constexpr int NO = DO / 8;  // their n8 tiles
-  constexpr int TBK = Tiles<D>::BK;
-  static_assert(BN == Tiles<D>::BQ && TBK % BM == 0, "tiles of the tables");
+  constexpr int TBK = Traits<D>::BK;
+  static_assert(BN == Traits<D>::BQ && TBK % BM == 0, "tiles of the tables");
   static_assert(NQ % NC == 0 && (SHARE ? NQ == NC : NC % 2 == 0) &&
                     NO % 2 == 0 && BN % 16 == 0,
                 "mma tiles");
@@ -1578,19 +1645,19 @@ __global__ void __launch_bounds__(32 * RG * DS)
 
 template <int D>
 constexpr size_t fwd_smem() {
-  using Tl = Tiles<D>;
+  using Tl = Traits<D>;
   return sizeof(float) * ((Tl::BQ + 2 * Tl::BK) * (D + 4) +
                           Tl::BQ * (Tl::BK + 4) + 3 * Tl::BQ);
 }
 template <int D>
 constexpr size_t dq_smem() {
-  using Tl = Tiles<D>;
+  using Tl = Traits<D>;
   return sizeof(float) * ((2 * Tl::BQ + 2 * Tl::BK) * (D + 4) +
                           Tl::BQ * (Tl::BK + 4) + 2 * Tl::BQ);
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  using Tl = Tiles<D>;
+  using Tl = Traits<D>;
   return sizeof(float) * ((2 * Tl::BQ + 2 * Tl::BK) * (D + 4) +
                           2 * Tl::BQ * (Tl::BK + 4) + 2 * Tl::BQ);
 }
@@ -1617,15 +1684,14 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// One tensor-core forward launch, with LSE (and dropout) or without: four
-// warps a block, at D = 64 four row groups of 16 rows (64 rows, the table
-// tile), at D = 256 two row groups of two warps that split D for P V.
+// One tensor-core forward launch, with LSE (and dropout) or without, at
+// the row groups and D split of Traits<D>.
 template <typename T, int D, bool LSE, typename O = T>
 int mma_fwd(const void* q, const void* k, const void* v, const int8_t* mask,
             const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
             const Launch& L) {
-  constexpr int RG = D == 64 ? 4 : 2, DS = D == 64 ? 1 : 2;
-  constexpr int BN = Tiles<D>::BK;
+  constexpr int RG = Traits<D>::FWD_RG, DS = Traits<D>::FWD_DS;
+  constexpr int BN = Traits<D>::BK;
   using C = MmaFwd<T, D, RG, DS, BN>;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(mask))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -1661,7 +1727,7 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
                                         L);
     return mma_fwd<T, D, true>(q, k, v, mask, k_hi, seed, out, lse, L);
   } else {
-    using Tl = Tiles<D>;
+    using Tl = Traits<D>;
     auto kern = flash_fwd_lse_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
     const size_t smem = fwd_smem<D>();
     int err;
@@ -1685,7 +1751,7 @@ int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
     return mma_fwd<T, D, false>(q, k, v, mask, k_hi, nullptr, out, nullptr,
                                 L);
   } else {
-    using Tl = Tiles<D>;
+    using Tl = Traits<D>;
     auto kern = flash_fwd_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
     const size_t smem = fwd_smem<D>();
     int err;
@@ -1700,16 +1766,16 @@ int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
   }
 }
 
-// One tensor-core dq launch: four warps a block; at D = 64 four row groups
-// of 16 query rows (64, the table tile), at D = 256 two row groups of two
-// warps that split D for dS K over one recomputed S and dP.
+// One tensor-core dq launch at the row groups and D split of Traits<D>
+// (the DS warps of a row group split D for dS K over one recomputed S and
+// dP).
 template <typename T, int D, typename O>
 int mma_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int8_t* mask,
            const int32_t* k_hi, const int64_t* seed, void* dqp,
            const Launch& L) {
-  constexpr int RG_DQ = D == 64 ? 4 : 2, DS_DQ = D == 64 ? 1 : 2;
-  constexpr int BN = Tiles<D>::BK;
+  constexpr int RG_DQ = Traits<D>::DQ_RG, DS_DQ = Traits<D>::DQ_DS;
+  constexpr int BN = Traits<D>::BK;
   using C = MmaBwd<T, D, RG_DQ, DS_DQ, BN>;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(mask))
@@ -1729,18 +1795,18 @@ int mma_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One tensor-core dk/dv launch: at D = 64 four warps, four row groups of 16
-// keys (64, the table tile); at D = 256 eight warps, two row groups of four
-// that split D for the second products, each computing a quarter of a q
-// tile's S^T and dP^T, P^T and dS^T passed through shared memory.
+// One tensor-core dk/dv launch at the row groups, D split and sharing of
+// Traits<D> (with DKV_SHARE the DS warps of a row group each compute their
+// share of a q tile's S^T and dP^T and pass P^T and dS^T through shared
+// memory).
 template <typename T, int D, typename O>
 int mma_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, const int8_t* mask,
             const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
             const Launch& L) {
-  constexpr int RG_DKV = D == 64 ? 4 : 2, DS_DKV = D == 64 ? 1 : 4;
-  constexpr bool SHARE_DKV = D == 256;
-  constexpr int BN = Tiles<D>::BQ;
+  constexpr int RG_DKV = Traits<D>::DKV_RG, DS_DKV = Traits<D>::DKV_DS;
+  constexpr bool SHARE_DKV = Traits<D>::DKV_SHARE;
+  constexpr int BN = Traits<D>::BQ;
   using C = MmaBwd<T, D, RG_DKV, DS_DKV, BN>;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(mask) || !aligned16(lse) || !aligned16(delta))
@@ -1771,7 +1837,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
     return mma_dq<T, D, T>(q, k, v, dout, lse, delta, mask, k_hi, seed, dqp,
                            L);
   } else {
-    using Tl = Tiles<D>;
+    using Tl = Traits<D>;
     auto kern = flash_dq_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
     const size_t smem = dq_smem<D>();
     int err;
@@ -1800,7 +1866,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
     return mma_dkv<T, D, T>(q, k, v, dout, lse, delta, mask, q_lo, seed, dkp,
                             dvp, L);
   } else {
-    using Tl = Tiles<D>;
+    using Tl = Traits<D>;
     auto kern = flash_dkv_f32_kernel<D, Tl::BQ, Tl::BK, Tl::NT>;
     const size_t smem = dkv_smem<D>();
     int err;
@@ -1822,28 +1888,38 @@ bool offsets_ok(int b0, int h0, int heads, int heads_total) {
   return b0 >= 0 && h0 >= 0 && heads_total >= h0 + heads;
 }
 
+template <int D>
+bool tiles_divide(int s_pad, int seq) {
+  return seq > 0 && seq <= s_pad && s_pad % Traits<D>::BQ == 0 &&
+         s_pad % Traits<D>::BK == 0;
+}
+
+// The compiled head dims; any other is refused (the wrapper zero-pads D to
+// the next one up).
 bool shapes_ok(int head_dim, int s_pad, int seq) {
-  int bq, bk;
-  if (head_dim == 64) {
-    bq = Tiles<64>::BQ;
-    bk = Tiles<64>::BK;
-  } else if (head_dim == 256) {
-    bq = Tiles<256>::BQ;
-    bk = Tiles<256>::BK;
-  } else {
-    return false;
+  switch (head_dim) {
+    case 32: return tiles_divide<32>(s_pad, seq);
+    case 64: return tiles_divide<64>(s_pad, seq);
+    case 128: return tiles_divide<128>(s_pad, seq);
+    case 256: return tiles_divide<256>(s_pad, seq);
+    default: return false;
   }
-  return seq > 0 && seq <= s_pad && s_pad % bq == 0 && s_pad % bk == 0;
 }
 
 // Dispatch on (dtype code, head dim): 0 float32, 1 bfloat16, 2 float16.
 #define FLASH_DISPATCH(FN, ...)                                   \
   switch (dtype * 1000 + head_dim) {                              \
+    case 32: return FN<float, 32>(__VA_ARGS__);                   \
     case 64: return FN<float, 64>(__VA_ARGS__);                   \
+    case 128: return FN<float, 128>(__VA_ARGS__);                 \
     case 256: return FN<float, 256>(__VA_ARGS__);                 \
+    case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);         \
     case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);         \
+    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);        \
     case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);        \
+    case 2032: return FN<__half, 32>(__VA_ARGS__);                \
     case 2064: return FN<__half, 64>(__VA_ARGS__);                \
+    case 2128: return FN<__half, 128>(__VA_ARGS__);               \
     case 2256: return FN<__half, 256>(__VA_ARGS__);               \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }

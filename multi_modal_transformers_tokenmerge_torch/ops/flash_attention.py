@@ -14,7 +14,11 @@ the design answers.
   from the kernel bodies: the same tiles, online softmax and rounding
   points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
   and raise for anything else.  Each counts its kernel launches in
-  ``.launches``.  The two forwards run on the tensor cores in bf16 and
+  ``.launches``.  The kernels are compiled for head dims 32, 64, 128 and
+  256 (``KERNEL_TILES``); on the card every other head dim up to 256 runs
+  at the next compiled one (:func:`at_compiled_dim`: operands zero-padded
+  along D, the true 1/sqrt(D) as the scale, outputs cut back), and a head
+  dim above 256 raises.  The two forwards run on the tensor cores in bf16 and
   fp16 and on the CUDA cores in float32.  ``out_dtype=torch.float32``
   makes :func:`flash_fwd_lse`, :func:`flash_dq` and :func:`flash_dkv` (and
   :func:`flash_bwd`, the pair) write their outputs in float32 for 16-bit
@@ -73,11 +77,13 @@ __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "flash_dq_reference", "flash_dkv_reference", "attention_delta",
            "xla_reference_attention", "tile_skip_tables", "mask_tables",
            "device_tables", "dropout_threshold", "dropout_keep_mask",
-           "KERNEL_TILES"]
+           "KERNEL_TILES", "compiled_head_dim", "kernel_tiles",
+           "at_compiled_dim"]
 
 NEG_INF = -1e30
 # head_dim -> (block_q, block_k) compiled into csrc/flash_attention.cu
-KERNEL_TILES = {64: (64, 64), 256: (32, 32)}
+# (Traits<D>); other head dims up to the largest run padded to the next one
+KERNEL_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (32, 32)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -165,11 +171,51 @@ def device_tables(mask: np.ndarray, block_q: int, block_k: int, device):
     return tables
 
 
+def compiled_head_dim(head_dim: int) -> int:
+    """The compiled head dim the kernels run ``head_dim`` at: itself, or
+    the next one of ``KERNEL_TILES`` up, to which the operands are
+    zero-padded.  Raises above the largest."""
+    for d in sorted(KERNEL_TILES):
+        if 0 < head_dim <= d:
+            return d
+    raise ValueError(f"head dim {head_dim}: the kernels take head dims 1 to "
+                     f"{max(KERNEL_TILES)} (compiled {sorted(KERNEL_TILES)}, "
+                     f"the rest zero-padded to the next one)")
+
+
+def kernel_tiles(head_dim: int) -> Optional[Tuple[int, int]]:
+    """The tiles the card's kernels take at ``head_dim`` (those of
+    :func:`compiled_head_dim`), or None above the largest compiled dim."""
+    if not 0 < head_dim <= max(KERNEL_TILES):
+        return None
+    return KERNEL_TILES[compiled_head_dim(head_dim)]
+
+
 def _auto_blocks(head_dim: int) -> Tuple[int, int]:
-    """The kernel's compiled tiles for this head dim (see the source note
-    of csrc/flash_attention.cu); 64 x 64 for a head dim it lacks, which
-    the plain versions take and the card refuses."""
-    return KERNEL_TILES.get(head_dim, (64, 64))
+    """The default tiles: :func:`kernel_tiles` (a head dim the kernels
+    lack runs padded to the next compiled one, at that one's tiles; see the
+    source note of csrc/flash_attention.cu); 64 x 64 above the largest
+    compiled dim, which the plain versions take and the card refuses."""
+    return kernel_tiles(head_dim) or (64, 64)
+
+
+def at_compiled_dim(fn, operands, *rest, **kw):
+    """``fn(*operands, *rest, scale=1/sqrt(D), **kw)`` at the compiled head
+    dim: the (B, S, H, D) ``operands`` zero-padded along D to
+    :func:`compiled_head_dim` (fresh, contiguous, 16-byte aligned copies)
+    and every (B, S, H, ·) output cut back to D; unpadded at a compiled D.
+    A zero column adds nothing to a logit, so the softmax, the LSE and
+    delta are those of D, and every output's extra columns are zero; the
+    scale is the true D's.  The dropout counter does not involve D, so the
+    masks are D's too."""
+    d = operands[0].shape[-1]
+    dp = compiled_head_dim(d)
+    kw["scale"] = 1.0 / math.sqrt(d)
+    if dp == d:
+        return fn(*operands, *rest, **kw)
+    out = fn(*(F.pad(x, (0, dp - d)) for x in operands), *rest, **kw)
+    cut = lambda t: t[..., :d].contiguous() if t.dim() == 4 else t
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
 # -- dropout bits ---------------------------------------------------------------
@@ -238,12 +284,12 @@ def _rows(i: int, block: int, device) -> torch.Tensor:
 
 
 def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
-                   dropout_rate, b0=0, h0=0, heads_total=None):
+                   dropout_rate, b0=0, h0=0, heads_total=None, scale=None):
     """The forward kernels' loop: float32 (out (B, H, S_pad, D), running
     max m, running sum l clamped at 1e-30 (B, H, S_pad, 1))."""
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
-    scale = 1.0 / math.sqrt(d)
+    scale = scale or 1.0 / math.sqrt(d)
     qf, kf, vf = (_heads_first(x, s_pad) for x in (q, k, v))
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     out = torch.zeros(b, h, s_pad, d, device=q.device)
@@ -278,19 +324,20 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
 
 
 def flash_fwd_reference(q, k, v, mask_i8, k_hi, *, block_q: int,
-                        block_k: int):
+                        block_k: int, scale: Optional[float] = None):
     """Plain version of the forward kernel without LSE or dropout (the JAX
     package's ``_flash_kernel``).
 
     q, k, v (B, S, H, D); ``mask_i8`` (S_pad, S_pad) int8, tile-aligned;
     ``k_hi`` (S_pad/block_q,) int.  Logits are float32 products of
-    input-dtype operands times 1/sqrt(D), masked to -1e30; online max and
+    input-dtype operands times ``scale`` (default 1/sqrt(D); a padded call
+    passes the true D's), masked to -1e30; online max and
     sum in float32 over the key tiles below ``k_hi``, the reference of the
     exponent clamped at -5e29 so a row with no live key keeps p = 0; p cast
     to v's dtype before P V; ``acc / max(l, 1e-30)`` in q's dtype, zeros for
     dead rows.  Returns ``out`` (B, S, H, D)."""
     out, _, _ = _forward_tiles(q, k, v, mask_i8, k_hi, None, block_q,
-                               block_k, 0.0)
+                               block_k, 0.0, scale=scale)
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -306,7 +353,8 @@ def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
                             block_q: int, block_k: int,
                             dropout_rate: float = 0.0, out_dtype=None,
                             b0: int = 0, h0: int = 0,
-                            heads_total: Optional[int] = None):
+                            heads_total: Optional[int] = None,
+                            scale: Optional[float] = None):
     """Plain version of the forward kernel with LSE.
 
     Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words,
@@ -319,7 +367,7 @@ def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
     dtype = _out_dtype(q, out_dtype)
     out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
                                     block_k, dropout_rate, b0, h0,
-                                    heads_total)
+                                    heads_total, scale)
     lse = (m + torch.log(l_safe))[..., 0]
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(dtype), lse
 
@@ -346,16 +394,18 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                        block_q: int, block_k: int,
                        dropout_rate: float = 0.0, out_dtype=None,
                        b0: int = 0, h0: int = 0,
-                       heads_total: Optional[int] = None):
+                       heads_total: Optional[int] = None,
+                       scale: Optional[float] = None):
     """Plain version of the dq kernel: per q tile over the key tiles below
     ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
     rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
-    ``dq = sm_scale * ds K``.  Returns dq (B, S, H, D) in q's dtype, or
-    float32 with ``out_dtype=torch.float32``."""
+    ``dq = sm_scale * ds K`` (sm_scale: ``scale``, default 1/sqrt(D)).
+    Returns dq (B, S, H, D) in q's dtype, or float32 with
+    ``out_dtype=torch.float32``."""
     dtype = _out_dtype(q, out_dtype)
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
-    scale = 1.0 / math.sqrt(d)
+    scale = scale or 1.0 / math.sqrt(d)
     qf, kf, vf, dof = (_heads_first(x, s_pad) for x in (q, k, v, do))
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     dq = torch.zeros(b, h, s_pad, d, device=q.device)
@@ -382,7 +432,8 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                         *, block_q: int, block_k: int,
                         dropout_rate: float = 0.0, out_dtype=None,
                         b0: int = 0, h0: int = 0,
-                        heads_total: Optional[int] = None):
+                        heads_total: Optional[int] = None,
+                        scale: Optional[float] = None):
     """Plain version of the dk/dv kernel: per key tile over the q tiles
     from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
     to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
@@ -392,7 +443,7 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
     num_q = s_pad // block_q
-    scale = 1.0 / math.sqrt(d)
+    scale = scale or 1.0 / math.sqrt(d)
     qf, kf, vf, dof = (_heads_first(x, s_pad) for x in (q, k, v, do))
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     dk = torch.zeros(b, h, s_pad, d, device=q.device)
@@ -473,7 +524,7 @@ def _library():
 
 
 def _prepare(name, q, k, v, others, mask_i8, table, seed, block_q, block_k,
-             dropout_rate):
+             dropout_rate, scale):
     """Check what the kernel takes and return its scalar arguments."""
     b, s, h, d = q.shape
     if d not in KERNEL_TILES:
@@ -508,9 +559,9 @@ def _prepare(name, q, k, v, others, mask_i8, table, seed, block_q, block_k,
             f"{name}: the kernel needs all tensors on one sm_90 CUDA "
             f"device; got {sorted({str(t.device) for t in tensors})}")
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
-    return (b, s, h, d, s_pad, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
-            inv_keep, dropout_threshold(dropout_rate) if dropout_rate > 0
-            else 0, int(dropout_rate > 0),
+    return (b, s, h, d, s_pad, _DTYPE_CODES[q.dtype], scale, inv_keep,
+            dropout_threshold(dropout_rate) if dropout_rate > 0 else 0,
+            int(dropout_rate > 0),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -527,13 +578,19 @@ def _check_rc(lib, name, rc):
 def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
     """Forward without LSE or dropout; arguments and result as for
     :func:`flash_fwd_reference`.  CPU tensors take the plain version; on a
-    CUDA device this launches the kernel or raises."""
+    CUDA device this launches the kernel (at :func:`compiled_head_dim`) or
+    raises."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, mask_i8, k_hi, block_q=block_q,
                                    block_k=block_k)
+    return at_compiled_dim(_launch_fwd, (q, k, v), mask_i8, k_hi,
+                           block_q=block_q, block_k=block_k)
+
+
+def _launch_fwd(q, k, v, mask_i8, k_hi, *, block_q, block_k, scale):
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd", q, k, v, (), mask_i8, k_hi, None, block_q,
-                    block_k, 0.0)
+                    block_k, 0.0, scale)
     out = torch.empty_like(q)
     lib = _library()
     _check_rc(lib, "flash_fwd", lib.flash_fwd_launch(
@@ -563,16 +620,21 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
                   b0: int = 0, h0: int = 0, heads_total: Optional[int] = None):
     """Forward with LSE; arguments and results as for
     :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
-    a CUDA device this launches the kernel or raises."""
+    a CUDA device this launches the kernel (at :func:`compiled_head_dim`)
+    or raises."""
+    kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
+              out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
     if q.device.type == "cpu":
-        return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
-                                       block_q=block_q, block_k=block_k,
-                                       dropout_rate=dropout_rate,
-                                       out_dtype=out_dtype, b0=b0, h0=h0,
-                                       heads_total=heads_total)
+        return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed, **kw)
+    return at_compiled_dim(_launch_fwd_lse, (q, k, v), mask_i8, k_hi, seed,
+                           **kw)
+
+
+def _launch_fwd_lse(q, k, v, mask_i8, k_hi, seed, *, block_q, block_k,
+                    dropout_rate, out_dtype, b0, h0, heads_total, scale):
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
-                    block_q, block_k, dropout_rate)
+                    block_q, block_k, dropout_rate, scale)
     b, _, h, _, s_pad = args[:5]
     out = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lse = torch.empty(b, h, s_pad, device=q.device, dtype=torch.float32)
@@ -590,15 +652,20 @@ def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
              out_dtype=None, b0: int = 0, h0: int = 0,
              heads_total: Optional[int] = None):
     """dQ; arguments and result as for :func:`flash_dq_reference`."""
+    kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
+              out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
-                                  seed, block_q=block_q, block_k=block_k,
-                                  dropout_rate=dropout_rate,
-                                  out_dtype=out_dtype, b0=b0, h0=h0,
-                                  heads_total=heads_total)
+                                  seed, **kw)
+    return at_compiled_dim(_launch_dq, (q, k, v, do), lse, delta, mask_i8,
+                           k_hi, seed, **kw)
+
+
+def _launch_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed, *, block_q,
+               block_k, dropout_rate, out_dtype, b0, h0, heads_total, scale):
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
-                    block_q, block_k, dropout_rate)
+                    block_q, block_k, dropout_rate, scale)
     _check_stats(lse, delta, args)
     dq = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lib = _library()
@@ -616,15 +683,21 @@ def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
               out_dtype=None, b0: int = 0, h0: int = 0,
               heads_total: Optional[int] = None):
     """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
+    kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
+              out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
-                                   seed, block_q=block_q, block_k=block_k,
-                                   dropout_rate=dropout_rate,
-                                   out_dtype=out_dtype, b0=b0, h0=h0,
-                                   heads_total=heads_total)
+                                   seed, **kw)
+    return at_compiled_dim(_launch_dkv, (q, k, v, do), lse, delta, mask_i8,
+                           q_lo, seed, **kw)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed, *, block_q,
+                block_k, dropout_rate, out_dtype, b0, h0, heads_total,
+                scale):
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
-                    block_q, block_k, dropout_rate)
+                    block_q, block_k, dropout_rate, scale)
     _check_stats(lse, delta, args)
     dk = torch.empty_like(k, dtype=_out_dtype(k, out_dtype))
     dv = torch.empty_like(v, dtype=_out_dtype(v, out_dtype))

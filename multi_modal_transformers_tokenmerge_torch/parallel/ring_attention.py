@@ -30,13 +30,15 @@ Two inner blocks:
   per (mask digest, P, tiles, device) and kept on the device.
 
 ``'flash'`` needs shard lengths that the kernel's tiles divide
-(``KERNEL_TILES``: 64 x 64 at head dim 64, 32 x 32 at 256); ``'auto'``
-takes it on an sm_90 card whenever the shard is aligned, else the plain
-block.  chip_smoke.py's ring phase (a ring of 4, forward and backward,
-bf16, B=2, H=12, D=64, causal) measured flash ahead of the plain block at
-every shard it timed, 64 to 2048 tokens, on an NVIDIA H100 80GB HBM3 at
-700 W: 8.45x at 64 and 1.56x at 2048 in time a call, 5.9x and 26x in
-device time (PERF.md section 6), so no shard threshold is kept.
+(``kernel_tiles``: 64 x 64 at head dims up to 128, 32 x 32 from 129 to
+256, a head dim the kernels lack run zero-padded to the next compiled
+one); ``'auto'`` takes it on an sm_90 card whenever the shard is aligned
+and the head dim at most 256, else the plain block.  chip_smoke.py's ring
+phase (a ring of 4, forward and backward, bf16, B=2, H=12, D=64, causal)
+measured flash ahead of the plain block at every shard it timed, 64 to
+2048 tokens, on an NVIDIA H100 80GB HBM3 at 700 W: 8.45x at 64 and 1.56x
+at 2048 in time a call, 5.9x and 26x in device time (PERF.md section 6),
+so no shard threshold is kept.
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.hw import kernel_device
-from ..ops.flash_attention import (KERNEL_TILES, NEG_INF, _mask_digest,
+from ..ops.flash_attention import (NEG_INF, _auto_blocks, _mask_digest,
                                    _resolve_device, attention_delta,
-                                   flash_bwd, flash_fwd_lse,
+                                   flash_bwd, flash_fwd_lse, kernel_tiles,
                                    tile_skip_tables)
 from .distributed import GroupRing, LocalRing, Ring
 
@@ -153,11 +155,10 @@ def ring_attention(q, k, v, mask: np.ndarray, group_or_mesh,
             f"silently corrupt attention")
     s_local = s // p
     if impl != "xla":
-        tq, tk = KERNEL_TILES.get(d, (64, 64))
+        tq, tk = _auto_blocks(d)
         bq, bk = block_q or tq, block_k or tk
         aligned = s_local % bq == 0 and s_local % bk == 0
-        auto_ok = (kernel_device(q.device) and d in KERNEL_TILES
-                   and (bq, bk) == KERNEL_TILES[d])
+        auto_ok = kernel_device(q.device) and kernel_tiles(d) == (bq, bk)
         if aligned and (impl == "flash" or auto_ok):
             tables = ring_tables(mask, p, bq, bk, q.device)
             return _RingFlash.apply(q, k, v, ring, tables, bq, bk)

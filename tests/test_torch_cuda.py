@@ -96,6 +96,9 @@ FLASH_SHAPES = pytest.mark.parametrize("b,seq,h,d", [
     (4, 74, 3, 256),      # octo_base training (B cut from 32)
     (1, 1024, 12, 64),    # long context of bench.py:1056 (B cut from 8)
     (8, 224, 12, 64),     # octo_deep's stage 0, a ToMe mask (B cut from 32)
+    (8, 224, 6, 128),     # octo_deep_h128's stage 0 (B cut from 32)
+    (8, 224, 24, 32),     # head dim 32 at octo_deep's stage 0
+    (4, 224, 16, 80),     # head dim 80, run zero-padded to 128
 ])
 # the mask of each sequence length of FLASH_SHAPES: (layout strings, stage)
 FLASH_MASKS = {
@@ -119,7 +122,7 @@ def _flash_case(card, b, seq, h, d, dtype):
     g = torch.Generator(device=card).manual_seed(seq + d)
     q, k, v, do = (torch.randn(b, seq, h, d, generator=g, device=card)
                    .to(dtype) for _ in range(4))
-    bq, bk = fa.KERNEL_TILES[d]
+    bq, bk = fa.kernel_tiles(d)
     padded, k_hi, q_lo = fa.device_tables(mask, bq, bk, card)
     seed = torch.tensor([11, 22], dtype=torch.int64, device=card)
     return fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk)

@@ -369,10 +369,17 @@ def test_entry_checks():
     with pytest.raises(ValueError, match="tiles"):
         tfa.flash_fwd(meta, meta, meta, padded.to("meta"), k_hi.to("meta"),
                       block_q=32, block_k=64)
-    with pytest.raises(ValueError, match="head dim"):
+    # a head dim the kernels lack runs padded to the next compiled one (16
+    # to 32, whose tiles are 64 x 64), so on the meta device it reaches the
+    # device check; above the largest compiled dim it raises
+    with pytest.raises(RuntimeError, match="sm_90"):
         tfa.flash_fwd_lse(meta[..., :16], meta[..., :16], meta[..., :16],
                           padded.to("meta"), k_hi.to("meta"), block_q=64,
                           block_k=64)
+    wide = torch.zeros(1, 74, 2, 264, device="meta")
+    with pytest.raises(ValueError, match="head dim 264"):
+        tfa.flash_fwd_lse(wide, wide, wide, padded.to("meta"),
+                          k_hi.to("meta"), block_q=64, block_k=64)
 
 
 def test_tables_first_built_while_serving_can_train():

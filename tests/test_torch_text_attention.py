@@ -73,14 +73,16 @@ def test_readouts_match():
 @pytest.mark.parametrize("heads,block_q,block_k,compiled", [
     (12, 0, 0, True),      # head dim 64, its tiles
     (3, 32, 32, True),     # head dim 256, its tiles named
-    (6, 0, 0, False),      # head dim 128: no kernel compiled for it
+    (6, 0, 0, True),       # head dim 128, its tiles
+    (8, 0, 0, True),       # head dim 96, padded to 128
+    (2, 0, 0, False),      # head dim 384, above the largest compiled
     (12, 32, 32, False),   # head dim 64 with tiles the kernels lack
 ])
 def test_auto_takes_the_kernel_only_where_it_is_compiled(
         monkeypatch, heads, block_q, block_k, compiled):
     """On a kernel device (monkeypatched here) 'auto' at flash_min_seq
-    tokens takes the flash path only for a head dim and tiles of
-    KERNEL_TILES and the plain path otherwise; 'flash' raises there."""
+    tokens takes the flash path for a head dim up to 256 at the tiles of
+    kernel_tiles and the plain path otherwise; 'flash' raises there."""
     from multi_modal_transformers_tokenmerge_torch.core.config import (
         AttentionConfig, TransformerConfig)
     from multi_modal_transformers_tokenmerge_torch.modules import (
