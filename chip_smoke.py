@@ -10,7 +10,18 @@ Phases, each of which must pass (any failure exits non-zero):
    whole report in chiprun_out/ptxas.txt) and fail if a bf16 or fp16 one
    spills;
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at the shapes of the main paths (the sampler at octo_base serving; the
+   at the shapes of the main paths (the register sampler kernel at
+   octo_base serving; the wide sampler kernel, forced, in three dtypes and
+   all three modes at (T, H, A) = (32, 768, 28), (32, 3072, 8),
+   (100, 768, 8), (16, 768, 1400) and octo_base_chunk28's (100, 3072, 28),
+   B = 1, 8, 37 (and 64 at the last), at the register kernel's gates, a
+   loop that misses them held step by step from the kernel's own state
+   beside the plain version's own movement under permuted sums; forced at
+   octo_base's shape also against the register kernel; the rule that picks
+   a kernel against the register kernel's own limits; a row's result bit
+   for bit alone, in batches of 8 and 37 and in a graph replay; the wide
+   kernel timed at octo_base_chunk28 (DDPM 100 and DDIM 10 steps, B = 1,
+   8, 64) and in turns with the register kernel at octo_base's shape; the
    flash forward/dq/dk-dv kernels at octo_base training, at the 1024-token
    layout of bench.py's bench_flash and at octo_deep's three stages at its
    training batch, in three dtypes, with dropout 0 and 0.1, attention_delta
@@ -196,7 +207,15 @@ Phases, each of which must pass (any failure exits non-zero):
     trained in bf16 at batch 32 through fit with dropout 0.1 in the kernels
     (12 flash_fwd_lse, 12 flash_dq, 12 flash_dkv and 1 pool_bwd a step),
     captured against the eager step, one float32 step against the CPU
-    under TRAIN_REF_LIMITS.
+    under TRAIN_REF_LIMITS;
+32. octo_base_chunk28: octo_base with a 28-wide action chunk, a 3072-wide
+    denoiser and 100 DDPM steps from ``load_config`` (its sampler runs on
+    the wide kernel): served in bf16 through PolicyEngine at batch 1, 8
+    and 64 with DDPM and with DDIM (10 steps), eager (every count set to 0
+    before and read after: one wide and no register sampler launch a
+    request) and compiled (replays bit for bit with the eager calls, one
+    wide sampler kernel a replay), float32 against the CPU under
+    E2E_F32_TOL.
 
 Each phase logs its seconds when it ends ("phase N: ... done in X s").
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
@@ -605,6 +624,316 @@ def kernel_phase(head):
             f"ms ({by}); no single PyTorch call computes this function")
     log(f"  largest |kernel-plain| / (eps*(1+|plain|)): {low_err}")
     return f32_err, timings
+
+
+# -- phase 2: the wide sampler kernel ------------------------------------------
+
+# (T, H, A) the wide kernel is held at, each at B = 1, 8 and 37 (and 64 at
+# octo_base_chunk28's): a 28-wide action chunk (Octo's 4 x 7), a 3072-wide
+# denoiser, 100 steps in float32 (past one block's shared memory), ACT's
+# 1400-wide chunk (100 x 14), and octo_base_chunk28's sampler
+WIDE_SHAPES = ((32, 768, 28), (32, 3072, 8), (100, 768, 8), (16, 768, 1400),
+               (100, 3072, 28))
+CHUNK28 = (100, 3072, 28)
+WIDE_BATCHES = (1, 8, 37)
+CHUNK28_BATCHES = (1, 8, 64)     # phase 32's serving batches
+DDIM_STEPS = 10          # Diffusion Policy's serving steps (phase 32 too)
+# sum orders the plain version is run in where a loop misses its gate
+SPREAD_ORDERS = 8
+
+
+def sampler_head(steps, hidden, adim):
+    """A diffusion head of T steps, width H and action dim A on the card:
+    its schedules and the shapes of its denoiser."""
+    from multi_modal_transformers_tokenmerge_torch.core.config import (
+        DiffusionHeadConfig)
+    from multi_modal_transformers_tokenmerge_torch.heads.diffusion import (
+        DiffusionActionHead)
+    return DiffusionActionHead(DiffusionHeadConfig(
+        diffusion_steps=steps, action_space_dim=adim, mlp_dim=hidden),
+        hidden, device="cuda")
+
+
+def gate_units(got, want, dtype):
+    """max |got - want| in units of the gate: F32_TOL (1 + |want|) in
+    float32, LOW_ULPS eps(dtype) (1 + |want|) in bf16 / fp16."""
+    tol = (F32_TOL if dtype == torch.float32
+           else LOW_ULPS * torch.finfo(dtype).eps)
+    return ((got - want).abs() / (tol * (1 + want.abs()))).max().item()
+
+
+def permuted(x, g):
+    """The same sampler inputs with the hidden units and the actions in
+    another order (the same function, other sum orders), and the
+    permutation that puts the actions back."""
+    h, a = x["wn"].shape
+    p = torch.randperm(h, generator=g, device="cpu").cuda()
+    q = torch.randperm(a, generator=g, device="cpu").cuda()
+    y = dict(noisy=x["noisy"][:, q], contexts=x["contexts"][:, :, p],
+             noise=x["noise"][:, :, q], wn=x["wn"][p][:, q], bn=x["bn"][p],
+             wo=x["wo"][q][:, p], bo=x["bo"][q])
+    return y, torch.argsort(q)
+
+
+def exact_step(state, x, t, coeffs, clip, mode):
+    """Step t of the sampler from ``state`` in float64, with no rounding to
+    a compute dtype: the step the float32 versions approximate."""
+    d = {k: v.double() for k, v in x.items()}
+    s = state.double()
+    h = torch.relu(s @ d["wn"].T + d["bn"] + d["contexts"][t])
+    eps = h @ d["wo"].T + d["bo"]
+    c = coeffs[t].double()
+    if mode == "ddpm":
+        nx = c[0] * (s - c[1] * eps) + c[2] * d["noise"][t]
+    else:
+        x0 = torch.clamp(c[0] * s - c[1] * eps, -clip, clip)
+        if mode == "ddim_recompute":
+            eps = (c[0] * s - x0) / c[1]
+        nx = c[2] * x0 + c[3] * eps
+    return torch.clamp(nx, -clip, clip)
+
+
+def truth_rule(got, plain, truth, slack):
+    """The kernel's error against ``truth`` over 3 x the plain version's +
+    ``slack`` (<= 1 passes)."""
+    e_ker = (got.double() - truth).abs().max().item()
+    e_plain = (plain.double() - truth).abs().max().item()
+    return e_ker / (3 * e_plain + slack)
+
+
+def stepwise_units(x, coeffs, clip, mode, dt):
+    """Each step of the wide kernel against one step of the plain version
+    from the kernel's own state: the kernel's loop cut after t + 1 steps
+    against the plain step from its loop cut after t (the first t steps of
+    either loop are the same bit for bit).  Returns the largest gate units
+    over the steps and the largest truth rule: in float32 against the
+    exact (float64) step, slack F32_TOL; in bf16 / fp16 against the
+    float32 plain step, slack 0.05."""
+    from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
+        ddpm_sample_reference, ddpm_sampler)
+    worst, rule = 0.0, 0.0
+    state = x["noisy"]
+    for t in range(coeffs.shape[0]):
+        cut = dict(x, contexts=x["contexts"][:t + 1],
+                   noise=x["noise"][:t + 1])
+        ker = run_sampler(lambda *a, **k: ddpm_sampler(*a, **k,
+                                                       _variant="wide"),
+                          cut, coeffs[:t + 1], clip, mode, dt)
+        one = dict(x, noisy=state, contexts=x["contexts"][t:t + 1],
+                   noise=x["noise"][t:t + 1])
+        plain = run_sampler(ddpm_sample_reference, one, coeffs[t:t + 1],
+                            clip, mode, dt)
+        worst = max(worst, gate_units(ker, plain, dt))
+        if dt == torch.float32:
+            truth = exact_step(state, x, t, coeffs, clip, mode)
+            rule = max(rule, truth_rule(ker, plain, truth, F32_TOL))
+        else:
+            truth = run_sampler(ddpm_sample_reference, one, coeffs[t:t + 1],
+                                clip, mode, torch.float32).double()
+            rule = max(rule, truth_rule(ker, plain, truth, 0.05))
+        state = ker
+    return worst, rule
+
+
+def hold_wide(x, coeffs, clip, mode, label):
+    """The wide kernel (forced) against the plain version on ``x`` in
+    float32, bf16 and fp16 at the register kernel's gates: F32_TOL in
+    float32; in bf16 / fp16 LOW_ULPS against the plain version in the same
+    dtype, and the truth rule (the kernel's error against the float32 plain
+    version within 3 x the plain version's + 0.05).  Where a whole loop
+    misses the F32_TOL or LOW_ULPS gate, the loop amplifies the rounding of
+    any sum order past it: the plain version is run in SPREAD_ORDERS other
+    sum orders (hidden units and actions permuted) to show how far it moves
+    itself, and the kernel is held step by step from its own state at the
+    truth rule: against the exact (float64) step with slack F32_TOL in
+    float32, against the float32 plain step with slack 0.05 in bf16 / fp16
+    (the rule the whole loop must meet there too).  Returns {dtype: (loop units, spread units
+    or None, step units or None, max |kernel - plain|)}."""
+    from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
+        ddpm_sample_reference, ddpm_sampler)
+    wide = lambda *a, **k: ddpm_sampler(*a, **k, _variant="wide")
+    truth = run_sampler(ddpm_sample_reference, x, coeffs, clip, mode)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dt).split(".")[-1]
+        low = dt != torch.float32
+        before = ddpm_sampler.by_variant["wide"].launches
+        ker = run_sampler(wide, x, coeffs, clip, mode, dt)
+        if ddpm_sampler.by_variant["wide"].launches != before + 1:
+            fail(f"{label} {name}: the wide kernel was not launched")
+        plain = (run_sampler(ddpm_sample_reference, x, coeffs, clip, mode,
+                             dt) if low else truth)
+        units = gate_units(ker, plain, dt)
+        rule = truth_rule(ker, plain, truth.double(), 0.05) if low else 0.0
+        if not (torch.isfinite(ker).all() and rule <= 1):
+            fail(f"{label} {name}: not finite, or the truth rule at "
+                 f"{rule:.3f} (limit 1)")
+        spread = steps = None
+        if units <= 1:
+            verdict = "within the gate"
+        else:
+            g = torch.Generator().manual_seed(len(label))
+            spread = 0.0
+            for _ in range(SPREAD_ORDERS):
+                y, back = permuted(x, g)
+                other = run_sampler(ddpm_sample_reference, y, coeffs, clip,
+                                    mode, dt)[:, back]
+                spread = max(spread, gate_units(other, plain, dt))
+            step_units, steps = stepwise_units(x, coeffs, clip, mode, dt)
+            verdict = (f"loop past the gate, the plain version moves "
+                       f"{spread:.3f} gates under permuted sums; every step "
+                       f"within the truth rule ({steps:.3f}; "
+                       f"{step_units:.3f} gates)")
+            if not steps <= 1:
+                fail(f"{label} {name}: loop {units:.3f} gates, plain under "
+                     f"permuted sums {spread:.3f}, steps {step_units:.3f} "
+                     f"gates, truth rule {steps:.3f}")
+        log(f"  wide {label} {name:8s}: |kernel-plain| {units:.3f} gates"
+            + (f", truth rule {rule:.3f}" if low else "") + f": {verdict}")
+        out[name] = (units, spread, steps, (ker - plain).abs().max().item())
+    return out
+
+
+def wide_kernel_phase(register_head):
+    """The wide sampler kernel at every shape of WIDE_SHAPES, forced at
+    octo_base's against the register kernel too, the rule that picks a
+    kernel against the register kernel's own limits, a row's result
+    against its batch and a graph replay, and the wide kernel's times at
+    octo_base_chunk28's sampler (bf16, DDPM T=100 and DDIM 10, B = 1, 8,
+    64) and at octo_base's beside the register kernel."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        ddpm_sampler as tds)
+    from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
+        ddpm_sample_reference, ddpm_sampler)
+    lib = tds._library("ddpm_sampler")
+    for a in range(1, tds.REGISTER_MAX_ACTION_DIM + 1):
+        if lib.ddpm_sampler_max_hidden(a) != tds.register_max_hidden(a):
+            fail(f"register_max_hidden({a}) disagrees with the kernel's")
+        for t, h, e in ((1, 1, 2), (32, 768, 2), (74, 768, 4), (75, 768, 4),
+                        (100, 1536, 2), (7, 200, 4)):
+            if (lib.ddpm_sampler_smem_bytes(t, h, a, e)
+                    != tds.register_smem_bytes(t, h, a, e)):
+                fail(f"register_smem_bytes({t}, {h}, {a}, {e}) disagrees "
+                     f"with the kernel's")
+    clip = register_head.cfg.clip_value
+    held = {}
+    for t, h, a in WIDE_SHAPES:
+        head = sampler_head(t, h, a)
+        schedules = {"ddpm": head.schedule(None)[1],
+                     "ddim_raw": head.schedule(DDIM_STEPS)[1],
+                     "ddim_recompute": head.schedule(DDIM_STEPS)[1]}
+        batches = WIDE_BATCHES + ((64,) if (t, h, a) == CHUNK28 else ())
+        for batch in batches:
+            x = sampler_inputs(head, batch, t, torch.float32, seed=batch)
+            for mode, coeffs in schedules.items():
+                xs = dict(x, contexts=x["contexts"][:coeffs.shape[0]],
+                          noise=x["noise"][:coeffs.shape[0]])
+                label = f"T={t} H={h} A={a} B={batch} {mode}"
+                held[label] = hold_wide(xs, coeffs, clip, mode, label)
+        del head
+
+    # forced at octo_base's shape: against the register kernel too
+    schedules = {"ddpm": register_head.schedule(None)[1],
+                 "ddim_raw": register_head.schedule(8)[1],
+                 "ddim_recompute": register_head.schedule(8)[1]}
+    steps = register_head.cfg.diffusion_steps
+    against_register = {}
+    for batch in WIDE_BATCHES:
+        x = sampler_inputs(register_head, batch, steps, torch.float32,
+                           seed=batch)
+        for mode, coeffs in schedules.items():
+            xs = dict(x, contexts=x["contexts"][:coeffs.shape[0]],
+                      noise=x["noise"][:coeffs.shape[0]])
+            label = f"octo_base T={steps} H=768 A=8 B={batch} {mode}"
+            held[label] = hold_wide(xs, coeffs, clip, mode, label)
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                got = {v: run_sampler(
+                    lambda *a, **k: ddpm_sampler(*a, **k, _variant=v), xs,
+                    coeffs, clip, mode, dt) for v in ("wide", "register")}
+                units = gate_units(got["wide"], got["register"], dt)
+                against_register[f"{label} {dt}"] = units
+                if not units <= 1:
+                    fail(f"{label} {dt}: the wide kernel is {units:.3f} "
+                         f"gates from the register kernel")
+    log(f"  wide against register at octo_base's shape: largest "
+        f"{max(against_register.values()):.3f} gates")
+
+    # a row's result does not depend on the batch, its blocking or a replay
+    head = sampler_head(*CHUNK28)
+    coeffs = head.schedule(None)[1]
+    x = sampler_inputs(head, 37, CHUNK28[0], torch.bfloat16, seed=9)
+    call = lambda y: run_sampler(ddpm_sampler, y, coeffs, clip, "ddpm")
+    whole = call(x)
+    for b in (1, 8):
+        part = call(dict(x, noisy=x["noisy"][:b],
+                         contexts=x["contexts"][:, :b],
+                         noise=x["noise"][:, :b]))
+        if not torch.equal(part, whole[:b]):
+            fail(f"the wide kernel's first {b} rows differ alone and in a "
+                 f"batch of 37")
+    static = call(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(static, whole):
+        fail("the wide kernel's graph replay differs from its eager call")
+    log("  wide kernel at octo_base_chunk28 bf16: rows 0-7 alone, in a batch "
+        "of 8 and of 37 and in a graph replay bit for bit")
+
+    timings = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wlib = tds._library("ddpm_sampler_wide")
+    for mode, coeffs in (("ddpm", head.schedule(None)[1]),
+                         ("ddim_raw", head.schedule(DDIM_STEPS)[1])):
+        t = coeffs.shape[0]
+        for batch in CHUNK28_BATCHES:
+            x = sampler_inputs(head, batch, t, torch.bfloat16,
+                               seed=200 + batch)
+            x.update({k: x[k].to(torch.bfloat16) for k in ("wn", "bn", "wo",
+                                                           "bo")})
+            call = lambda: run_sampler(ddpm_sampler, x, coeffs, clip, mode)
+            call_ms = time_ms(call)
+            ms = device_ms(call, "ddpm_sampler_wide_kernel")
+            plain = time_ms(lambda: run_sampler(ddpm_sample_reference, x,
+                                                coeffs, clip, mode), iters=10)
+            bnd, by = sampler_bound_ms(batch, t, CHUNK28[1], CHUNK28[2],
+                                       torch.bfloat16, mode)
+            plan = tds.wide_plan(wlib, t, batch, CHUNK28[1], CHUNK28[2], 2,
+                                 1 if mode == "ddim_raw" else 0, sms)
+            key = f"{'DDPM' if mode == 'ddpm' else 'DDIM'} T={t} B={batch}"
+            timings[key] = dict(ms=ms, call_ms=call_ms, plain_ms=plain,
+                                bound_ms=bnd, bound_by=by, plan=plan)
+            log(f"  wide bf16 octo_base_chunk28 {key}: kernel {ms:.4f} ms "
+                f"on the device ({call_ms:.4f} ms a wrapper call), plain "
+                f"{plain:.4f} ms, bound {bnd:.6f} ms ({by}); plan {plan}")
+
+    # the two kernels at octo_base's shape, in turns
+    versus = {}
+    for batch in WIDE_BATCHES:
+        x = sampler_inputs(register_head, batch, steps, torch.bfloat16,
+                           seed=100 + batch)
+        x.update({k: x[k].to(torch.bfloat16) for k in ("wn", "bn", "wo",
+                                                       "bo")})
+        coeffs = register_head.schedule(None)[1]
+        calls = {v: (lambda v=v: run_sampler(
+            lambda *a, **k: ddpm_sampler(*a, **k, _variant=v), x, coeffs,
+            clip, "ddpm")) for v in ("register", "wide")}
+        row = {}
+        for v in ("register", "wide", "wide", "register"):
+            name = ("ddpm_sampler_kernel" if v == "register" else
+                    "ddpm_sampler_wide_kernel")
+            row.setdefault(v, []).append(device_ms(calls[v], name))
+        versus[batch] = {v: sum(r) / len(r) for v, r in row.items()}
+        log(f"  octo_base bf16 DDPM T={steps} B={batch}, in turns: register "
+            f"{versus[batch]['register']:.4f} ms, wide (forced) "
+            f"{versus[batch]['wide']:.4f} ms on the device")
+    errors = {k: max(r[0] for r in v.values()) for k, v in held.items()}
+    return dict(held=held, largest_loop_units=max(errors.values()),
+                f32_max_abs_err=max(v["float32"][3] for v in held.values()),
+                against_register=max(against_register.values()),
+                timings=timings, versus_register=versus)
 
 
 # -- phase 2b: flash attention and max-pool backward kernels -----------------
@@ -1215,8 +1544,8 @@ def latency(times):
 
 
 def serve_phase(model, cfg, counters, label, requests, expected,
-                head="diffusion"):
-    """``requests`` requests at batch 1 and at batch 8 through PolicyEngine
+                head="diffusion", batches=(1, 8)):
+    """``requests`` requests at each of ``batches`` through PolicyEngine
     with a cached instruction.  Every count is set to 0 before and read
     after; each request must advance every counter by ``expected`` (a
     kernel it does not name: by 0)."""
@@ -1230,7 +1559,7 @@ def serve_phase(model, cfg, counters, label, requests, expected,
     for c in counters.values():
         c.launches = 0
     served = 0
-    for batch in (1, 8):
+    for batch in batches:
         eng = PolicyEngine(model, head=head, batch_size=batch, seed=1)
         eng.set_instruction(ids)
         want_shape = ((batch, hc.action_space_dim) if head == "diffusion"
@@ -1293,11 +1622,13 @@ def merge_compare_phase(merged, baseline, cfg, requests):
 
 # -- phase 4: float32 CUDA vs CPU ----------------------------------------------
 
-def reference_phase(cfg32, label="octo_base", sampler_launches=1):
+def reference_phase(cfg32, label="octo_base", sampler_launches=1,
+                    variant="register"):
     """``cfg32`` in float32 on the card against the CPU, the same weights,
-    inputs and noise; the card's request must launch the sampler kernel
-    ``sampler_launches`` times (0 for a multi-block denoiser, whose reverse
-    loop is plain PyTorch on every device)."""
+    inputs and noise; the card's request must launch the ``variant``
+    sampler kernel ``sampler_launches`` times (0 for a multi-block
+    denoiser, whose reverse loop is plain PyTorch on every device) and the
+    other none."""
     from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
     from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
         ddpm_sampler)
@@ -1315,20 +1646,23 @@ def reference_phase(cfg32, label="octo_base", sampler_launches=1):
     noisy = torch.from_numpy(g.normal(size=(b, a)).astype(np.float32))
     noise = torch.from_numpy(g.normal(size=(t, b, a)).astype(np.float32))
     with torch.inference_mode():
-        before = ddpm_sampler.launches
+        before = {v: c.launches for v, c in ddpm_sampler.by_variant.items()}
         out_gpu = gpu.predict_diffusion_action(
             ids.cuda(), images.cuda(), noisy=noisy.cuda(),
             noise=noise.cuda()).cpu()
-        if ddpm_sampler.launches != before + sampler_launches:
+        launched = {v: c.launches - before[v]
+                    for v, c in ddpm_sampler.by_variant.items()}
+        if launched != {v: sampler_launches if v == variant else 0
+                        for v in launched}:
             fail(f"the float32 CUDA run of {label} launched the sampler "
-                 f"kernel {ddpm_sampler.launches - before} times; expected "
-                 f"{sampler_launches}")
+                 f"kernels {launched}; expected {sampler_launches} of the "
+                 f"{variant} kernel")
         out_cpu = cpu.predict_diffusion_action(ids, images, noisy=noisy,
                                                noise=noise)
     err = (out_gpu - out_cpu).abs().max().item()
     log(f"  {label} f32 predict_diffusion_action B={b}: |cuda-cpu|="
         f"{err:.3e} (tol {E2E_F32_TOL:g}: cuDNN/cuBLAS sum in another order "
-        f"than the CPU, and 32 sampling steps amplify it)")
+        f"than the CPU, and {t} sampling steps amplify it)")
     if not err <= E2E_F32_TOL:
         fail("float32 CUDA and CPU disagree")
     del gpu, cpu
@@ -1945,10 +2279,11 @@ def replay_profile(fn, calls, expected, label):
     wrapper runs, so the ``.launches`` counters cannot see them).  The
     device records give, per call, each named kernel's launches (which
     must equal ``expected``: kernel -> launches a call, 0 for a kernel it
-    does not name), all launches and the device time.  A session that kept
+    does not name; 'ddpm_sampler' is the register sampler kernel here and
+    'ddpm_sampler_wide' the wide one), all launches and the device time.  A session that kept
     too few records of a named kernel is run again (PROFILE_ATTEMPTS)."""
-    names = ("ddpm_sampler", "flash_fwd", "flash_fwd_lse", "flash_dq",
-             "flash_dkv", "pool_bwd")
+    names = ("ddpm_sampler", "ddpm_sampler_wide", "flash_fwd",
+             "flash_fwd_lse", "flash_dq", "flash_dkv", "pool_bwd")
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof, _ = profile_session(lambda: [fn() for _ in range(calls)])
         events = device_events(prof)
@@ -4658,6 +4993,61 @@ def head_dim_phase(counters):
                 compiled_training=compiled_train, train_reference=train_ref)
 
 
+# -- phase 32: octo_base with a 28-wide action chunk ----------------------------
+
+# octo_base_chunk28: octo_base with Octo's 4 x 7 action chunk, a denoiser of
+# octo_deep's 4 x 768 MLP width and Diffusion Policy's 100 DDPM steps, as a
+# user builds it from the YAML config; its sampler runs on the wide kernel
+CHUNK28_OVERRIDES = ["heads.diffusion.action_space_dim=28",
+                     "heads.diffusion.mlp_dim=3072",
+                     "heads.diffusion.diffusion_steps=100"]
+CHUNK28_REQUESTS = 20   # eager requests a batch size; compiled: in turns
+
+
+def chunk28_config(dtype, ddim_steps=None):
+    from multi_modal_transformers_tokenmerge_torch.core.yaml_loader import (
+        load_config)
+    extra = ([f"heads.diffusion.ddim_steps={ddim_steps}"] if ddim_steps
+             else [])
+    return load_config("octo_base", [f"dtype={dtype}", *CHUNK28_OVERRIDES,
+                                     *extra])
+
+
+def chunk28_phase(counters):
+    """octo_base_chunk28 at full width: served in bf16 through PolicyEngine
+    at batch 1, 8 and 64 with DDPM (100 steps) and with DDIM (10 steps),
+    eager (every count set to 0 before and read after: one sampler launch
+    a request, of the wide kernel, none of the register kernel) and
+    compiled (replays bit for bit with the eager calls, one wide kernel
+    and no register kernel a replay); in float32 against the CPU under
+    E2E_F32_TOL."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    out = {}
+    expected = {"ddpm_sampler": 1, "ddpm_sampler_wide": 1}
+    for label, ddim in (("DDPM", None), ("DDIM", DDIM_STEPS)):
+        cfg = chunk28_config("bfloat16", ddim)
+        hc = cfg.heads.diffusion
+        if ((hc.action_space_dim, hc.mlp_dim, hc.diffusion_steps,
+             hc.ddim_steps) != (28, 3072, 100, ddim)):
+            fail(f"octo_base_chunk28 {label}: head {hc}")
+        model = Octo(cfg, device="cuda", seed=0).eval()
+        name = f"octo_base_chunk28 bf16 {label}"
+        serve_ms, launches = serve_phase(
+            model, cfg, counters, name, CHUNK28_REQUESTS, expected,
+            batches=CHUNK28_BATCHES)
+        compiled = compiled_serve_phase(
+            {"octo_base_chunk28": model}, cfg, name,
+            {"ddpm_sampler_wide": 1}, requests=CHUNK28_REQUESTS,
+            batches=CHUNK28_BATCHES)
+        out[label] = dict(serve_ms_per_request=serve_ms,
+                          serve_launches=launches, compiled_serving=compiled)
+        del model
+        torch.cuda.empty_cache()
+    out["reference"] = reference_phase(chunk28_config("float32"),
+                                       "octo_base_chunk28", variant="wide")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke.py runs on the card only")
@@ -4705,7 +5095,9 @@ def main():
             f"-{max(regs, default=0)}, largest spill store "
             f"{max(spills, default=0)} bytes")
     flash_ptx = flash_ptxas(reports["flash_attention"])
-    counters = {"ddpm_sampler": ddpm_sampler, "flash_fwd": fa.flash_fwd,
+    counters = {"ddpm_sampler": ddpm_sampler,
+                "ddpm_sampler_wide": ddpm_sampler.by_variant["wide"],
+                "flash_fwd": fa.flash_fwd,
                 "flash_fwd_lse": fa.flash_fwd_lse, "flash_dq": fa.flash_dq,
                 "flash_dkv": fa.flash_dkv, "pool_bwd": pool.pool_bwd}
     train_kernels = ["flash_fwd", "flash_fwd_lse", "flash_dq", "flash_dkv",
@@ -4720,6 +5112,7 @@ def main():
 
     phase("phase 2: kernels")
     f32_err, timings = kernel_phase(model.diffusion_action_head)
+    wide = wide_kernel_phase(model.diffusion_action_head)
     flash_err, flash_rows, sdpa_kernels, offset_err = {}, {}, {}, {}
     head_err = {}
     for name, (b, strings, stage, h, d) in FLASH_SHAPES.items():
@@ -4900,6 +5293,9 @@ def main():
     sharded = sharded_phase(fa, counters)
     phase("phase 31: octo_deep with 6 heads of 128 (octo_deep_h128)")
     h128 = head_dim_phase(counters)
+    phase("phase 32: octo_base with a 28-wide action chunk "
+          "(octo_base_chunk28)")
+    chunk28 = chunk28_phase(counters)
     phase(None)
 
     ms, call_ms, plain, bnd, by = timings[1]
@@ -4928,6 +5324,32 @@ def main():
         "launches_per_compiled_request_moe_b32": moe["serving_b32"][32][
             "replay_profile"]["kernels"]["ddpm_sampler"],
     }]
+    key = "DDPM T=100 B=1"
+    kernels.append({
+        "name": "ddpm_sampler_wide", "route": "cuda",
+        "source": "multi_modal_transformers_tokenmerge_torch/csrc/"
+                  "ddpm_sampler_wide.cu",
+        "replaces": "multi_modal_transformers_tokenmerge_tpu/ops/"
+                    "ddpm_sampler.py:51",
+        "launches": chunk28["DDPM"]["serve_launches"]["ddpm_sampler_wide"],
+        "max_abs_err": wide["f32_max_abs_err"],
+        **{k: wide["timings"][key][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
+        "library_ms": None,
+        "octo_base_chunk28_f32_cuda_vs_cpu": chunk28["reference"],
+        "largest_loop_gate_units": wide["largest_loop_units"],
+        "gate_units_against_register": wide["against_register"],
+        "shape": "octo_base_chunk28 bf16 DDPM T=100 H=3072 A=28 B=1",
+        "launches_ddim": chunk28["DDIM"]["serve_launches"][
+            "ddpm_sampler_wide"],
+        "launches_per_compiled_request": {
+            label: {b: chunk28[label]["compiled_serving"][b][
+                "replay_profile"]["kernels"]["ddpm_sampler_wide"]
+                for b in CHUNK28_BATCHES} for label in ("DDPM", "DDIM")},
+        "other_shapes": {k: v for k, v in wide["timings"].items()
+                         if k != key},
+        "versus_register_at_octo_base": wide["versus_register"],
+    })
     tpu = "multi_modal_transformers_tokenmerge_tpu/ops/"
     flash_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
                  "flash_attention.cu")
@@ -5084,6 +5506,11 @@ def main():
             "other_shapes": {n: r for n, r in others.items()
                              if n.startswith(new_dim) and n != first},
         })
+    log(json.dumps({"wide_sampler": {k: v for k, v in wide.items()
+                                     if k != "held"},
+                    "octo_base_chunk28": chunk28, "card": card}))
+    with open(os.path.join(OUT_DIR, "wide_sampler_held.json"), "w") as f:
+        json.dump(wide["held"], f, indent=1)
     log(json.dumps({"head_dims": h128, "head_offset_errors": head_err,
                     "padding_cost": pad_cost, "card": card}))
     log(json.dumps({"sharded": sharded, "phase_seconds": _PHASE["seconds"],

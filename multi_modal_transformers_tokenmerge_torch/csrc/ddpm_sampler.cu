@@ -46,7 +46,10 @@
 // sums rounded one float16 DDIM check of chip_smoke.py 2.5 eps from the
 // plain version, past its gate of 2.
 // Action dims below 8 (16) run padded with zero weights, which keep the
-// padding at zero.  No batch tile sizing is carried over from the TPU kernel.
+// padding at zero.  The batch is not blocked: one block a row.  This kernel
+// takes A <= 16, H <= ddpm_sampler_max_hidden(A) and T x H contexts that fit
+// one block's shared memory; every other shape runs the wide kernel
+// (ddpm_sampler_wide.cu), which blocks the batch and streams the contexts.
 //
 // Plain-C interface, loaded with ctypes: ddpm_sampler_launch returns the
 // cudaError_t of the launch (0 = success) and does not synchronise.

@@ -6,8 +6,13 @@ first layer is split by source (``noisy_proj``, ``time_proj``,
 is computed once before the reverse loop: the (T, B, H) per-step contexts
 ``time_proj(FourierFeatures(t)) + readout_proj(mean(readouts))``.  With
 the one-block denoiser of the shipped configurations the loop itself is
-``ops.ddpm_sampler``: the CUDA kernel on the card, its plain version on
-the CPU.  With ``num_blocks > 1`` the first layer widens to ``mlp_dim`` and
+``ops.ddpm_sampler``, its plain version on the CPU and one of two CUDA
+kernels on the card, chosen by shape (``ops.ddpm_sampler.sampler_variant``):
+the register kernel (``csrc/ddpm_sampler.cu``) where it takes the shape (A
+<= 16, H up to 1536 or 768, T·H contexts in one block's shared memory:
+octo_base), else the wide kernel (``csrc/ddpm_sampler_wide.cu``), which
+takes any action dim, width and step count (octo_base with a 28-wide
+action chunk, a 3072-wide denoiser and 100 steps).  With ``num_blocks > 1`` the first layer widens to ``mlp_dim`` and
 ``num_blocks - 1`` tail ``MLPBlock``s (``mlp_1``, ``mlp_2``, ...; ReLU and
 dropout 0.1, the block's defaults, whatever the configuration says) follow
 it, the last out to the action dim; the JAX package runs that denoiser in a

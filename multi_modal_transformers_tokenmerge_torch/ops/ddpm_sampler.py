@@ -1,16 +1,27 @@
-"""Fused DDPM / DDIM reverse sampler: the CUDA kernel's wrapper and its
+"""Fused DDPM / DDIM reverse sampler: the CUDA kernels' wrapper and their
 plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/ddpm_sampler.py:fused_ddpm_sample``
-(Pallas kernel ``_sampler_kernel``).  The kernel, ``csrc/ddpm_sampler.cu``,
-runs the whole T-step reverse loop of a ``num_blocks == 1`` denoiser in one
-launch, the weights in registers and the per-step contexts, coefficients
-and noise in shared memory; its source note says what bounds it and how the
-design answers.
+(Pallas kernel ``_sampler_kernel``), which takes any action dim, hidden
+width, step count and batch.  Two kernels run the whole T-step reverse loop
+of a ``num_blocks == 1`` denoiser in one launch:
+
+- the register kernel, ``csrc/ddpm_sampler.cu``: one block a batch row,
+  each thread's weights in float32 registers, all T steps' contexts staged
+  in shared memory; it takes A <= 16, H <= :func:`register_max_hidden`
+  and T·H contexts that fit one block's shared memory (octo_base's shape);
+- the wide kernel, ``csrc/ddpm_sampler_wide.cu``: a cluster of up to 8
+  blocks splits the hidden units, each block's slice of the weights in
+  shared memory, up to 8 batch rows a block, the contexts and noise
+  streamed through a ring of shared-memory stages; it takes every shape.
+
+:func:`sampler_variant` chooses between them from the shape alone; each
+source note says what bounds its kernel and how the design answers.
 
 :func:`ddpm_sampler` runs :func:`ddpm_sample_reference` for CPU tensors,
-launches the kernel for tensors on an sm_90 card, and raises for anything
-else.  ``ddpm_sampler.launches`` counts kernel launches.
+launches a kernel for tensors on an sm_90 card, and raises for anything
+else.  ``ddpm_sampler.launches`` counts kernel launches, and
+``ddpm_sampler.by_variant[v].launches`` those of each kernel.
 :func:`ddpm_sampler_op` is the same function registered as the custom op
 ``tokenmerge::ddpm_sampler`` (with a shape function for tracing), so that
 ``torch.export`` can carry it.
@@ -22,6 +33,7 @@ Weights come in ``torch.nn.Linear`` layout: ``wn`` (H, A) and ``wo``
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -30,11 +42,45 @@ from .. import _build
 from ..core.hw import on_cuda
 
 __all__ = ["ddpm_sampler", "ddpm_sampler_op", "ddpm_sample_reference",
-           "MAX_ACTION_DIM"]
+           "sampler_variant", "register_max_hidden", "REGISTER_MAX_ACTION_DIM",
+           "VARIANTS"]
 
-MAX_ACTION_DIM = 16          # kMaxA in the kernel
-_MAX_SMEM_BYTES = 232448     # a block's shared memory on sm_90
+VARIANTS = ("register", "wide")
+REGISTER_MAX_ACTION_DIM = 16   # kMaxA in csrc/ddpm_sampler.cu
+_MAX_SMEM_BYTES = 232448       # a block's shared memory on sm_90
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def register_max_hidden(adim: int) -> int:
+    """The widest hidden layer the register kernel holds in registers at
+    action dim ``adim`` (``ddpm_sampler_max_hidden`` in its source): 256
+    threads of 6 units at A <= 8, of 3 at 9 <= A <= 16."""
+    return 256 * (6 if adim <= 8 else 3)
+
+
+def register_smem_bytes(steps: int, hidden: int, adim: int,
+                        elem: int) -> int:
+    """Shared memory of one register-kernel block (``smem_bytes`` in its
+    source): every step's contexts, coefficients and noise, and the warps'
+    partial sums, the action width padded to 8 or 16."""
+    ma = 8 if adim <= 8 else 16
+    return (-(-steps * hidden * elem // 16) * 16
+            + 4 * (steps * (4 + ma) + 2 * 8 * ma))
+
+
+def _register_takes(steps, hidden, adim, elem) -> bool:
+    return (adim <= REGISTER_MAX_ACTION_DIM
+            and hidden <= register_max_hidden(adim)
+            and register_smem_bytes(steps, hidden, adim, elem)
+            <= _MAX_SMEM_BYTES)
+
+
+def sampler_variant(steps: int, batch: int, hidden: int, adim: int,
+                    dtype: torch.dtype) -> str:
+    """The kernel a shape launches: ``'register'`` where the register
+    kernel takes it, ``'wide'`` for every other shape."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return "register" if _register_takes(steps, hidden, adim, elem) else "wide"
 
 
 def _mode(ddim_x0clip: bool, ddim_eps_recompute: bool) -> int:
@@ -85,14 +131,12 @@ def _check(name, t, shape, dtype):
 
 
 def _launch(noisy, contexts, noise, coeffs, wn, bn, wo, bo, clip_value,
-            mode) -> torch.Tensor:
+            mode, variant) -> torch.Tensor:
     steps, batch, hidden = contexts.shape
     adim = noisy.shape[-1]
     cd = contexts.dtype
     if cd not in _DTYPE_CODES:
         raise ValueError(f"unsupported compute dtype {cd}")
-    if not 1 <= adim <= MAX_ACTION_DIM:
-        raise ValueError(f"action dim {adim} outside [1, {MAX_ACTION_DIM}]")
     wn, bn, wo, bo = (w.to(cd).contiguous() for w in (wn, bn, wo, bo))
     contexts = contexts.contiguous()
     noisy = noisy.float().contiguous()
@@ -114,71 +158,137 @@ def _launch(noisy, contexts, noise, coeffs, wn, bn, wo, bo, clip_value,
             "ddpm_sampler: the kernel needs all tensors on one sm_90 CUDA "
             f"device; got {sorted({str(t.device) for t in tensors})}")
 
-    lib = _library()
-    widest = lib.ddpm_sampler_max_hidden(adim)
-    if hidden > widest:
-        raise ValueError(
-            f"ddpm_sampler: hidden width {hidden} above the {widest} units "
-            f"the kernel holds in registers at action dim {adim}")
+    if variant is None:
+        variant = sampler_variant(steps, batch, hidden, adim, cd)
     elem = contexts.element_size()
-    smem = lib.ddpm_sampler_smem_bytes(steps, hidden, adim, elem)
-    if smem > _MAX_SMEM_BYTES:
+    if variant == "register" and not _register_takes(steps, hidden, adim,
+                                                      elem):
         raise ValueError(
-            f"ddpm_sampler: T={steps}, H={hidden} needs {smem} bytes of "
-            f"shared memory per block, more than {_MAX_SMEM_BYTES}")
+            f"ddpm_sampler: the register kernel does not take T={steps}, "
+            f"H={hidden}, A={adim} in {cd}")
+    name = "ddpm_sampler" if variant == "register" else "ddpm_sampler_wide"
+    lib = _library(name)
+    stream, sms = _device_facts(noisy.device)
     out = torch.empty_like(noisy)
-    stream = torch.cuda.current_stream(noisy.device).cuda_stream
-    rc = lib.ddpm_sampler_launch(
-        noisy.data_ptr(), contexts.data_ptr(),
-        noise.data_ptr() if mode == 0 else None, coeffs.data_ptr(),
-        wn.data_ptr(), bn.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out.data_ptr(), steps, batch, hidden, adim, float(clip_value),
-        _DTYPE_CODES[cd], mode, stream)
+    ptrs = (noisy.data_ptr(), contexts.data_ptr(),
+            noise.data_ptr() if mode == 0 else None, coeffs.data_ptr(),
+            wn.data_ptr(), bn.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            out.data_ptr())
+    if variant == "register":
+        rc = lib.ddpm_sampler_launch(
+            *ptrs, steps, batch, hidden, adim, float(clip_value),
+            _DTYPE_CODES[cd], mode, stream)
+    else:
+        plan = wide_plan(lib, steps, batch, hidden, adim, elem, mode, sms)
+        scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                               device=noisy.device)
+                   if plan["scratch_floats"] else None)
+        rc = lib.ddpm_sampler_wide_launch(
+            *ptrs, None if scratch is None else scratch.data_ptr(), steps,
+            batch, hidden, adim, float(clip_value), _DTYPE_CODES[cd], mode,
+            sms, stream)
     if rc != 0:
-        msg = lib.ddpm_sampler_error_string(rc).decode()
-        raise RuntimeError(f"ddpm_sampler kernel launch failed: {msg}")
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"ddpm_sampler {variant} kernel launch failed: "
+                           f"{msg}")
     ddpm_sampler.launches += 1
+    ddpm_sampler.by_variant[variant].launches += 1
     return out
 
 
-def _library():
-    """The kernel library with its C signatures declared."""
-    lib = _build.load_library("ddpm_sampler")
-    if not getattr(lib, "_signatures_set", False):
-        vp = ctypes.c_void_p
-        lib.ddpm_sampler_launch.argtypes = [vp] * 9 + [
-            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 vp]
-        lib.ddpm_sampler_launch.restype = ctypes.c_int
-        lib.ddpm_sampler_smem_bytes.argtypes = [ctypes.c_int] * 4
+_PLAN_KEYS = ("clusters", "units", "rows", "groups", "grid_y", "g1", "g2",
+              "flags", "smem_bytes", "scratch_floats", "blocks")
+
+
+def wide_plan(lib, steps, batch, hidden, adim, elem, mode, sms) -> dict:
+    """How the wide kernel cuts a launch (``ddpm_sampler_wide_plan``):
+    blocks a cluster, hidden units and batch rows a block, row groups, the
+    lanes sharing a sum in each product, the buffers in shared memory
+    (bit flags: partial sums 1, sample 2, hidden layer 4, biases 8, ring
+    16, weights 32), its bytes, and the scratch floats it needs."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    rc = lib.ddpm_sampler_wide_plan(steps, batch, hidden, adim, elem, mode,
+                                    sms, out)
+    if rc != 0:
+        raise ValueError(
+            f"ddpm_sampler: the wide kernel refused T={steps}, B={batch}, "
+            f"H={hidden}, A={adim}: "
+            f"{lib.ddpm_sampler_wide_error_string(rc).decode()}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_facts(device):
+    """(the current stream's handle, the SM count) of a CUDA device."""
+    return (torch.cuda.current_stream(device).cuda_stream,
+            _sm_count(device.index if device.index is not None
+                      else torch.cuda.current_device()))
+
+
+def _library(name):
+    """The kernel library ``name`` with its C signatures declared."""
+    lib = _build.load_library(name)
+    if getattr(lib, "_signatures_set", False):
+        return lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "ddpm_sampler":
+        lib.ddpm_sampler_launch.argtypes = [vp] * 9 + [ci] * 4 + [
+            ctypes.c_float, ci, ci, vp]
+        lib.ddpm_sampler_launch.restype = ci
+        lib.ddpm_sampler_smem_bytes.argtypes = [ci] * 4
         lib.ddpm_sampler_smem_bytes.restype = ctypes.c_size_t
-        lib.ddpm_sampler_max_hidden.argtypes = [ctypes.c_int]
-        lib.ddpm_sampler_max_hidden.restype = ctypes.c_int
-        lib.ddpm_sampler_error_string.argtypes = [ctypes.c_int]
-        lib.ddpm_sampler_error_string.restype = ctypes.c_char_p
-        lib._signatures_set = True
+        lib.ddpm_sampler_max_hidden.argtypes = [ci]
+        lib.ddpm_sampler_max_hidden.restype = ci
+    else:
+        lib.ddpm_sampler_wide_launch.argtypes = [vp] * 10 + [ci] * 4 + [
+            ctypes.c_float, ci, ci, ci, vp]
+        lib.ddpm_sampler_wide_launch.restype = ci
+        lib.ddpm_sampler_wide_plan.argtypes = [ci] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ddpm_sampler_wide_plan.restype = ci
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    lib._signatures_set = True
     return lib
 
 
 def ddpm_sampler(noisy, contexts, noise: Optional[torch.Tensor], coeffs, wn,
                  bn, wo, bo, *, clip_value: float, ddim_x0clip: bool = False,
-                 ddim_eps_recompute: bool = False) -> torch.Tensor:
+                 ddim_eps_recompute: bool = False,
+                 _variant: Optional[str] = None) -> torch.Tensor:
     """The whole reverse loop; arguments as for
     :func:`ddpm_sample_reference`.  CPU tensors take the plain version; on
-    a CUDA device this launches the kernel or raises."""
+    a CUDA device this launches the kernel :func:`sampler_variant` names
+    or raises.  ``_variant`` ('register' or 'wide') forces one kernel, so
+    that the two can be held against each other at a shape both take."""
     mode = _mode(ddim_x0clip, ddim_eps_recompute)
     if mode == 0 and noise is None:
         raise ValueError("DDPM sampling needs per-step noise")
+    if _variant is not None and _variant not in VARIANTS:
+        raise ValueError(f"unknown sampler variant {_variant!r}")
     if contexts.device.type == "cpu":
         return ddpm_sample_reference(
             noisy, contexts, noise, coeffs, wn, bn, wo, bo,
             clip_value=clip_value, ddim_x0clip=ddim_x0clip,
             ddim_eps_recompute=ddim_eps_recompute)
     return _launch(noisy, contexts, noise, coeffs, wn, bn, wo, bo,
-                   clip_value, mode)
+                   clip_value, mode, _variant)
+
+
+class LaunchCount:
+    """The launches of one kernel variant (``.launches``)."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 ddpm_sampler.launches = 0
+ddpm_sampler.by_variant = {v: LaunchCount() for v in VARIANTS}
 
 
 @torch.library.custom_op("tokenmerge::ddpm_sampler", mutates_args=())

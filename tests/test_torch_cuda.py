@@ -90,6 +90,165 @@ def test_sampler_kernel_matches_plain_low_precision(card, dtype, batch,
             <= 2 * torch.finfo(dtype).eps * (1 + ref.abs())).all()
 
 
+def _wide_case(card, steps, hidden, adim, batch, mode, seed=0):
+    """Sampler arguments and keywords at (T, H, A): the coefficients of a
+    T-step head (DDIM: 10 steps over them, as served), random weights
+    scaled as a denoiser's."""
+    head = DiffusionActionHead(DiffusionHeadConfig(
+        diffusion_steps=steps, action_space_dim=adim, mlp_dim=hidden,
+        ddim_eps_mode="recompute" if mode == "ddim_recompute" else "raw"),
+        hidden, device=card)
+    coeffs = head.schedule(None if mode == "ddpm" else min(10, steps))[1]
+    t = coeffs.shape[0]
+    g = torch.Generator(device=card).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    args = (r(batch, adim), r(t, batch, hidden),
+            r(t, batch, adim) if mode == "ddpm" else None, coeffs,
+            r(hidden, adim) * (2.0 / adim) ** 0.5, r(hidden) * 1e-2,
+            r(adim, hidden) * (2.0 / hidden) ** 0.5, r(adim) * 1e-2)
+    kw = dict(clip_value=5.0, ddim_x0clip=mode != "ddpm",
+              ddim_eps_recompute=mode == "ddim_recompute")
+    return args, kw
+
+
+# (T, H, A): octo_base_chunk28's sampler, ACT's 1400-wide chunk, and
+# octo_base's shape with the wide kernel forced
+WIDE_SHAPES = pytest.mark.parametrize("steps,hidden,adim,forced", [
+    (100, 3072, 28, None), (16, 768, 1400, None), (32, 768, 8, "wide")])
+WIDE_MODES = pytest.mark.parametrize("mode", ["ddpm", "ddim_raw",
+                                              "ddim_recompute"])
+
+
+def _units(got, want, dtype):
+    """max |got - want| in units of the gate: 1e-4 (1 + |want|) in
+    float32, 2 eps(dtype) (1 + |want|) in bf16 / fp16."""
+    tol = 1e-4 if dtype == torch.float32 else 2 * torch.finfo(dtype).eps
+    return ((got - want).abs() / (tol * (1 + want.abs()))).max().item()
+
+
+def _permuted_spread(args, kw, ref, dtype, orders=8):
+    """How far the plain version moves, in gates, when its sums run in
+    other orders: hidden units and actions permuted, the same function."""
+    g = torch.Generator().manual_seed(0)
+    noisy, ctx, noise, coeffs, wn, bn, wo, bo = args
+    spread = 0.0
+    for _ in range(orders):
+        p = torch.randperm(wn.shape[0], generator=g).to(ctx.device)
+        q = torch.randperm(wn.shape[1], generator=g).to(ctx.device)
+        out = ddpm_sample_reference(
+            noisy[:, q], ctx[:, :, p],
+            None if noise is None else noise[:, :, q], coeffs, wn[p][:, q], bn[p], wo[q][:, p], bo[q], **kw)
+        spread = max(spread, _units(out[:, torch.argsort(q)], ref, dtype))
+    return spread
+
+
+def _truth_rule(got, plain, truth, slack=0.05):
+    """The kernel's error against ``truth`` over 3 x the plain version's +
+    ``slack`` (<= 1 passes)."""
+    return ((got.double() - truth).abs().max().item()
+            / (3 * (plain.double() - truth).abs().max().item() + slack))
+
+
+def _exact_step(state, args, t, kw):
+    """Step t from ``state`` in float64, with no rounding to a compute
+    dtype."""
+    _, ctx, noise, coeffs, wn, bn, wo, bo = (
+        None if a is None else a.double() for a in args)
+    clip = kw["clip_value"]
+    s = state.double()
+    eps = torch.relu(s @ wn.T + bn + ctx[t]) @ wo.T + bo
+    c = coeffs[t]
+    if not kw["ddim_x0clip"]:
+        nx = c[0] * (s - c[1] * eps) + c[2] * noise[t]
+    else:
+        x0 = torch.clamp(c[0] * s - c[1] * eps, -clip, clip)
+        if kw["ddim_eps_recompute"]:
+            eps = (c[0] * s - x0) / c[1]
+        nx = c[2] * x0 + c[3] * eps
+    return torch.clamp(nx, -clip, clip)
+
+
+def _stepwise(args, kw, forced, dtype):
+    """Each step of the wide kernel against one plain step from the
+    kernel's own state (its loop cut after t + 1 steps against the plain
+    step from its loop cut after t), by the truth rule: against the exact
+    step with slack 1e-4 in float32, against the float32 plain step with
+    slack 0.05 in bf16 / fp16."""
+    noisy, ctx, noise, coeffs, wn, bn, wo, bo = args
+    cut = lambda a, lo, hi: None if a is None else a[lo:hi]
+    worst, state = 0.0, noisy
+    for t in range(coeffs.shape[0]):
+        ker = ddpm_sampler(noisy, ctx[:t + 1], cut(noise, 0, t + 1),
+                           coeffs[:t + 1], wn, bn, wo, bo, **kw,
+                           _variant=forced)
+        step = lambda c: ddpm_sample_reference(
+            state, c[t:t + 1], cut(noise, t, t + 1), coeffs[t:t + 1], wn,
+            bn, wo, bo, **kw)
+        plain = step(ctx)
+        worst = max(worst, _truth_rule(
+            ker, plain, _exact_step(state, args, t, kw), 1e-4)
+            if dtype == torch.float32 else
+            _truth_rule(ker, plain, step(ctx.float()).double()))
+        state = ker
+    return worst
+
+
+@pytest.mark.cuda
+@WIDE_SHAPES
+@WIDE_MODES
+@pytest.mark.parametrize("batch", [1, 8, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wide_sampler_kernel_matches_plain(card, steps, hidden, adim,
+                                           forced, mode, batch, dtype):
+    """The wide kernel against the plain version at the register kernel's
+    gates: float32 1e-4 (1 + |plain|); bf16 / fp16 2 eps (1 + |plain|) and
+    its error against the float32 plain version within 3 x the plain
+    version's + 0.05.  Where the whole loop misses the 1e-4 or 2 eps gate
+    (the loop amplifies any sum order's rounding: a failure reports how far
+    the plain version moves itself under permuted sums), every step must
+    meet the truth rule from the kernel's own state: in float32 against
+    the exact step with slack 1e-4."""
+    args, kw = _wide_case(card, steps, hidden, adim, batch, mode)
+    low = (args[0], args[1].to(dtype)) + args[2:]
+    wide = ddpm_sampler.by_variant["wide"].launches
+    out = ddpm_sampler(*low, **kw, _variant=forced)
+    torch.cuda.synchronize()
+    assert ddpm_sampler.by_variant["wide"].launches == wide + 1
+    ref = ddpm_sample_reference(*low, **kw)
+    assert torch.isfinite(out).all()
+    if dtype != torch.float32:
+        assert _truth_rule(out, ref,
+                           ddpm_sample_reference(*args, **kw).double()) <= 1
+    units = _units(out, ref, dtype)
+    if units > 1:
+        spread = _permuted_spread(low, kw, ref, dtype)
+        stepwise = _stepwise(low, kw, forced, dtype)
+        assert stepwise <= 1, (units, spread, stepwise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_sampler_rows_do_not_depend_on_the_batch(card, dtype):
+    """A row's result is the same bit for bit whether it is sampled alone,
+    in a batch of 8 or of 37 (other blockings of the batch), and in a CUDA
+    graph's replay."""
+    args, kw = _wide_case(card, 100, 3072, 28, 37, "ddpm", seed=3)
+    args = (args[0], args[1].to(dtype)) + args[2:]
+    whole = ddpm_sampler(*args, **kw)
+    for b in (1, 8):
+        part = ddpm_sampler(args[0][:b], args[1][:, :b], args[2][:, :b],
+                            *args[3:], **kw)
+        torch.testing.assert_close(part, whole[:b], rtol=0, atol=0)
+    static = ddpm_sampler(*args, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = ddpm_sampler(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(static, whole, rtol=0, atol=0)
+
+
 # -- flash attention and max-pool backward ---------------------------------
 
 FLASH_SHAPES = pytest.mark.parametrize("b,seq,h,d", [

@@ -30,12 +30,19 @@ def test_schedules_match():
 
 
 def _head_cfg(rng_mode="folded", ddim_steps=None, eps_mode="raw",
-              impl="fused"):
+              impl="fused", **widths):
+    """The micro head; ``widths`` overrides fields of its
+    DiffusionHeadConfig (action_space_dim, mlp_dim, diffusion_steps)."""
     base = octo_micro_t5()
     return base.replace(heads=base.heads.replace(
         diffusion=base.heads.diffusion.replace(
             sampler_rng_mode=rng_mode, ddim_steps=ddim_steps,
-            ddim_eps_mode=eps_mode, sampler_impl=impl)))
+            ddim_eps_mode=eps_mode, sampler_impl=impl, **widths)))
+
+
+# octo_base_chunk28's head cut to a micro width: Octo's 4 x 7 action chunk
+# and Diffusion Policy's 100 steps, past the register kernel's 16 actions
+CHUNK28 = dict(action_space_dim=28, diffusion_steps=100, mlp_dim=48)
 
 
 def _jax_predict(cfg, readouts, seed=5):
@@ -58,15 +65,17 @@ def test_fourier_time_encoder_matches():
     assert_close(out, ref, MODULE_TOL)
 
 
-@pytest.mark.parametrize("rng_mode,ddim_steps,eps_mode", [
-    ("folded", None, "raw"),
-    ("reference", None, "raw"),
-    ("folded", 8, "raw"),
-    ("folded", 8, "recompute"),
-])
+@pytest.mark.parametrize("rng_mode,ddim_steps,eps_mode,widths", [
+    pytest.param(*case, {}, id="-".join(map(str, case))) for case in [
+        ("folded", None, "raw"), ("reference", None, "raw"),
+        ("folded", 8, "raw"), ("folded", 8, "recompute")]] + [
+    pytest.param(*case, CHUNK28, id="-".join(map(str, case)) + "-chunk28")
+    for case in [("folded", None, "raw"), ("folded", 10, "raw"),
+                 ("folded", 10, "recompute")]])
 def test_predict_action_matches(monkeypatch, rng_mode, ddim_steps,
-                                eps_mode):
-    cfg = _head_cfg(rng_mode, ddim_steps, eps_mode)
+                                eps_mode, widths):
+    cfg = _head_cfg(rng_mode, ddim_steps, eps_mode, **widths)
+    a = cfg.heads.diffusion.action_space_dim
     _, _, tm = micro_pair(cfg)
     readouts = np.random.default_rng(4).normal(
         size=(3, 4, 32)).astype(np.float32)
@@ -77,11 +86,11 @@ def test_predict_action_matches(monkeypatch, rng_mode, ddim_steps,
         out = tm.diffusion_action_head.predict_action(
             torch.from_numpy(readouts), noisy=noisy,
             noise=None if ddim_steps else noise)
-    assert tuple(out.shape) == ref.shape == (3, 4)
+    assert tuple(out.shape) == ref.shape == (3, a)
     assert_close(out, ref, MODULE_TOL)
     # the JAX scan sampler draws the same noise from the same key
-    scan = _jax_predict(_head_cfg(rng_mode, ddim_steps, eps_mode, "scan"),
-                        readouts)
+    scan = _jax_predict(_head_cfg(rng_mode, ddim_steps, eps_mode, "scan",
+                                  **widths), readouts)
     assert_close(out, scan, MODULE_TOL)
 
 
