@@ -233,6 +233,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -484,12 +485,13 @@ def ptxas_entries(report, kinds=FLASH_KINDS):
     return {e: tuple(v) for e, v in found.items()}
 
 
-def flash_ptxas(report):
+def flash_ptxas(report, strict=True):
     """Registers and spill stores of every flash forward, dq and dk/dv
-    instantiation in the flash library's ``-Xptxas -v`` report, logged;
-    fails the run if a bf16 or fp16 instantiation spills, or if the report
-    lacks the 16-bit instantiations of any of the three.  Returns
-    {entry: (registers, spill store bytes)}."""
+    instantiation in a flash library's ``-Xptxas -v`` report, logged;
+    fails the run if the report lacks the 16-bit instantiations of any of
+    the three, and, when ``strict`` (csrc/flash_attention.cu), if a bf16 or
+    fp16 instantiation spills (csrc/flash_attention_wide.cu's spills are
+    logged).  Returns {entry: (registers, spill store bytes)}."""
     found = ptxas_entries(report)
     sixteen = dict.fromkeys(FLASH_KINDS, 0)
     for entry, (regs, spill) in sorted(found.items()):
@@ -497,9 +499,10 @@ def flash_ptxas(report):
                                        entry)
         for k in FLASH_KINDS:
             sixteen[k] += is16 and k in entry
+        flag = (" FAIL" if strict else " (spills)") if is16 and spill else ""
         log(f"  ptxas {entry}: {regs} registers, {spill} bytes spill "
-            f"stores{' FAIL' if is16 and spill else ''}")
-        if is16 and spill:
+            f"stores{flag}")
+        if strict and is16 and spill:
             fail(f"{entry} spills {spill} bytes")
     missing = [k for k, n in sixteen.items() if not n]
     if missing:
@@ -946,6 +949,17 @@ LONG_SPEC = ("[TaskDescriptionPrefix{16}] "
              "Readout{4}]*2")
 DEEP_SPEC = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
              "[TaskDescriptionPrefix{0}] [Image{32};Readout{0}]*2")
+# the wide kernels (csrc/flash_attention_wide.cu): octo_deep_h512's three
+# stages at its training batch (phase 33), head dim 320 (8 heads), 576 (4
+# heads: sarvam-105b's latent head width), 768 (one head of octo_deep's
+# width) and 300 (run padded to 320) at its first stage
+WIDE_FLASH_SHAPES = {
+    **{f"deep_h512_S{s}": (32, DEEP_SPEC, stage, 3, 512)
+       for stage, s in enumerate((224, 160, 96))},
+    "d320_S224": (8, DEEP_SPEC, 0, 8, 320),
+    "d576_S224": (8, DEEP_SPEC, 0, 4, 576),
+    "d768_S224": (8, DEEP_SPEC, 0, 1, 768),
+    "d300_S224": (8, DEEP_SPEC, 0, 8, 300)}
 # name -> (batch, layout strings, stage, heads, head_dim): octo_base
 # training, the 1024-token layout, octo_deep's three stages at its training
 # batch (its blocks under flash_backward='pallas'); the same three with 6
@@ -959,10 +973,11 @@ FLASH_SHAPES = {"octo_base_train": (32, (OCTO_SPEC,), 0, 3, 256),
                 **{f"deep_h128_S{s}": (32, DEEP_SPEC, stage, 6, 128)
                    for stage, s in enumerate((224, 160, 96))},
                 "d32_S224": (32, DEEP_SPEC, 0, 24, 32),
-                "d80_S224": (8, DEEP_SPEC, 0, 16, 80)}
+                "d80_S224": (8, DEEP_SPEC, 0, 16, 80),
+                **WIDE_FLASH_SHAPES}
 # head dims whose head slices (h0) phase 2 holds at P = 2, in bf16 and with
 # float32 outputs (phase 30 holds D = 64's at P = 2 and 4)
-HEAD_SLICE_DIMS = (32, 80, 128)
+HEAD_SLICE_DIMS = (32, 80, 128, 512)
 TRAIN_DROPOUT = 0.1     # the attention.dropout_rate of octo_base and octo_deep
 
 
@@ -986,6 +1001,24 @@ def rel_gate(got, want, dtype):
     limit = 1.0 if dtype == torch.float32 else LOW_ULPS
     ok = bool(torch.isfinite(got).all()) and units <= limit
     return ok, diff.max().item(), units
+
+
+def plain_of(fa, d):
+    """The plain versions the flash kernels at head dim ``d`` are held
+    against, under the names of ``ops.flash_attention``'s
+    (``flash_fwd_reference``, ...): above 256 the wide kernels' plain
+    versions (``flash_*_wide_reference``, cut as those kernels cut D)."""
+    if not fa.is_wide(d):
+        return fa
+    return types.SimpleNamespace(**{
+        f"{k}_reference": getattr(fa, f"{k}_wide_reference")
+        for k in ("flash_fwd", "flash_fwd_lse", "flash_dq", "flash_dkv")})
+
+
+def kernel_key(kernel, d):
+    """The device records' name of a flash kernel at head dim ``d``: above
+    256 the wide family's (csrc/flash_attention_wide.cu)."""
+    return f"{kernel}{'_wide' if d > 256 else ''}_kernel"
 
 
 def flash_bytes_flops(b, s, h, d, nnz, dtype, kind):
@@ -1034,6 +1067,7 @@ def flash_check(fa, name, mask, b, h, d):
     owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
              "dv": "flash_dkv"}
     f32_err = dict.fromkeys(owner.values(), 0.0)
+    ref = plain_of(fa, d)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         mask, qkvd, tables, tiles = flash_case(fa, mask, b, h, d, dtype,
                                                seed=7)
@@ -1042,7 +1076,7 @@ def flash_check(fa, name, mask, b, h, d):
         for rate in (0.0, TRAIN_DROPOUT):
             kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=rate)
             sw = seed if rate else None
-            out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, padded, k_hi,
+            out_p, lse_p = ref.flash_fwd_lse_reference(q, k, v, padded, k_hi,
                                                       sw, **kw)
             out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, sw, **kw)
             delta = fa.attention_delta(do, out_p, padded.shape[0])
@@ -1053,9 +1087,9 @@ def flash_check(fa, name, mask, b, h, d):
                                                 padded, q_lo, sw, **kw)
             torch.cuda.synchronize()
             want = dict(out=out_p,
-                        dq=fa.flash_dq_reference(q, k, v, do, lse_p, delta,
+                        dq=ref.flash_dq_reference(q, k, v, do, lse_p, delta,
                                                  padded, k_hi, sw, **kw))
-            want["dk"], want["dv"] = fa.flash_dkv_reference(
+            want["dk"], want["dv"] = ref.flash_dkv_reference(
                 q, k, v, do, lse_p, delta, padded, q_lo, sw, **kw)
             parts = []
             ok_all = True
@@ -1085,6 +1119,7 @@ def flash_timings(fa, name, mask, b, h, d):
     dtype = torch.bfloat16
     mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
         fa, mask, b, h, d, dtype, seed=9)
+    ref = plain_of(fa, d)
     seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
     kw = dict(block_q=tiles[0], block_k=tiles[1], dropout_rate=TRAIN_DROPOUT)
     out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
@@ -1092,16 +1127,16 @@ def flash_timings(fa, name, mask, b, h, d):
     calls = {
         "flash_fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, padded, k_hi,
                                                    seed, **kw),
-                          lambda: fa.flash_fwd_lse_reference(
+                          lambda: ref.flash_fwd_lse_reference(
                               q, k, v, padded, k_hi, seed, **kw), "fwd"),
         "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, padded,
                                          k_hi, seed, **kw),
-                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                     lambda: ref.flash_dq_reference(q, k, v, do, lse, delta,
                                                    padded, k_hi, seed, **kw),
                      "dq"),
         "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, padded,
                                            q_lo, seed, **kw),
-                      lambda: fa.flash_dkv_reference(
+                      lambda: ref.flash_dkv_reference(
                           q, k, v, do, lse, delta, padded, q_lo, seed, **kw),
                       "dkv"),
     }
@@ -1131,9 +1166,9 @@ def flash_timings(fa, name, mask, b, h, d):
                                           q_lo, seed, b0=b, **kw)}
     rows = {}
     for kernel, (call, plain, kind) in calls.items():
-        ms = device_ms(call, f"{kernel}_kernel")
-        ms_b0 = device_ms(offset[kernel], f"{kernel}_kernel")
-        ms_again = device_ms(call, f"{kernel}_kernel")
+        ms = device_ms(call, kernel_key(kernel, d))
+        ms_b0 = device_ms(offset[kernel], kernel_key(kernel, d))
+        ms_again = device_ms(call, kernel_key(kernel, d))
         call_ms = time_ms(call)
         plain_ms = time_ms(plain, iters=3, warmup=1)
         nbytes, flops = flash_bytes_flops(b, s, h, d, nnz, dtype, kind)
@@ -1175,6 +1210,7 @@ def flash_offset_check(fa, name, mask, b, h, d):
                         device="cuda")
     f32_err = dict.fromkeys(("flash_fwd_lse", "flash_dq", "flash_dkv"), 0.0)
     b0 = b // 2
+    ref = plain_of(fa, d)
     for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
                              (torch.bfloat16, torch.float32)):
         mask, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
@@ -1200,10 +1236,10 @@ def flash_offset_check(fa, name, mask, b, h, d):
         same_rows = all(torch.equal(whole[key][b0:], part[key])
                         for key in keys)
         args = part["args"]
-        want = dict(out=fa.flash_fwd_lse_reference(
+        want = dict(out=ref.flash_fwd_lse_reference(
             *args[:3], padded, k_hi, seed, b0=b0, **kw)[0],
-            dq=fa.flash_dq_reference(*args, k_hi, seed, b0=b0, **kw))
-        want["dk"], want["dv"] = fa.flash_dkv_reference(
+            dq=ref.flash_dq_reference(*args, k_hi, seed, b0=b0, **kw))
+        want["dk"], want["dv"] = ref.flash_dkv_reference(
             *args, q_lo, seed, b0=b0, **kw)
         owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
                  "dv": "flash_dkv"}
@@ -1257,7 +1293,7 @@ def padding_cost(fa, b=8, h=16):
         got = {80: [], 128: []}
         for d in (80, 128, 128, 80):
             call = calls[d][kernel]
-            got[d].append((device_ms(call, f"{kernel}_kernel"),
+            got[d].append((device_ms(call, kernel_key(kernel, d)),
                            device_total_ms(call)[0]))
         row = {f"d{d}_{what}_ms": statistics.mean(x[i] for x in got[d])
                for d in (80, 128) for i, what in enumerate(("kernel",
@@ -1294,8 +1330,10 @@ def fwd_shapes():
     """name -> (mask, batch, heads, head_dim) of the forward without LSE:
     octo_deep's three stages at the serving batches and at the training
     batch, and with 6 heads of 128 at the serving batches; head dims 32
-    and 80 (padded to 128) at its first stage; octo_base_deep's first
-    stage, the 1024-token layout and dead rows."""
+    and 80 (padded to 128) at its first stage; octo_deep_h512's stages at
+    the serving batches and head dims 320, 576, 768 and 300 (padded to 320)
+    on the wide kernel; octo_base_deep's first stage, the 1024-token layout
+    and dead rows (at D = 64 and 512)."""
     shapes = {}
     for stage, s in enumerate((224, 160, 96)):
         for b in (1, 8, TRAIN_BATCH):
@@ -1307,6 +1345,13 @@ def fwd_shapes():
                                               b, 6, 128)
     shapes["d32_S224_B32"] = (stage_mask(DEEP_SPEC, 0), TRAIN_BATCH, 24, 32)
     shapes["d80_S224_B8"] = (stage_mask(DEEP_SPEC, 0), 8, 16, 80)
+    for stage, s in enumerate((224, 160, 96)):
+        for b in (1, 8):
+            shapes[f"deep_h512_S{s}_B{b}"] = (stage_mask(DEEP_SPEC, stage),
+                                              b, 3, 512)
+    for d, h in ((320, 8), (576, 4), (768, 1), (300, 8)):
+        shapes[f"d{d}_S224_B8"] = (stage_mask(DEEP_SPEC, 0), 8, h, d)
+    shapes["dead_rows_d512_S224_B2"] = (dead_row_mask(), 2, 3, 512)
     shapes["octo_base_deep_S74_B1"] = (stage_mask(BASE_DEEP_SPEC, 0), 1, 3,
                                        256)
     shapes["long_context_S1024_B8"] = (layout_mask(LONG_SPEC), 8, 12, 64)
@@ -1332,11 +1377,12 @@ def flash_fwd_check(fa):
     f32_err = {}
     for name, (mask, b, h, d) in fwd_shapes().items():
         parts, ok_all = [], True
+        ref = plain_of(fa, d)
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             args, kw = fwd_case(fa, mask, b, h, d, dtype, seed=11)
             out = fa.flash_fwd(*args, **kw)
             torch.cuda.synchronize()
-            want = fa.flash_fwd_reference(*args, **kw)
+            want = ref.flash_fwd_reference(*args, **kw)
             ok, err, units = rel_gate(out, want, dtype)
             dead = torch.as_tensor(~mask.any(axis=1), device="cuda")
             ok &= not bool(out[:, dead].any())
@@ -1364,10 +1410,11 @@ def flash_fwd_timings(fa):
             continue
         args, kw = fwd_case(fa, mask, b, h, d, dtype, seed=13)
         q, k, v = args[:3]
+        ref = plain_of(fa, d)
         call = lambda: fa.flash_fwd(*args, **kw)
-        ms = device_ms(call, "flash_fwd_kernel")
+        ms = device_ms(call, kernel_key("flash_fwd", d))
         call_ms = time_ms(call)
-        plain_ms = time_ms(lambda: fa.flash_fwd_reference(*args, **kw),
+        plain_ms = time_ms(lambda: ref.flash_fwd_reference(*args, **kw),
                            iters=3, warmup=1)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         m = torch.as_tensor(mask, device="cuda")
@@ -1465,6 +1512,67 @@ def pool_check_and_time(pool, n):
     return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=lib,
                 ms_nchw=ms_nchw, layout={"x": xl, "g": gl})
+
+
+# windows past the 8 a side of the pool backward's register body: they run
+# on its second body (csrc/pool_bwd.cu: pool_bwd_wide_kernel)
+POOL_WIDE_WINDOWS = ((9, 9), (3, 12), (16, 16))
+
+
+def pool_windows_check(pool, n):
+    """pool_bwd at windows above 8 a side against its plain version, bit
+    for bit, on the embedder's plane (N, 64, 23, 23) of tie-heavy bf16
+    data with a NaN window, x and g both NCHW and both channels_last; then
+    each window's bf16 device time on the main path's layout beside its
+    plain version, its bound and the autograd backward of F.max_pool2d."""
+    import torch.nn.functional as F
+    fmt = {"channels_last": torch.channels_last,
+           "nchw": torch.contiguous_format}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    base = (torch.randn(n, 64, 23, 23, generator=g, device="cuda") * 2
+            ).round() / 2
+    base[0, 0, 11, 11] = float("nan")
+    dtype = torch.bfloat16
+    rows = {}
+    for window in POOL_WIDE_WINDOWS:
+        oh, ow = 23 - window[0] + 1, 23 - window[1] + 1
+        gy32 = torch.randint(1, 17, (n, 64, oh, ow), generator=g,
+                             device="cuda").float()
+        for layout in ("nchw", "channels_last"):
+            x = base.to(dtype).contiguous(memory_format=fmt[layout])
+            gy = gy32.to(dtype).contiguous(memory_format=fmt[layout])
+            dx = pool.pool_bwd(x, gy, window)
+            ref = pool.pool_bwd_reference(x, gy, window)
+            torch.cuda.synchronize()
+            same = torch.equal(dx, ref) and dx.stride() == x.stride()
+            log(f"  pool_bwd window {window} bf16 N={n} C=64 23x23, x and g "
+                f"{layout}: kernel == plain bit for bit, dx in x's layout: "
+                f"{same}")
+            if not same:
+                fail(f"pool_bwd window {window} {layout}")
+        xl, gl = POOL_LAYOUTS[0]
+        x = base.to(dtype).contiguous(memory_format=fmt[xl])
+        gy = gy32.to(dtype).contiguous(memory_format=fmt[gl])
+        call = lambda: pool.pool_bwd(x, gy, window)
+        ms = device_ms(call, "pool_bwd_wide_kernel")
+        plain_ms = time_ms(lambda: pool.pool_bwd_reference(x, gy, window),
+                           iters=2, warmup=1)
+        xg = x.detach().requires_grad_(True)
+        y = F.max_pool2d(xg, window, 1)
+        lib, lib_names = device_total_ms(
+            lambda: torch.autograd.grad(y, xg, gy, retain_graph=True))
+        nbytes = (2 * x.numel() + gy.numel()) * x.element_size()
+        slots = window[0] * window[1]
+        # the max and the first match over the slots, one add per window
+        bnd, by = bound(nbytes, (2 * slots + 1) * gy.numel(), torch.float32)
+        rows[f"{window[0]}x{window[1]}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            library_ms=lib)
+        log(f"  pool_bwd window {window} bf16 N={n}, x {xl}, g {gl}: kernel "
+            f"{ms:.4f} ms on the device, plain {plain_ms:.3f} ms, bound "
+            f"{bnd:.5f} ms ({by}), autograd backward of F.max_pool2d "
+            f"{lib:.4f} ms ({lib_names[0]})")
+    return rows
 
 
 def check_pool_layout(pool, label):
@@ -1765,13 +1873,15 @@ def compare_merge_events(got, want, label):
 
 # -- phase 10: octo_deep float32, CUDA vs CPU ------------------------------------
 
-def tome_reference_phase(cfg32, counters, label="octo_deep"):
+def tome_reference_phase(cfg32, counters, label="octo_deep",
+                         flash="flash_fwd"):
     """octo_deep (or another ToMe configuration, named ``label``) in
     float32 on the card (kernels) against the CPU (plain versions): the
     same weights, inputs and noise.  Which tokens merge is a
     discrete choice, so every event's plan is compared and its smallest
     score margin printed beside the output difference; the same request in
-    bfloat16 is the planted fault the limit must see."""
+    bfloat16 is the planted fault the limit must see.  ``flash``: the
+    forward kernel its blocks launch (one a block and request)."""
     from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
     gpu = Octo(cfg32, device="cuda", seed=3).eval()
     cpu = Octo(cfg32, device="cpu", seed=None).eval()
@@ -1804,7 +1914,7 @@ def tome_reference_phase(cfg32, counters, label="octo_deep"):
                         for k, c in counters.items() if c.launches
                         != before[k]}
     blocks = cfg32.transformer.num_blocks
-    if launched != {"flash_fwd": blocks, "ddpm_sampler": 1}:
+    if launched != {flash: blocks, "ddpm_sampler": 1}:
         fail(f"the float32 CUDA request of {label} launched {launched}")
     flips = compare_merge_events(events["cuda"], events["cpu"],
                                  f"{label} f32 request")
@@ -2059,6 +2169,9 @@ TRAIN_REF_LIMITS = {
     # phase 31: octo_deep with 6 heads of 128: octo_deep's image tower,
     # blocks, MLPs and merges (the same ReLU near-ties), so its limits
     "octo_deep_h128": dict(rest=5e-2, image=1e-2, l2=5e-3),
+    # phase 33: octo_deep with 3 heads of 512: the same image tower, MLPs
+    # and merges, wider attention projections, so octo_deep's limits
+    "octo_deep_h512": dict(rest=5e-2, image=1e-2, l2=5e-3),
 }
 
 
@@ -2274,6 +2387,10 @@ COMPILED_TRAIN_CHECK = 5    # steps held captured against eager
 COMPILED_TRAIN_WINDOW = 30  # steps per turn of the eager / compiled fit turns
 
 
+WIDE_KERNELS = ("flash_fwd_wide", "flash_fwd_lse_wide", "flash_dq_wide",
+                "flash_dkv_wide")
+
+
 def replay_profile(fn, calls, expected, label):
     """One profiled session of ``calls`` calls of ``fn`` (graph replays: no
     wrapper runs, so the ``.launches`` counters cannot see them).  The
@@ -2283,7 +2400,8 @@ def replay_profile(fn, calls, expected, label):
     'ddpm_sampler_wide' the wide one), all launches and the device time.  A session that kept
     too few records of a named kernel is run again (PROFILE_ATTEMPTS)."""
     names = ("ddpm_sampler", "ddpm_sampler_wide", "flash_fwd",
-             "flash_fwd_lse", "flash_dq", "flash_dkv", "pool_bwd")
+             "flash_fwd_lse", "flash_dq", "flash_dkv", *WIDE_KERNELS,
+             "pool_bwd")
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof, _ = profile_session(lambda: [fn() for _ in range(calls)])
         events = device_events(prof)
@@ -2308,7 +2426,8 @@ def replay_profile(fn, calls, expected, label):
 
 
 def compiled_serve_phase(models, cfg, label, expected, requests=None,
-                         batches=(1, 8), engine_kw=None):
+                         batches=(1, 8), engine_kw=None,
+                         second_expected=None):
     """``models``: name -> model (the first the one held and profiled).  At
     each of ``batches``: an eager engine and a compiled one on the same
     weights and seed (both built with ``engine_kw``, e.g. the quantized
@@ -2318,7 +2437,8 @@ def compiled_serve_phase(models, cfg, label, expected, requests=None,
     compiled, compiled, eager); one profiled replay for the kernels,
     launches and device time a request.  With two models their compiled
     engines are also served in turns (first, second, second, first), and
-    the second one's replay is profiled too."""
+    the second one's replay is profiled too (its kernels
+    ``second_expected``, by default ``expected``)."""
     from multi_modal_transformers_tokenmerge_torch.serve.policy import (
         PolicyEngine as _Engine)
     engine_kw = engine_kw or {}
@@ -2405,7 +2525,8 @@ def compiled_serve_phase(models, cfg, label, expected, requests=None,
                                               requests // 2, g)
             row["in_turns"] = {n: latency(t) for n, t in turns.items()}
             second = replay_profile(lambda: compiled[names[1]](images), 5,
-                                    expected, f"{label} B={batch} compiled "
+                                    second_expected or expected,
+                                    f"{label} B={batch} compiled "
                                     f"{names[1]} request")
             row["replay_profile_" + names[1]] = second
             log(f"  compiled, in turns: " + ", ".join(
@@ -3902,9 +4023,9 @@ def fwd_bwd(fn, q, k, v):
     return out.detach(), grads
 
 
-def ring_inputs(dtype, seed, s=RING_S, b=RING_B):
+def ring_inputs(dtype, seed, s=RING_S, b=RING_B, h=RING_H, d=RING_D):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(b, s, RING_H, RING_D, generator=g, device="cuda")
+    return tuple(torch.randn(b, s, h, d, generator=g, device="cuda")
                  .to(dtype).requires_grad_(True) for _ in range(3))
 
 
@@ -3921,11 +4042,12 @@ def ring_step_bytes_flops(b, s, h, d, nnz, kind):
     return nbytes, 2 * products * b * h * d * nnz
 
 
-def ring_step_check(fa, tables, mask):
+def ring_step_check(fa, tables, mask, h=RING_H, d=RING_D):
     """Each float32-output kernel against its plain version on one ring
     step: query shard 1 against key shard 1 of the block-causal layout (a
-    partly masked tile), bf16 inputs at shard length S/P; then their device
-    times, plain times, bounds and SDPA on the same tile."""
+    partly masked tile), bf16 inputs at shard length S/P, H heads of D;
+    then their device times, plain times, bounds and SDPA on the same
+    tile."""
     import torch.nn.functional as F
     tiles, khi, qlo = tables
     i = src = 1
@@ -3933,18 +4055,19 @@ def ring_step_check(fa, tables, mask):
     tile, k_hi, q_lo = tiles[i, src], khi[i, src], qlo[i, src]
     dtype = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(251)
-    q, k, v, do = (torch.randn(RING_B, s, RING_H, RING_D, generator=g,
+    q, k, v, do = (torch.randn(RING_B, s, h, d, generator=g,
                                device="cuda").to(dtype) for _ in range(4))
-    bq, bk = fa.KERNEL_TILES[RING_D]
+    bq, bk = fa.kernel_tiles(d)
     kw = dict(block_q=bq, block_k=bk, out_dtype=torch.float32)
+    ref = plain_of(fa, d)
     out, lse = fa.flash_fwd_lse(q, k, v, tile, k_hi, **kw)
-    out_p, lse_p = fa.flash_fwd_lse_reference(q, k, v, tile, k_hi, **kw)
+    out_p, lse_p = ref.flash_fwd_lse_reference(q, k, v, tile, k_hi, **kw)
     delta = fa.attention_delta(do, out_p, s)
     dq = fa.flash_dq(q, k, v, do, lse_p, delta, tile, k_hi, **kw)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_p, delta, tile, q_lo, **kw)
     torch.cuda.synchronize()
-    dq_p = fa.flash_dq_reference(q, k, v, do, lse_p, delta, tile, k_hi, **kw)
-    dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse_p, delta, tile,
+    dq_p = ref.flash_dq_reference(q, k, v, do, lse_p, delta, tile, k_hi, **kw)
+    dk_p, dv_p = ref.flash_dkv_reference(q, k, v, do, lse_p, delta, tile,
                                         q_lo, **kw)
     err = {}
     for kernel, pairs in (("flash_fwd_lse", [(out, out_p)]),
@@ -3957,7 +4080,7 @@ def ring_step_check(fa, tables, mask):
             ok, e, units = rel_gate(got, want, dtype)
             rounded = bool((got != got.to(dtype).float()).any())
             log(f"  ring step {kernel:13s} bf16 in, float32 out, B={RING_B} "
-                f"S={s} H={RING_H} D={RING_D}: |kernel-plain| {e:.2e} "
+                f"S={s} H={h} D={d}: |kernel-plain| {e:.2e} "
                 f"({units:.3f} of {LOW_ULPS} eps(bf16)); bits below bf16 "
                 f"{'kept' if rounded else 'LOST'}")
             if not ok or not rounded:
@@ -3970,15 +4093,15 @@ def ring_step_check(fa, tables, mask):
     nnz = int(tile.sum())
     calls = {
         "flash_fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, tile, k_hi, **kw),
-                          lambda: fa.flash_fwd_lse_reference(
+                          lambda: ref.flash_fwd_lse_reference(
                               q, k, v, tile, k_hi, **kw), "fwd"),
         "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, tile, k_hi,
                                          **kw),
-                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                     lambda: ref.flash_dq_reference(q, k, v, do, lse, delta,
                                                    tile, k_hi, **kw), "dq"),
         "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, tile,
                                            q_lo, **kw),
-                      lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                      lambda: ref.flash_dkv_reference(q, k, v, do, lse, delta,
                                                      tile, q_lo, **kw),
                       "dkv"),
     }
@@ -3993,9 +4116,9 @@ def ring_step_check(fa, tables, mask):
     lib_bwd = max(lib_both - lib_fwd, 0.0)
     rows = {}
     for kernel, (call, plain, kind) in calls.items():
-        ms = device_ms(call, f"{kernel}_kernel")
+        ms = device_ms(call, kernel_key(kernel, d))
         plain_ms = time_ms(plain, iters=1, warmup=0)
-        nbytes, flops = ring_step_bytes_flops(RING_B, s, RING_H, RING_D, nnz,
+        nbytes, flops = ring_step_bytes_flops(RING_B, s, h, d, nnz,
                                               kind)
         bnd, by = bound(nbytes, flops, dtype)
         lib = lib_fwd if kind == "fwd" else lib_bwd
@@ -4008,6 +4131,44 @@ def ring_step_check(fa, tables, mask):
             f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} on the "
             f"tile {lib:.4f} ms")
     return rows
+
+
+WIDE_RING_H, WIDE_RING_D = 3, 512   # octo_deep_h512's heads
+
+
+def wide_ring_check(fa):
+    """The ring at octo_deep_h512's heads: a LocalRing of P=4 shards of a
+    bf16 block-causal 4096-token sequence (B=2, 3 heads of 512), forward
+    and backward, against the whole-sequence flash_attention under
+    rel_gate; then the wide kernels' float32-output variants on one ring
+    step's tile against their plain versions, with their times."""
+    from multi_modal_transformers_tokenmerge_torch.parallel import (
+        ring_attention as ra)
+    mask = ring_masks()["block_causal"]
+    q, k, v = ring_inputs(torch.bfloat16, 256, h=WIDE_RING_H, d=WIDE_RING_D)
+    r_out, r_g = fwd_bwd(
+        lambda a, b, c: ra.ring_attention(a, b, c, mask, RING_P,
+                                          impl="flash"), q, k, v)
+    w_out, w_g = fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, mask),
+                         q, k, v)
+    parts, ok_all, errs = [], True, {}
+    for key, got, whole in zip(("out", "dq", "dk", "dv"), (r_out, *r_g),
+                               (w_out, *w_g)):
+        ok, e, units = rel_gate(got, whole, torch.bfloat16)
+        ok_all &= ok
+        errs[key] = [e, units]
+        parts.append(f"{key} {e:.2e} ({units:.3f})")
+    log(f"  ring bf16 block_causal P={RING_P} B={RING_B} S={RING_S} "
+        f"H={WIDE_RING_H} D={WIDE_RING_D}: |ring - whole flash_attention| "
+        f"{', '.join(parts)} {'ok' if ok_all else 'FAIL'}")
+    if not ok_all:
+        fail("ring attention at D=512")
+    del q, k, v, r_out, r_g, w_out, w_g
+    torch.cuda.empty_cache()
+    tables = ra.ring_tables(mask, RING_P, *fa.kernel_tiles(WIDE_RING_D),
+                            "cuda")
+    rows = ring_step_check(fa, tables, mask, h=WIDE_RING_H, d=WIDE_RING_D)
+    return {"ring_vs_whole": errs, "step": rows}
 
 
 def ring_phase(fa, counters):
@@ -4667,6 +4828,7 @@ def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
     owner = {"out": "flash_fwd_lse", "dq": "flash_dq", "dk": "flash_dkv",
              "dv": "flash_dkv"}
     worst = {kernel: [0.0, 0.0] for kernel in owner.values()}
+    ref = plain_of(fa, d)
 
     def operands(heads):
         sl = lambda t: t[:, :, heads].contiguous()
@@ -4688,11 +4850,11 @@ def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
             same = all(torch.equal(
                 got[key], whole[key][:, heads] if key == "lse"
                 else whole[key][:, :, heads]) for key in got)
-            want = {"out": fa.flash_fwd_lse_reference(
+            want = {"out": ref.flash_fwd_lse_reference(
                 *args[:3], padded, k_hi, words, **extra, **kw)[0],
-                "dq": fa.flash_dq_reference(*args, k_hi, words, **extra,
+                "dq": ref.flash_dq_reference(*args, k_hi, words, **extra,
                                             **kw)}
-            want["dk"], want["dv"] = fa.flash_dkv_reference(
+            want["dk"], want["dv"] = ref.flash_dkv_reference(
                 *args, q_lo, words, **extra, **kw)
             parts, ok_all = [], same
             for key, kernel in owner.items():
@@ -4720,9 +4882,9 @@ def head_offset_check(fa, label, mask, b, h, d, dtype, out_dtype=None,
     offset = dict(h0=h // 2, heads_total=h)
     rows = {}
     for kernel, call in calls.items():
-        ms = device_ms(call, f"{kernel}_kernel")
-        ms_h0 = device_ms(lambda: call(**offset), f"{kernel}_kernel")
-        ms_again = device_ms(call, f"{kernel}_kernel")
+        ms = device_ms(call, kernel_key(kernel, d))
+        ms_h0 = device_ms(lambda: call(**offset), kernel_key(kernel, d))
+        ms_again = device_ms(call, kernel_key(kernel, d))
         rows[kernel] = dict(ms_no_offset=ms, ms=ms_h0, ms_again=ms_again,
                             max_abs_err=worst[kernel][0],
                             gate_units=worst[kernel][1])
@@ -4741,11 +4903,12 @@ def head_offset_yardsticks(fa, mask, b, h, d, rows, held):
               **offset)
     words = torch.tensor([0x5EED123, 0x0FF5E7], dtype=torch.int64,
                          device="cuda")
-    plain = {"flash_fwd_lse": lambda: fa.flash_fwd_lse_reference(
+    ref = plain_of(fa, d)
+    plain = {"flash_fwd_lse": lambda: ref.flash_fwd_lse_reference(
                  *args[:3], padded, k_hi, words, **kw),
-             "flash_dq": lambda: fa.flash_dq_reference(*args, k_hi, words,
+             "flash_dq": lambda: ref.flash_dq_reference(*args, k_hi, words,
                                                        **kw),
-             "flash_dkv": lambda: fa.flash_dkv_reference(*args, q_lo, words,
+             "flash_dkv": lambda: ref.flash_dkv_reference(*args, q_lo, words,
                                                          **kw)}
     q, k, v, do = args[:4]
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
@@ -4993,6 +5156,88 @@ def head_dim_phase(counters):
                 compiled_training=compiled_train, train_reference=train_ref)
 
 
+# -- phase 33: octo_deep with 3 heads of 512 -----------------------------------
+
+# octo_deep_h512: octo_deep's 768 features with 3 heads of 512 (its
+# projections 1536 wide: DeepSeek-V4-Flash's published head_dim), as a user
+# builds it from the YAML config; the wide flash kernels in every block, the
+# max-pool backward kernel
+H512_OVERRIDES = ["transformer.attention.num_heads=3",
+                  "transformer.attention.qkv_features=1536",
+                  "transformer.attention_impl=flash",
+                  "images.resnet.pool_vjp=pallas"]
+H512_REQUESTS = 50      # eager requests a batch size; compiled: in turns
+H512_TRAIN_STEPS = 10   # the fit window, then as many synced steps
+
+
+def h512_config(dtype, serving):
+    """octo_deep_h512 from ``load_config``, served and trained as
+    :func:`h128_config` serves and trains octo_deep_h128."""
+    from multi_modal_transformers_tokenmerge_torch.core.yaml_loader import (
+        load_config)
+    extra = (["transformer.flash_backward=xla",
+              "transformer.attention.dropout_rate=0.0"] if serving else
+             ["transformer.flash_backward=pallas"])
+    return load_config("octo_deep", [f"dtype={dtype}", *H512_OVERRIDES,
+                                     *extra])
+
+
+def wide_head_phase(counters):
+    """octo_deep_h512 at full width on the wide kernels: served in bf16 at
+    batch 1 and 8 (every count set to 0 before and read after: 12
+    flash_fwd_wide and 1 ddpm_sampler launches a request, no narrow flash
+    kernel), compiled (replays bit for bit with the eager calls, 12
+    flash_fwd_wide a replay) and in turns with octo_deep's compiled engine,
+    in float32 against the CPU under phase 10's limit; trained in bf16 at
+    batch 32 through fit (12 flash_fwd_lse_wide, 12 flash_dq_wide, 12
+    flash_dkv_wide and 1 pool_bwd launches a step, dropout 0.1 in the
+    kernels), captured against the eager step, and one float32 step
+    against the CPU under TRAIN_REF_LIMITS."""
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    scfg = h512_config("bfloat16", serving=True)
+    att = scfg.transformer.attention
+    if (att.num_heads, att.qkv_features // att.num_heads) != (3, 512):
+        fail(f"octo_deep_h512 has {att.num_heads} heads of "
+             f"{att.qkv_features // att.num_heads}")
+    blocks = scfg.transformer.num_blocks
+    serving = {"flash_fwd_wide": blocks, "ddpm_sampler": 1}
+    training = {"flash_fwd_lse_wide": blocks, "flash_dq_wide": blocks,
+                "flash_dkv_wide": blocks, "pool_bwd": 1}
+    model = Octo(scfg, device="cuda", seed=0).eval()
+    log(f"  octo_deep_h512 bf16: "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    serve_ms, serve_launches = serve_phase(
+        model, scfg, counters, "octo_deep_h512 bf16 (ToMe, flash/xla)",
+        H512_REQUESTS, serving)
+    deep = Octo(deep_config("bfloat16"), device="cuda", seed=0).eval()
+    compiled = compiled_serve_phase(
+        {"octo_deep_h512": model, "octo_deep": deep}, scfg,
+        "octo_deep_h512 bf16", serving, requests=H512_REQUESTS,
+        second_expected={"flash_fwd": blocks, "ddpm_sampler": 1})
+    del model, deep
+    torch.cuda.empty_cache()
+    reference = tome_reference_phase(h512_config("float32", serving=True),
+                                     counters, "octo_deep_h512",
+                                     flash="flash_fwd_wide")
+    tcfg = h512_config("bfloat16", serving=False)
+    if tcfg.transformer.attention.dropout_rate != TRAIN_DROPOUT:
+        fail(f"octo_deep_h512's attention dropout is "
+             f"{tcfg.transformer.attention.dropout_rate}")
+    state, train_ms, train_launches = train_phase(
+        tcfg, counters, "octo_deep_h512 (flash/pallas)", training,
+        H512_TRAIN_STEPS, H512_TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    compiled_train = compiled_train_phase(
+        tcfg, "octo_deep_h512 (flash/pallas)", training)
+    train_ref = train_reference_phase(h512_config("float32", serving=False),
+                                      counters, "octo_deep_h512", training)
+    return dict(serve_ms_per_request=serve_ms, serve_launches=serve_launches,
+                compiled_serving=compiled, reference=reference,
+                train_ms_per_step=train_ms, train_launches=train_launches,
+                compiled_training=compiled_train, train_reference=train_ref)
+
+
 # -- phase 32: octo_base with a 28-wide action chunk ----------------------------
 
 # octo_base_chunk28: octo_base with Octo's 4 x 7 action chunk, a denoiser of
@@ -5095,11 +5340,14 @@ def main():
             f"-{max(regs, default=0)}, largest spill store "
             f"{max(spills, default=0)} bytes")
     flash_ptx = flash_ptxas(reports["flash_attention"])
+    wide_ptx = flash_ptxas(reports["flash_attention_wide"], strict=False)
     counters = {"ddpm_sampler": ddpm_sampler,
                 "ddpm_sampler_wide": ddpm_sampler.by_variant["wide"],
                 "flash_fwd": fa.flash_fwd,
                 "flash_fwd_lse": fa.flash_fwd_lse, "flash_dq": fa.flash_dq,
-                "flash_dkv": fa.flash_dkv, "pool_bwd": pool.pool_bwd}
+                "flash_dkv": fa.flash_dkv,
+                **{name: getattr(fa, name) for name in WIDE_KERNELS},
+                "pool_bwd": pool.pool_bwd}
     train_kernels = ["flash_fwd", "flash_fwd_lse", "flash_dq", "flash_dkv",
                      "pool_bwd"]
 
@@ -5132,6 +5380,8 @@ def main():
     fwd_rows = flash_fwd_timings(fa)
     pad_cost = padding_cost(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
+    pool_row["windows_above_8"] = pool_windows_check(pool, TRAIN_BATCH * 50)
+    wide_ring = wide_ring_check(fa)
     auto_gate_check(fa)
 
     phase("phase 3: serving")
@@ -5296,6 +5546,8 @@ def main():
     phase("phase 32: octo_base with a 28-wide action chunk "
           "(octo_base_chunk28)")
     chunk28 = chunk28_phase(counters)
+    phase("phase 33: octo_deep with 3 heads of 512 (octo_deep_h512)")
+    h512 = wide_head_phase(counters)
     phase(None)
 
     ms, call_ms, plain, bnd, by = timings[1]
@@ -5464,7 +5716,7 @@ def main():
         })
     # the flash kernels at head dim 128 on octo_deep_h128's path (phase 31),
     # with head dims 32 and 80 (padded to 128) held and timed beside them
-    new_dim = ("deep_h128", "d32", "d80")
+    new_dim = ("deep_h128", "d32_", "d80_")
     for kernel, line in (("flash_fwd", 60), ("flash_fwd_lse", 328),
                          ("flash_dq", 383), ("flash_dkv", 430)):
         if kernel == "flash_fwd":
@@ -5506,6 +5758,61 @@ def main():
             "other_shapes": {n: r for n, r in others.items()
                              if n.startswith(new_dim) and n != first},
         })
+    # the wide kernels (head dims above 256) on octo_deep_h512's path (phase
+    # 33), with head dims 320, 576, 768 and 300 (padded to 320) held and
+    # timed beside them
+    wide_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
+                "flash_attention_wide.cu")
+    wide_shape = lambda n: n.startswith(("deep_h512", "d320", "d576",
+                                         "d768", "d300", "dead_rows_d512"))
+    for kernel, line in (("flash_fwd", 60), ("flash_fwd_lse", 328),
+                         ("flash_dq", 383), ("flash_dkv", 430)):
+        name = f"{kernel}_wide"
+        if kernel == "flash_fwd":
+            first = "deep_h512_S224_B1"
+            row, others = fwd_rows[first], fwd_rows
+            err = max(e for n, e in fwd_err.items() if wide_shape(n))
+            extra = {
+                "launches_per_compiled_request": h512["compiled_serving"][1][
+                    "replay_profile"]["kernels"][name],
+                "shape": "octo_deep_h512 serving bf16 B=1 S=224 H=3 D=512 "
+                         "(stage 0 of 3)",
+                "library": "SDPA forward, boolean mask"}
+            launches = h512["serve_launches"][name]
+        else:
+            first = "deep_h512_S224"
+            row = flash_rows[first][kernel]
+            others = {n: rows[kernel] for n, rows in flash_rows.items()}
+            err = max(e[kernel] for n, e in flash_err.items()
+                      if wide_shape(n))
+            extra = {
+                "launches_per_compiled_step": h512["compiled_training"][
+                    "replay_profile"]["kernels"][name],
+                "max_abs_err_batch_offset": max(
+                    e[kernel] for n, e in offset_err.items()
+                    if wide_shape(n)),
+                "bf16_err_head_offset": max(
+                    e[label][kernel]["max_abs_err"]
+                    for n, e in head_err.items() if wide_shape(n)
+                    for label in e),
+                "f32out_ring_step": wide_ring["step"][kernel],
+                "shape": f"octo_deep_h512 train bf16 B=32 S=224 H=3 D=512 "
+                         f"r={TRAIN_DROPOUT}",
+                "library": ("SDPA forward, boolean mask, dropout 0.1"
+                            if kernel == "flash_fwd_lse" else
+                            "SDPA backward (dq, dk and dv together)")}
+            launches = h512["train_launches"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": wide_src,
+            "replaces": f"{tpu}flash_attention.py:{line}",
+            "launches": launches, "max_abs_err": err, **row, **extra,
+            "other_shapes": {n: r for n, r in others.items()
+                             if wide_shape(n) and n != first},
+        })
+    log(json.dumps({"wide_heads": h512, "wide_ring": wide_ring,
+                    "wide_ptxas": wide_ptx,
+                    "pool_windows": pool_row["windows_above_8"],
+                    "card": card}))
     log(json.dumps({"wide_sampler": {k: v for k, v in wide.items()
                                      if k != "held"},
                     "octo_base_chunk28": chunk28, "card": card}))

@@ -111,6 +111,8 @@ def cases(fa):
     out = {}
     seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
     for name, (b, strings, stage, h, d) in cs.FLASH_SHAPES.items():
+        if fa.is_wide(d):
+            continue    # flash_wide_probe.py's
         _, (q, k, v, do), (padded, k_hi, q_lo), tiles = cs.flash_case(
             fa, cs.stage_mask(strings, stage), b, h, d, torch.bfloat16,
             seed=9)

@@ -87,20 +87,21 @@ def patched_source(src, patches):
     return src
 
 
-def build_variants(_build, variants=PATCHES):
+def build_variants(_build, variants=PATCHES, library="flash_attention"):
     """name -> loaded library of every patched copy of ``variants`` (name ->
-    patches), built in parallel."""
+    patches) of ``csrc/<library>.cu``, built in parallel."""
     import ctypes
-    src = _build.sources()["flash_attention"].read_text()
+    src = _build.sources()[library].read_text()
     root = _build.BUILD_DIR / "probe"
     root.mkdir(parents=True, exist_ok=True)
     running = {}
     for name, patches in variants.items():
-        cu = root / f"flash_attention_{name}.cu"
+        cu = root / f"{library}_{name}.cu"
         cu.write_text(patched_source(src, patches))
-        so = root / f"libflash_attention_{name}.so"
+        so = root / f"lib{library}_{name}.so"
         running[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in running.items():
@@ -119,7 +120,7 @@ def cases(fa):
     """name -> (kernel, variants, call, plain) at chip_smoke's shapes."""
     out = {}
     for name, (mask, b, h, d) in cs.fwd_shapes().items():
-        if name.startswith("dead_rows"):
+        if name.startswith("dead_rows") or fa.is_wide(d):
             continue
         args, kw = cs.fwd_case(fa, mask, b, h, d, torch.bfloat16, seed=13)
         variants = [v for v in PATCHES
@@ -130,6 +131,8 @@ def cases(fa):
             lambda args=args, kw=kw: fa.flash_fwd_reference(*args, **kw))
     seed = torch.tensor([5, 6], dtype=torch.int64, device="cuda")
     for name, (b, strings, stage, h, d) in cs.FLASH_SHAPES.items():
+        if fa.is_wide(d):
+            continue    # flash_wide_probe.py's
         _, (q, k, v, _), (padded, k_hi, _), tiles = cs.flash_case(
             fa, cs.stage_mask(strings, stage), b, h, d, torch.bfloat16,
             seed=9)
@@ -145,7 +148,8 @@ def cases(fa):
     return out
 
 
-def time_in_turns(_build, libs, cases, same_function):
+def time_in_turns(_build, libs, cases, same_function,
+                  library="flash_attention"):
     """case -> {library: mean device us, and for each variant of
     ``same_function`` its agreement with the plain version}: every library
     of a case timed in turns (shipped, variants, variants reversed,
@@ -157,31 +161,33 @@ def time_in_turns(_build, libs, cases, same_function):
             order = ["shipped", *variants]
             times = {}
             for name in order + order[::-1]:
-                _build._loaded["flash_attention"] = libs[name]
+                _build._loaded[library] = libs[name]
                 times.setdefault(name, []).append(cs.device_ms(call, kernel))
             row = {name: sum(t) / len(t) * 1e3 for name, t in times.items()}
             want = plain()
             for name in same_function:
                 if name in variants:
-                    _build._loaded["flash_attention"] = libs[name]
+                    _build._loaded[library] = libs[name]
                     got = call()
                     torch.cuda.synchronize()
                     ok, _, units = cs.rel_gate(got, want, torch.bfloat16)
                     row[f"{name}_eps_units"] = units
                     row[f"{name}_agrees"] = ok
-            _build._loaded["flash_attention"] = shipped
+            _build._loaded[library] = shipped
             readings[case] = row
             cs.log(f"  {case:36s} us: " + ", ".join(
                 f"{k} {v:.2f}" if isinstance(v, float) and "units" not in k
                 else f"{k} {v}" for k, v in row.items()))
     finally:
-        _build._loaded["flash_attention"] = shipped
+        _build._loaded[library] = shipped
     return readings
 
 
-def run(variants, make_cases, same_function, out_name):
-    """Build the patched copies, time them against the shipped library at
-    ``make_cases(fa)`` and write the readings to OUT_DIR/``out_name``."""
+def run(variants, make_cases, same_function, out_name,
+        library="flash_attention"):
+    """Build the patched copies of ``csrc/<library>.cu``, time them against
+    the shipped library at ``make_cases(fa)`` and write the readings to
+    OUT_DIR/``out_name``."""
     if not torch.cuda.is_available():
         cs.log(f"no CUDA device: {out_name[:-5]}.py runs on the card only")
         return 2
@@ -192,10 +198,11 @@ def run(variants, make_cases, same_function, out_name):
     cs.log(card)
     cs.profile_session(lambda: None)
     t0 = time.perf_counter()
-    libs = {"shipped": _build.load_library("flash_attention"),
-            **build_variants(_build, variants)}
+    libs = {"shipped": _build.load_library(library),
+            **build_variants(_build, variants, library)}
     cs.log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    readings = time_in_turns(_build, libs, make_cases(fa), same_function)
+    readings = time_in_turns(_build, libs, make_cases(fa), same_function,
+                             library)
     result = {"card": card, "readings_us": readings,
               "guard_records_lost": cs._GUARD["lost"],
               "kernel_sessions_run_again": cs._GUARD["short"]}

@@ -1,0 +1,1410 @@
+// Block-sparse masked flash attention at head dims above 256 for Hopper
+// (sm_90a): the plain forward, the forward that saves the row logsumexp,
+// and the dq and dk/dv backward passes, for any head dim D that is a
+// multiple of 64 (the wrapper zero-pads any other D above 256 to the next
+// multiple of 64 and passes 1/sqrt(D) of the true D as the scale).
+//
+// Replaces, at those head dims, the Pallas TPU kernels of the JAX package's
+// ops/flash_attention.py: _flash_kernel (:60), _flash_fwd_lse_kernel (:328),
+// _flash_dq_kernel (:383) and _flash_dkv_kernel (:430), which take any D.
+// flash_attention.cu holds the kernels for D up to 256; this file computes
+// the same function (its source note: the mask and skip tables, the logits'
+// scale and -1e30 mask, the online softmax clamped at -5e29, the casts
+// before each product, zeros for dead rows, the Philox dropout counter
+// with its b0 and h0 offsets, float32 outputs for the ring).  The plain
+// PyTorch versions that compute it the way these kernels do are
+// ops/flash_attention.py: flash_*_wide_reference.
+//
+// Why a second family.  The kernels of flash_attention.cu hold a block's
+// whole Q (or K) rows and its output accumulator, D columns wide, in
+// registers and shared memory.  At D = 512 a 64-row float32 output tile is
+// 128 KB, more than a block's registers, and one 64 x 512 tile each of Q, K
+// and V in bf16 is 192 KB of shared memory.  So D is cut two ways:
+//   * The reductions over D (the logits S = Q K^T, and dP = dO V^T in the
+//     backward) go in chunks of DC = 64 columns (32 in dq: with its four
+//     operands' chunks in the ring that halves its shared memory, two
+//     blocks an SM in place of one, 30-52% less time at octo_deep_h512's
+//     stages, while 32 costs the forward and dk/dv 2-21%:
+//     flash_wide_probe.py): the chunks stream through a two-stage cp.async
+//     ring, one barrier a chunk, and S (dP) accumulates in registers across
+//     the chunks, in chunk order.
+//   * The outputs over D (O, dQ, dK and dV) are cut into slices of DV
+//     columns, each owned by one block: the grid is (row tiles x slices,
+//     heads, batch), the slices of one row tile adjacent, so they meet the
+//     same operands in L2.  Every slice block recomputes the same S (and P,
+//     dP, dS) in the same order, bitwise equal across the slices, so the
+//     slice blocks agree on the softmax; slice 0 stores the LSE.  The
+//     slice's own columns of V (forward), K (dq) or Q and dO (dk/dv) arrive
+//     with the first chunk of a tile, in their own buffers of the ring.
+//   * The cost is the recomputed S: at D = 512 the forward with DV = 128
+//     runs the Q K^T product 4 times for one P V, about 2.5 times the least
+//     tensor-core work.  dk/dv holds two accumulators (dK and dV), so its
+//     slice of 128 columns is split between two warps a row group of 16
+//     keys (kDkvDS): each computes S^T and dP^T for half the q tile's
+//     queries and passes P^T and dS^T, rounded to T, through shared memory
+//     to its partner (as flash_attention.cu's dk/dv does at D = 128 and
+//     256), so S^T and dP^T are recomputed 4 times at D = 512, not 8 as
+//     with one warp a row group and 64-column slices, the first design:
+//     2.2-2.5 times less time at octo_deep_h512's stages and D = 768
+//     (flash_wide_probe.py).
+// The 16-bit kernels (bf16, fp16) run every product on the tensor cores, as
+// flash_attention.cu does (mma.sync m16n8k16, float32 accumulators, ldmatrix
+// operands, p and dS rounded to T into the A operand, the exponent on
+// ex2.approx, dropout words shared between lanes by shuffles): a block is
+// four warps of 16 rows of its own axis (queries for the forward and dq,
+// keys for dk/dv; eight warps for dk/dv) over 64 rows of the other, the
+// mask table's tile, whose skip tables (64 x 64) it walks.  Shared memory:
+// forward 81,920 bytes (Q and K chunk rings, the V slice and mask rings),
+// dq 86,016, dk/dv 173,056 (with P^T and dS^T).
+// The float32 kernels (the card-against-CPU checks and the tests only) are
+// CUDA-core bodies with the same chunks and slices (DV = 64), 256 threads,
+// operands staged as float32 without a ring: simple and right, not fast.
+// The last slice is 64 columns wide when D is an odd multiple of 64 (D =
+// 320, 576); its products past the slice are skipped by a test on a value
+// every thread of the block (in dk/dv: of the warp) shares.
+
+#include <initializer_list>
+
+#include "flash_common.cuh"
+
+namespace {
+
+constexpr int kBM = 64;   // rows of a block's own axis (the table's tile)
+constexpr int kBN = 64;   // rows of the other axis a step (the table's tile)
+constexpr int kDC = 64;   // columns of a reduction chunk (forward, dk/dv)
+constexpr int kDqDC = 32;  // ... of dq's (flash_wide_probe.py)
+constexpr int kFwdDV = 128;  // output columns of a forward or dq slice
+constexpr int kDkvDS = 2;    // warps sharing a dk/dv row group (DkvShape)
+constexpr int kF32DV = 64;   // ... of a float32 kernel's slice
+constexpr int kNT = 128;     // threads of a tensor-core kernel
+constexpr int kF32NT = 256;  // threads of a float32 kernel
+
+struct Wide {
+  int d;      // head dim, a multiple of the chunk
+  int nsl;    // output slices a row tile
+  int nch;    // reduction chunks
+};
+
+__device__ __forceinline__ Wide wide_of(int d, int dv, int dc = kDC) {
+  return Wide{d, (d + dv - 1) / dv, d / dc};
+}
+
+// Rows [row0, row0 + ROWS) of `cols` columns (a multiple of 16 bytes) from
+// a (B, S, H, D) slice into shared rows LDT apart, by 16-byte cp.async;
+// rows at or past S are zero-filled.
+template <typename T, int ROWS, int LDT, int NT>
+__device__ __forceinline__ void stage_cols(T* dst, const T* src, int row0,
+                                           int seq, size_t row_stride,
+                                           int cols) {
+  constexpr int PER = 16 / sizeof(T);
+  const int cpr = cols / PER;
+  for (int c = threadIdx.x; c < ROWS * cpr; c += NT) {
+    const int r = c / cpr, ch = c - r * cpr;
+    const int row = row0 + r;
+    const bool in = row < seq;
+    cp_async16(dst + r * LDT + ch * PER,
+               src + static_cast<size_t>(in ? row : 0) * row_stride +
+                   ch * PER,
+               in);
+  }
+}
+
+// c[n] += A B^T over one chunk of DC columns for one warp: A the warp's 16
+// rows of a shared tile at a, B the NN * 8 rows at b (row stride LDT each),
+// as warp_rows_dot takes them, accumulating.
+template <typename T, int DC, int LDT, int NN>
+__device__ __forceinline__ void warp_rows_acc(float (&c)[NN][4], const T* a,
+                                              const T* b, int lane) {
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  static_assert(NN % 2 == 0, "n8 tiles in pairs");
+#pragma unroll
+  for (int kk = 0; kk < DC / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (l8 * 8 + lr) * LDT + kk * 16 + l16 * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < NN / 2; ++n2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (n2 * 16 + l16 * 8 + lr) * LDT + kk * 16 + l8 * 8);
+      mma16816<T>(c[2 * n2], af, bf[0], bf[1]);
+      mma16816<T>(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// o[n] += A B for one warp and one k16 step over the first `cols` columns
+// of a slice (B by ldmatrix.trans from rows LDT apart), as warp_step_dot;
+// the n16 pairs past `cols` are skipped (cols is the block's, so the test
+// does not diverge).
+template <typename T, int LDT, int NO>
+__device__ __forceinline__ void warp_step_cols(float (&o)[NO][4],
+                                               const uint32_t (&af)[4],
+                                               const T* b, int lane,
+                                               int cols) {
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+#pragma unroll
+  for (int n2 = 0; n2 < NO / 2; ++n2) {
+    if (n2 * 16 < cols) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, b + (l8 * 8 + lr) * LDT + n2 * 16 + l16 * 8);
+      mma16816<T>(o[2 * n2], af, bf[0], bf[1]);
+      mma16816<T>(o[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// Keep bits of one m16n8 accumulator tile in the forward's fragment layout
+// (rows g and g + 8, columns 2t, 2t + 1): lanes t and t ^ 1 share one
+// Philox counter per row; t even draws row g, t odd row g + 8, and each
+// passes the other the two words of its columns.  kb[e]: element e.
+__device__ __forceinline__ void row_keep_words(uint32_t (&kb)[4],
+                                               uint32_t col, uint32_t row,
+                                               uint32_t bh, const Dropout& drop,
+                                               int t) {
+  const bool odd = t & 1;
+  const uint4 w = philox4x32_10(
+      make_uint4(col >> 2, row + (odd ? 8u : 0u), bh + drop.bh0, 0u),
+      drop.k0, drop.k1);
+  const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  kb[0] = odd ? x0 : w.x;
+  kb[1] = odd ? x1 : w.y;
+  kb[2] = odd ? w.z : x0;
+  kb[3] = odd ? w.w : x1;
+}
+
+// -- the tensor-core kernels (bf16, fp16) -------------------------------------
+
+struct FwdSmem {
+  static constexpr int LDC = kDC + 8, LDV = kFwdDV + 8, LDM = kBN + 16;
+  template <typename T>
+  static constexpr size_t bytes() {
+    return sizeof(T) * 2 * ((kBM + kBN) * LDC + kBN * LDV) + 2 * kBM * LDM;
+  }
+};
+
+// The forward of one block: query rows [q0, q0 + 64) of one (batch, head),
+// output columns [c0, c0 + cols) of slice blockIdx.x % nsl.  Warp w holds
+// rows 16 w .. + 15 and visits the key tiles below k_hi.  lse may be null
+// (no statistic stored; slice 0 stores it otherwise); DROPOUT compiles the
+// keep bits in; O is the output's type (T, or float for the ring).
+template <typename T, bool DROPOUT, typename O>
+__device__ __forceinline__ void wide_forward_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
+    O* __restrict__ out, float* __restrict__ lse, const Args& a,
+    const Dropout& drop, int head_dim) {
+  using S = FwdSmem;
+  constexpr int LDC = S::LDC, LDV = S::LDV, LDM = S::LDM;
+  constexpr int NS = kBN / 8, NO = kFwdDV / 8;
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);  // [2][BM][LDC]
+  T* sK = sQ + 2 * kBM * LDC;           // [2][BN][LDC]
+  T* sV = sK + 2 * kBN * LDC;           // [2][BN][LDV]
+  int8_t* sM = reinterpret_cast<int8_t*>(sV + 2 * kBN * LDV);  // [2][BM][LDM]
+
+  const Wide w = wide_of(head_dim, kFwdDV);
+  const int qt = blockIdx.x / w.nsl, sl = blockIdx.x - qt * w.nsl;
+  const int c0 = sl * kFwdDV, cols = min(kFwdDV, w.d - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const int q0 = qt * kBM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  const int n_k = k_hi[qt];
+  const int steps = n_k * w.nch;
+
+  auto stage = [&](int i) {
+    const int kt = i / w.nch, c = i - kt * w.nch, st = i & 1;
+    stage_rows<T, kDC, kBM, LDC, kNT>(sQ + st * kBM * LDC, q + base + c * kDC,
+                                      q0, a.seq, row_stride);
+    stage_rows<T, kDC, kBN, LDC, kNT>(sK + st * kBN * LDC, k + base + c * kDC,
+                                      kt * kBN, a.seq, row_stride);
+    if (c == 0) {
+      const int kb = kt & 1;
+      stage_cols<T, kBN, LDV, kNT>(sV + kb * kBN * LDV, v + base + c0,
+                                   kt * kBN, a.seq, row_stride, cols);
+      stage_mask<kBM, kBN, LDM, kNT>(
+          sM + kb * kBM * LDM,
+          mask + static_cast<size_t>(q0) * a.s_pad + kt * kBN, a.s_pad);
+    }
+  };
+  if (steps > 0) {
+    stage(0);
+    cp_async_commit();
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    // S = Q K^T over the chunks: 16 rows x 64 keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < w.nch; ++c) {
+      const int i = kt * w.nch + c;
+      cp_async_wait_all();
+      __syncthreads();  // chunk i visible; every warp is done with i - 1
+      if (i + 1 < steps) {
+        stage(i + 1);
+        cp_async_commit();
+      }
+      const int st = i & 1;
+      warp_rows_acc<T, kDC, LDC, NS>(s, sQ + st * kBM * LDC + wr * LDC,
+                                     sK + st * kBN * LDC, lane);
+    }
+    const int kb = kt & 1, k0 = kt * kBN;
+    const T* tV = sV + kb * kBN * LDV;
+
+    // mask, scale, online softmax, as flash_attention.cu's forward
+    const int8_t* tM = sM + kb * kBM * LDM + (wr + g) * LDM + 2 * t;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const char2 live =
+            *reinterpret_cast<const char2*>(tM + ii * 8 * LDM + 8 * j);
+        s[j][2 * ii] = live.x ? s[j][2 * ii] * a.scale : kNegInf;
+        s[j][2 * ii + 1] = live.y ? s[j][2 * ii + 1] * a.scale : kNegInf;
+        mx[ii] = fmaxf(mx[ii], fmaxf(s[j][2 * ii], s[j][2 * ii + 1]));
+      }
+    }
+    float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      mx[ii] = quad_max(mx[ii]);
+      ref[ii] = fmaxf(mx[ii], 0.5f * kNegInf) * kLog2e;
+      alpha[ii] = ex2_approx((m[ii] - mx[ii]) * kLog2e);
+      m[ii] = mx[ii];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2_approx(fmaf(s[j][e], kLog2e, -ref[e >> 1]));
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii)
+      l[ii] = l[ii] * alpha[ii] + quad_sum(sum[ii]);
+
+    if (DROPOUT && drop.on) {
+      const uint32_t row = static_cast<uint32_t>(q0 + wr + g);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t kb4[4];
+        row_keep_words(kb4, static_cast<uint32_t>(k0 + 8 * j + 2 * t), row,
+                       bh, drop, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = kb4[e] >= drop.threshold ? s[j][e] * drop.inv_keep : 0.f;
+      }
+    }
+
+    // O = O alpha + P V[:, slice], P rounded to T in the A operand
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a<T>(pa, s, kk);
+      warp_step_cols<T, LDV, NO>(o, pa, tV + kk * 16 * LDV, lane, cols);
+    }
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = q0 + wr + g + 8 * ii;
+    const float l_safe = fmaxf(l[ii], 1e-30f);
+    if (row < a.seq) {
+      O* dst = out + base + static_cast<size_t>(row) * row_stride + c0 +
+               2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        if (8 * n < cols)
+          store2<T, O>(dst + 8 * n, o[n][2 * ii] / l_safe,
+                       o[n][2 * ii + 1] / l_safe);
+    }
+    if (lse != nullptr && sl == 0 && t == 0)
+      lse[static_cast<size_t>(bh) * a.s_pad + row] = m[ii] + logf(l_safe);
+  }
+}
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kNT)
+    flash_fwd_lse_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const int8_t* __restrict__ mask,
+                              const int32_t* __restrict__ k_hi,
+                              const int64_t* __restrict__ seed,
+                              O* __restrict__ out, float* __restrict__ lse,
+                              Args a, uint32_t threshold, float inv_keep,
+                              int dropout, int head_dim) {
+  wide_forward_block<T, true, O>(
+      q, k, v, mask, k_hi, out, lse, a,
+      make_dropout(seed, threshold, inv_keep, dropout, a), head_dim);
+}
+
+// The forward without LSE and without dropout (_flash_kernel's function).
+template <typename T>
+__global__ void __launch_bounds__(kNT)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const int8_t* __restrict__ mask,
+                          const int32_t* __restrict__ k_hi,
+                          T* __restrict__ out, Args a, int head_dim) {
+  wide_forward_block<T, false, T>(q, k, v, mask, k_hi, out, nullptr, a,
+                                  Dropout{}, head_dim);
+}
+
+struct DqSmem {
+  static constexpr int LDC = kDqDC + 8, LDV = kFwdDV + 8, LDM = kBN + 16;
+  template <typename T>
+  static constexpr size_t bytes() {
+    return sizeof(T) * 2 * ((2 * kBM + 2 * kBN) * LDC + kBN * LDV) +
+           2 * kBM * LDM;
+  }
+};
+
+// dQ of one block: query rows [q0, q0 + 64), dQ columns [c0, c0 + cols) of
+// slice blockIdx.x % nsl, over the key tiles below k_hi.  Per key tile, S
+// and dP accumulate over the chunks of Q, K, dO and V; then p, the keep
+// bits, dS = p (dP - delta) rounded to T, and dQ += dS K[:, slice].
+template <typename T, typename O>
+__global__ void __launch_bounds__(kNT)
+    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int8_t* __restrict__ mask,
+                         const int32_t* __restrict__ k_hi,
+                         const int64_t* __restrict__ seed, O* __restrict__ dq,
+                         Args a, uint32_t threshold, float inv_keep,
+                         int dropout, int head_dim) {
+  using S = DqSmem;
+  constexpr int LDC = S::LDC, LDV = S::LDV, LDM = S::LDM;
+  constexpr int NS = kBN / 8, NO = kFwdDV / 8;
+  extern __shared__ float4 smem4[];
+  T* sQ = reinterpret_cast<T*>(smem4);  // [2][BM][LDC] each
+  T* sO = sQ + 2 * kBM * LDC;
+  T* sK = sO + 2 * kBM * LDC;           // [2][BN][LDC] each
+  T* sV = sK + 2 * kBN * LDC;
+  T* sKs = sV + 2 * kBN * LDC;          // [2][BN][LDV]: K's slice
+  int8_t* sM = reinterpret_cast<int8_t*>(sKs + 2 * kBN * LDV);
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  const Wide w = wide_of(head_dim, kFwdDV, kDqDC);
+  const int qt = blockIdx.x / w.nsl, sl = blockIdx.x - qt * w.nsl;
+  const int c0 = sl * kFwdDV, cols = min(kFwdDV, w.d - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const int q0 = qt * kBM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  const int n_k = k_hi[qt];
+  const int steps = n_k * w.nch;
+
+  auto stage = [&](int i) {
+    const int kt = i / w.nch, c = i - kt * w.nch, st = i & 1;
+    const size_t at = base + c * kDqDC;
+    stage_rows<T, kDqDC, kBM, LDC, kNT>(sQ + st * kBM * LDC, q + at, q0,
+                                        a.seq, row_stride);
+    stage_rows<T, kDqDC, kBM, LDC, kNT>(sO + st * kBM * LDC, dout + at, q0,
+                                        a.seq, row_stride);
+    stage_rows<T, kDqDC, kBN, LDC, kNT>(sK + st * kBN * LDC, k + at,
+                                        kt * kBN, a.seq, row_stride);
+    stage_rows<T, kDqDC, kBN, LDC, kNT>(sV + st * kBN * LDC, v + at,
+                                        kt * kBN, a.seq, row_stride);
+    if (c == 0) {
+      const int kb = kt & 1;
+      stage_cols<T, kBN, LDV, kNT>(sKs + kb * kBN * LDV, k + base + c0,
+                                   kt * kBN, a.seq, row_stride, cols);
+      stage_mask<kBM, kBN, LDM, kNT>(
+          sM + kb * kBM * LDM,
+          mask + static_cast<size_t>(q0) * a.s_pad + kt * kBN, a.s_pad);
+    }
+  };
+  if (steps > 0) {
+    stage(0);
+    cp_async_commit();
+  }
+  float lse2[2], dlt[2];
+  bool alive[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const size_t at = static_cast<size_t>(bh) * a.s_pad + q0 + wr + g + 8 * ii;
+    const float lv = lse[at];
+    alive[ii] = lv > 0.25f * kNegInf;
+    lse2[ii] = lv * kLog2e;
+    dlt[ii] = delta[at];
+  }
+  const float scale2 = a.scale * kLog2e;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < w.nch; ++c) {
+      const int i = kt * w.nch + c;
+      cp_async_wait_all();
+      __syncthreads();
+      if (i + 1 < steps) {
+        stage(i + 1);
+        cp_async_commit();
+      }
+      const int st = i & 1;
+      warp_rows_acc<T, kDqDC, LDC, NS>(s, sQ + st * kBM * LDC + wr * LDC,
+                                       sK + st * kBN * LDC, lane);
+      warp_rows_acc<T, kDqDC, LDC, NS>(dp, sO + st * kBM * LDC + wr * LDC,
+                                       sV + st * kBN * LDC, lane);
+    }
+    const int kb = kt & 1, k0 = kt * kBN;
+    const int8_t* tM = sM + kb * kBM * LDM + (wr + g) * LDM + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const char2 on =
+            *reinterpret_cast<const char2*>(tM + ii * 8 * LDM + 8 * j);
+        float& p0 = s[j][2 * ii];
+        float& p1 = s[j][2 * ii + 1];
+        p0 = on.x && alive[ii] ? ex2_approx(fmaf(p0, scale2, -lse2[ii]))
+                               : 0.f;
+        p1 = on.y && alive[ii] ? ex2_approx(fmaf(p1, scale2, -lse2[ii]))
+                               : 0.f;
+      }
+    }
+    if (drop.on) {
+      const uint32_t qrow = static_cast<uint32_t>(q0 + wr + g);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t kb4[4];
+        row_keep_words(kb4, static_cast<uint32_t>(k0 + 8 * j + 2 * t), qrow,
+                       bh, drop, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = kb4[e] >= drop.threshold ? dp[j][e] * drop.inv_keep : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dlt[e >> 1];
+    const T* tKs = sKs + kb * kBN * LDV;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      uint32_t af[4];
+      acc_to_a<T>(af, s, kk);
+      warp_step_cols<T, LDV, NO>(acc, af, tKs + kk * 16 * LDV, lane, cols);
+    }
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = q0 + wr + g + 8 * ii;
+    if (row < a.seq) {
+      O* dst = dq + base + static_cast<size_t>(row) * row_stride + c0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        if (8 * n < cols)
+          store2<T, O>(dst + 8 * n, acc[n][2 * ii] * a.scale,
+                       acc[n][2 * ii + 1] * a.scale);
+    }
+  }
+}
+
+// dk/dv: DS warps share a row group of 16 keys, each computing S^T and
+// dP^T for 64 / DS of a q tile's queries and holding DV / DS of the
+// slice's dK and dV columns; with DS > 1 the block passes P^T and dS^T,
+// rounded to T, through shared memory, as flash_attention.cu's dk/dv does
+// at D = 128 and 256.
+template <int DS>
+struct DkvShape {
+  static constexpr int DV = 64 * DS;          // slice columns
+  static constexpr int NT = kNT * DS;         // threads
+  static constexpr int LDC = kDC + 8, LDS = DV + 8, LDP = kBN + 8;
+  static constexpr int LDM = kBM + 16;
+  template <typename T>
+  static constexpr size_t bytes() {
+    return sizeof(T) * 2 * ((2 * kBM + 2 * kBN) * LDC + 2 * kBN * LDS +
+                            (DS > 1 ? kBM * LDP : 0)) +
+           sizeof(float) * 4 * kBN + 2 * kBN * LDM;
+  }
+};
+
+// dK and dV of one block: key rows [k0, k0 + 64), columns [c0, c0 + cols)
+// of slice blockIdx.x % nsl, over the q tiles from q_lo.  Per q tile, S^T
+// and dP^T accumulate over the chunks of K, Q, V and dO, key-major as in
+// flash_attention.cu's dk/dv; then p from the staged LSE, the keep bits
+// (the transposed layout's shared counters), and dV += (keep P / (1 -
+// r))^T dO[:, slice], dK += dS^T Q[:, slice], the A operands rounded to T.
+// Warp w holds keys 16 (w / DS) .. + 15, queries (w % DS) 64 / DS .. of a
+// q tile and columns (w % DS) DV / DS .. of the slice.
+template <typename T, typename O, int DS>
+__global__ void __launch_bounds__(kNT * DS)
+    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int8_t* __restrict__ mask,
+                          const int32_t* __restrict__ q_lo,
+                          const int64_t* __restrict__ seed,
+                          O* __restrict__ dk, O* __restrict__ dv, Args a,
+                          uint32_t threshold, float inv_keep, int dropout,
+                          int head_dim) {
+  using S = DkvShape<DS>;
+  constexpr int DV = S::DV, NT = S::NT;
+  constexpr int LDC = S::LDC, LDS = S::LDS, LDP = S::LDP, LDM = S::LDM;
+  constexpr int NQ = kBN / (8 * DS);  // n8 tiles of S^T a warp
+  constexpr int NO = DV / DS / 8;     // n8 tiles of dK and dV a warp
+  extern __shared__ float4 smem4[];
+  T* sK = reinterpret_cast<T*>(smem4);  // [2][BM][LDC] each
+  T* sV = sK + 2 * kBM * LDC;
+  T* sQ = sV + 2 * kBM * LDC;           // [2][BN][LDC] each
+  T* sO = sQ + 2 * kBN * LDC;
+  T* sQs = sO + 2 * kBN * LDC;          // [2][BN][LDS]: Q's, dO's slice
+  T* sOs = sQs + 2 * kBN * LDS;
+  T* sP = sOs + 2 * kBN * LDS;          // DS > 1: P^T, dS^T [BM][LDP] each
+  T* sS = sP + kBM * LDP;
+  float* sL = reinterpret_cast<float*>(sP + (DS > 1 ? 2 * kBM * LDP : 0));
+  float* sD = sL + 2 * kBN;                              // [2][BN] each
+  int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * kBN);  // [2][BN][LDM]
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  const Wide w = wide_of(head_dim, DV);
+  const int kt = blockIdx.x / w.nsl, sl = blockIdx.x - kt * w.nsl;
+  const int c0 = sl * DV, cols = min(DV, w.d - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = (warp / DS) * 16;
+  const int qc0 = (warp % DS) * 8 * NQ, dcol0 = (warp % DS) * (DV / DS);
+  const bool owns_cols = dcol0 < cols;  // the last slice may be narrower
+  const int k0 = kt * kBM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  const size_t stats = static_cast<size_t>(bh) * a.s_pad;
+  const int num_q = a.s_pad / kBN, qt0 = q_lo[kt];
+  const int steps = (num_q - qt0) * w.nch;
+
+  auto stage = [&](int i) {
+    const int qt = qt0 + i / w.nch, c = i % w.nch, st = i & 1;
+    const int q0 = qt * kBN;
+    const size_t at = base + c * kDC;
+    stage_rows<T, kDC, kBM, LDC, NT>(sK + st * kBM * LDC, k + at, k0, a.seq,
+                                     row_stride);
+    stage_rows<T, kDC, kBM, LDC, NT>(sV + st * kBM * LDC, v + at, k0, a.seq,
+                                     row_stride);
+    stage_rows<T, kDC, kBN, LDC, NT>(sQ + st * kBN * LDC, q + at, q0, a.seq,
+                                     row_stride);
+    stage_rows<T, kDC, kBN, LDC, NT>(sO + st * kBN * LDC, dout + at, q0,
+                                     a.seq, row_stride);
+    if (c == 0) {
+      const int qb = (qt - qt0) & 1;
+      stage_cols<T, kBN, LDS, NT>(sQs + qb * kBN * LDS, q + base + c0, q0,
+                                  a.seq, row_stride, cols);
+      stage_cols<T, kBN, LDS, NT>(sOs + qb * kBN * LDS, dout + base + c0, q0,
+                                  a.seq, row_stride, cols);
+      stage_floats<kBN, NT>(sL + qb * kBN, lse + stats + q0);
+      stage_floats<kBN, NT>(sD + qb * kBN, delta + stats + q0);
+      stage_mask<kBN, kBM, LDM, NT>(
+          sM + qb * kBN * LDM,
+          mask + static_cast<size_t>(q0) * a.s_pad + k0, a.s_pad);
+    }
+  };
+  if (steps > 0) {
+    stage(0);
+    cp_async_commit();
+  }
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float scale2 = a.scale * kLog2e;
+  const int jj = g & 3;
+
+  for (int qt = qt0; qt < num_q; ++qt) {
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < w.nch; ++c) {
+      const int i = (qt - qt0) * w.nch + c;
+      cp_async_wait_all();
+      __syncthreads();  // chunk i visible; every warp is done with i - 1
+      if (i + 1 < steps) {
+        stage(i + 1);
+        cp_async_commit();
+      }
+      const int st = i & 1;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 8 NQ queries a warp
+      warp_rows_acc<T, kDC, LDC, NQ>(s, sK + st * kBM * LDC + wr * LDC,
+                                     sQ + st * kBN * LDC + qc0 * LDC, lane);
+      warp_rows_acc<T, kDC, LDC, NQ>(dp, sV + st * kBM * LDC + wr * LDC,
+                                     sO + st * kBN * LDC + qc0 * LDC, lane);
+    }
+    const int qb = (qt - qt0) & 1, q0 = qt * kBN;
+    const float* tL = sL + qb * kBN;
+    const float* tD = sD + qb * kBN;
+    const int8_t* tM = sM + qb * kBN * LDM + wr + g;
+    // keys wr + g (s[.][0:2]) and wr + g + 8 (s[.][2:4]) at queries
+    // qc0 + 8 j + 2 t + {0, 1}: element e is key half e >> 1, query e & 1
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const int qc = qc0 + 8 * j + 2 * t;
+      const float2 lv = *reinterpret_cast<const float2*>(tL + qc);
+      const float2 dl = *reinterpret_cast<const float2*>(tD + qc);
+      const float lq[2] = {lv.x, lv.y}, dlq[2] = {dl.x, dl.y};
+      uint32_t kb[4] = {0u, 0u, 0u, 0u};
+      if (drop.on) {
+        const uint32_t key4 =
+            static_cast<uint32_t>(k0 + wr + g + 8 * (jj >> 1)) >> 2;
+        const uint4 wd = philox4x32_10(
+            make_uint4(key4, static_cast<uint32_t>(q0 + qc + (jj & 1)),
+                       bh + drop.bh0, 0u),
+            drop.k0, drop.k1);
+        const uint32_t words[4] = {wd.x, wd.y, wd.z, wd.w};
+        uint32_t got[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t send = pick4(words, jj ^ r);
+          got[r] = r ? __shfl_xor_sync(0xffffffffu, send, 4 * r) : send;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kb[e] = pick4(got, jj ^ e);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1, cq = e & 1;
+        const bool on = tM[(qc + cq) * LDM + 8 * ii] != 0 &&
+                        lq[cq] > 0.25f * kNegInf;
+        const float p =
+            on ? ex2_approx(fmaf(s[j][e], scale2, -lq[cq] * kLog2e)) : 0.f;
+        float pd = p, g_kept = dp[j][e];
+        if (drop.on) {
+          const bool keep = kb[e] >= drop.threshold;
+          pd = keep ? p * drop.inv_keep : 0.f;
+          g_kept = keep ? g_kept * drop.inv_keep : 0.f;
+        }
+        s[j][e] = pd;                      // keep p / (1 - r), for dV
+        dp[j][e] = p * (g_kept - dlq[cq]);  // dS, for dK
+      }
+    }
+    const T* tQs = sQs + qb * kBN * LDS + dcol0;
+    const T* tOs = sOs + qb * kBN * LDS + dcol0;
+    if constexpr (DS == 1) {
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        uint32_t af[4];
+        acc_to_a<T>(af, s, kk);
+        warp_step_dot<T, LDS, NO>(dv_acc, af, tOs + kk * 16 * LDS, lane);
+        acc_to_a<T>(af, dp, kk);
+        warp_step_dot<T, LDS, NO>(dk_acc, af, tQs + kk * 16 * LDS, lane);
+      }
+    } else {
+      // every warp of a row group needs all 64 queries' P^T and dS^T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int at = (wr + g + 8 * ii) * LDP + qc0 + 8 * j + 2 * t;
+          *reinterpret_cast<uint32_t*>(sP + at) =
+              pack2<T>(s[j][2 * ii], s[j][2 * ii + 1]);
+          *reinterpret_cast<uint32_t*>(sS + at) =
+              pack2<T>(dp[j][2 * ii], dp[j][2 * ii + 1]);
+        }
+      __syncthreads();  // the block's P^T and dS^T of tile qt written
+      if (owns_cols) {
+        const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          const int at = (wr + l8 * 8 + lr) * LDP + kk * 16 + l16 * 8;
+          uint32_t af[4];
+          ldsm_x4(af, sP + at);
+          warp_step_dot<T, LDS, NO>(dv_acc, af, tOs + kk * 16 * LDS, lane);
+          ldsm_x4(af, sS + at);
+          warp_step_dot<T, LDS, NO>(dk_acc, af, tQs + kk * 16 * LDS, lane);
+        }
+      }
+    }
+  }
+
+  if (!owns_cols) return;
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = k0 + wr + g + 8 * ii;
+    if (row < a.seq) {
+      const size_t at =
+          base + static_cast<size_t>(row) * row_stride + c0 + dcol0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        store2<T, O>(dk + at + 8 * n, dk_acc[n][2 * ii] * a.scale,
+                     dk_acc[n][2 * ii + 1] * a.scale);
+        store2<T, O>(dv + at + 8 * n, dv_acc[n][2 * ii],
+                     dv_acc[n][2 * ii + 1]);
+      }
+    }
+  }
+}
+
+// -- the float32 kernels: CUDA-core bodies ------------------------------------
+
+// Tiles are staged as float32 rows of 64 columns padded by four floats
+// (LD = 68), so the float4 reads of a quarter warp hit distinct banks.
+// Thread roles, 256 threads: for a 64 x 64 product tile, column
+// c = tid % 64 and rows r0 + 4 i (i < 16); for a slice of 64 output
+// columns, column tid % 64 and rows tid / 64 + 4 j (j < 16).
+constexpr int kF32DC = 64;  // columns of a float32 chunk
+constexpr int kLD = kF32DC + 4;
+constexpr int kRS = kF32NT / 64, kNR = 64 / kRS;  // 4 row groups, 16 rows
+
+// acc[i] += A[r0 + 4 i] . B[c] over one staged chunk (rows kLD apart).
+__device__ __forceinline__ void chunk_dots(const float* sa, const float* sb,
+                                           float (&acc)[kNR]) {
+  const int c = threadIdx.x % 64, r0 = threadIdx.x / 64;
+  for (int d = 0; d < kF32DC; d += 4) {
+    const float4 bv = *reinterpret_cast<const float4*>(&sb[c * kLD + d]);
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(&sa[(r0 + i * kRS) * kLD + d]);
+      acc[i] = fmaf(av.x, bv.x, acc[i]);
+      acc[i] = fmaf(av.y, bv.y, acc[i]);
+      acc[i] = fmaf(av.z, bv.z, acc[i]);
+      acc[i] = fmaf(av.w, bv.w, acc[i]);
+    }
+  }
+}
+
+constexpr size_t kF32Tile = sizeof(float) * 64 * kLD;
+
+// The float32 forward: query rows [q0, q0 + 64), output columns
+// [c0, c0 + 64) of slice blockIdx.x % nsl.
+template <bool DROPOUT>
+__device__ __forceinline__ void wide_forward_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int8_t* __restrict__ mask,
+    const int32_t* __restrict__ k_hi, float* __restrict__ out,
+    float* __restrict__ lse, const Args& a, const Dropout& drop,
+    int head_dim) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + 64 * kLD;
+  float* sP = sK + 64 * kLD;
+  float* sM = sP + 64 * kLD;
+  float* sL = sM + 64;
+  float* sA = sL + 64;
+
+  const Wide w = wide_of(head_dim, kF32DV);
+  const int qt = blockIdx.x / w.nsl, sl = blockIdx.x - qt * w.nsl;
+  const int c0 = sl * kF32DV;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = qt * kBM;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  for (int r = threadIdx.x; r < kBM; r += kF32NT) {
+    sM[r] = kNegInf;
+    sL[r] = 0.f;
+  }
+  const int col = threadIdx.x % 64, r0 = threadIdx.x / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[kNR];
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) acc[j] = 0.f;
+  const int n_k = k_hi[qt];
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBN;
+    float s[kNR];
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) s[i] = 0.f;
+    for (int c = 0; c < w.d / kF32DC; ++c) {
+      __syncthreads();
+      const size_t at = base + c * kF32DC;
+      load_tile<float, kF32DC, kBM, kF32NT>(sQ, q + at, q0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBN, kF32NT>(sK, k + at, k0, a.seq,
+                                            row_stride);
+      __syncthreads();
+      chunk_dots(sQ, sK, s);
+    }
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const int r = r0 + i * kRS;
+      const bool live =
+          mask[static_cast<size_t>(q0 + r) * a.s_pad + k0 + col] != 0;
+      sP[r * kLD + col] = live ? s[i] * a.scale : kNegInf;
+    }
+    __syncthreads();
+    // V's slice into sK (the chunks are done with it)
+    load_tile<float, kF32DV, kBN, kF32NT>(sK, v + base + c0, k0, a.seq,
+                                          row_stride);
+    for (int r = warp; r < kBM; r += kF32NT / 32) {
+      float mx = kNegInf;
+      for (int cc = lane; cc < kBN; cc += 32) mx = fmaxf(mx, sP[r * kLD + cc]);
+      mx = warp_max(mx);
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float ref = fmaxf(m_new, 0.5f * kNegInf);
+      float sum = 0.f;
+      for (int cc = lane; cc < kBN; cc += 32) {
+        const float pv = expf(sP[r * kLD + cc] - ref);
+        sum += pv;
+        float pa = pv;
+        if (DROPOUT && drop.on)
+          pa = drop.keep(bh, q0 + r, k0 + cc) ? pv * drop.inv_keep : 0.f;
+        sP[r * kLD + cc] = pa;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        sA[r] = alpha;
+        sL[r] = sL[r] * alpha + sum;
+        sM[r] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kNR; ++j) acc[j] *= sA[r0 + j * kRS];
+    for (int cc = 0; cc < kBN; cc += 4) {
+      const float v0 = sK[(cc + 0) * kLD + col];
+      const float v1 = sK[(cc + 1) * kLD + col];
+      const float v2 = sK[(cc + 2) * kLD + col];
+      const float v3 = sK[(cc + 3) * kLD + col];
+#pragma unroll
+      for (int j = 0; j < kNR; ++j) {
+        const float4 pp = *reinterpret_cast<const float4*>(
+            &sP[(r0 + j * kRS) * kLD + cc]);
+        acc[j] = fmaf(pp.x, v0, acc[j]);
+        acc[j] = fmaf(pp.y, v1, acc[j]);
+        acc[j] = fmaf(pp.z, v2, acc[j]);
+        acc[j] = fmaf(pp.w, v3, acc[j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) {
+    const int r = r0 + j * kRS, row = q0 + r;
+    if (row < a.seq)
+      out[base + static_cast<size_t>(row) * row_stride + c0 + col] =
+          acc[j] / fmaxf(sL[r], 1e-30f);
+  }
+  if (lse != nullptr && sl == 0)
+    for (int r = threadIdx.x; r < kBM; r += kF32NT)
+      lse[static_cast<size_t>(bh) * a.s_pad + q0 + r] =
+          sM[r] + logf(fmaxf(sL[r], 1e-30f));
+}
+
+constexpr size_t kFwdF32Smem = 3 * kF32Tile + sizeof(float) * 3 * 64;
+
+__global__ void __launch_bounds__(kF32NT)
+    flash_fwd_lse_wide_f32_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const int8_t* __restrict__ mask,
+                                  const int32_t* __restrict__ k_hi,
+                                  const int64_t* __restrict__ seed,
+                                  float* __restrict__ out,
+                                  float* __restrict__ lse, Args a,
+                                  uint32_t threshold, float inv_keep,
+                                  int dropout, int head_dim) {
+  wide_forward_f32<true>(q, k, v, mask, k_hi, out, lse, a,
+                         make_dropout(seed, threshold, inv_keep, dropout, a),
+                         head_dim);
+}
+
+__global__ void __launch_bounds__(kF32NT)
+    flash_fwd_wide_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int8_t* __restrict__ mask,
+                              const int32_t* __restrict__ k_hi,
+                              float* __restrict__ out, Args a,
+                              int head_dim) {
+  wide_forward_f32<false>(q, k, v, mask, k_hi, out, nullptr, a, Dropout{},
+                          head_dim);
+}
+
+constexpr size_t kDqF32Smem = 5 * kF32Tile + sizeof(float) * 2 * 64;
+
+// The float32 dq: query rows [q0, q0 + 64), dQ columns [c0, c0 + 64).
+__global__ void __launch_bounds__(kF32NT)
+    flash_dq_wide_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int8_t* __restrict__ mask,
+                             const int32_t* __restrict__ k_hi,
+                             const int64_t* __restrict__ seed,
+                             float* __restrict__ dq, Args a,
+                             uint32_t threshold, float inv_keep, int dropout,
+                             int head_dim) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + 64 * kLD;
+  float* sK = sO + 64 * kLD;
+  float* sV = sK + 64 * kLD;
+  float* sS = sV + 64 * kLD;
+  float* sLse = sS + 64 * kLD;
+  float* sDelta = sLse + 64;
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  const Wide w = wide_of(head_dim, kF32DV);
+  const int qt = blockIdx.x / w.nsl, sl = blockIdx.x - qt * w.nsl;
+  const int c0 = sl * kF32DV;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = qt * kBM;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  for (int r = threadIdx.x; r < kBM; r += kF32NT) {
+    sLse[r] = lse[static_cast<size_t>(bh) * a.s_pad + q0 + r];
+    sDelta[r] = delta[static_cast<size_t>(bh) * a.s_pad + q0 + r];
+  }
+  const int col = threadIdx.x % 64, r0 = threadIdx.x / 64;
+  float acc[kNR];
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) acc[j] = 0.f;
+  const int n_k = k_hi[qt];
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBN;
+    float s[kNR], dp[kNR];
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) s[i] = dp[i] = 0.f;
+    for (int c = 0; c < w.d / kF32DC; ++c) {
+      __syncthreads();
+      const size_t at = base + c * kF32DC;
+      load_tile<float, kF32DC, kBM, kF32NT>(sQ, q + at, q0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBM, kF32NT>(sO, dout + at, q0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBN, kF32NT>(sK, k + at, k0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBN, kF32NT>(sV, v + at, k0, a.seq,
+                                            row_stride);
+      __syncthreads();
+      chunk_dots(sQ, sK, s);
+      chunk_dots(sO, sV, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const int r = r0 + i * kRS;
+      const bool allowed =
+          mask[static_cast<size_t>(q0 + r) * a.s_pad + k0 + col] != 0;
+      const float x = allowed ? s[i] * a.scale : kNegInf;
+      const float row_lse = sLse[r];
+      const float p = row_lse > 0.25f * kNegInf ? expf(x - row_lse) : 0.f;
+      float gv = dp[i];
+      if (drop.on)
+        gv = drop.keep(bh, q0 + r, k0 + col) ? gv * drop.inv_keep : 0.f;
+      sS[r * kLD + col] = p * (gv - sDelta[r]);
+    }
+    __syncthreads();
+    // K's slice into sK (the chunks are done with it)
+    load_tile<float, kF32DV, kBN, kF32NT>(sK, k + base + c0, k0, a.seq,
+                                          row_stride);
+    __syncthreads();
+    for (int cc = 0; cc < kBN; cc += 4) {
+      const float k0v = sK[(cc + 0) * kLD + col];
+      const float k1v = sK[(cc + 1) * kLD + col];
+      const float k2v = sK[(cc + 2) * kLD + col];
+      const float k3v = sK[(cc + 3) * kLD + col];
+#pragma unroll
+      for (int j = 0; j < kNR; ++j) {
+        const float4 ds = *reinterpret_cast<const float4*>(
+            &sS[(r0 + j * kRS) * kLD + cc]);
+        acc[j] = fmaf(ds.x, k0v, acc[j]);
+        acc[j] = fmaf(ds.y, k1v, acc[j]);
+        acc[j] = fmaf(ds.z, k2v, acc[j]);
+        acc[j] = fmaf(ds.w, k3v, acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) {
+    const int row = q0 + r0 + j * kRS;
+    if (row < a.seq)
+      dq[base + static_cast<size_t>(row) * row_stride + c0 + col] =
+          acc[j] * a.scale;
+  }
+}
+
+constexpr size_t kDkvF32Smem = 6 * kF32Tile + sizeof(float) * 2 * 64;
+
+// The float32 dk/dv: key rows [k0, k0 + 64), columns [c0, c0 + 64).  The
+// product tile is [query][key]: thread column c is a key.
+__global__ void __launch_bounds__(kF32NT)
+    flash_dkv_wide_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int8_t* __restrict__ mask,
+                              const int32_t* __restrict__ q_lo,
+                              const int64_t* __restrict__ seed,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              Args a, uint32_t threshold, float inv_keep,
+                              int dropout, int head_dim) {
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + 64 * kLD;
+  float* sQ = sV + 64 * kLD;
+  float* sO = sQ + 64 * kLD;
+  float* sPd = sO + 64 * kLD;
+  float* sS = sPd + 64 * kLD;
+  float* sLse = sS + 64 * kLD;
+  float* sDelta = sLse + 64;
+
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  const Wide w = wide_of(head_dim, kF32DV);
+  const int kt = blockIdx.x / w.nsl, sl = blockIdx.x - kt * w.nsl;
+  const int c0 = sl * kF32DV;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = kt * kBM;
+  const int num_q = a.s_pad / kBN;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * w.d;
+  const size_t base = static_cast<size_t>(b) * a.seq * row_stride +
+                      static_cast<size_t>(h) * w.d;
+  const int col = threadIdx.x % 64, r0 = threadIdx.x / 64;
+  float acc_k[kNR], acc_v[kNR];
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) acc_k[j] = acc_v[j] = 0.f;
+  for (int qt = q_lo[kt]; qt < num_q; ++qt) {
+    const int q0 = qt * kBN;
+    float s[kNR], dp[kNR];
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) s[i] = dp[i] = 0.f;
+    for (int c = 0; c < w.d / kF32DC; ++c) {
+      __syncthreads();
+      const size_t at = base + c * kF32DC;
+      load_tile<float, kF32DC, kBN, kF32NT>(sQ, q + at, q0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBN, kF32NT>(sO, dout + at, q0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBM, kF32NT>(sK, k + at, k0, a.seq,
+                                            row_stride);
+      load_tile<float, kF32DC, kBM, kF32NT>(sV, v + at, k0, a.seq,
+                                            row_stride);
+      if (c == 0)
+        for (int r = threadIdx.x; r < kBN; r += kF32NT) {
+          sLse[r] = lse[static_cast<size_t>(bh) * a.s_pad + q0 + r];
+          sDelta[r] = delta[static_cast<size_t>(bh) * a.s_pad + q0 + r];
+        }
+      __syncthreads();
+      chunk_dots(sQ, sK, s);
+      chunk_dots(sO, sV, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const int r = r0 + i * kRS;
+      const bool allowed =
+          mask[static_cast<size_t>(q0 + r) * a.s_pad + k0 + col] != 0;
+      const float x = allowed ? s[i] * a.scale : kNegInf;
+      const float row_lse = sLse[r];
+      const float p = row_lse > 0.25f * kNegInf ? expf(x - row_lse) : 0.f;
+      float pd = p, gv = dp[i];
+      if (drop.on) {
+        const bool kept = drop.keep(bh, q0 + r, k0 + col);
+        pd = kept ? p * drop.inv_keep : 0.f;
+        gv = kept ? gv * drop.inv_keep : 0.f;
+      }
+      sPd[r * kLD + col] = pd;
+      sS[r * kLD + col] = p * (gv - sDelta[r]);
+    }
+    __syncthreads();
+    // Q's and dO's slices into sQ and sO (the chunks are done with them)
+    load_tile<float, kF32DV, kBN, kF32NT>(sQ, q + base + c0, q0, a.seq,
+                                          row_stride);
+    load_tile<float, kF32DV, kBN, kF32NT>(sO, dout + base + c0, q0, a.seq,
+                                          row_stride);
+    __syncthreads();
+    for (int r = 0; r < kBN; ++r) {
+      const float o = sO[r * kLD + col];
+      const float qq = sQ[r * kLD + col];
+#pragma unroll
+      for (int j = 0; j < kNR; ++j) {
+        const int cj = r0 + j * kRS;
+        acc_v[j] = fmaf(sPd[r * kLD + cj], o, acc_v[j]);
+        acc_k[j] = fmaf(sS[r * kLD + cj], qq, acc_k[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNR; ++j) {
+    const int row = k0 + r0 + j * kRS;
+    if (row < a.seq) {
+      const size_t at = base + static_cast<size_t>(row) * row_stride + c0 + col;
+      dk[at] = acc_k[j] * a.scale;
+      dv[at] = acc_v[j];
+    }
+  }
+}
+
+// -- launchers ---------------------------------------------------------------
+
+Args args_of(const Launch& L) {
+  return Args{L.batch, L.seq, L.heads, L.s_pad, L.scale, L.bh0,
+              L.heads_total};
+}
+
+dim3 grid_of(const Launch& L, int head_dim, int dv) {
+  return dim3(L.s_pad / kBM * ((head_dim + dv - 1) / dv), L.heads, L.batch);
+}
+
+template <typename T, bool LSE, typename O>
+int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
+        const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
+        const Launch& L, int head_dim) {
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v);
+  int err;
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid = grid_of(L, head_dim, kF32DV);
+    if constexpr (LSE) {
+      auto kern = flash_fwd_lse_wide_f32_kernel;
+      if ((err = launch_config(kern, kFwdF32Smem))) return err;
+      kern<<<grid, kF32NT, kFwdF32Smem, L.stream>>>(
+          qt, kt, vt, mask, k_hi, seed, static_cast<float*>(out), lse,
+          args_of(L), L.threshold, L.inv_keep, L.dropout, head_dim);
+    } else {
+      auto kern = flash_fwd_wide_f32_kernel;
+      if ((err = launch_config(kern, kFwdF32Smem))) return err;
+      kern<<<grid, kF32NT, kFwdF32Smem, L.stream>>>(
+          qt, kt, vt, mask, k_hi, static_cast<float*>(out), args_of(L),
+          head_dim);
+    }
+  } else {
+    const dim3 grid = grid_of(L, head_dim, kFwdDV);
+    const size_t smem = FwdSmem::bytes<T>();
+    if constexpr (LSE) {
+      auto kern = flash_fwd_lse_wide_kernel<T, O>;
+      if ((err = launch_config(kern, smem))) return err;
+      kern<<<grid, kNT, smem, L.stream>>>(qt, kt, vt, mask, k_hi, seed,
+                                          static_cast<O*>(out), lse,
+                                          args_of(L), L.threshold, L.inv_keep,
+                                          L.dropout, head_dim);
+    } else {
+      auto kern = flash_fwd_wide_kernel<T>;
+      if ((err = launch_config(kern, smem))) return err;
+      kern<<<grid, kNT, smem, L.stream>>>(qt, kt, vt, mask, k_hi,
+                                          static_cast<T*>(out), args_of(L),
+                                          head_dim);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename O>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const float* lse, const float* delta, const int8_t* mask,
+       const int32_t* k_hi, const int64_t* seed, void* dqp, const Launch& L,
+       int head_dim) {
+  int err;
+  if constexpr (std::is_same<T, float>::value) {
+    auto kern = flash_dq_wide_f32_kernel;
+    if ((err = launch_config(kern, kDqF32Smem))) return err;
+    kern<<<grid_of(L, head_dim, kF32DV), kF32NT, kDqF32Smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, mask, k_hi, seed, static_cast<float*>(dqp), args_of(L),
+        L.threshold, L.inv_keep, L.dropout, head_dim);
+  } else {
+    auto kern = flash_dq_wide_kernel<T, O>;
+    const size_t smem = DqSmem::bytes<T>();
+    if ((err = launch_config(kern, smem))) return err;
+    kern<<<grid_of(L, head_dim, kFwdDV), kNT, smem, L.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, k_hi, seed, static_cast<O*>(dqp), args_of(L), L.threshold,
+        L.inv_keep, L.dropout, head_dim);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename O>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* delta, const int8_t* mask,
+        const int32_t* q_lo, const int64_t* seed, void* dkp, void* dvp,
+        const Launch& L, int head_dim) {
+  int err;
+  if constexpr (std::is_same<T, float>::value) {
+    auto kern = flash_dkv_wide_f32_kernel;
+    if ((err = launch_config(kern, kDkvF32Smem))) return err;
+    kern<<<grid_of(L, head_dim, kF32DV), kF32NT, kDkvF32Smem, L.stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, mask, q_lo, seed, static_cast<float*>(dkp),
+        static_cast<float*>(dvp), args_of(L), L.threshold, L.inv_keep,
+        L.dropout, head_dim);
+  } else {
+    using Sh = DkvShape<kDkvDS>;
+    auto kern = flash_dkv_wide_kernel<T, O, kDkvDS>;
+    const size_t smem = Sh::bytes<T>();
+    if ((err = launch_config(kern, smem))) return err;
+    kern<<<grid_of(L, head_dim, Sh::DV), Sh::NT, smem, L.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, q_lo, seed, static_cast<O*>(dkp), static_cast<O*>(dvp),
+        args_of(L), L.threshold, L.inv_keep, L.dropout, head_dim);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool wide_shapes_ok(int head_dim, int s_pad, int seq) {
+  return head_dim >= kDC && head_dim % kDC == 0 && seq > 0 && seq <= s_pad &&
+         s_pad % kBM == 0;
+}
+
+bool wide_aligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
+}
+
+Launch launch_of(int batch, int seq, int heads, int s_pad, float scale,
+                 float inv_keep, uint32_t threshold, int dropout,
+                 int out_f32, int b0, int h0, int heads_total, void* stream) {
+  return Launch{batch, seq, heads, s_pad, scale, inv_keep, threshold,
+                dropout, static_cast<cudaStream_t>(stream), out_f32,
+                static_cast<uint32_t>(b0) * static_cast<uint32_t>(heads_total) +
+                    static_cast<uint32_t>(h0),
+                static_cast<uint32_t>(heads_total)};
+}
+
+// Dispatch on the dtype code (0 float32, 1 bfloat16, 2 float16) and, for
+// 16-bit inputs, out_f32.
+#define WIDE_DISPATCH(FN, ...)                                          \
+  switch (dtype * 2 + (L.out_f32 ? 1 : 0)) {                            \
+    case 0:                                                             \
+    case 1: return FN<float, float>(__VA_ARGS__);                       \
+    case 2: return FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);       \
+    case 3: return FN<__nv_bfloat16, float>(__VA_ARGS__);               \
+    case 4: return FN<__half, __half>(__VA_ARGS__);                     \
+    case 5: return FN<__half, float>(__VA_ARGS__);                      \
+    default: return static_cast<int>(cudaErrorInvalidValue);           \
+  }
+
+template <typename T, typename O>
+int fwd_lse(const void* q, const void* k, const void* v, const int8_t* mask,
+            const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
+            const Launch& L, int head_dim) {
+  return fwd<T, true, O>(q, k, v, mask, k_hi, seed, out, lse, L, head_dim);
+}
+
+template <typename T, typename O>
+int fwd_plain(const void* q, const void* k, const void* v, const int8_t* mask,
+              const int32_t* k_hi, void* out, const Launch& L, int head_dim) {
+  return fwd<T, false, T>(q, k, v, mask, k_hi, nullptr, out, nullptr, L,
+                          head_dim);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The launchers of flash_attention.cu's C interface at head dims above 256
+// (any multiple of 64 here): the same arguments, pointers and semantics
+// (its extern "C" note); each returns the cudaError_t of the launch and
+// never synchronises.
+
+int flash_fwd_wide_launch(const void* q, const void* k, const void* v,
+                          const int8_t* mask, const int32_t* k_hi, void* out,
+                          int batch, int seq, int heads, int head_dim,
+                          int s_pad, int dtype, float scale, void* stream) {
+  if (!wide_shapes_ok(head_dim, s_pad, seq) ||
+      !wide_aligned({q, k, v, mask, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L = launch_of(batch, seq, heads, s_pad, scale, 1.f, 0u, 0, 0,
+                             0, 0, heads, stream);
+  WIDE_DISPATCH(fwd_plain, q, k, v, mask, k_hi, out, L, head_dim)
+}
+
+int flash_fwd_lse_wide_launch(const void* q, const void* k, const void* v,
+                              const int8_t* mask, const int32_t* k_hi,
+                              const int64_t* seed, void* out, float* lse,
+                              int batch, int seq, int heads, int head_dim,
+                              int s_pad, int dtype, float scale,
+                              float inv_keep, uint32_t threshold, int dropout,
+                              int out_f32, int b0, int h0, int heads_total,
+                              void* stream) {
+  if (!wide_shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total) ||
+      !wide_aligned({q, k, v, mask, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L = launch_of(batch, seq, heads, s_pad, scale, inv_keep,
+                             threshold, dropout, out_f32, b0, h0, heads_total,
+                             stream);
+  WIDE_DISPATCH(fwd_lse, q, k, v, mask, k_hi, seed, out, lse, L, head_dim)
+}
+
+int flash_dq_wide_launch(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, const int8_t* mask,
+                         const int32_t* k_hi, const int64_t* seed, void* dqp,
+                         int batch, int seq, int heads, int head_dim,
+                         int s_pad, int dtype, float scale, float inv_keep,
+                         uint32_t threshold, int dropout, int out_f32, int b0,
+                         int h0, int heads_total, void* stream) {
+  if (!wide_shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total) ||
+      !wide_aligned({q, k, v, dout, mask, dqp}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L = launch_of(batch, seq, heads, s_pad, scale, inv_keep,
+                             threshold, dropout, out_f32, b0, h0, heads_total,
+                             stream);
+  WIDE_DISPATCH(dq, q, k, v, dout, lse, delta, mask, k_hi, seed, dqp, L,
+                head_dim)
+}
+
+int flash_dkv_wide_launch(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const int8_t* mask,
+                          const int32_t* q_lo, const int64_t* seed, void* dkp,
+                          void* dvp, int batch, int seq, int heads,
+                          int head_dim, int s_pad, int dtype, float scale,
+                          float inv_keep, uint32_t threshold, int dropout,
+                          int out_f32, int b0, int h0, int heads_total,
+                          void* stream) {
+  if (!wide_shapes_ok(head_dim, s_pad, seq) || (dropout && !seed) ||
+      !offsets_ok(b0, h0, heads, heads_total) ||
+      !wide_aligned({q, k, v, dout, mask, lse, delta, dkp, dvp}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L = launch_of(batch, seq, heads, s_pad, scale, inv_keep,
+                             threshold, dropout, out_f32, b0, h0, heads_total,
+                             stream);
+  WIDE_DISPATCH(dkv, q, k, v, dout, lse, delta, mask, q_lo, seed, dkp, dvp, L,
+                head_dim)
+}
+
+const char* flash_wide_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -51,7 +51,13 @@
 // - dx is built in the shared memory x held and leaves with 16-byte
 //   stores.  No atomics: deterministic.
 // The 3x3 window is compiled as such; any other window up to 8x8 runs the
-// same body with its sizes read at run time.
+// same body with its sizes read at run time.  A window wider or taller than
+// 8 (whose rings would not fit a thread's registers) runs a second body,
+// pool_bwd_wide_kernel, on the same staging: one thread a pixel and lane
+// group, the window's values read from shared memory, its max then its
+// first match in raster order found by two passes (the match's slot
+// stored as an integer, 16 bits a lane), and each input pixel gathering g
+// over the slots it may have won, in slot order, as the body above does.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -375,6 +381,125 @@ __global__ void __launch_bounds__(kMaxThreads)
                         nthreads);
 }
 
+// The winning slot of a window as an integer in each lane (16 bits a lane
+// in 16-bit dtypes, 0xffff for none; 32 in float32, ~0 for none), and the
+// lane mask of two codes' equal lanes.
+template <typename T>
+struct Slots {
+  static __device__ __forceinline__ uint32_t splat(int k) {
+    return (static_cast<uint32_t>(k) & 0xffffu) * 0x10001u;
+  }
+  static __device__ __forceinline__ uint32_t eq(uint32_t a, uint32_t b) {
+    return __vcmpeq2(a, b);
+  }
+};
+template <>
+struct Slots<float> {
+  static __device__ __forceinline__ uint32_t splat(int k) {
+    return static_cast<uint32_t>(k);
+  }
+  static __device__ __forceinline__ uint32_t eq(uint32_t a, uint32_t b) {
+    return a == b ? 0xffffffffu : 0u;
+  }
+};
+
+// Any window (the body above takes up to kMaxWindow a side): the same
+// staging, winners and gather, each window read from shared memory.
+template <typename T, bool XNHWC, bool GNHWC>
+__global__ void __launch_bounds__(kMaxThreads)
+    pool_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         T* __restrict__ dx, int chans, int h, int w, int wh,
+                         int ww, int cb) {
+  using L = Lanes<T>;
+  using K = Slots<T>;
+  const int oh = h - wh + 1, ow = w - ww + 1;
+  const int hw = h * w, ohw = oh * ow;
+  const int chunks = (chans + cb - 1) / cb;
+  const int img = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x - img * chunks) * cb;
+  const int cv = min(cb, chans - c0);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // x, then dx
+  T* gs = reinterpret_cast<T*>(smem + align16(size_t(hw) * cb * sizeof(T)));
+  T* cs = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(gs) +
+                               align16(size_t(ohw) * cb * sizeof(T)));
+  const size_t xoff = XNHWC ? size_t(img) * hw * chans + c0
+                            : (size_t(img) * chans + c0) * hw;
+  const size_t goff = GNHWC ? size_t(img) * ohw * chans + c0
+                            : (size_t(img) * chans + c0) * ohw;
+  if constexpr (XNHWC)
+    copy_rows<T, true>(xs, x + xoff, nullptr, hw, cv, chans, cb, tid,
+                       nthreads);
+  else
+    copy_rows<T, true>(xs, x + xoff, nullptr, 1, cv * hw, 0, 0, tid,
+                       nthreads);
+  if constexpr (GNHWC)
+    copy_rows<T, true>(gs, g + goff, nullptr, ohw, cv, chans, cb, tid,
+                       nthreads);
+  else
+    copy_rows<T, true>(gs, g + goff, nullptr, 1, cv * ohw, 0, 0, tid,
+                       nthreads);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const int groups = cb / L::N;
+  const uint32_t none = K::splat(-1);
+  // Winners: the window's max (max.NaN: a NaN window matches nothing), then
+  // its first slot in raster order holding it.
+  for (int item = tid; item < ohw * groups; item += nthreads) {
+    const int p = XNHWC ? item % groups : item / ohw;
+    const int o = XNHWC ? item / groups : item % ohw;
+    const int oi = o / ow, oj = o - oi * ow, c = p * L::N;
+    uint32_t wm = load<T, XNHWC>(xs, oi * w + oj, c, cb, hw);
+    for (int di = 0; di < wh; ++di)
+      for (int dj = 0; dj < ww; ++dj)
+        wm = L::max(wm, load<T, XNHWC>(xs, (oi + di) * w + oj + dj, c, cb,
+                                       hw));
+    uint32_t code = none;
+    for (int slot = wh * ww - 1; slot >= 0; --slot) {
+      const int di = slot / ww, dj = slot - di * ww;
+      const uint32_t e =
+          L::eq(load<T, XNHWC>(xs, (oi + di) * w + oj + dj, c, cb, hw), wm);
+      code = (e & K::splat(slot)) | (~e & code);
+    }
+    store<T, XNHWC>(cs, o, c, cb, ohw, code);
+  }
+  __syncthreads();
+
+  // Gather: dx(i, j) adds g of every window it won, in slot order.
+  for (int item = tid; item < hw * groups; item += nthreads) {
+    const int p = XNHWC ? item % groups : item / hw;
+    const int e = XNHWC ? item / groups : item % hw;
+    const int i = e / w, j = e - i * w, c = p * L::N;
+    uint32_t acc = 0u;
+    for (int di = 0; di < wh; ++di) {
+      const int oi = i - di;
+      if (oi < 0 || oi >= oh) continue;
+      for (int dj = 0; dj < ww; ++dj) {
+        const int oj = j - dj;
+        if (oj < 0 || oj >= ow) continue;
+        const uint32_t won = K::eq(load<T, XNHWC>(cs, oi * ow + oj, c, cb, ohw),
+                                   K::splat(di * ww + dj));
+        acc = L::add(acc, load<T, GNHWC>(gs, oi * ow + oj, c, cb, ohw) & won);
+      }
+    }
+    // every thread has read its x values in the winner pass: dx may take
+    // x's place
+    store<T, XNHWC>(xs, e, c, cb, hw, acc);
+  }
+  __syncthreads();
+
+  if constexpr (XNHWC)
+    copy_rows<T, false>(xs, nullptr, dx + xoff, hw, cv, chans, cb, tid,
+                        nthreads);
+  else
+    copy_rows<T, false>(xs, nullptr, dx + xoff, 1, cv * hw, 0, 0, tid,
+                        nthreads);
+}
+
 size_t smem_bytes(int h, int w, int oh, int ow, int cb, size_t elem) {
   return align16(size_t(h) * w * cb * elem) +
          2 * align16(size_t(oh) * ow * cb * elem);
@@ -394,7 +519,9 @@ int launch_window(const void* x, const void* g, void* dx, int n, int c, int h,
     smem = smem_bytes(h, w, oh, ow, cb, sizeof(T));
   }
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = pool_bwd_kernel<T, XNHWC, GNHWC, WH, WW>;
+  auto kernel = wh > kMaxWindow || ww > kMaxWindow
+                    ? pool_bwd_wide_kernel<T, XNHWC, GNHWC>
+                    : pool_bwd_kernel<T, XNHWC, GNHWC, WH, WW>;
   if (smem > kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -403,6 +530,7 @@ int launch_window(const void* x, const void* g, void* dx, int n, int c, int h,
   const long blocks = long(n) * ((c + cb - 1) / cb);
   if (blocks > 2147483647L) return static_cast<int>(cudaErrorInvalidValue);
   int threads = (w * (cb / lanes) + 31) / 32 * 32;
+  if (wh > kMaxWindow || ww > kMaxWindow) threads = kMaxThreads;
   if (threads > kMaxThreads) threads = kMaxThreads;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx),
@@ -444,8 +572,9 @@ extern "C" {
 int pool_bwd_launch(const void* x, const void* g, void* dx, int n, int c,
                     int h, int w, int wh, int ww, int x_nhwc, int g_nhwc,
                     int dtype, void* stream) {
-  if (n <= 0 || c <= 0 || wh < 1 || ww < 1 || wh > kMaxWindow ||
-      ww > kMaxWindow || wh > h || ww > w)
+  // a slot index and the none code fit a 16-bit lane
+  if (n <= 0 || c <= 0 || wh < 1 || ww < 1 || wh > h || ww > w ||
+      wh * ww >= 0xffff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -67,13 +67,14 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
 
     ``'xla'``: plain.  ``'flash'``: always the flash path (its plain
     versions on the CPU).  ``'auto'``: flash when the stack lives on an
-    sm_90 card and ``seq_len >= flash_min_seq`` (the JAX gate), the kernels
-    taking every head dim up to 256 (32, 64, 128 and 256 compiled, the
-    rest zero-padded to the next: ``kernel_tiles``); a head dim above 256
-    or configured tiles the kernels lack keep the plain path under
-    ``'auto'`` and raise under ``'flash'`` on the card.  Attention-weight
-    dropout needs ``flash_backward='pallas'``: forcing ``'flash'`` with
-    another backward raises, ``'auto'`` falls back to the plain path.
+    sm_90 card and ``seq_len >= flash_min_seq`` (the JAX gate), at every
+    head dim (the kernels of ``csrc/flash_attention.cu`` up to 256, those of
+    ``csrc/flash_attention_wide.cu`` above).  ``flash_block_q/k`` are the
+    TPU kernels' tiles: the hook runs at the card's tiles
+    (``kernel_tiles``), on the CPU too, so the stack computes the same
+    whatever tiles its config names.  Attention-weight dropout needs
+    ``flash_backward='pallas'``: forcing ``'flash'`` with another backward
+    raises, ``'auto'`` falls back to the plain path.
     ``flash_backward='xla'`` runs the forward kernel that saves no LSE and
     recomputes the gradients through the plain attention.  With a real
     ``device`` the mask's device tables are built here, once."""
@@ -94,27 +95,11 @@ def select_attention_fn(cfg: TransformerConfig, mask_np: np.ndarray,
                 "flash_backward='pallas', set attention.dropout_rate=0.0, "
                 "or use attention_impl='auto'/'xla'.")
         return None
-    from ..ops.flash_attention import (KERNEL_TILES, kernel_tiles,
-                                       make_attention_fn)
-    head_dim = cfg.attention.qkv_features // cfg.attention.num_heads
-    tiles = kernel_tiles(head_dim)
-    compiled = tiles is not None and all(
-        b in (0, t) for b, t in zip((cfg.flash_block_q, cfg.flash_block_k),
-                                    tiles))
-    if cfg.attention_impl == "auto":
-        if (seq_len < cfg.flash_min_seq or not kernel_device(device)
-                or not compiled):
-            return None
-    elif not compiled and kernel_device(device):
-        raise ValueError(
-            f"attention_impl='flash': the kernels take head dims up to "
-            f"{max(KERNEL_TILES)} (compiled at {KERNEL_TILES}, the others "
-            f"padded to the next) at those tiles; got head dim {head_dim} "
-            f"with tiles ({cfg.flash_block_q or 'auto'}, "
-            f"{cfg.flash_block_k or 'auto'}).")
-    fn = make_attention_fn(mask_np, block_q=cfg.flash_block_q or None,
-                           block_k=cfg.flash_block_k or None,
-                           backward=cfg.flash_backward,
+    if cfg.attention_impl == "auto" and (seq_len < cfg.flash_min_seq
+                                         or not kernel_device(device)):
+        return None
+    from ..ops.flash_attention import make_attention_fn
+    fn = make_attention_fn(mask_np, backward=cfg.flash_backward,
                            dropout_rate=dropout_rate)
     if device is not None and torch.device(device).type != "meta":
         fn.tables_for(cfg.attention.qkv_features // cfg.attention.num_heads,

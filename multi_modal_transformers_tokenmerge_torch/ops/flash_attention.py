@@ -14,12 +14,19 @@ the design answers.
   from the kernel bodies: the same tiles, online softmax and rounding
   points) for CPU tensors, launch the kernel for tensors on an sm_90 card,
   and raise for anything else.  Each counts its kernel launches in
-  ``.launches``.  The kernels are compiled for head dims 32, 64, 128 and
-  256 (``KERNEL_TILES``); on the card every other head dim up to 256 runs
-  at the next compiled one (:func:`at_compiled_dim`: operands zero-padded
-  along D, the true 1/sqrt(D) as the scale, outputs cut back), and a head
-  dim above 256 raises.  The two forwards run on the tensor cores in bf16 and
-  fp16 and on the CUDA cores in float32.  ``out_dtype=torch.float32``
+  ``.launches``.  The kernels of ``csrc/flash_attention.cu`` are compiled
+  for head dims 32, 64, 128 and 256 (``KERNEL_TILES``); on the card every
+  other head dim up to 256 runs at the next compiled one
+  (:func:`at_compiled_dim`: operands zero-padded along D, the true
+  1/sqrt(D) as the scale, outputs cut back).  Above 256 each wrapper hands
+  the call to its wide counterpart (:func:`flash_fwd_wide`,
+  :func:`flash_fwd_lse_wide`, :func:`flash_dq_wide`, :func:`flash_dkv_wide`,
+  counted apart), the kernels of ``csrc/flash_attention_wide.cu``, which
+  take any multiple of 64 (``WIDE_TILES``; other head dims zero-padded to
+  the next one) and cut D into reduction chunks and output slices; their
+  plain versions (``flash_*_wide_reference``) compute the same way.  The
+  forwards run on the tensor cores in bf16 and fp16 and on the CUDA cores
+  in float32.  ``out_dtype=torch.float32``
   makes :func:`flash_fwd_lse`, :func:`flash_dq` and :func:`flash_dkv` (and
   :func:`flash_bwd`, the pair) write their outputs in float32 for 16-bit
   inputs, unrounded: the ring-attention steps' partials.
@@ -28,7 +35,12 @@ the design answers.
   can carry.
 * The mask and the skip tables are device tensors (``mask_i8`` padded to the
   tiles, ``k_hi`` per q tile, ``q_lo`` per k tile), cached per (mask digest,
-  tiles, device), so the ring-attention path can later pass its own.
+  tiles, device), so the ring-attention path can later pass its own.  On a
+  CUDA device :func:`flash_attention` and the hook of
+  :func:`make_attention_fn` build them at the card's tiles
+  (:func:`run_tiles`) whatever tiles they are handed: those are the TPU
+  kernels' (``flash_block_q/k``), and the function does not depend on them
+  (the dropout counter is per element).
 * Dropout of the attention weights is rebuilt, not copied: the TPU kernel
   re-seeds its hardware PRNG per tile, a stream nothing else reproduces.
   Here the keep bit of element (b, h, row, col) is word ``col & 3`` of
@@ -77,13 +89,27 @@ __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "flash_dq_reference", "flash_dkv_reference", "attention_delta",
            "xla_reference_attention", "tile_skip_tables", "mask_tables",
            "device_tables", "dropout_threshold", "dropout_keep_mask",
-           "KERNEL_TILES", "compiled_head_dim", "kernel_tiles",
-           "at_compiled_dim"]
+           "KERNEL_TILES", "WIDE_TILES", "WIDE_CHUNK", "WIDE_CHUNKS",
+           "WIDE_SLICES",
+           "compiled_head_dim", "is_wide", "kernel_tiles", "run_tiles",
+           "at_compiled_dim", "flash_fwd_wide", "flash_fwd_lse_wide",
+           "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_reference",
+           "flash_fwd_lse_wide_reference", "flash_dq_wide_reference",
+           "flash_dkv_wide_reference"]
 
 NEG_INF = -1e30
 # head_dim -> (block_q, block_k) compiled into csrc/flash_attention.cu
 # (Traits<D>); other head dims up to the largest run padded to the next one
 KERNEL_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (32, 32)}
+# csrc/flash_attention_wide.cu, every head dim above the largest of
+# KERNEL_TILES: its tiles, the multiple of 64 a head dim is padded to, and
+# by kernel the columns of a reduction chunk over D and the output columns
+# of a slice a block owns (16-bit; the float32 kernels cut chunks and
+# slices of 64)
+WIDE_TILES = (64, 64)
+WIDE_CHUNK = 64
+WIDE_CHUNKS = {"fwd": 64, "dq": 32, "dkv": 64}
+WIDE_SLICES = {"fwd": 128, "dq": 128, "dkv": 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -171,32 +197,45 @@ def device_tables(mask: np.ndarray, block_q: int, block_k: int, device):
     return tables
 
 
+def is_wide(head_dim: int) -> bool:
+    """Whether ``head_dim`` runs on the wide kernels (above 256)."""
+    return head_dim > max(KERNEL_TILES)
+
+
 def compiled_head_dim(head_dim: int) -> int:
-    """The compiled head dim the kernels run ``head_dim`` at: itself, or
-    the next one of ``KERNEL_TILES`` up, to which the operands are
-    zero-padded.  Raises above the largest."""
-    for d in sorted(KERNEL_TILES):
-        if 0 < head_dim <= d:
-            return d
-    raise ValueError(f"head dim {head_dim}: the kernels take head dims 1 to "
-                     f"{max(KERNEL_TILES)} (compiled {sorted(KERNEL_TILES)}, "
-                     f"the rest zero-padded to the next one)")
+    """The head dim the kernels run ``head_dim`` at: itself, or the next
+    one up to which the operands are zero-padded: up to 256 the next of
+    ``KERNEL_TILES``, above it the next multiple of ``WIDE_CHUNK``."""
+    if head_dim <= 0:
+        raise ValueError(f"head dim {head_dim}: the kernels take any head "
+                         f"dim from 1")
+    if is_wide(head_dim):
+        return WIDE_CHUNK * -(-head_dim // WIDE_CHUNK)
+    return min(d for d in KERNEL_TILES if head_dim <= d)
 
 
 def kernel_tiles(head_dim: int) -> Optional[Tuple[int, int]]:
     """The tiles the card's kernels take at ``head_dim`` (those of
-    :func:`compiled_head_dim`), or None above the largest compiled dim."""
-    if not 0 < head_dim <= max(KERNEL_TILES):
+    :func:`compiled_head_dim`; ``WIDE_TILES`` above 256), or None for a
+    head dim below 1."""
+    if head_dim <= 0:
         return None
+    if is_wide(head_dim):
+        return WIDE_TILES
     return KERNEL_TILES[compiled_head_dim(head_dim)]
 
 
-def _auto_blocks(head_dim: int) -> Tuple[int, int]:
-    """The default tiles: :func:`kernel_tiles` (a head dim the kernels
-    lack runs padded to the next compiled one, at that one's tiles; see the
-    source note of csrc/flash_attention.cu); 64 x 64 above the largest
-    compiled dim, which the plain versions take and the card refuses."""
-    return kernel_tiles(head_dim) or (64, 64)
+def run_tiles(head_dim: int, device, block_q: Optional[int] = None,
+              block_k: Optional[int] = None) -> Tuple[int, int]:
+    """The tiles a call at ``head_dim`` on ``device`` runs at: on a CUDA
+    device the card's (:func:`kernel_tiles`), whatever it is handed, since
+    configured tiles are the TPU kernels' (``flash_block_q/k``) and the
+    function does not depend on them; elsewhere ``block_q``/``block_k``
+    where given (the plain versions take any tiles), else the card's."""
+    tiles = kernel_tiles(head_dim)
+    if torch.device(device).type == "cuda":
+        return tiles
+    return block_q or tiles[0], block_k or tiles[1]
 
 
 def at_compiled_dim(fn, operands, *rest, **kw):
@@ -283,10 +322,36 @@ def _rows(i: int, block: int, device) -> torch.Tensor:
     return torch.arange(i * block, (i + 1) * block, device=device)
 
 
+def _logits(a, b, chunk=None):
+    """a b^T of float32 (B, H, M, D) and (B, H, N, D): in one product, or,
+    with ``chunk``, summed over D chunk by chunk in order (the wide
+    kernels' accumulation)."""
+    if chunk is None:
+        return a @ b.transpose(-1, -2)
+    s = None
+    for c0 in range(0, a.shape[-1], chunk):
+        part = a[..., c0:c0 + chunk] @ b[..., c0:c0 + chunk].transpose(-1, -2)
+        s = part if s is None else s + part
+    return s
+
+
+def _slices(d: int, width: Optional[int]):
+    """The output column slices a kernel's blocks own: one, or ``width``
+    columns each (the last may be narrower)."""
+    if width is None:
+        return [slice(None)]
+    return [slice(c0, min(c0 + width, d)) for c0 in range(0, d, width)]
+
+
 def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
-                   dropout_rate, b0=0, h0=0, heads_total=None, scale=None):
+                   dropout_rate, b0=0, h0=0, heads_total=None, scale=None,
+                   chunk=None, slice_width=None):
     """The forward kernels' loop: float32 (out (B, H, S_pad, D), running
-    max m, running sum l clamped at 1e-30 (B, H, S_pad, 1))."""
+    max m, running sum l clamped at 1e-30 (B, H, S_pad, 1)).  ``chunk`` and
+    ``slice_width`` cut D as the wide kernels do: the logits summed over
+    the chunks in order, the output accumulated slice by slice (each of
+    the kernels' slice blocks recomputes the same logits, bitwise equal, so
+    they are computed once here)."""
     b, s, h, d = q.shape
     s_pad = mask_i8.shape[0]
     scale = scale or 1.0 / math.sqrt(d)
@@ -295,6 +360,7 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
     out = torch.zeros(b, h, s_pad, d, device=q.device)
     m_all = torch.empty(b, h, s_pad, 1, device=q.device)
     l_all = torch.empty(b, h, s_pad, 1, device=q.device)
+    slices = _slices(d, slice_width)
     for qi, hi in enumerate(k_hi.tolist()):
         rq = slice(qi * block_q, (qi + 1) * block_q)
         m = torch.full((b, h, block_q, 1), NEG_INF, device=q.device)
@@ -302,7 +368,7 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
         acc = torch.zeros((b, h, block_q, d), device=q.device)
         for ki in range(hi):
             rk = slice(ki * block_k, (ki + 1) * block_k)
-            sc = (qf[:, :, rq] @ kf[:, :, rk].transpose(-1, -2)) * scale
+            sc = _logits(qf[:, :, rq], kf[:, :, rk], chunk) * scale
             sc = torch.where(mask_i8[rq, rk] != 0, sc, NEG_INF)
             m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
             p = torch.exp(sc - torch.clamp_min(m_new, 0.5 * NEG_INF))
@@ -314,7 +380,10 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
                                          _rows(ki, block_k, q.device),
                                          dropout_rate, b0, h0, heads_total)
                 p = torch.where(keep, p, 0.0) * inv_keep
-            acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, rk]
+            pv = p.to(v.dtype).float()
+            for cols in slices:
+                acc[..., cols] = acc[..., cols] * alpha + pv @ vf[:, :, rk,
+                                                                  cols]
             m = m_new
         l_safe = torch.clamp_min(l, 1e-30)
         out[:, :, rq] = acc / l_safe
@@ -324,7 +393,9 @@ def _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q, block_k,
 
 
 def flash_fwd_reference(q, k, v, mask_i8, k_hi, *, block_q: int,
-                        block_k: int, scale: Optional[float] = None):
+                        block_k: int, scale: Optional[float] = None,
+                        chunk: Optional[int] = None,
+                        slice_width: Optional[int] = None):
     """Plain version of the forward kernel without LSE or dropout (the JAX
     package's ``_flash_kernel``).
 
@@ -335,9 +406,12 @@ def flash_fwd_reference(q, k, v, mask_i8, k_hi, *, block_q: int,
     sum in float32 over the key tiles below ``k_hi``, the reference of the
     exponent clamped at -5e29 so a row with no live key keeps p = 0; p cast
     to v's dtype before P V; ``acc / max(l, 1e-30)`` in q's dtype, zeros for
-    dead rows.  Returns ``out`` (B, S, H, D)."""
+    dead rows.  ``chunk`` and ``slice_width`` compute it the way the wide
+    kernels do (:func:`flash_fwd_wide_reference`).  Returns ``out`` (B, S,
+    H, D)."""
     out, _, _ = _forward_tiles(q, k, v, mask_i8, k_hi, None, block_q,
-                               block_k, 0.0, scale=scale)
+                               block_k, 0.0, scale=scale, chunk=chunk,
+                               slice_width=slice_width)
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -354,7 +428,9 @@ def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
                             dropout_rate: float = 0.0, out_dtype=None,
                             b0: int = 0, h0: int = 0,
                             heads_total: Optional[int] = None,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            chunk: Optional[int] = None,
+                            slice_width: Optional[int] = None):
     """Plain version of the forward kernel with LSE.
 
     Arguments as :func:`flash_fwd_reference`; ``seed`` (2,) int64 words,
@@ -367,7 +443,7 @@ def flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed=None, *,
     dtype = _out_dtype(q, out_dtype)
     out, m, l_safe = _forward_tiles(q, k, v, mask_i8, k_hi, seed, block_q,
                                     block_k, dropout_rate, b0, h0,
-                                    heads_total, scale)
+                                    heads_total, scale, chunk, slice_width)
     lse = (m + torch.log(l_safe))[..., 0]
     return out[:, :, :q.shape[1]].permute(0, 2, 1, 3).to(dtype), lse
 
@@ -380,10 +456,10 @@ def attention_delta(do: torch.Tensor, out: torch.Tensor,
     return F.pad(delta, (0, s_pad - delta.shape[-1])).contiguous()
 
 
-def _probs(qf, kf, lse, mask_i8, rq, rk, scale):
+def _probs(qf, kf, lse, mask_i8, rq, rk, scale, chunk=None):
     """exp(s - lse) of the live rows, 0 elsewhere (the backward kernels'
     recomputed weights)."""
-    sc = (qf[:, :, rq] @ kf[:, :, rk].transpose(-1, -2)) * scale
+    sc = _logits(qf[:, :, rq], kf[:, :, rk], chunk) * scale
     sc = torch.where(mask_i8[rq, rk] != 0, sc, NEG_INF)
     row_lse = lse[:, :, rq, None]
     return torch.where(row_lse > 0.25 * NEG_INF, torch.exp(sc - row_lse),
@@ -395,11 +471,14 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                        dropout_rate: float = 0.0, out_dtype=None,
                        b0: int = 0, h0: int = 0,
                        heads_total: Optional[int] = None,
-                       scale: Optional[float] = None):
+                       scale: Optional[float] = None,
+                       chunk: Optional[int] = None,
+                       slice_width: Optional[int] = None):
     """Plain version of the dq kernel: per q tile over the key tiles below
     ``k_hi``, ``p = exp(s - lse)`` on live rows, ``dp = dO V^T`` (kept and
     rescaled under dropout), ``ds = p (dp - delta)`` cast to k's dtype,
     ``dq = sm_scale * ds K`` (sm_scale: ``scale``, default 1/sqrt(D)).
+    ``chunk`` and ``slice_width`` compute it the way the wide kernels do.
     Returns dq (B, S, H, D) in q's dtype, or float32 with
     ``out_dtype=torch.float32``."""
     dtype = _out_dtype(q, out_dtype)
@@ -409,13 +488,14 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
     qf, kf, vf, dof = (_heads_first(x, s_pad) for x in (q, k, v, do))
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     dq = torch.zeros(b, h, s_pad, d, device=q.device)
+    slices = _slices(d, slice_width)
     for qi, hi in enumerate(k_hi.tolist()):
         rq = slice(qi * block_q, (qi + 1) * block_q)
         acc = torch.zeros((b, h, block_q, d), device=q.device)
         for ki in range(hi):
             rk = slice(ki * block_k, (ki + 1) * block_k)
-            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale)
-            dp = dof[:, :, rq] @ vf[:, :, rk].transpose(-1, -2)
+            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale, chunk)
+            dp = _logits(dof[:, :, rq], vf[:, :, rk], chunk)
             if dropout_rate > 0:
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
@@ -423,7 +503,8 @@ def flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                                          dropout_rate, b0, h0, heads_total)
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             ds = (p * (dp - delta[:, :, rq, None])).to(k.dtype).float()
-            acc = acc + ds @ kf[:, :, rk]
+            for cols in slices:
+                acc[..., cols] = acc[..., cols] + ds @ kf[:, :, rk, cols]
         dq[:, :, rq] = acc * scale
     return dq[:, :, :s].permute(0, 2, 1, 3).to(dtype)
 
@@ -433,11 +514,14 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                         dropout_rate: float = 0.0, out_dtype=None,
                         b0: int = 0, h0: int = 0,
                         heads_total: Optional[int] = None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        chunk: Optional[int] = None,
+                        slice_width: Optional[int] = None):
     """Plain version of the dk/dv kernel: per key tile over the q tiles
     from ``q_lo``, ``dv += (keep p / (1 - r))^T dO`` with the weights cast
     to dO's dtype, ``dk += ds^T Q`` with ``ds`` cast to q's dtype, dk times
-    sm_scale.  Returns (dk, dv) (B, S, H, D) in k's and v's dtypes, or
+    sm_scale.  ``chunk`` and ``slice_width`` compute it the way the wide
+    kernels do.  Returns (dk, dv) (B, S, H, D) in k's and v's dtypes, or
     float32 with ``out_dtype=torch.float32``."""
     _out_dtype(q, out_dtype)
     b, s, h, d = q.shape
@@ -448,14 +532,15 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     dk = torch.zeros(b, h, s_pad, d, device=q.device)
     dv = torch.zeros(b, h, s_pad, d, device=q.device)
+    slices = _slices(d, slice_width)
     for ki, lo in enumerate(q_lo.tolist()):
         rk = slice(ki * block_k, (ki + 1) * block_k)
         acc_k = torch.zeros((b, h, block_k, d), device=q.device)
         acc_v = torch.zeros((b, h, block_k, d), device=q.device)
         for qi in range(lo, num_q):
             rq = slice(qi * block_q, (qi + 1) * block_q)
-            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale)
-            dp = dof[:, :, rq] @ vf[:, :, rk].transpose(-1, -2)
+            p = _probs(qf, kf, lse, mask_i8, rq, rk, scale, chunk)
+            dp = _logits(dof[:, :, rq], vf[:, :, rk], chunk)
             if dropout_rate > 0:
                 keep = dropout_keep_mask(seed, b, h,
                                          _rows(qi, block_q, q.device),
@@ -465,15 +550,58 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
                 dp = torch.where(keep, dp, 0.0) * inv_keep
             else:
                 p_drop = p
-            acc_v = acc_v + (p_drop.to(do.dtype).float().transpose(-1, -2)
-                             @ dof[:, :, rq])
+            pt = p_drop.to(do.dtype).float().transpose(-1, -2)
             ds = (p * (dp - delta[:, :, rq, None])).to(q.dtype).float()
-            acc_k = acc_k + ds.transpose(-1, -2) @ qf[:, :, rq]
+            for cols in slices:
+                acc_v[..., cols] = acc_v[..., cols] + pt @ dof[:, :, rq, cols]
+                acc_k[..., cols] = (acc_k[..., cols]
+                                    + ds.transpose(-1, -2) @ qf[:, :, rq,
+                                                                cols])
         dk[:, :, rk] = acc_k * scale
         dv[:, :, rk] = acc_v
     unflat = lambda x, like: x[:, :, :s].permute(0, 2, 1, 3).to(
         _out_dtype(like, out_dtype))
     return unflat(dk, k), unflat(dv, v)
+
+
+def _wide_kw(kind, dtype):
+    """The wide kernel's cut of D for a plain version: its reduction chunks
+    and output slices (64 columns each in float32)."""
+    if dtype == torch.float32:
+        return dict(chunk=64, slice_width=64)
+    return dict(chunk=WIDE_CHUNKS[kind], slice_width=WIDE_SLICES[kind])
+
+
+def flash_fwd_wide_reference(q, k, v, mask_i8, k_hi, **kw):
+    """:func:`flash_fwd_reference` computed the way the wide forward kernel
+    does: logits summed over D in its chunks (``WIDE_CHUNKS``), in order,
+    and the output in slices (``WIDE_SLICES``), each recomputing them."""
+    return flash_fwd_reference(q, k, v, mask_i8, k_hi,
+                               **_wide_kw("fwd", q.dtype), **kw)
+
+
+def flash_fwd_lse_wide_reference(q, k, v, mask_i8, k_hi, seed=None, **kw):
+    """:func:`flash_fwd_lse_reference` the way the wide kernel computes
+    it (as :func:`flash_fwd_wide_reference`)."""
+    return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
+                                   **_wide_kw("fwd", q.dtype), **kw)
+
+
+def flash_dq_wide_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
+                            seed=None, **kw):
+    """:func:`flash_dq_reference` the way the wide kernel computes it:
+    logits and dO V^T summed over D in chunks, dQ in slices."""
+    return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed,
+                              **_wide_kw("dq", q.dtype), **kw)
+
+
+def flash_dkv_wide_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
+                             seed=None, **kw):
+    """:func:`flash_dkv_reference` the way the wide kernel computes it:
+    the transposed logits and dP summed over D in chunks, dK and dV in
+    slices."""
+    return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed,
+                               **_wide_kw("dkv", q.dtype), **kw)
 
 
 def xla_reference_attention(q, k, v, mask_bool: torch.Tensor, *,
@@ -500,9 +628,12 @@ def xla_reference_attention(q, k, v, mask_bool: torch.Tensor, *,
 
 # -- kernel wrappers --------------------------------------------------------------
 
-def _library():
-    """The kernel library with its C signatures declared."""
-    lib = _build.load_library("flash_attention")
+def _library(wide: bool = False):
+    """The kernel library (``csrc/flash_attention.cu``, or
+    ``csrc/flash_attention_wide.cu`` with ``wide``) with its C signatures
+    declared; both take the same arguments."""
+    lib = _build.load_library("flash_attention_wide" if wide
+                              else "flash_attention")
     if not getattr(lib, "_signatures_set", False):
         vp, ci, cf, cu = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
@@ -510,15 +641,19 @@ def _library():
         # inv_keep, threshold, dropout, out_f32, b0, h0, heads_total, stream
         tail = [ci] * 6 + [cf, cf, cu, ci, ci, ci, ci, ci, vp]
         # no seed, no LSE, no dropout arguments
-        lib.flash_fwd_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
-        lib.flash_fwd_lse_launch.argtypes = [vp] * 8 + tail
-        lib.flash_dq_launch.argtypes = [vp] * 10 + tail
-        lib.flash_dkv_launch.argtypes = [vp] * 11 + tail
-        for fn in (lib.flash_fwd_launch, lib.flash_fwd_lse_launch,
-                   lib.flash_dq_launch, lib.flash_dkv_launch):
-            fn.restype = ci
-        lib.flash_error_string.argtypes = [ci]
-        lib.flash_error_string.restype = ctypes.c_char_p
+        args = {"flash_fwd": [vp] * 6 + [ci] * 6 + [cf, vp],
+                "flash_fwd_lse": [vp] * 8 + tail,
+                "flash_dq": [vp] * 10 + tail,
+                "flash_dkv": [vp] * 11 + tail}
+        lib.launch = {}
+        for kernel, types in args.items():
+            fn = getattr(lib, f"{kernel}{'_wide' if wide else ''}_launch")
+            fn.argtypes, fn.restype = types, ci
+            lib.launch[kernel] = fn
+        lib.error_string = (lib.flash_wide_error_string if wide
+                            else lib.flash_error_string)
+        lib.error_string.argtypes = [ci]
+        lib.error_string.restype = ctypes.c_char_p
         lib._signatures_set = True
     return lib
 
@@ -527,13 +662,14 @@ def _prepare(name, q, k, v, others, mask_i8, table, seed, block_q, block_k,
              dropout_rate, scale):
     """Check what the kernel takes and return its scalar arguments."""
     b, s, h, d = q.shape
-    if d not in KERNEL_TILES:
-        raise ValueError(f"{name}: head dim {d} not compiled; the kernel "
-                         f"takes {sorted(KERNEL_TILES)}")
-    if (block_q, block_k) != KERNEL_TILES[d]:
+    if d <= 0 or compiled_head_dim(d) != d:
+        raise ValueError(f"{name}: head dim {d} not compiled; the kernels "
+                         f"take {sorted(KERNEL_TILES)} and the multiples of "
+                         f"{WIDE_CHUNK} above {max(KERNEL_TILES)}")
+    if (block_q, block_k) != kernel_tiles(d):
         raise ValueError(f"{name}: tiles ({block_q}, {block_k}) at head dim "
                          f"{d}; the kernel is compiled for "
-                         f"{KERNEL_TILES[d]}")
+                         f"{kernel_tiles(d)}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {q.dtype}")
     for t in (k, v, *others):
@@ -569,20 +705,40 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_rc(lib, name, rc):
+def _launch(kernel, d, *args):
+    """Launch ``kernel`` of the library of head dim ``d`` (the wide one
+    above 256) and count it in its wrapper's ``.launches``."""
+    wide = is_wide(d)
+    lib = _library(wide)
+    rc = lib.launch[kernel](*args)
+    name = f"{kernel}_wide" if wide else kernel
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.flash_error_string(rc).decode()}")
+                           f"{lib.error_string(rc).decode()}")
+    _WRAPPERS[name].launches += 1
 
 
 def flash_fwd(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
     """Forward without LSE or dropout; arguments and result as for
     :func:`flash_fwd_reference`.  CPU tensors take the plain version; on a
     CUDA device this launches the kernel (at :func:`compiled_head_dim`) or
-    raises."""
+    raises.  Above head dim 256 it is :func:`flash_fwd_wide`."""
+    if is_wide(q.shape[-1]):
+        return flash_fwd_wide(q, k, v, mask_i8, k_hi, block_q=block_q,
+                              block_k=block_k)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, mask_i8, k_hi, block_q=block_q,
                                    block_k=block_k)
+    return at_compiled_dim(_launch_fwd, (q, k, v), mask_i8, k_hi,
+                           block_q=block_q, block_k=block_k)
+
+
+def flash_fwd_wide(q, k, v, mask_i8, k_hi, *, block_q: int, block_k: int):
+    """:func:`flash_fwd` by the wide kernel (head dims above 256): its
+    plain version :func:`flash_fwd_wide_reference` for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_fwd_wide_reference(q, k, v, mask_i8, k_hi,
+                                        block_q=block_q, block_k=block_k)
     return at_compiled_dim(_launch_fwd, (q, k, v), mask_i8, k_hi,
                            block_q=block_q, block_k=block_k)
 
@@ -592,11 +748,9 @@ def _launch_fwd(q, k, v, mask_i8, k_hi, *, block_q, block_k, scale):
     args = _prepare("flash_fwd", q, k, v, (), mask_i8, k_hi, None, block_q,
                     block_k, 0.0, scale)
     out = torch.empty_like(q)
-    lib = _library()
-    _check_rc(lib, "flash_fwd", lib.flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
-        k_hi.data_ptr(), out.data_ptr(), *args[:7], args[-1]))
-    flash_fwd.launches += 1
+    _launch("flash_fwd", args[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask_i8.data_ptr(), k_hi.data_ptr(), out.data_ptr(), *args[:7],
+            args[-1])
     return out
 
 
@@ -621,29 +775,40 @@ def flash_fwd_lse(q, k, v, mask_i8, k_hi, seed=None, *, block_q: int,
     """Forward with LSE; arguments and results as for
     :func:`flash_fwd_lse_reference`.  CPU tensors take the plain version; on
     a CUDA device this launches the kernel (at :func:`compiled_head_dim`)
-    or raises."""
+    or raises.  Above head dim 256 it is :func:`flash_fwd_lse_wide`."""
     kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
               out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
+    if is_wide(q.shape[-1]):
+        return flash_fwd_lse_wide(q, k, v, mask_i8, k_hi, seed, **kw)
     if q.device.type == "cpu":
         return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed, **kw)
     return at_compiled_dim(_launch_fwd_lse, (q, k, v), mask_i8, k_hi, seed,
                            **kw)
 
 
+def flash_fwd_lse_wide(q, k, v, mask_i8, k_hi, seed=None, **kw):
+    """:func:`flash_fwd_lse` by the wide kernel (head dims above 256): its
+    plain version :func:`flash_fwd_lse_wide_reference` for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_fwd_lse_wide_reference(q, k, v, mask_i8, k_hi, seed,
+                                            **kw)
+    return at_compiled_dim(_launch_fwd_lse, (q, k, v), mask_i8, k_hi, seed,
+                           **kw)
+
+
 def _launch_fwd_lse(q, k, v, mask_i8, k_hi, seed, *, block_q, block_k,
-                    dropout_rate, out_dtype, b0, h0, heads_total, scale):
+                    scale, dropout_rate=0.0, out_dtype=None, b0=0, h0=0,
+                    heads_total=None):
     q, k, v = (x.contiguous() for x in (q, k, v))
     args = _prepare("flash_fwd_lse", q, k, v, (), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate, scale)
     b, _, h, _, s_pad = args[:5]
     out = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lse = torch.empty(b, h, s_pad, device=q.device, dtype=torch.float32)
-    lib = _library()
-    _check_rc(lib, "flash_fwd_lse", lib.flash_fwd_lse_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(),
-        k_hi.data_ptr(), _ptr(seed), out.data_ptr(), lse.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
-    flash_fwd_lse.launches += 1
+    _launch("flash_fwd_lse", args[3], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), mask_i8.data_ptr(), k_hi.data_ptr(), _ptr(seed),
+            out.data_ptr(), lse.data_ptr(),
+            *_launch_tail(args, q, out_dtype, b0, h0, heads_total))
     return out, lse
 
 
@@ -651,9 +816,13 @@ def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
              block_q: int, block_k: int, dropout_rate: float = 0.0,
              out_dtype=None, b0: int = 0, h0: int = 0,
              heads_total: Optional[int] = None):
-    """dQ; arguments and result as for :func:`flash_dq_reference`."""
+    """dQ; arguments and result as for :func:`flash_dq_reference`.  Above
+    head dim 256 it is :func:`flash_dq_wide`."""
     kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
               out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
+    if is_wide(q.shape[-1]):
+        return flash_dq_wide(q, k, v, do, lse, delta, mask_i8, k_hi, seed,
+                             **kw)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
                                   seed, **kw)
@@ -661,20 +830,28 @@ def flash_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, *,
                            k_hi, seed, **kw)
 
 
+def flash_dq_wide(q, k, v, do, lse, delta, mask_i8, k_hi, seed=None, **kw):
+    """:func:`flash_dq` by the wide kernel (head dims above 256): its plain
+    version :func:`flash_dq_wide_reference` for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_dq_wide_reference(q, k, v, do, lse, delta, mask_i8,
+                                       k_hi, seed, **kw)
+    return at_compiled_dim(_launch_dq, (q, k, v, do), lse, delta, mask_i8,
+                           k_hi, seed, **kw)
+
+
 def _launch_dq(q, k, v, do, lse, delta, mask_i8, k_hi, seed, *, block_q,
-               block_k, dropout_rate, out_dtype, b0, h0, heads_total, scale):
+               block_k, scale, dropout_rate=0.0, out_dtype=None, b0=0, h0=0,
+               heads_total=None):
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dq", q, k, v, (do,), mask_i8, k_hi, seed,
                     block_q, block_k, dropout_rate, scale)
     _check_stats(lse, delta, args)
     dq = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
-    lib = _library()
-    _check_rc(lib, "flash_dq", lib.flash_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
-        k_hi.data_ptr(), _ptr(seed), dq.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
-    flash_dq.launches += 1
+    _launch("flash_dq", args[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            mask_i8.data_ptr(), k_hi.data_ptr(), _ptr(seed), dq.data_ptr(),
+            *_launch_tail(args, q, out_dtype, b0, h0, heads_total))
     return dq
 
 
@@ -682,9 +859,13 @@ def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
               block_q: int, block_k: int, dropout_rate: float = 0.0,
               out_dtype=None, b0: int = 0, h0: int = 0,
               heads_total: Optional[int] = None):
-    """(dK, dV); arguments and results as for :func:`flash_dkv_reference`."""
+    """(dK, dV); arguments and results as for :func:`flash_dkv_reference`.
+    Above head dim 256 it is :func:`flash_dkv_wide`."""
     kw = dict(block_q=block_q, block_k=block_k, dropout_rate=dropout_rate,
               out_dtype=out_dtype, b0=b0, h0=h0, heads_total=heads_total)
+    if is_wide(q.shape[-1]):
+        return flash_dkv_wide(q, k, v, do, lse, delta, mask_i8, q_lo, seed,
+                              **kw)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
                                    seed, **kw)
@@ -692,22 +873,30 @@ def flash_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, *,
                            q_lo, seed, **kw)
 
 
+def flash_dkv_wide(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None, **kw):
+    """:func:`flash_dkv` by the wide kernel (head dims above 256): its
+    plain version :func:`flash_dkv_wide_reference` for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_dkv_wide_reference(q, k, v, do, lse, delta, mask_i8,
+                                        q_lo, seed, **kw)
+    return at_compiled_dim(_launch_dkv, (q, k, v, do), lse, delta, mask_i8,
+                           q_lo, seed, **kw)
+
+
 def _launch_dkv(q, k, v, do, lse, delta, mask_i8, q_lo, seed, *, block_q,
-                block_k, dropout_rate, out_dtype, b0, h0, heads_total,
-                scale):
+                block_k, scale, dropout_rate=0.0, out_dtype=None, b0=0,
+                h0=0, heads_total=None):
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     args = _prepare("flash_dkv", q, k, v, (do,), mask_i8, q_lo, seed,
                     block_q, block_k, dropout_rate, scale)
     _check_stats(lse, delta, args)
     dk = torch.empty_like(k, dtype=_out_dtype(k, out_dtype))
     dv = torch.empty_like(v, dtype=_out_dtype(v, out_dtype))
-    lib = _library()
-    _check_rc(lib, "flash_dkv", lib.flash_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), mask_i8.data_ptr(),
-        q_lo.data_ptr(), _ptr(seed), dk.data_ptr(), dv.data_ptr(),
-        *_launch_tail(args, q, out_dtype, b0, h0, heads_total)))
-    flash_dkv.launches += 1
+    _launch("flash_dkv", args[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            mask_i8.data_ptr(), q_lo.data_ptr(), _ptr(seed), dk.data_ptr(),
+            dv.data_ptr(),
+            *_launch_tail(args, q, out_dtype, b0, h0, heads_total))
     return dk, dv
 
 
@@ -735,8 +924,11 @@ def _check_stats(lse, delta, args):
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
 
 
-flash_fwd.launches = 0
-flash_fwd_lse.launches = 0
+_WRAPPERS = {f.__name__: f for f in (
+    flash_fwd, flash_fwd_lse, flash_dq, flash_dkv, flash_fwd_wide,
+    flash_fwd_lse_wide, flash_dq_wide, flash_dkv_wide)}
+for _wrapper in _WRAPPERS.values():
+    _wrapper.launches = 0
 
 
 @torch.library.custom_op("tokenmerge::flash_fwd", mutates_args=())
@@ -753,8 +945,6 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @flash_fwd_op.register_fake
 def _(q, k, v, mask_i8, k_hi, block_q, block_k):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
-flash_dq.launches = 0
-flash_dkv.launches = 0
 
 
 # -- differentiable entry -----------------------------------------------------------
@@ -863,13 +1053,12 @@ def flash_attention(q, k, v, mask: np.ndarray, *,
     Philox mask of ``dropout_seed`` ((2,) int64 words on q's device), of
     the rows of the global batch this call holds (``row_offset``) and of
     its heads among all heads (``head_offset``).
-    Tiles default to the kernel's; CPU tensors take the plain versions at
-    any tiles."""
+    Tiles (:func:`run_tiles`): on a CUDA device the card's, whatever is
+    handed in; CPU tensors take the plain versions at any tiles, the
+    card's by default."""
     if not isinstance(mask, np.ndarray):
         raise TypeError("flash_attention requires a static numpy mask")
-    auto_q, auto_k = _auto_blocks(q.shape[-1])
-    block_q = block_q or auto_q
-    block_k = block_k or auto_k
+    block_q, block_k = run_tiles(q.shape[-1], q.device, block_q, block_k)
     dropout_rate = float(dropout_rate)
     _check_mode(backward, dropout_rate)
     return _attend(q, k, v, mask,
@@ -893,7 +1082,8 @@ def make_attention_fn(mask: np.ndarray, *, block_q: Optional[int] = None,
     drops weights in the kernel; without one it runs deterministically.
     The hook owns its mask's device tables: built once per (head dim,
     device), at the first call or ahead of it by ``fn.tables_for(head_dim,
-    device)``, so no call hashes the mask."""
+    device)``, so no call hashes the mask; at :func:`run_tiles` (the
+    card's tiles on a CUDA device, whatever tiles are handed in)."""
     if not isinstance(mask, np.ndarray):
         raise TypeError("flash attention requires a static numpy mask")
     dropout_rate = float(dropout_rate)
@@ -901,8 +1091,7 @@ def make_attention_fn(mask: np.ndarray, *, block_q: Optional[int] = None,
     tables = {}
 
     def tables_for(head_dim: int, device):
-        auto_q, auto_k = _auto_blocks(head_dim)
-        bq, bk = block_q or auto_q, block_k or auto_k
+        bq, bk = run_tiles(head_dim, device, block_q, block_k)
         key = (bq, bk, _resolve_device(device))
         if key not in tables:
             tables[key] = _build_tables(mask, bq, bk, key[2])

@@ -9,8 +9,9 @@ window's float32 max (the tie rule of XLA's ``select_and_scatter``); a
 window holding a NaN drops its gradient, as the JAX kernel does.  The
 kernel, ``csrc/pool_bwd.cu``, reads x and g each in the layout it is
 handed, NCHW or channels_last (the embedder's convolution hands it
-channels_last), and writes dx in x's; its source note says what bounds
-it.
+channels_last), and writes dx in x's, at any window (up to 8 a side on
+the body the 3x3 window is compiled into, wider ones on a second body); its
+source note says what bounds it.
 
 :func:`max_pool_nchw` is the core the NCHW image embedder calls;
 :func:`max_pool_hwcn` keeps the JAX signature on (H, W, C, N) operands.
@@ -36,7 +37,6 @@ __all__ = ["kernel_layout", "max_pool_hwcn", "max_pool_nchw", "pool_bwd",
            "pool_bwd_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_WINDOW = 8        # kMaxWindow in the kernel
 
 
 def _slots(window, out_hw):
@@ -109,9 +109,9 @@ def pool_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
         raise ValueError(f"pool_bwd: dtypes {x.dtype}/{g.dtype}; the kernel "
                          f"takes one of {sorted(map(str, _DTYPE_CODES))}")
-    if not (1 <= wh <= _MAX_WINDOW and 1 <= ww <= _MAX_WINDOW):
-        raise ValueError(f"pool_bwd: window {(wh, ww)} outside "
-                         f"[1, {_MAX_WINDOW}]^2")
+    if not (1 <= wh <= h and 1 <= ww <= w and wh * ww < 0xFFFF):
+        raise ValueError(f"pool_bwd: window {(wh, ww)} does not fit the "
+                         f"{h}x{w} plane (or has 65535 slots or more)")
     if not on_cuda(x, g):
         raise RuntimeError("pool_bwd: the kernel needs both tensors on one "
                            f"sm_90 CUDA device; got {x.device}, {g.device}")

@@ -30,10 +30,11 @@ Two inner blocks:
   per (mask digest, P, tiles, device) and kept on the device.
 
 ``'flash'`` needs shard lengths that the kernel's tiles divide
-(``kernel_tiles``: 64 x 64 at head dims up to 128, 32 x 32 from 129 to
-256, a head dim the kernels lack run zero-padded to the next compiled
-one); ``'auto'`` takes it on an sm_90 card whenever the shard is aligned
-and the head dim at most 256, else the plain block.  chip_smoke.py's ring
+(``kernel_tiles``: 64 x 64 at head dims up to 128 and above 256, 32 x 32
+from 129 to 256, a head dim the kernels lack run zero-padded to the next
+compiled one; on a CUDA device the card's tiles, whatever tiles are handed
+in: ``run_tiles``); ``'auto'`` takes it on an sm_90 card whenever the
+shard is aligned, at every head dim, else the plain block.  chip_smoke.py's ring
 phase (a ring of 4, forward and backward, bf16, B=2, H=12, D=64, causal)
 measured flash ahead of the plain block at every shard it timed, 64 to
 2048 tokens, on an NVIDIA H100 80GB HBM3 at 700 W: 8.45x at 64 and 1.56x
@@ -52,10 +53,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.hw import kernel_device
-from ..ops.flash_attention import (NEG_INF, _auto_blocks, _mask_digest,
-                                   _resolve_device, attention_delta,
-                                   flash_bwd, flash_fwd_lse, kernel_tiles,
-                                   tile_skip_tables)
+from ..ops.flash_attention import (NEG_INF, _mask_digest, _resolve_device,
+                                   attention_delta, flash_bwd, flash_fwd_lse,
+                                   run_tiles, tile_skip_tables)
 from .distributed import GroupRing, LocalRing, Ring
 
 __all__ = ["ring_attention", "ring_of", "ring_tables", "SEQ_AXIS"]
@@ -126,7 +126,8 @@ def ring_attention(q, k, v, mask: np.ndarray, group_or_mesh,
     attend where True.  ``impl``: ``'xla'`` (plain inner block), ``'flash'``
     (the kernels' inner block; raises when the shard length is not a
     multiple of the tiles) or ``'auto'``.  ``block_q``/``block_k``: the
-    flash tiles (default: the kernel's for the head dim).  ``batch_axis``:
+    flash tiles (default, and on a CUDA device always: the kernel's for the
+    head dim).  ``batch_axis``:
     a mesh axis the batch is split over (CP x DP); each data slice then
     runs its own ring over ``axis``, so nothing else changes.  Returns
     (B, S', H, D) in q's dtype."""
@@ -155,11 +156,9 @@ def ring_attention(q, k, v, mask: np.ndarray, group_or_mesh,
             f"silently corrupt attention")
     s_local = s // p
     if impl != "xla":
-        tq, tk = _auto_blocks(d)
-        bq, bk = block_q or tq, block_k or tk
+        bq, bk = run_tiles(d, q.device, block_q, block_k)
         aligned = s_local % bq == 0 and s_local % bk == 0
-        auto_ok = kernel_device(q.device) and kernel_tiles(d) == (bq, bk)
-        if aligned and (impl == "flash" or auto_ok):
+        if aligned and (impl == "flash" or kernel_device(q.device)):
             tables = ring_tables(mask, p, bq, bk, q.device)
             return _RingFlash.apply(q, k, v, ring, tables, bq, bk)
         if impl == "flash":

@@ -590,6 +590,108 @@ def test_pool_bwd_kernel_matches_plain_exactly(card, dtype, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [(9, 9), (3, 12), (16, 16)])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_pool_bwd_kernel_at_windows_above_8(card, window, layout):
+    """Windows past 8 a side run on the kernel's second body: bit for bit
+    with the plain version on tie-heavy bf16 data with a NaN window, dx in
+    x's layout."""
+    from multi_modal_transformers_tokenmerge_torch.ops import pool
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    g = torch.Generator(device=card).manual_seed(1)
+    x = (torch.randn(64, 64, 23, 23, generator=g, device=card) * 2).round()
+    x = (x / 2).to(torch.bfloat16)
+    x[0, 0, 11, 11] = float("nan")
+    oh, ow = 24 - window[0], 24 - window[1]
+    gy = torch.randint(1, 17, (64, 64, oh, ow), generator=g,
+                       device=card).to(torch.bfloat16)
+    x, gy = (t.contiguous(memory_format=fmt) for t in (x, gy))
+    before = pool.pool_bwd.launches
+    dx = pool.pool_bwd(x, gy, window)
+    torch.cuda.synchronize()
+    assert pool.pool_bwd.launches == before + 1
+    assert dx.is_contiguous(memory_format=fmt)
+    assert torch.equal(dx, pool.pool_bwd_reference(x, gy, window))
+
+
+# the wide kernels (csrc/flash_attention_wide.cu): octo_deep_h512's stage 0
+# (B cut from 32), head dims 320, 768 and 300 (run padded to 320)
+WIDE_FLASH_SHAPES = pytest.mark.parametrize("b,seq,h,d", [
+    (4, 224, 3, 512),
+    (2, 224, 8, 320),
+    (2, 224, 1, 768),
+    (2, 224, 8, 300),
+])
+
+
+@pytest.mark.cuda
+@WIDE_FLASH_SHAPES
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wide_flash_kernels_match_plain(card, b, seq, h, d, rate, dtype):
+    """Above head dim 256 the wrappers launch the wide kernels (counted
+    under their own names, no narrow launch), held against the wide plain
+    versions, with dropout and a batch and head offset."""
+    fa, (q, k, v, do), (padded, k_hi, q_lo), seed, (bq, bk) = _flash_case(
+        card, b, seq, h, d, dtype)
+    kw = dict(block_q=bq, block_k=bk, dropout_rate=rate, b0=2, h0=1,
+              heads_total=h + 2)
+    s = seed if rate else None
+    names = ("flash_fwd_lse", "flash_dq", "flash_dkv")
+    before = {n: (getattr(fa, n).launches, getattr(fa, n + "_wide").launches)
+              for n in names}
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, s, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_wide_reference(q, k, v, padded, k_hi, s,
+                                                   **kw)
+    _assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    delta = fa.attention_delta(do, out_p, padded.shape[0])
+    dq = fa.flash_dq(q, k, v, do, lse_p, delta, padded, k_hi, s, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_p, delta, padded, q_lo, s, **kw)
+    torch.cuda.synchronize()
+    assert {n: (getattr(fa, n).launches, getattr(fa, n + "_wide").launches)
+            for n in names} == {n: (a, w + 1)
+                                for n, (a, w) in before.items()}
+    dq_p = fa.flash_dq_wide_reference(q, k, v, do, lse_p, delta, padded,
+                                      k_hi, s, **kw)
+    dk_p, dv_p = fa.flash_dkv_wide_reference(q, k, v, do, lse_p, delta,
+                                             padded, q_lo, s, **kw)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _assert_flash_close(got, want, dtype)
+    if rate == 0.0:
+        plain = fa.flash_fwd(q, k, v, padded, k_hi, block_q=bq, block_k=bk)
+        _assert_flash_close(plain, fa.flash_fwd_wide_reference(
+            q, k, v, padded, k_hi, block_q=bq, block_k=bk), dtype)
+
+
+@pytest.mark.cuda
+@WIDE_FLASH_SHAPES
+def test_wide_flash_float32_outputs_match_plain(card, b, seq, h, d):
+    """The wide kernels' float32-output variants (the ring's partials) in
+    bf16 against the plain versions, which skip the final cast too."""
+    fa, (q, k, v, do), (padded, k_hi, q_lo), _, (bq, bk) = _flash_case(
+        card, b, seq, h, d, torch.bfloat16)
+    kw = dict(block_q=bq, block_k=bk, out_dtype=torch.float32)
+    out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, **kw)
+    out_p, lse_p = fa.flash_fwd_lse_wide_reference(q, k, v, padded, k_hi,
+                                                   **kw)
+    assert out.dtype == torch.float32
+    _assert_flash_close(out, out_p, torch.bfloat16)
+    delta = fa.attention_delta(do, out_p, padded.shape[0])
+    got = (fa.flash_dq(q, k, v, do, lse_p, delta, padded, k_hi, **kw),
+           *fa.flash_dkv(q, k, v, do, lse_p, delta, padded, q_lo, **kw))
+    want = (fa.flash_dq_wide_reference(q, k, v, do, lse_p, delta, padded,
+                                       k_hi, **kw),
+            *fa.flash_dkv_wide_reference(q, k, v, do, lse_p, delta, padded,
+                                         q_lo, **kw))
+    for a, c in zip(got, want):
+        assert a.dtype == torch.float32
+        _assert_flash_close(a, c, torch.bfloat16)
+
+
+@pytest.mark.cuda
 @FLASH_SHAPES
 @pytest.mark.parametrize("out_f32", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -371,13 +371,14 @@ def test_entry_checks():
                       block_q=32, block_k=64)
     # a head dim the kernels lack runs padded to the next compiled one (16
     # to 32, whose tiles are 64 x 64), so on the meta device it reaches the
-    # device check; above the largest compiled dim it raises
+    # device check; so does one above 256, on the wide kernels (264 padded
+    # to 320, whose tiles are 64 x 64 too)
     with pytest.raises(RuntimeError, match="sm_90"):
         tfa.flash_fwd_lse(meta[..., :16], meta[..., :16], meta[..., :16],
                           padded.to("meta"), k_hi.to("meta"), block_q=64,
                           block_k=64)
     wide = torch.zeros(1, 74, 2, 264, device="meta")
-    with pytest.raises(ValueError, match="head dim 264"):
+    with pytest.raises(RuntimeError, match="sm_90"):
         tfa.flash_fwd_lse(wide, wide, wide, padded.to("meta"),
                           k_hi.to("meta"), block_q=64, block_k=64)
 

@@ -61,17 +61,20 @@ def _close(got, want, rtol, atol):
 
 def test_compiled_head_dims():
     """Every head dim from 1 to 256 runs at a compiled one: itself, or the
-    next one up; above 256 none."""
+    next one up; above 256 at the next multiple of 64, on the wide kernels'
+    tiles; below 1 none."""
     want = {1: 32, 20: 32, 32: 32, 33: 64, 64: 64, 72: 128, 80: 128,
             96: 128, 128: 128, 129: 256, 160: 256, 256: 256}
     for d, compiled in want.items():
         assert tfa.compiled_head_dim(d) == compiled
         assert tfa.kernel_tiles(d) == tfa.KERNEL_TILES[compiled]
     assert sorted(tfa.KERNEL_TILES) == [32, 64, 128, 256]
-    for d in (0, 257, 264):
-        assert tfa.kernel_tiles(d) is None
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            tfa.compiled_head_dim(d)
+    for d in (257, 264):
+        assert tfa.compiled_head_dim(d) == 320
+        assert tfa.kernel_tiles(d) == tfa.WIDE_TILES
+    assert tfa.kernel_tiles(0) is None
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.compiled_head_dim(0)
 
 
 @pytest.mark.parametrize("kind", ["blocky", "dead_rows"])
@@ -230,8 +233,8 @@ def test_select_attention_fn_by_head_dim(monkeypatch):
     """On a kernel device (monkeypatched): head dim 128 takes the flash
     path under 'flash' and under 'auto' from flash_min_seq on (the JAX
     gate, not below it), at the tiles the card runs 128 at; a padded head
-    dim (96) too; head dim 264 raises under 'flash' and keeps the plain
-    path under 'auto'."""
+    dim (96) too; head dim 264 takes it under 'flash' and 'auto' alike (the
+    wide kernels, padded to 320)."""
     from multi_modal_transformers_tokenmerge_torch.modules import (
         attention as tattn)
     monkeypatch.setattr(tattn, "kernel_device", lambda device: True)
@@ -248,10 +251,10 @@ def test_select_attention_fn_by_head_dim(monkeypatch):
                                          "cpu") is None
     wide = _attention_cfg(2, 528)
     mask = np.tril(np.ones((1024, 1024), bool))
-    with pytest.raises(ValueError, match="head dim 264"):
-        tattn.select_attention_fn(wide, mask, 1024, "cpu")
+    fn = tattn.select_attention_fn(wide, mask, 1024, "cpu")
+    assert fn.tables_for(264, "cpu")[:2] == tfa.WIDE_TILES
     assert tattn.select_attention_fn(wide.replace(attention_impl="auto"),
-                                     mask, 1024, "cpu") is None
+                                     mask, 1024, "cpu")
     # on the CPU 'flash' takes every head dim: the plain versions
     monkeypatch.setattr(tattn, "kernel_device", lambda device: False)
     assert tattn.select_attention_fn(wide, mask, 1024, "cpu")

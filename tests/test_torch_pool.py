@@ -4,6 +4,8 @@ kernel in interpret mode), exactly, on the tie-heavy integer-cotangent
 cases of tests/test_pool_vjp.py; the stride fallback; the embedder's
 pool_vjp route."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +89,50 @@ def test_plain_backward_matches_jax_in_either_layout(h, w, c, n, window,
     assert dx.dtype == tdt and dx.is_contiguous(memory_format=fmt)
     np.testing.assert_array_equal(dx.permute(2, 3, 1, 0).float().numpy(),
                                   dx_j)
+
+
+# windows past the 8 a side of the kernel's register body: its second body
+# on the card; (plane h, w, c, n, window, dtype, the JAX vjp).  At 16 x 16
+# the JAX Pallas backward takes some 50 s in interpret mode on the CPU, so
+# that case holds the port against max_pool_hwcn's XLA vjp
+# (select_and_scatter), the tie rule the Pallas kernel reproduces; its nine
+# windows keep every sum of cotangents exact in bfloat16.
+WIDE_WINDOWS = [
+    (12, 12, 8, 4, (9, 9), "bfloat16", "pallas"),
+    (9, 14, 8, 4, (3, 12), "float32", "pallas"),
+    (18, 18, 4, 4, (16, 16), "bfloat16", "xla"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_window_case(h, w, c, n, window, dtype, jax_vjp):
+    x, g = _case(h, w, c, n, window, seed=9)
+    jx = jnp.asarray(x, dtype)
+    y, vjp = jax.vjp(lambda a: jpool(a, window, (1, 1), vjp=jax_vjp,
+                                     interpret=True), jx)
+    return x, g, np.asarray(vjp(jnp.asarray(g, dtype))[0], np.float32)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("h,w,c,n,window,dtype,jax_vjp", WIDE_WINDOWS)
+def test_pool_bwd_at_windows_above_8_matches_jax(h, w, c, n, window, dtype,
+                                                 jax_vjp, layout):
+    """The wrapper at windows above 8 a side (the card runs them on the
+    kernel's second body; the CPU on the plain version) against jax.vjp of
+    the JAX max_pool_hwcn, exactly, on tie-heavy half-integer x, in either
+    layout."""
+    x, g, dx_j = _wide_window_case(h, w, c, n, window, dtype, jax_vjp)
+    tdt = getattr(torch, dtype)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    nchw = lambda a: torch.tensor(a).to(tdt).permute(3, 2, 0, 1) \
+        .contiguous(memory_format=fmt)
+    dx = tpool.pool_bwd(nchw(x), nchw(g), window)
+    assert dx.is_contiguous(memory_format=fmt)
+    np.testing.assert_array_equal(dx.permute(2, 3, 1, 0).float().numpy(),
+                                  dx_j)
+    _, dx_t = _port_grad(x, g, window, dtype)
+    np.testing.assert_array_equal(dx_t, dx_j)
 
 
 def test_kernel_layout_copies_only_other_layouts():

@@ -75,18 +75,22 @@ def test_readouts_match():
     (3, 32, 32, True),     # head dim 256, its tiles named
     (6, 0, 0, True),       # head dim 128, its tiles
     (8, 0, 0, True),       # head dim 96, padded to 128
-    (2, 0, 0, False),      # head dim 384, above the largest compiled
-    (12, 32, 32, False),   # head dim 64 with tiles the kernels lack
+    (2, 0, 0, False),      # head dim 384, on the wide kernels
+    (12, 32, 32, False),   # head dim 64 with the TPU's tiles, not the card's
 ])
 def test_auto_takes_the_kernel_only_where_it_is_compiled(
         monkeypatch, heads, block_q, block_k, compiled):
     """On a kernel device (monkeypatched here) 'auto' at flash_min_seq
-    tokens takes the flash path for a head dim up to 256 at the tiles of
-    kernel_tiles and the plain path otherwise; 'flash' raises there."""
+    tokens takes the flash path at every head dim and every configured
+    tile (``compiled``: the head dim and tiles of csrc/flash_attention.cu;
+    the others run on the wide kernels or at the card's own tiles), and
+    'flash' does too; the hook runs at kernel_tiles of its head dim."""
     from multi_modal_transformers_tokenmerge_torch.core.config import (
         AttentionConfig, TransformerConfig)
     from multi_modal_transformers_tokenmerge_torch.modules import (
         attention as tattn)
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        flash_attention as tfa)
     monkeypatch.setattr(tattn, "kernel_device", lambda device: True)
     cfg = TransformerConfig(
         attention_impl="auto", flash_block_q=block_q, flash_block_k=block_k,
@@ -94,14 +98,14 @@ def test_auto_takes_the_kernel_only_where_it_is_compiled(
                                   dropout_rate=0.0))
     seq = cfg.flash_min_seq
     mask = np.tril(np.ones((seq, seq), bool))
-    fn = tattn.select_attention_fn(cfg, mask, seq, "cpu")
-    assert (fn is not None) == compiled
-    flash = cfg.replace(attention_impl="flash")
-    if compiled:
-        assert tattn.select_attention_fn(flash, mask, seq, "cpu")
-    else:
-        with pytest.raises(ValueError, match="compiled"):
-            tattn.select_attention_fn(flash, mask, seq, "cpu")
+    d = 768 // heads
+    assert ((block_q, block_k) in ((0, 0), tfa.kernel_tiles(d))
+            and d <= 256) == compiled
+    for impl in ("auto", "flash"):
+        fn = tattn.select_attention_fn(cfg.replace(attention_impl=impl),
+                                       mask, seq, "cpu")
+        assert fn is not None
+        assert fn.tables_for(d, "cpu")[:2] == tfa.kernel_tiles(d)
 
 
 # -- every flax activation of the MLP block ----------------------------------
