@@ -37,8 +37,12 @@ Phases, each of which must pass (any failure exits non-zero):
    without LSE at octo_deep's three
    stages (serving batches 1 and 8, training batch 32), octo_deep_h128's
    (batches 1 and 8), head dims 32 and 80, octo_base_deep's
-   first, the 1024-token layout and a mask with dead rows; what the padding
-   costs at D=80 against D=128 (kernel and whole-call device times);
+   first, the 1024-token layout and a mask with dead rows; the wide
+   kernels (head dims above 256) at octo_deep_h512's stages and at D =
+   320, 576, 768, 300 and 1152, the forwards' launch plan against its
+   mirror and their cluster bit for bit (rows alone, a graph replay); what
+   the padding costs at D=80 against D=128 (kernel and whole-call device
+   times);
    the max-pool backward at octo_base training, bit for bit, on the layout
    the embedder hands it (x channels_last, g NCHW; checked again after
    phases 6 and 12), on NCHW and on channels_last, one call on the main
@@ -215,7 +219,13 @@ Phases, each of which must pass (any failure exits non-zero):
     before and read after: one wide and no register sampler launch a
     request) and compiled (replays bit for bit with the eager calls, one
     wide sampler kernel a replay), float32 against the CPU under
-    E2E_F32_TOL.
+    E2E_F32_TOL;
+33. octo_deep_h512: octo_deep with 3 heads of 512 from ``load_config`` on
+    the wide flash kernels: served (12 flash_fwd_wide and 1 ddpm_sampler
+    launches a request), compiled in turns with octo_deep's engine, float32
+    against the CPU; trained at batch 32 (12 of each wide training kernel
+    and 1 pool_bwd a step), captured against the eager step, one float32
+    step under TRAIN_REF_LIMITS.
 
 Each phase logs its seconds when it ends ("phase N: ... done in X s").
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
@@ -226,6 +236,7 @@ result when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -952,14 +963,17 @@ DEEP_SPEC = ("[TaskDescriptionPrefix{16}] [Image{100};Readout{4}]*2",
 # the wide kernels (csrc/flash_attention_wide.cu): octo_deep_h512's three
 # stages at its training batch (phase 33), head dim 320 (8 heads), 576 (4
 # heads: sarvam-105b's latent head width), 768 (one head of octo_deep's
-# width) and 300 (run padded to 320) at its first stage
+# width) and 300 (run padded to 320) at its first stage; the forwards'
+# cluster body up to 1024, and 1152 (one head), where they keep their
+# chunked body (ops/flash_attention.py:wide_forward_plan)
 WIDE_FLASH_SHAPES = {
     **{f"deep_h512_S{s}": (32, DEEP_SPEC, stage, 3, 512)
        for stage, s in enumerate((224, 160, 96))},
     "d320_S224": (8, DEEP_SPEC, 0, 8, 320),
     "d576_S224": (8, DEEP_SPEC, 0, 4, 576),
     "d768_S224": (8, DEEP_SPEC, 0, 1, 768),
-    "d300_S224": (8, DEEP_SPEC, 0, 8, 300)}
+    "d300_S224": (8, DEEP_SPEC, 0, 8, 300),
+    "d1152_S224": (8, DEEP_SPEC, 0, 1, 1152)}
 # name -> (batch, layout strings, stage, heads, head_dim): octo_base
 # training, the 1024-token layout, octo_deep's three stages at its training
 # batch (its blocks under flash_backward='pallas'); the same three with 6
@@ -1331,8 +1345,8 @@ def fwd_shapes():
     octo_deep's three stages at the serving batches and at the training
     batch, and with 6 heads of 128 at the serving batches; head dims 32
     and 80 (padded to 128) at its first stage; octo_deep_h512's stages at
-    the serving batches and head dims 320, 576, 768 and 300 (padded to 320)
-    on the wide kernel; octo_base_deep's first stage, the 1024-token layout
+    the serving batches and head dims 320, 576, 768, 300 (padded to 320)
+    and 1152 on the wide kernel; octo_base_deep's first stage, the 1024-token layout
     and dead rows (at D = 64 and 512)."""
     shapes = {}
     for stage, s in enumerate((224, 160, 96)):
@@ -1349,7 +1363,7 @@ def fwd_shapes():
         for b in (1, 8):
             shapes[f"deep_h512_S{s}_B{b}"] = (stage_mask(DEEP_SPEC, stage),
                                               b, 3, 512)
-    for d, h in ((320, 8), (576, 4), (768, 1), (300, 8)):
+    for d, h in ((320, 8), (576, 4), (768, 1), (300, 8), (1152, 1)):
         shapes[f"d{d}_S224_B8"] = (stage_mask(DEEP_SPEC, 0), 8, h, d)
     shapes["dead_rows_d512_S224_B2"] = (dead_row_mask(), 2, 3, 512)
     shapes["octo_base_deep_S74_B1"] = (stage_mask(BASE_DEEP_SPEC, 0), 1, 3,
@@ -1432,6 +1446,68 @@ def flash_fwd_timings(fa):
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), SDPA forward "
             f"{lib:.4f} ms ({lib_names[0]})")
     return rows
+
+
+def wide_forward_check(fa):
+    """The wide forwards' launch plan against its mirror (every multiple of
+    64 from 320 to 2048), and the cluster body's agreement bit for bit
+    (bf16, octo_deep_h512's first stage; at D = 512 and 576, a cluster of
+    4 and of 5 with a 64-column last slice): a batch's first two rows
+    launched alone against those rows of the batch of 8, with dropout 0.1
+    in the LSE kernel, and a CUDA-graph replay of each kernel against its
+    eager call.  Returns the plans and the checks."""
+    lib = fa._library(True)
+    lib.flash_wide_fwd_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.flash_wide_fwd_plan.restype = ctypes.c_int
+    got = (ctypes.c_int * 5)()
+    plans = {}
+    for d in range(320, 2049, 64):
+        rc = lib.flash_wide_fwd_plan(d, ctypes.addressof(got))
+        plan = fa.wide_forward_plan(d)
+        want = [plan[k] for k in ("cluster", "slice", "last_slice", "smem",
+                                  "chunk")]
+        if rc != 0 or list(got) != want:
+            fail(f"wide_forward_plan({d}) = {want}, the kernel's "
+                 f"{list(got)} (rc {rc})")
+        plans[d] = plan["body"], plan["cluster"]
+    log(f"  wide forward plans, C = Python at D = 320..2048: "
+        f"{sorted({v for v in plans.values()})}")
+    seed = torch.tensor([0x2468ACE, 0x13579BD], dtype=torch.int64,
+                        device="cuda")
+    checks = {}
+    for d, h in ((512, 3), (576, 4)):
+        args, kw = fwd_case(fa, stage_mask(DEEP_SPEC, 0), 8, h, d,
+                            torch.bfloat16, seed=21)
+        lkw = dict(kw, dropout_rate=TRAIN_DROPOUT)
+        rows = tuple(x[:2].contiguous() for x in args[:3]) + args[3:]
+        calls = {"flash_fwd_wide": lambda a: (fa.flash_fwd(*a, **kw),),
+                 "flash_fwd_lse_wide": lambda a: fa.flash_fwd_lse(
+                     *a, seed, **lkw)}
+        for name, call in calls.items():
+            whole, alone = call(args), call(rows)
+            same_rows = all(torch.equal(w[:2], x)
+                            for w, x in zip(whole, alone))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                call(args)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call(args)
+            graph.replay()
+            eager = call(args)
+            torch.cuda.synchronize()
+            same_replay = all(torch.equal(c, e)
+                              for c, e in zip(captured, eager))
+            checks[f"{name} D={d}"] = dict(rows_alone=same_rows,
+                                           replay=same_replay)
+            log(f"  {name} bf16 D={d} H={h} B=8: rows 0-1 alone bit for bit "
+                f"with the batch's {same_rows}; graph replay bit for bit "
+                f"with the eager call {same_replay}")
+            if not (same_rows and same_replay):
+                fail(f"{name} at D={d}: the cluster's blocks disagree")
+    return {"plans": {str(d): v for d, v in plans.items()}, "agree": checks}
 
 
 # the layouts the pool backward is held in: (x, g); the first is the one the
@@ -5377,6 +5453,7 @@ def main():
         flash_rows[name], sdpa_kernels[name] = flash_timings(
             fa, name, mask, b, h, d)
     fwd_err = flash_fwd_check(fa)
+    wide_fwd = wide_forward_check(fa)
     fwd_rows = flash_fwd_timings(fa)
     pad_cost = padding_cost(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
@@ -5759,12 +5836,13 @@ def main():
                              if n.startswith(new_dim) and n != first},
         })
     # the wide kernels (head dims above 256) on octo_deep_h512's path (phase
-    # 33), with head dims 320, 576, 768 and 300 (padded to 320) held and
-    # timed beside them
+    # 33), with head dims 320, 576, 768, 300 (padded to 320) and 1152 held
+    # and timed beside them
     wide_src = ("multi_modal_transformers_tokenmerge_torch/csrc/"
                 "flash_attention_wide.cu")
     wide_shape = lambda n: n.startswith(("deep_h512", "d320", "d576",
-                                         "d768", "d300", "dead_rows_d512"))
+                                         "d768", "d300", "d1152",
+                                         "dead_rows_d512"))
     for kernel, line in (("flash_fwd", 60), ("flash_fwd_lse", 328),
                          ("flash_dq", 383), ("flash_dkv", 430)):
         name = f"{kernel}_wide"
@@ -5810,7 +5888,7 @@ def main():
                              if wide_shape(n) and n != first},
         })
     log(json.dumps({"wide_heads": h512, "wide_ring": wide_ring,
-                    "wide_ptxas": wide_ptx,
+                    "wide_ptxas": wide_ptx, "wide_forward": wide_fwd,
                     "pool_windows": pool_row["windows_above_8"],
                     "card": card}))
     log(json.dumps({"wide_sampler": {k: v for k, v in wide.items()

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // threads of a block
@@ -233,20 +235,6 @@ __device__ __forceinline__ float lane_sum(float v, int lg) {
   for (int off = (1 << lg) >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// The cluster's barrier, release / acquire at cluster scope: every
-// block's partial sums, written before it, are visible after it.
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The address of `p` (in this block's shared memory) in block `rank`'s.
-__device__ __forceinline__ float* peer_shared(float* p, int rank) {
-  float* out;
-  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(p), "r"(rank));
-  return out;
 }
 
 // FAST: every buffer in shared memory (p.flags == kAll), so that every

@@ -19,43 +19,63 @@
 // whole Q (or K) rows and its output accumulator, D columns wide, in
 // registers and shared memory.  At D = 512 a 64-row float32 output tile is
 // 128 KB, more than a block's registers, and one 64 x 512 tile each of Q, K
-// and V in bf16 is 192 KB of shared memory.  So D is cut two ways:
-//   * The reductions over D (the logits S = Q K^T, and dP = dO V^T in the
-//     backward) go in chunks of DC = 64 columns (32 in dq: with its four
-//     operands' chunks in the ring that halves its shared memory, two
-//     blocks an SM in place of one, 30-52% less time at octo_deep_h512's
-//     stages, while 32 costs the forward and dk/dv 2-21%:
+// and V in bf16 is 192 KB of shared memory.  So the outputs over D (O, dQ,
+// dK and dV) are cut into slices of DV = 128 columns, each owned by one
+// block: the grid is (row tiles x slices, heads, batch), the slices of one
+// row tile adjacent.  The sums over all of D (the logits S = Q K^T, and
+// dP = dO V^T in the backward) are what the two designs here get
+// differently.
+//
+// The 16-bit forwards up to D = 1024 (flash_fwd_wide_kernel and
+// flash_fwd_lse_wide_kernel, CLUSTER): the slice blocks of a query tile are
+// one thread block cluster that computes S once, each block its slice's
+// partial product, the partials exchanged through distributed shared
+// memory (the cluster forward's note, below).  What bounds a wide forward on
+// this card is neither the tensor cores (octo_deep_h512's first stage at
+// B = 32, 3 heads of 512: about 11 GFLOP over the live tiles, some 0.01 ms)
+// nor device memory (88 MB, 0.026 ms), but moving operands from L2 and
+// waiting on it.  The chunked body below recomputes S in every slice
+// block, restaging Q and K from L2 for every key tile and slice (some 800
+// MB through L2 at that shape) behind a block barrier every 64 columns,
+// and reads 0.26 ms there; the cluster body moves some 220 MB, keeps Q in
+// registers, brings K and V by TMA and runs both products on wgmma: 0.12
+// ms, one H100 at 700 W (flash_wide_probe.py times each step of it).
+// Above 1024, more slices than a portable cluster holds, the forwards keep
+// the chunked body (fwd_plan, which ops/flash_attention.py mirrors).
+//
+// The chunked body (the forwards above 1024) and dq and dk/dv at every D:
+//   * The reductions over D go in chunks of DC = 64 columns (32 in dq:
+//     with its four operands' chunks in the ring that halves its shared
+//     memory, two blocks an SM in place of one, 30-52% less time at
+//     octo_deep_h512's stages, while 32 costs the forward and dk/dv 2-21%:
 //     flash_wide_probe.py): the chunks stream through a two-stage cp.async
 //     ring, one barrier a chunk, and S (dP) accumulates in registers across
 //     the chunks, in chunk order.
-//   * The outputs over D (O, dQ, dK and dV) are cut into slices of DV
-//     columns, each owned by one block: the grid is (row tiles x slices,
-//     heads, batch), the slices of one row tile adjacent, so they meet the
-//     same operands in L2.  Every slice block recomputes the same S (and P,
-//     dP, dS) in the same order, bitwise equal across the slices, so the
-//     slice blocks agree on the softmax; slice 0 stores the LSE.  The
-//     slice's own columns of V (forward), K (dq) or Q and dO (dk/dv) arrive
-//     with the first chunk of a tile, in their own buffers of the ring.
-//   * The cost is the recomputed S: at D = 512 the forward with DV = 128
-//     runs the Q K^T product 4 times for one P V, about 2.5 times the least
-//     tensor-core work.  dk/dv holds two accumulators (dK and dV), so its
-//     slice of 128 columns is split between two warps a row group of 16
-//     keys (kDkvDS): each computes S^T and dP^T for half the q tile's
-//     queries and passes P^T and dS^T, rounded to T, through shared memory
-//     to its partner (as flash_attention.cu's dk/dv does at D = 128 and
-//     256), so S^T and dP^T are recomputed 4 times at D = 512, not 8 as
-//     with one warp a row group and 64-column slices, the first design:
-//     2.2-2.5 times less time at octo_deep_h512's stages and D = 768
-//     (flash_wide_probe.py).
-// The 16-bit kernels (bf16, fp16) run every product on the tensor cores, as
-// flash_attention.cu does (mma.sync m16n8k16, float32 accumulators, ldmatrix
-// operands, p and dS rounded to T into the A operand, the exponent on
-// ex2.approx, dropout words shared between lanes by shuffles): a block is
-// four warps of 16 rows of its own axis (queries for the forward and dq,
-// keys for dk/dv; eight warps for dk/dv) over 64 rows of the other, the
-// mask table's tile, whose skip tables (64 x 64) it walks.  Shared memory:
-// forward 81,920 bytes (Q and K chunk rings, the V slice and mask rings),
-// dq 86,016, dk/dv 173,056 (with P^T and dS^T).
+//   * Every slice block recomputes the same S (and P, dP, dS) in the same
+//     order, bitwise equal across the slices, so the slice blocks agree on
+//     the softmax; slice 0 stores the LSE.  The slice's own columns of V
+//     (forward), K (dq) or Q and dO (dk/dv) arrive with the first chunk of
+//     a tile, in their own buffers of the ring.
+//   * The cost is the recomputed S: at D = 512 the forward runs the Q K^T
+//     product 4 times for one P V, about 2.5 times the least tensor-core
+//     work.  dk/dv holds two accumulators (dK and dV), so its slice of 128
+//     columns is split between two warps a row group of 16 keys (kDkvDS):
+//     each computes S^T and dP^T for half the q tile's queries and passes
+//     P^T and dS^T, rounded to T, through shared memory to its partner (as
+//     flash_attention.cu's dk/dv does at D = 128 and 256), so S^T and dP^T
+//     are recomputed 4 times at D = 512, not 8 as with one warp a row group
+//     and 64-column slices, the first design: 2.2-2.5 times less time at
+//     octo_deep_h512's stages and D = 768 (flash_wide_probe.py).
+//   * Its 16-bit kernels run every product on the tensor cores, as
+//     flash_attention.cu does (mma.sync m16n8k16, float32 accumulators,
+//     ldmatrix operands, p and dS rounded to T into the A operand, the
+//     exponent on ex2.approx, dropout words shared between lanes by
+//     shuffles): a block is four warps of 16 rows of its own axis (queries
+//     for the forward and dq, keys for dk/dv; eight warps for dk/dv) over
+//     64 rows of the other, the mask table's tile, whose skip tables
+//     (64 x 64) it walks.  Shared memory: forward 81,920 bytes (Q and K
+//     chunk rings, the V slice and mask rings), dq 86,016, dk/dv 173,056
+//     (with P^T and dS^T).
 // The float32 kernels (the card-against-CPU checks and the tests only) are
 // CUDA-core bodies with the same chunks and slices (DV = 64), 256 threads,
 // operands staged as float32 without a ring: simple and right, not fast.
@@ -63,8 +83,11 @@
 // 320, 576); its products past the slice are skipped by a test on a value
 // every thread of the block (in dk/dv: of the warp) shares.
 
+#include <cuda.h>
+
 #include <initializer_list>
 
+#include "cluster.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -341,7 +364,590 @@ __device__ __forceinline__ void wide_forward_block(
   }
 }
 
-template <typename T, typename O>
+// -- the cluster forward (bf16, fp16; head dims up to 1024) -------------------
+//
+// The nsl = ceil(D / 128) slice blocks of a query tile are one thread block
+// cluster; block r owns columns [128 r, 128 r + 128) of D for both
+// products.  It keeps its slice of Q in registers (loaded once) and per key
+// tile brings only its slices of K and V (16 KB each, by TMA, completing on
+// a barrier of their stage of a two-stage ring, in the 128-byte swizzle
+// that wgmma reads) and the mask tile (cp.async).  Per key tile:
+//   * its partial logits S_r = Q[:, slice r] K[:, slice r]^T (64 x 64,
+//     float32, wgmma m64n64k16 with Q's fragments as the A operand);
+//   * a reduce-scatter through distributed shared memory: the 16 rows of
+//     row group w (warp w's in every block) are owned by block w % nsl, and
+//     every block's warp w stores its partial of them into the owner's
+//     shared memory by st.async, which completes the bytes on the owner's
+//     barrier (no fence, no cluster barrier).  The owner's four warps take
+//     16 keys each and sum the nsl partials in rank order 0 .. nsl - 1 (the
+//     plain version's order: ops/flash_attention.py, _logits with
+//     chunk=128); mask, scale, online softmax (the row maxima meet in the
+//     owner's shared memory) and keep bits as the chunked body; P rounded
+//     to T as each warp's A fragment of one k16 step;
+//   * an all-gather of P: each owner warp stores its fragment (and alpha)
+//     into every block of the cluster by st.async, 2.3 KB a row group, on
+//     that block's barrier; then O_r = O_r alpha + P V[:, slice r] (wgmma
+//     m64n128k16, or n64 for a 64-column last slice).
+// A barrier's phase is armed with the bytes it awaits by its own block's
+// thread 0 at the start of each tile.  No buffer needs a second copy: a
+// block stores tile k + 1's partials only after it holds tile k's P, which
+// the owner sends only after it has read tile k's partials.  The owners
+// store the LSE and send every block its rows' sums at the end.  One
+// cluster barrier at the start (the barriers initialised, Q read from the
+// buffer partials land in) and one at the end (every store landed).  The
+// other exchange, an all-gather of the float32 partials (every block
+// summing all nsl of them), moves 2.5 to 5 times the bytes through
+// distributed shared memory at nsl = 4 to 8; flash_wide_probe.py times it.
+
+constexpr int kClusterMaxSlices = 8;  // blocks of a cluster: the portable most
+constexpr int kTile = kBM * kFwdDV;   // elements of a 64 x 128 operand tile
+
+// The cluster body's K and V as TMA tensor maps: (B, S, H, D) in boxes of
+// one head's 64 rows x 64 columns, swizzled as sw128 lays them out.
+struct FwdMaps {
+  CUtensorMap k, v;
+};
+
+// One box of `map` at (column c, head h, row, batch b) into shared memory
+// at dst, completing its bytes on the barrier `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c, int h, int row, int b,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(cta_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(row), "r"(b),
+      "r"(cta_addr(bar))
+      : "memory");
+}
+
+struct ClusterSmem {
+  static constexpr int LDM = kBN + 16;
+  // Row groups a block owns at most: 2 at nsl = 3, else 1.
+  static constexpr __host__ __device__ int owned(int nsl) {
+    return (4 + nsl - 1) / nsl;
+  }
+  // sK[2][kTile], sV[2][kTile] (16-bit); sIn[owned][nsl][16 x 64] (float32
+  // partial logits of the owned row groups, by sender; Q's slice is staged
+  // there before the first tile); sPin[4][4][32] (every row group's P, A
+  // fragments by k16 step, uint4), sAin[4][32] and sLin[4][32] (alpha and
+  // the row sums, float2); sR[2][4][16] (the owned groups' row maxima, then
+  // the warps' shares of the row sums); sM[2][kBM][LDM]; six mbarriers;
+  // and up to 1024 bytes to align the tiles to the swizzle's 1024-byte
+  // atoms
+  static constexpr size_t bytes(int nsl) {
+    return 1024 + 2 * 4 * kTile + owned(nsl) * nsl * kBN * 16 * 4 +
+           4 * 4 * 32 * 16 + 2 * 4 * 32 * 8 + 2 * 4 * 16 * 4 +
+           2 * kBM * LDM + 6 * 8;
+  }
+};
+
+// Element offset of (row, col) in a 64-row tile of 16-bit values stored as
+// 64-column atoms of 128-byte rows, the 16-byte chunks of row r permuted by
+// r & 7: the 128-byte swizzle of wgmma's descriptors, conflict-free for
+// ldmatrix and for the cp.async rows.
+__device__ __forceinline__ int sw128(int row, int col) {
+  return (((col >> 6) * kBM + row) << 6) + ((((col >> 3) ^ row) & 7) << 3) +
+         (col & 7);
+}
+
+// Rows [row0, row0 + 64) of `cols` columns (64 or 128) of a (B, S, H, D)
+// slice into a swizzled tile, by 16-byte cp.async; rows at or past S are
+// zero-filled.
+template <typename T>
+__device__ __forceinline__ void stage_sw128(T* dst, const T* src, int row0,
+                                            int seq, size_t row_stride,
+                                            int cols) {
+  const int lg = cols == kFwdDV ? 4 : 3;  // log2 of the 16-byte chunks a row
+  for (int c = threadIdx.x; c < (kBM << lg); c += kNT) {
+    const int r = c >> lg, col = (c & ((1 << lg) - 1)) << 3;
+    const int row = row0 + r;
+    const bool in = row < seq;
+    cp_async16(dst + sw128(r, col),
+               src + static_cast<size_t>(in ? row : 0) * row_stride + col,
+               in);
+  }
+}
+
+// A wgmma descriptor of a swizzled tile in shared memory (128-byte swizzle;
+// lbo, sbo in bytes).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n"
+               "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d += A B for the warpgroup: A (64 x 16) from each warp's mma.sync A
+// fragment a, B (16 x N) by the descriptor, TRANS_B for a B stored N-major;
+// d in the m16n8 accumulator layout of each warp's 16 rows.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, const __nv_bfloat16*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, const __half*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, const __nv_bfloat16*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, const __half*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TRANS_B));
+}
+
+// S_r = Q[:, slice] K[:, slice]^T for one key tile: s (the warp's 16 rows x
+// 64 keys, m16n8 accumulator layout) from Q's fragments qa and the swizzled
+// K tile tK, over the slice's `cols` columns.
+template <typename T>
+__device__ __forceinline__ void partial_logits(
+    float (&s)[kBN / 8][4], const uint32_t (&qa)[kFwdDV / 16][4], const T* tK,
+    int cols) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kFwdDV / 16; ++kk)
+    if (kk * 16 < cols)  // K-major: the k16 step 32 bytes into its atom
+      wgmma_n64<0>(s, qa[kk], sw128_desc(tK + sw128(0, kk * 16), 16, 1024),
+                   tK);
+  wgmma_commit_wait();
+}
+
+// o += P V[:, slice] for one key tile: pa P's A fragments (rounded to T),
+// by k16 step, V's swizzled tile tV, the slice's first `cols` columns.
+template <typename T>
+__device__ __forceinline__ void pv_product(float (&o)[kFwdDV / 8][4],
+                                           const uint32_t (&pa)[kBN / 16][4],
+                                           const T* tV, int cols) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    // N-major: the next 64 columns an atom (kBM rows) further, the next 8
+    // keys a 1024-byte row group further
+    const uint64_t desc = sw128_desc(tV + sw128(kk * 16, 0), kBM * 128, 1024);
+    if (cols == kFwdDV)
+      wgmma_n128<1>(o, pa[kk], desc, tV);
+    else
+      wgmma_n64<1>(*reinterpret_cast<float(*)[kBN / 8][4]>(o), pa[kk], desc,
+                   tV);
+  }
+  wgmma_commit_wait();
+}
+
+// The forward of one block of a cluster: query rows [q0, q0 + 64) of one
+// (batch, head), output columns [c0, c0 + cols) of slice r, the block's
+// rank.  Row group w (warp w's 16 rows in every block) is owned by block w
+// % nsl, where it is slot w / nsl (a block owns at most two).  Arguments as
+// wide_forward_block's.
+template <typename T, bool DROPOUT, typename O>
+__device__ __forceinline__ void cluster_forward_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
+    O* __restrict__ out, float* __restrict__ lse, const Args& a,
+    const Dropout& drop, int head_dim, const FwdMaps& maps) {
+  constexpr int LDM = ClusterSmem::LDM;
+  constexpr int NS = kBN / 8, NO = kFwdDV / 8, NQ = kFwdDV / 16;
+  const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_addr(smem4);
+  T* sK = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(smem4) +
+                               (((raw + 1023u) & ~1023u) - raw));
+  T* sV = sK + 2 * kTile;
+  float4* sIn = reinterpret_cast<float4*>(sV + 2 * kTile);
+  uint4* sPin = reinterpret_cast<uint4*>(
+      sIn + ClusterSmem::owned(nsl) * nsl * NS * 32);
+  float2* sAin = reinterpret_cast<float2*>(sPin + 4 * 4 * 32);
+  float2* sLin = sAin + 4 * 32;
+  float* sR = reinterpret_cast<float*>(sLin + 4 * 32);
+  int8_t* sM = reinterpret_cast<int8_t*>(sR + 2 * 4 * 16);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sM + 2 * kBM * LDM);
+  T* sQ = reinterpret_cast<T*>(sIn);  // Q's slice, until the first partials
+
+  const int rank = cluster_rank();
+  const int qt = blockIdx.x / nsl;
+  const int c0 = rank * kFwdDV, cols = min(kFwdDV, head_dim - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int own = warp % nsl, slot = warp / nsl;  // this warp's rows' owner
+  const int q0 = qt * kBM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * head_dim;
+  const size_t at = static_cast<size_t>(b) * a.seq * row_stride +
+                    static_cast<size_t>(h) * head_dim + c0;
+  const int n_k = k_hi[qt];
+
+  auto stage = [&](int kt) {
+    const int st = kt & 1;
+    if (threadIdx.x == 0) {  // K and V by TMA: rows at or past S as zeros
+      mbar_expect(bars + 4 + st, 2 * cols * kBN * 2);
+      for (int c = 0; c < cols; c += 64) {
+        tma_box(sK + st * kTile + c * kBN, &maps.k, c0 + c, h, kt * kBN, b,
+                bars + 4 + st);
+        tma_box(sV + st * kTile + c * kBN, &maps.v, c0 + c, h, kt * kBN, b,
+                bars + 4 + st);
+      }
+    }
+    stage_mask<kBM, kBN, LDM, kNT>(
+        sM + st * kBM * LDM,
+        mask + static_cast<size_t>(q0) * a.s_pad + kt * kBN, a.s_pad);
+  };
+
+  // barriers: the partials of owned slots 0 and 1 (16 x 64 floats from
+  // each block), every row group's P and alpha, their row sums; one
+  // arrival (this block's thread 0, arming a phase with its bytes) each
+  constexpr uint32_t kPartBytes = 16 * kBN * 4;
+  constexpr uint32_t kPBytes = 4 * (4 * 32 * 16 + 32 * 8);
+  if (threadIdx.x == 0) {  // and the two stages of the K and V ring
+#pragma unroll
+    for (int i = 0; i < 6; ++i) mbar_init(bars + i, 1);
+    mbar_expect(bars + 3, 4 * 32 * 8);
+    mbar_init_fence();
+  }
+  uint32_t qa[NQ][4];
+  if (n_k > 0) {
+    stage_sw128(sQ, q + at, q0, a.seq, row_stride, cols);
+    stage(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk)
+      if (kk * 16 < cols)
+        ldsm_x4(qa[kk], sQ + sw128(wr + l8 * 8 + lr, kk * 16 + l16 * 8));
+  }
+  // every block's barriers are set and its Q read before any partial lands
+  cluster_barrier();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // of the row groups this block owns: the running max, and this warp's
+  // share of the running sum (its 16 keys of each tile)
+  float m[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+  float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt & 1, k0 = kt * kBN;
+    if (kt + 1 < n_k) {  // the other stage: every warp is done with it
+      stage(kt + 1);
+      cp_async_commit();
+    }
+    if (threadIdx.x == 0) {  // this tile's phases: the last ones are done
+      for (int i = 0; i < ClusterSmem::owned(nsl); ++i)
+        if (rank + i * nsl < 4) mbar_expect(bars + i, nsl * kPartBytes);
+      mbar_expect(bars + 2, kPBytes);
+    }
+    mbar_wait(bars + 4 + st, (kt >> 1) & 1);
+    {  // this warp's partial logits, into its rows' owner's slot `rank`
+      float s[NS][4];
+      partial_logits<T>(s, qa, sK + st * kTile, cols);
+      const uint32_t dst =
+          peer_addr(sIn + (slot * nsl + rank) * NS * 32 + lane, own);
+      const uint32_t bar = peer_addr(bars + slot, own);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        st_async(dst + j * 32 * 16,
+                 make_float4(s[j][0], s[j][1], s[j][2], s[j][3]), bar);
+    }
+
+    // the owned row groups: each warp takes 16 of the 64 keys (n8 tiles
+    // 2 warp and 2 warp + 1), sums the nsl partials of its 16 x 16 logits
+    // in rank order, and with the block's other warps forms the softmax
+    // statistics, then the keep bits and P rounded to T, the A fragment of
+    // k16 step `warp` for the group's rows, which it stores into every
+    // block of the cluster
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int grp = rank + i * nsl;
+      if (grp >= 4) continue;  // the same for every warp of the block
+      mbar_wait(bars + i, kt & 1);
+      const float4* src = sIn + (i * nsl * NS + 2 * warp) * 32 + lane;
+      float sv[2][4];
+#pragma unroll 1
+      for (int r0 = 0; r0 < nsl; r0 += 4) {
+        float4 part[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (r0 + u < nsl) {
+            part[u][0] = src[(r0 + u) * NS * 32];
+            part[u][1] = src[(r0 + u) * NS * 32 + 32];
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (r0 + u < nsl)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const float4 x = part[u][jj];
+              if (r0 + u == 0) {
+                sv[jj][0] = x.x, sv[jj][1] = x.y;
+                sv[jj][2] = x.z, sv[jj][3] = x.w;
+              } else {
+                sv[jj][0] += x.x, sv[jj][1] += x.y;
+                sv[jj][2] += x.z, sv[jj][3] += x.w;
+              }
+            }
+      }
+      // mask, scale; the row maxima over the block's four warps
+      const int8_t* tM =
+          sM + st * kBM * LDM + (grp * 16 + g) * LDM + 16 * warp + 2 * t;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const char2 live =
+              *reinterpret_cast<const char2*>(tM + ii * 8 * LDM + 8 * jj);
+          sv[jj][2 * ii] = live.x ? sv[jj][2 * ii] * a.scale : kNegInf;
+          sv[jj][2 * ii + 1] = live.y ? sv[jj][2 * ii + 1] * a.scale : kNegInf;
+          mx[ii] = fmaxf(mx[ii], fmaxf(sv[jj][2 * ii], sv[jj][2 * ii + 1]));
+        }
+      }
+      float* rm = sR + i * 4 * 16;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        mx[ii] = quad_max(mx[ii]);
+        if (t == 0) rm[warp * 16 + g + 8 * ii] = mx[ii];
+      }
+      __syncthreads();
+      float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        float mn = m[i][ii];
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4)
+          mn = fmaxf(mn, rm[w4 * 16 + g + 8 * ii]);
+        ref[ii] = fmaxf(mn, 0.5f * kNegInf) * kLog2e;
+        alpha[ii] = ex2_approx((m[i][ii] - mn) * kLog2e);
+        m[i][ii] = mn;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sv[jj][e] = ex2_approx(fmaf(sv[jj][e], kLog2e, -ref[e >> 1]));
+          sum[e >> 1] += sv[jj][e];
+        }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+        l[i][ii] = l[i][ii] * alpha[ii] + quad_sum(sum[ii]);
+      if (DROPOUT && drop.on) {
+        const uint32_t row = static_cast<uint32_t>(q0 + grp * 16 + g);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t kb4[4];
+          row_keep_words(kb4,
+                         static_cast<uint32_t>(k0 + 16 * warp + 8 * jj + 2 * t),
+                         row, bh, drop, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sv[jj][e] =
+                kb4[e] >= drop.threshold ? sv[jj][e] * drop.inv_keep : 0.f;
+        }
+      }
+      uint32_t pa[4];
+      acc_to_a<T>(pa, sv, 0);
+      const uint4 pw = make_uint4(pa[0], pa[1], pa[2], pa[3]);
+      const float2 aw = make_float2(alpha[0], alpha[1]);
+#pragma unroll 1
+      for (int r = 0; r < nsl; ++r) {
+        const uint32_t bar = peer_addr(bars + 2, r);
+        st_async(peer_addr(sPin + (grp * 4 + warp) * 32 + lane, r), pw, bar);
+        if (warp == 0)
+          st_async(peer_addr(sAin + grp * 32 + lane, r), aw, bar);
+      }
+    }
+
+    // this warp's rows' P and alpha, stored here by their owner
+    mbar_wait(bars + 2, kt & 1);
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint4 x = sPin[(warp * 4 + kk) * 32 + lane];
+      pa[kk][0] = x.x, pa[kk][1] = x.y, pa[kk][2] = x.z, pa[kk][3] = x.w;
+    }
+    const float2 al = sAin[warp * 32 + lane];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= al.x;
+      o[n][1] *= al.x;
+      o[n][2] *= al.y;
+      o[n][3] *= al.y;
+    }
+    pv_product<T>(o, pa, sV + st * kTile, cols);
+    cp_async_wait_all();  // the next tile's mask has landed ...
+    __syncthreads();      // ... for every warp, and this tile is free
+  }
+
+  // the owned rows' sums (the four warps' shares added in warp order) and
+  // LSE, stored into every block; then this warp's rows' sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (rank + i * nsl < 4 && t == 0)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+        sR[(i * 4 + warp) * 16 + g + 8 * ii] = l[i][ii];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int grp = rank + i * nsl;
+    if (grp >= 4 || warp != 0) continue;
+    float ls[2];
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      ls[ii] = 0.f;
+#pragma unroll
+      for (int w4 = 0; w4 < 4; ++w4)
+        ls[ii] += sR[(i * 4 + w4) * 16 + g + 8 * ii];
+      if (lse != nullptr && t == 0)
+        lse[static_cast<size_t>(bh) * a.s_pad + q0 + grp * 16 + g + 8 * ii] =
+            m[i][ii] + logf(fmaxf(ls[ii], 1e-30f));
+    }
+    if (n_k > 0)
+#pragma unroll 1
+      for (int r = 0; r < nsl; ++r)
+        st_async(peer_addr(sLin + grp * 32 + lane, r),
+                 make_float2(ls[0], ls[1]), peer_addr(bars + 3, r));
+  }
+  float2 lw = make_float2(0.f, 0.f);
+  if (n_k > 0) {
+    mbar_wait(bars + 3, 0);
+    lw = sLin[warp * 32 + lane];
+    cluster_barrier();  // every block's stores have landed: all may leave
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = q0 + wr + g + 8 * ii;
+    const float l_safe = fmaxf(ii ? lw.y : lw.x, 1e-30f);
+    if (row < a.seq) {
+      O* dst = out + at + static_cast<size_t>(row) * row_stride + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        if (8 * n < cols)
+          store2<T, O>(dst + 8 * n, o[n][2 * ii] / l_safe,
+                       o[n][2 * ii + 1] / l_safe);
+    }
+  }
+}
+
+// The forward with LSE and dropout; CLUSTER: the cluster body, else the
+// chunked one (fwd_plan picks by head dim).
+template <typename T, typename O, bool CLUSTER>
 __global__ void __launch_bounds__(kNT)
     flash_fwd_lse_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -350,22 +956,32 @@ __global__ void __launch_bounds__(kNT)
                               const int64_t* __restrict__ seed,
                               O* __restrict__ out, float* __restrict__ lse,
                               Args a, uint32_t threshold, float inv_keep,
-                              int dropout, int head_dim) {
-  wide_forward_block<T, true, O>(
-      q, k, v, mask, k_hi, out, lse, a,
-      make_dropout(seed, threshold, inv_keep, dropout, a), head_dim);
+                              int dropout, int head_dim,
+                              const __grid_constant__ FwdMaps maps) {
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  if constexpr (CLUSTER)
+    cluster_forward_block<T, true, O>(q, k, v, mask, k_hi, out, lse, a, drop,
+                                      head_dim, maps);
+  else
+    wide_forward_block<T, true, O>(q, k, v, mask, k_hi, out, lse, a, drop,
+                                   head_dim);
 }
 
 // The forward without LSE and without dropout (_flash_kernel's function).
-template <typename T>
+template <typename T, bool CLUSTER>
 __global__ void __launch_bounds__(kNT)
     flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const int8_t* __restrict__ mask,
                           const int32_t* __restrict__ k_hi,
-                          T* __restrict__ out, Args a, int head_dim) {
-  wide_forward_block<T, false, T>(q, k, v, mask, k_hi, out, nullptr, a,
-                                  Dropout{}, head_dim);
+                          T* __restrict__ out, Args a, int head_dim,
+                          const __grid_constant__ FwdMaps maps) {
+  if constexpr (CLUSTER)
+    cluster_forward_block<T, false, T>(q, k, v, mask, k_hi, out, nullptr, a,
+                                       Dropout{}, head_dim, maps);
+  else
+    wide_forward_block<T, false, T>(q, k, v, mask, k_hi, out, nullptr, a,
+                                    Dropout{}, head_dim);
 }
 
 struct DqSmem {
@@ -1178,6 +1794,101 @@ dim3 grid_of(const Launch& L, int head_dim, int dv) {
   return dim3(L.s_pad / kBM * ((head_dim + dv - 1) / dv), L.heads, L.batch);
 }
 
+// Which body runs the 16-bit forwards at a head dim (a multiple of 64 above
+// 256): the cluster body of `cluster` blocks, one a slice, up to
+// kClusterMaxSlices slices; above, the chunked body (cluster 1).
+// ops/flash_attention.py:wide_forward_plan mirrors it.
+struct FwdPlan {
+  int cluster;   // blocks of a cluster (1: the chunked body)
+  int last;      // columns of the last slice (64 or kFwdDV)
+  int smem;      // dynamic shared bytes of a block
+  int chunk;     // columns of the logits' partial sums, summed in order
+};
+
+FwdPlan fwd_plan(int head_dim) {
+  const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
+  const int last = head_dim - (nsl - 1) * kFwdDV;
+  if (nsl <= kClusterMaxSlices)
+    return {nsl, last, static_cast<int>(ClusterSmem::bytes(nsl)), kFwdDV};
+  return {1, last, static_cast<int>(FwdSmem::bytes<__nv_bfloat16>()), kDC};
+}
+
+// cuTensorMapEncodeTiled, from the driver (no link against it).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// The (B, S, H, D) 16-bit tensor at p as FwdMaps' boxes: 64 columns of one
+// head's 64 rows, in the 128-byte swizzle, rows past S read as zeros.
+int tile_map(CUtensorMap* map, const void* p, bool half, const Launch& L,
+             int head_dim) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(L.heads),
+                              static_cast<cuuint64_t>(L.seq),
+                              static_cast<cuuint64_t>(L.batch)};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t box[4] = {64, 1, kBN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(p), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch a cluster body: clusters of `cluster` blocks along x.  A cluster
+// that no SM can take is the launch's error (cudaErrorLaunchOutOfResources),
+// never a fallback.
+template <typename... P, typename... A>
+int launch_cluster(void (*kern)(P...), dim3 grid, int cluster, size_t smem,
+                   cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kNT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fits = 0;
+  err = cudaOccupancyMaxActiveClusters(&fits, reinterpret_cast<void*>(kern),
+                                       &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fits <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool LSE, typename O>
 int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
         const int32_t* k_hi, const int64_t* seed, void* out, float* lse,
@@ -1202,20 +1913,40 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
     }
   } else {
     const dim3 grid = grid_of(L, head_dim, kFwdDV);
+    const FwdPlan p = fwd_plan(head_dim);
+    FwdMaps maps = {};
+    if (p.cluster > 1) {
+      const size_t smem = ClusterSmem::bytes(p.cluster);
+      const bool half = std::is_same<T, __half>::value;
+      if ((err = tile_map(&maps.k, k, half, L, head_dim)) ||
+          (err = tile_map(&maps.v, v, half, L, head_dim)))
+        return err;
+      if constexpr (LSE)
+        return launch_cluster(flash_fwd_lse_wide_kernel<T, O, true>, grid,
+                              p.cluster, smem, L.stream, qt, kt, vt, mask,
+                              k_hi, seed, static_cast<O*>(out), lse,
+                              args_of(L), L.threshold, L.inv_keep, L.dropout,
+                              head_dim, maps);
+      else
+        return launch_cluster(flash_fwd_wide_kernel<T, true>, grid,
+                              p.cluster, smem, L.stream, qt, kt, vt, mask,
+                              k_hi, static_cast<T*>(out), args_of(L),
+                              head_dim, maps);
+    }
     const size_t smem = FwdSmem::bytes<T>();
     if constexpr (LSE) {
-      auto kern = flash_fwd_lse_wide_kernel<T, O>;
+      auto kern = flash_fwd_lse_wide_kernel<T, O, false>;
       if ((err = launch_config(kern, smem))) return err;
       kern<<<grid, kNT, smem, L.stream>>>(qt, kt, vt, mask, k_hi, seed,
                                           static_cast<O*>(out), lse,
                                           args_of(L), L.threshold, L.inv_keep,
-                                          L.dropout, head_dim);
+                                          L.dropout, head_dim, maps);
     } else {
-      auto kern = flash_fwd_wide_kernel<T>;
+      auto kern = flash_fwd_wide_kernel<T, false>;
       if ((err = launch_config(kern, smem))) return err;
       kern<<<grid, kNT, smem, L.stream>>>(qt, kt, vt, mask, k_hi,
                                           static_cast<T*>(out), args_of(L),
-                                          head_dim);
+                                          head_dim, maps);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -1401,6 +2132,19 @@ int flash_dkv_wide_launch(const void* q, const void* k, const void* v,
                              stream);
   WIDE_DISPATCH(dkv, q, k, v, dout, lse, delta, mask, q_lo, seed, dkp, dvp, L,
                 head_dim)
+}
+
+// The 16-bit forwards' plan at a head dim (a multiple of 64 above 256) into
+// out[0 .. 4]: blocks of a cluster (1: the chunked body), columns of a
+// slice and of the last slice, dynamic shared bytes of a block, columns of
+// the logits' partial sums.  Returns 0, or cudaErrorInvalidValue.
+int flash_wide_fwd_plan(int head_dim, int* out) {
+  if (!wide_shapes_ok(head_dim, kBM, 1) || head_dim <= 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdPlan p = fwd_plan(head_dim);
+  const int v[5] = {p.cluster, kFwdDV, p.last, p.smem, p.chunk};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* flash_wide_error_string(int code) {

@@ -90,7 +90,8 @@ __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "xla_reference_attention", "tile_skip_tables", "mask_tables",
            "device_tables", "dropout_threshold", "dropout_keep_mask",
            "KERNEL_TILES", "WIDE_TILES", "WIDE_CHUNK", "WIDE_CHUNKS",
-           "WIDE_SLICES",
+           "WIDE_SLICES", "WIDE_CLUSTER_MAX",
+           "wide_forward_plan",
            "compiled_head_dim", "is_wide", "kernel_tiles", "run_tiles",
            "at_compiled_dim", "flash_fwd_wide", "flash_fwd_lse_wide",
            "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_reference",
@@ -105,11 +106,14 @@ KERNEL_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (32, 32)}
 # KERNEL_TILES: its tiles, the multiple of 64 a head dim is padded to, and
 # by kernel the columns of a reduction chunk over D and the output columns
 # of a slice a block owns (16-bit; the float32 kernels cut chunks and
-# slices of 64)
+# slices of 64).  The forwards' chunk is their cluster body's, whose logits
+# are the slices' partials summed in order; above WIDE_CLUSTER_MAX slices
+# they run their chunked body (wide_forward_plan)
 WIDE_TILES = (64, 64)
 WIDE_CHUNK = 64
-WIDE_CHUNKS = {"fwd": 64, "dq": 32, "dkv": 64}
+WIDE_CHUNKS = {"fwd": 128, "dq": 32, "dkv": 64}
 WIDE_SLICES = {"fwd": 128, "dq": 128, "dkv": 128}
+WIDE_CLUSTER_MAX = 8    # blocks of a cluster: the portable most
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -212,6 +216,38 @@ def compiled_head_dim(head_dim: int) -> int:
     if is_wide(head_dim):
         return WIDE_CHUNK * -(-head_dim // WIDE_CHUNK)
     return min(d for d in KERNEL_TILES if head_dim <= d)
+
+
+def wide_forward_plan(head_dim: int) -> dict:
+    """How the 16-bit wide forwards run ``head_dim`` (at
+    :func:`compiled_head_dim`), as ``csrc/flash_attention_wide.cu:fwd_plan``
+    launches them: ``body`` ("cluster": the slice blocks of a query tile
+    one thread block cluster, exchanging partial logits; "chunked": each
+    slice block computing all of them), ``cluster`` (blocks of a cluster,
+    1 for the chunked body), ``slice`` and ``last_slice`` (output columns
+    of a block and of the last one), ``smem`` (dynamic shared bytes of a
+    block) and ``chunk`` (columns of the logits' partial sums, summed in
+    order: the plain versions' cut)."""
+    d = compiled_head_dim(head_dim)
+    if not is_wide(d):
+        raise ValueError(f"head dim {head_dim} runs on the narrow kernels")
+    width = WIDE_SLICES["fwd"]
+    nsl = -(-d // width)
+    plan = dict(slice=width, last_slice=d - (nsl - 1) * width)
+    if nsl <= WIDE_CLUSTER_MAX:
+        # ClusterSmem: the K and V rings, the owned row groups' partials
+        # from every block, every group's P, alpha and row sums, the row
+        # maxima, the mask ring, six barriers and the swizzle's alignment
+        owned = -(-4 // nsl)
+        smem = (1024 + 4 * 64 * 128 * 2 + owned * nsl * 64 * 16 * 4
+                + 4 * 4 * 32 * 16 + 2 * 4 * 32 * 8 + 2 * 4 * 16 * 4
+                + 2 * 64 * 80 + 6 * 8)
+        return dict(body="cluster", cluster=nsl, smem=smem,
+                    chunk=WIDE_CHUNKS["fwd"], **plan)
+    # FwdSmem: the Q and K chunk rings, the V slice and mask rings
+    return dict(body="chunked", cluster=1,
+                smem=2 * 2 * (128 * 72 + 64 * 136) + 2 * 64 * 80,
+                chunk=WIDE_CHUNK, **plan)
 
 
 def kernel_tiles(head_dim: int) -> Optional[Tuple[int, int]]:
@@ -564,27 +600,32 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
     return unflat(dk, k), unflat(dv, v)
 
 
-def _wide_kw(kind, dtype):
-    """The wide kernel's cut of D for a plain version: its reduction chunks
-    and output slices (64 columns each in float32)."""
-    if dtype == torch.float32:
+def _wide_kw(kind, q):
+    """The wide kernel's cut of D for a plain version on q's dtype and head
+    dim: its reduction chunks and output slices (64 columns each in
+    float32; the 16-bit forwards' by :func:`wide_forward_plan`)."""
+    if q.dtype == torch.float32:
         return dict(chunk=64, slice_width=64)
+    if kind == "fwd":
+        plan = wide_forward_plan(q.shape[-1])
+        return dict(chunk=plan["chunk"], slice_width=plan["slice"])
     return dict(chunk=WIDE_CHUNKS[kind], slice_width=WIDE_SLICES[kind])
 
 
 def flash_fwd_wide_reference(q, k, v, mask_i8, k_hi, **kw):
     """:func:`flash_fwd_reference` computed the way the wide forward kernel
-    does: logits summed over D in its chunks (``WIDE_CHUNKS``), in order,
-    and the output in slices (``WIDE_SLICES``), each recomputing them."""
+    does: logits summed over D in its chunks, in order (up to
+    ``WIDE_CLUSTER_MAX`` slices the slices' partials, ``WIDE_CHUNKS``),
+    and the output in slices (``WIDE_SLICES``)."""
     return flash_fwd_reference(q, k, v, mask_i8, k_hi,
-                               **_wide_kw("fwd", q.dtype), **kw)
+                               **_wide_kw("fwd", q), **kw)
 
 
 def flash_fwd_lse_wide_reference(q, k, v, mask_i8, k_hi, seed=None, **kw):
     """:func:`flash_fwd_lse_reference` the way the wide kernel computes
     it (as :func:`flash_fwd_wide_reference`)."""
     return flash_fwd_lse_reference(q, k, v, mask_i8, k_hi, seed,
-                                   **_wide_kw("fwd", q.dtype), **kw)
+                                   **_wide_kw("fwd", q), **kw)
 
 
 def flash_dq_wide_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
@@ -592,7 +633,7 @@ def flash_dq_wide_reference(q, k, v, do, lse, delta, mask_i8, k_hi,
     """:func:`flash_dq_reference` the way the wide kernel computes it:
     logits and dO V^T summed over D in chunks, dQ in slices."""
     return flash_dq_reference(q, k, v, do, lse, delta, mask_i8, k_hi, seed,
-                              **_wide_kw("dq", q.dtype), **kw)
+                              **_wide_kw("dq", q), **kw)
 
 
 def flash_dkv_wide_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
@@ -601,7 +642,7 @@ def flash_dkv_wide_reference(q, k, v, do, lse, delta, mask_i8, q_lo,
     the transposed logits and dP summed over D in chunks, dK and dV in
     slices."""
     return flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed,
-                               **_wide_kw("dkv", q.dtype), **kw)
+                               **_wide_kw("dkv", q), **kw)
 
 
 def xla_reference_attention(q, k, v, mask_bool: torch.Tensor, *,

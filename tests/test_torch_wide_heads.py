@@ -2,7 +2,9 @@
 versions of the wide kernels (``flash_*_wide_reference``: logits summed
 over D in chunks of 64 columns, outputs in slices) at D = 320, 512 and 300
 against the JAX package's kernels in interpret mode (forward, LSE and
-gradients, under the octo and a causal mask); the chunked, slice-split
+gradients, under the octo and a causal mask), and the 16-bit forwards'
+order (the clusters' 128-column partial logits summed in rank order) at D
+= 320-768; the mirror of the forwards' launch plan; the chunked, slice-split
 plain versions against the unsplit ones, with dropout and the b0 / h0
 offsets, and the padding path the card runs for D = 300; the selection of
 the flash path at every head dim and every configured tile, and the
@@ -110,6 +112,59 @@ def test_plain_wide_kernels_match_jax_kernels(d, kind):
     for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
         _close(got, want, GRAD_RTOL, GRAD_ATOL)
     assert launches == {n: w.launches for n, w in tfa._WRAPPERS.items()}
+
+
+@pytest.mark.parametrize("d", [320, 512, 576, 768])
+def test_cluster_sum_order_matches_jax_kernel(d):
+    """The 16-bit wide forwards' order of the logits' sums (the slices'
+    partial products over 128 columns, summed in rank order, as the
+    cluster body's blocks sum them; odd-slice clusters at 320 and 576, six
+    slices at 768), computed in float32, against the JAX forward in
+    interpret mode on the octo mask: out and LSE to 2e-5."""
+    bq, bk = tfa.WIDE_TILES
+    mask = _mask("octo")
+    q, k, v = _qkv(mask.shape[0], d, seed=d + 1, n=3)
+    padded, k_hi, _ = tfa.mask_tables(mask, bq, bk)
+    out_j, lse_j = jfa.flash_fwd_lse(q, k, v, padded, k_hi, block_q=bq,
+                                     block_k=bk, interpret=True)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    out_t, lse_t = tfa.flash_fwd_lse_reference(
+        tq, tk, tv, torch.tensor(padded), torch.tensor(k_hi), block_q=bq,
+        block_k=bk, chunk=tfa.WIDE_CHUNKS["fwd"],
+        slice_width=tfa.WIDE_SLICES["fwd"])
+    _close(out_t, out_j, FWD_TOL, FWD_TOL)
+    _close(lse_t, lse_j, FWD_TOL, FWD_TOL)
+
+
+# head dim -> (body, blocks of a cluster, columns of the last slice, dynamic
+# shared bytes of a block: csrc/flash_attention_wide.cu's ClusterSmem at 3,
+# 4, 5, 6 and 8 blocks and FwdSmem)
+FWD_PLANS = {300: ("cluster", 3, 64, 112176), 320: ("cluster", 3, 64, 112176),
+             512: ("cluster", 4, 128, 103984), 576: ("cluster", 5, 64, 108080),
+             768: ("cluster", 6, 128, 112176),
+             1024: ("cluster", 8, 128, 120368),
+             1152: ("chunked", 1, 128, 81920)}
+
+
+@pytest.mark.parametrize("d", sorted(FWD_PLANS))
+def test_wide_forward_plan(d):
+    """The mirror of the forwards' launch plan: up to 8 slices of 128
+    columns the slice blocks of a query tile are one cluster, above it the
+    chunked body (PR 15's); the 16-bit plain versions cut D as the body
+    does, the float32 ones in 64 columns whatever the body."""
+    plan = tfa.wide_forward_plan(d)
+    assert (plan["body"], plan["cluster"], plan["last_slice"],
+            plan["smem"]) == FWD_PLANS[d]
+    assert plan["slice"] == 128
+    assert plan["chunk"] == (tfa.WIDE_CHUNKS["fwd"] if plan["body"] ==
+                             "cluster" else tfa.WIDE_CHUNK)
+    x = torch.zeros(1, 1, 1, d, dtype=torch.bfloat16)
+    assert tfa._wide_kw("fwd", x) == dict(chunk=plan["chunk"],
+                                          slice_width=128)
+    assert tfa._wide_kw("fwd", x.float()) == dict(chunk=64, slice_width=64)
+    assert tfa._wide_kw("dq", x) == dict(chunk=32, slice_width=128)
+    with pytest.raises(ValueError, match="narrow"):
+        tfa.wide_forward_plan(256)
 
 
 def _wide_case(d, dtype, b=2, h=3):
