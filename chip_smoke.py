@@ -264,10 +264,10 @@ F32_TOL = 1e-4
 # A rounding point moved off the JAX one shifts every element.
 LOW_ULPS = 2.0
 E2E_F32_TOL = 1e-3      # CUDA vs CPU, float32 (see phases 4 and 10)
-SERVE_REQUESTS = 300    # per batch size, after two warm-up requests
+SERVE_REQUESTS = 200    # per batch size, after two warm-up requests
 # octo_deep and its unmerged baseline, per batch size: enough for a median,
 # few enough to keep the whole run inside its time budget
-DEEP_REQUESTS = 100
+DEEP_REQUESTS = 60
 OUT_DIR = "chiprun_out"
 
 
@@ -1510,6 +1510,78 @@ def wide_forward_check(fa):
     return {"plans": {str(d): v for d, v in plans.items()}, "agree": checks}
 
 
+def wide_backward_check(fa):
+    """The wide dq's and dk/dv's launch plans against their mirror (every
+    multiple of 64 from 320 to 2048), and the cluster backward's agreement
+    bit for bit (bf16, dropout 0.1, octo_deep_h512's first stage; at D =
+    512 and 576, clusters of 4 and of 5 with a 64-column last slice): a
+    batch's first two rows launched alone against those rows of the batch
+    of 8, and a CUDA-graph replay of each kernel against its eager call.
+    Returns the plans and the checks."""
+    lib = fa._library(True)
+    lib.flash_wide_bwd_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.flash_wide_bwd_plan.restype = ctypes.c_int
+    got = (ctypes.c_int * 5)()
+    plans = {}
+    for kind in ("dq", "dkv"):
+        for d in range(320, 2049, 64):
+            rc = lib.flash_wide_bwd_plan(int(kind == "dkv"), d,
+                                         ctypes.addressof(got))
+            plan = fa.wide_backward_plan(kind, d)
+            want = [plan[k] for k in ("cluster", "slice", "last_slice",
+                                      "smem", "chunk")]
+            if rc != 0 or list(got) != want:
+                fail(f"wide_backward_plan({kind!r}, {d}) = {want}, the "
+                     f"kernel's {list(got)} (rc {rc})")
+            plans[f"{kind} {d}"] = plan["body"], plan["cluster"]
+    log(f"  wide backward plans, C = Python at D = 320..2048: "
+        f"{sorted({v for v in plans.values()})}")
+    seed = torch.tensor([0x2468ACE, 0x13579BD], dtype=torch.int64,
+                        device="cuda")
+    checks = {}
+    for d, h in ((512, 3), (576, 4)):
+        _, (q, k, v, do), (padded, k_hi, q_lo), tiles = flash_case(
+            fa, stage_mask(DEEP_SPEC, 0), 8, h, d, torch.bfloat16, seed=22)
+        kw = dict(block_q=tiles[0], block_k=tiles[1],
+                  dropout_rate=TRAIN_DROPOUT)
+        out, lse = fa.flash_fwd_lse(q, k, v, padded, k_hi, seed, **kw)
+        delta = fa.attention_delta(do, out, padded.shape[0])
+        rows = lambda x: x[:2].contiguous()
+        ops = (q, k, v, do)
+        calls = {
+            "flash_dq_wide": lambda x, ls, dl: (fa.flash_dq(
+                *x, ls, dl, padded, k_hi, seed, **kw),),
+            "flash_dkv_wide": lambda x, ls, dl: fa.flash_dkv(
+                *x, ls, dl, padded, q_lo, seed, **kw)}
+        for name, call in calls.items():
+            whole = call(ops, lse, delta)
+            alone = call(tuple(map(rows, ops)), rows(lse), rows(delta))
+            same_rows = all(torch.equal(w[:2], x)
+                            for w, x in zip(whole, alone))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                call(ops, lse, delta)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call(ops, lse, delta)
+            graph.replay()
+            eager = call(ops, lse, delta)
+            torch.cuda.synchronize()
+            same_replay = all(torch.equal(c, e)
+                              for c, e in zip(captured, eager))
+            checks[f"{name} D={d}"] = dict(rows_alone=same_rows,
+                                           replay=same_replay)
+            log(f"  {name} bf16 D={d} H={h} B=8 r={TRAIN_DROPOUT}: rows 0-1 "
+                f"alone bit for bit with the batch's {same_rows}; graph "
+                f"replay bit for bit with the eager call {same_replay}")
+            if not (same_rows and same_replay):
+                fail(f"{name} at D={d}: the cluster's blocks disagree")
+    return {"plans": plans, "agree": checks}
+
+
 # the layouts the pool backward is held in: (x, g); the first is the one the
 # embedder hands it on the main path (its convolution's channels_last output
 # and a contiguous cotangent), which main() checks after training
@@ -2495,7 +2567,10 @@ def replay_profile(fn, calls, expected, label):
              f"{expected} (a graph that lost or swapped a kernel)")
     busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    return {"kernels": counts, "device_ms": busy,
+    kernel_ms = {k: sum(e.self_device_time_total for e in events
+                        if re.search(rf"\b{k}_kernel\b", e.key)) / 1e3 / calls
+                 for k in names if counts[k]}
+    return {"kernels": counts, "device_ms": busy, "kernel_ms": kernel_ms,
             "launches": sum(e.count for e in events) / calls,
             "top": [(round(e.self_device_time_total / 1e3 / calls, 4),
                      e.count / calls, e.key[:70]) for e in top]}
@@ -2733,6 +2808,8 @@ def compiled_train_phase(cfg, label, expected, twin=None):
         f"{eager_prof['idle_share']:.3f}")
     for t in prof["top"]:
         log(f"    {t[0]:8.4f} ms/step x{t[1]:5.1f}  {t[2]}")
+    log(f"    the port's kernels, ms/step: "
+        f"{ {k: round(v, 4) for k, v in prof['kernel_ms'].items()} }")
     if twin is not None:
         twin_name, twin_cfg, twin_expected = twin
         del states["eager"]
@@ -5267,8 +5344,9 @@ def wide_head_phase(counters):
     in float32 against the CPU under phase 10's limit; trained in bf16 at
     batch 32 through fit (12 flash_fwd_lse_wide, 12 flash_dq_wide, 12
     flash_dkv_wide and 1 pool_bwd launches a step, dropout 0.1 in the
-    kernels), captured against the eager step, and one float32 step
-    against the CPU under TRAIN_REF_LIMITS."""
+    kernels), captured against the eager step and in turns with octo_deep's
+    captured step (phase 13's attention), and one float32 step against the
+    CPU under TRAIN_REF_LIMITS."""
     from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
     scfg = h512_config("bfloat16", serving=True)
     att = scfg.transformer.attention
@@ -5305,7 +5383,10 @@ def wide_head_phase(counters):
     del state
     torch.cuda.empty_cache()
     compiled_train = compiled_train_phase(
-        tcfg, "octo_deep_h512 (flash/pallas)", training)
+        tcfg, "octo_deep_h512 (flash/pallas)", training,
+        twin=("octo_deep", deep_pallas_config("bfloat16"),
+              {"flash_fwd_lse": blocks, "flash_dq": blocks,
+               "flash_dkv": blocks, "pool_bwd": 1}))
     train_ref = train_reference_phase(h512_config("float32", serving=False),
                                       counters, "octo_deep_h512", training)
     return dict(serve_ms_per_request=serve_ms, serve_launches=serve_launches,
@@ -5452,8 +5533,12 @@ def main():
                                          ("bf16_f32out", torch.float32))}
         flash_rows[name], sdpa_kernels[name] = flash_timings(
             fa, name, mask, b, h, d)
+    # the backward at dead rows too (D = 512; the forward's in fwd_shapes)
+    flash_err["dead_rows_d512"] = flash_check(fa, "dead_rows_d512",
+                                              dead_row_mask(), 2, 3, 512)
     fwd_err = flash_fwd_check(fa)
     wide_fwd = wide_forward_check(fa)
+    wide_bwd = wide_backward_check(fa)
     fwd_rows = flash_fwd_timings(fa)
     pad_cost = padding_cost(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
@@ -5889,6 +5974,7 @@ def main():
         })
     log(json.dumps({"wide_heads": h512, "wide_ring": wide_ring,
                     "wide_ptxas": wide_ptx, "wide_forward": wide_fwd,
+                    "wide_backward": wide_bwd,
                     "pool_windows": pool_row["windows_above_8"],
                     "card": card}))
     log(json.dumps({"wide_sampler": {k: v for k, v in wide.items()

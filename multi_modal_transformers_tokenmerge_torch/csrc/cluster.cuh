@@ -1,8 +1,8 @@
 // Thread block clusters (sm_90): the cluster's barrier, another block's
 // shared memory and barriers signalled across blocks.  ddpm_sampler_wide.cu
 // (partial sums of the hidden units) and flash_attention_wide.cu (partial
-// logits and probabilities of the forward's slices) exchange their
-// partials through them.
+// logits and probabilities of the forward's slices, partial S and dP and
+// the backward's dS and P fragments) exchange their partials through them.
 
 #pragma once
 
@@ -10,11 +10,21 @@
 
 namespace {
 
-// The cluster's barrier, release / acquire at cluster scope: every
-// block's partial sums, written before it, are visible after it.
+// The cluster's barrier in two halves, so that work can go between them:
+// this block's arrival (release), then the wait for every block's
+// (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The whole barrier, release / acquire at cluster scope: every block's
+// partial sums, written before it, are visible after it.
 __device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // The address of `p` (in this block's shared memory) in block `rank`'s.
@@ -85,6 +95,14 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, uint2 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void st_async(uint32_t dst, float2 v,

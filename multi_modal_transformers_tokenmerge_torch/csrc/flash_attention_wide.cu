@@ -26,24 +26,36 @@
 // dP = dO V^T in the backward) are what the two designs here get
 // differently.
 //
-// The 16-bit forwards up to D = 1024 (flash_fwd_wide_kernel and
-// flash_fwd_lse_wide_kernel, CLUSTER): the slice blocks of a query tile are
-// one thread block cluster that computes S once, each block its slice's
-// partial product, the partials exchanged through distributed shared
-// memory (the cluster forward's note, below).  What bounds a wide forward on
-// this card is neither the tensor cores (octo_deep_h512's first stage at
-// B = 32, 3 heads of 512: about 11 GFLOP over the live tiles, some 0.01 ms)
-// nor device memory (88 MB, 0.026 ms), but moving operands from L2 and
-// waiting on it.  The chunked body below recomputes S in every slice
-// block, restaging Q and K from L2 for every key tile and slice (some 800
-// MB through L2 at that shape) behind a block barrier every 64 columns,
-// and reads 0.26 ms there; the cluster body moves some 220 MB, keeps Q in
-// registers, brings K and V by TMA and runs both products on wgmma: 0.12
-// ms, one H100 at 700 W (flash_wide_probe.py times each step of it).
-// Above 1024, more slices than a portable cluster holds, the forwards keep
-// the chunked body (fwd_plan, which ops/flash_attention.py mirrors).
+// The 16-bit kernels up to D = 1024 (CLUSTER): the slice blocks of a row
+// tile (a query tile in the forwards and dq, a key tile in dk/dv) are one
+// thread block cluster that computes the sums over D once, each block its
+// slice's partial products, the partials exchanged through distributed
+// shared memory (the cluster forward's and the cluster backward's notes,
+// below).  Above 1024, more slices than a portable cluster holds, they keep
+// the chunked body (fwd_plan and bwd_plan, which ops/flash_attention.py
+// mirrors).  What bounds them on this card is neither the tensor cores nor
+// device memory but moving operands and partials, and waiting on them
+// (octo_deep_h512's first stage at B = 32, 3 heads of 512, one H100 at 700
+// W; flash_wide_probe.py times each step):
+//   * the forwards: about 11 GFLOP over the live tiles (some 0.01 ms) and
+//     88 MB (0.026 ms).  The chunked body recomputes S in every slice
+//     block, restaging Q and K from L2 for every key tile and slice (some
+//     800 MB through L2) behind a block barrier every 64 columns, and reads
+//     0.26 ms; the cluster body moves some 220 MB, keeps Q in registers,
+//     brings K and V by TMA and runs both products on wgmma: 0.12 ms;
+//   * dq and dk/dv: 110 and 132 MB (0.033 and 0.040 ms).  The chunked
+//     bodies compute S and dP in every slice block (at D = 512 nine
+//     products' worth of tensor-core work where dq needs three, ten where
+//     dk/dv needs four) and restage the operands from L2 on every step (some
+//     1.5 GB through L2 a kernel): 0.40 and 0.55 ms.  The cluster bodies
+//     compute each sum once, keep the row tile's own operands in registers
+//     and stream only their slices of the other two: 0.19 and 0.23 ms.
+//     What is left is the exchange: per 64 x 64 tile a block stores 24 KB
+//     of float32 partials into its peers (at 4 slices) and takes in as
+//     many, and one block an SM (its accumulators fill the registers) waits
+//     on them; `flash_wide_probe.py phases` reads where a block's time goes.
 //
-// The chunked body (the forwards above 1024) and dq and dk/dv at every D:
+// The chunked body (above D = 1024):
 //   * The reductions over D go in chunks of DC = 64 columns (32 in dq:
 //     with its four operands' chunks in the ring that halves its shared
 //     memory, two blocks an SM in place of one, 30-52% less time at
@@ -402,10 +414,11 @@ __device__ __forceinline__ void wide_forward_block(
 constexpr int kClusterMaxSlices = 8;  // blocks of a cluster: the portable most
 constexpr int kTile = kBM * kFwdDV;   // elements of a 64 x 128 operand tile
 
-// The cluster body's K and V as TMA tensor maps: (B, S, H, D) in boxes of
-// one head's 64 rows x 64 columns, swizzled as sw128 lays them out.
-struct FwdMaps {
-  CUtensorMap k, v;
+// The two operands a cluster body streams, tile by tile, as TMA tensor maps
+// (the forward's and dq's K and V, dk/dv's Q and dO): (B, S, H, D) in boxes
+// of one head's 64 rows x 64 columns, swizzled as sw128 lays them out.
+struct TileMaps {
+  CUtensorMap a, b;
 };
 
 // One box of `map` at (column c, head h, row, batch b) into shared memory
@@ -452,14 +465,14 @@ __device__ __forceinline__ int sw128(int row, int col) {
 }
 
 // Rows [row0, row0 + 64) of `cols` columns (64 or 128) of a (B, S, H, D)
-// slice into a swizzled tile, by 16-byte cp.async; rows at or past S are
-// zero-filled.
-template <typename T>
+// slice into a swizzled tile, by 16-byte cp.async from NT threads; rows at
+// or past S are zero-filled.
+template <typename T, int NT = kNT>
 __device__ __forceinline__ void stage_sw128(T* dst, const T* src, int row0,
                                             int seq, size_t row_stride,
                                             int cols) {
   const int lg = cols == kFwdDV ? 4 : 3;  // log2 of the 16-byte chunks a row
-  for (int c = threadIdx.x; c < (kBM << lg); c += kNT) {
+  for (int c = threadIdx.x; c < (kBM << lg); c += NT) {
     const int r = c >> lg, col = (c & ((1 << lg) - 1)) << 3;
     const int row = row0 + r;
     const bool in = row < seq;
@@ -627,23 +640,27 @@ __device__ __forceinline__ void partial_logits(
   wgmma_commit_wait();
 }
 
-// o += P V[:, slice] for one key tile: pa P's A fragments (rounded to T),
-// by k16 step, V's swizzled tile tV, the slice's first `cols` columns.
-template <typename T>
-__device__ __forceinline__ void pv_product(float (&o)[kFwdDV / 8][4],
-                                           const uint32_t (&pa)[kBN / 16][4],
-                                           const T* tV, int cols) {
+// o += A B for one 64-row step of the other axis: pa A's fragments
+// (rounded to T), by k16 step, and B the swizzled tile tB (64 rows of the
+// step, N-major), its first `cols` columns (64, or 128 with NO = 16): P V
+// in the forward, dS K in dq, P^T dO and dS^T Q in dk/dv.
+template <typename T, int NO>
+__device__ __forceinline__ void out_product(float (&o)[NO][4],
+                                            const uint32_t (&pa)[kBN / 16][4],
+                                            const T* tB, int cols) {
+  static_assert(NO == 8 || NO == kFwdDV / 8, "64 or 128 columns");
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     // N-major: the next 64 columns an atom (kBM rows) further, the next 8
-    // keys a 1024-byte row group further
-    const uint64_t desc = sw128_desc(tV + sw128(kk * 16, 0), kBM * 128, 1024);
-    if (cols == kFwdDV)
-      wgmma_n128<1>(o, pa[kk], desc, tV);
+    // rows a 1024-byte row group further
+    const uint64_t desc = sw128_desc(tB + sw128(kk * 16, 0), kBM * 128, 1024);
+    if constexpr (NO == 8)
+      wgmma_n64<1>(o, pa[kk], desc, tB);
+    else if (cols == kFwdDV)
+      wgmma_n128<1>(o, pa[kk], desc, tB);
     else
-      wgmma_n64<1>(*reinterpret_cast<float(*)[kBN / 8][4]>(o), pa[kk], desc,
-                   tV);
+      wgmma_n64<1>(*reinterpret_cast<float(*)[8][4]>(o), pa[kk], desc, tB);
   }
   wgmma_commit_wait();
 }
@@ -658,7 +675,7 @@ __device__ __forceinline__ void cluster_forward_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int8_t* __restrict__ mask, const int32_t* __restrict__ k_hi,
     O* __restrict__ out, float* __restrict__ lse, const Args& a,
-    const Dropout& drop, int head_dim, const FwdMaps& maps) {
+    const Dropout& drop, int head_dim, const TileMaps& maps) {
   constexpr int LDM = ClusterSmem::LDM;
   constexpr int NS = kBN / 8, NO = kFwdDV / 8, NQ = kFwdDV / 16;
   const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
@@ -696,9 +713,9 @@ __device__ __forceinline__ void cluster_forward_block(
     if (threadIdx.x == 0) {  // K and V by TMA: rows at or past S as zeros
       mbar_expect(bars + 4 + st, 2 * cols * kBN * 2);
       for (int c = 0; c < cols; c += 64) {
-        tma_box(sK + st * kTile + c * kBN, &maps.k, c0 + c, h, kt * kBN, b,
+        tma_box(sK + st * kTile + c * kBN, &maps.a, c0 + c, h, kt * kBN, b,
                 bars + 4 + st);
-        tma_box(sV + st * kTile + c * kBN, &maps.v, c0 + c, h, kt * kBN, b,
+        tma_box(sV + st * kTile + c * kBN, &maps.b, c0 + c, h, kt * kBN, b,
                 bars + 4 + st);
       }
     }
@@ -888,7 +905,7 @@ __device__ __forceinline__ void cluster_forward_block(
       o[n][2] *= al.y;
       o[n][3] *= al.y;
     }
-    pv_product<T>(o, pa, sV + st * kTile, cols);
+    out_product<T, NO>(o, pa, sV + st * kTile, cols);
     cp_async_wait_all();  // the next tile's mask has landed ...
     __syncthreads();      // ... for every warp, and this tile is free
   }
@@ -957,7 +974,7 @@ __global__ void __launch_bounds__(kNT)
                               O* __restrict__ out, float* __restrict__ lse,
                               Args a, uint32_t threshold, float inv_keep,
                               int dropout, int head_dim,
-                              const __grid_constant__ FwdMaps maps) {
+                              const __grid_constant__ TileMaps maps) {
   const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
   if constexpr (CLUSTER)
     cluster_forward_block<T, true, O>(q, k, v, mask, k_hi, out, lse, a, drop,
@@ -975,7 +992,7 @@ __global__ void __launch_bounds__(kNT)
                           const int8_t* __restrict__ mask,
                           const int32_t* __restrict__ k_hi,
                           T* __restrict__ out, Args a, int head_dim,
-                          const __grid_constant__ FwdMaps maps) {
+                          const __grid_constant__ TileMaps maps) {
   if constexpr (CLUSTER)
     cluster_forward_block<T, false, T>(q, k, v, mask, k_hi, out, nullptr, a,
                                        Dropout{}, head_dim, maps);
@@ -993,21 +1010,18 @@ struct DqSmem {
   }
 };
 
-// dQ of one block: query rows [q0, q0 + 64), dQ columns [c0, c0 + cols) of
-// slice blockIdx.x % nsl, over the key tiles below k_hi.  Per key tile, S
-// and dP accumulate over the chunks of Q, K, dO and V; then p, the keep
-// bits, dS = p (dP - delta) rounded to T, and dQ += dS K[:, slice].
+// dQ of one block of the chunked body: query rows [q0, q0 + 64), dQ columns
+// [c0, c0 + cols) of slice blockIdx.x % nsl, over the key tiles below k_hi.
+// Per key tile, S and dP accumulate over the chunks of Q, K, dO and V; then
+// p, the keep bits, dS = p (dP - delta) rounded to T, and dQ += dS K[:,
+// slice].
 template <typename T, typename O>
-__global__ void __launch_bounds__(kNT)
-    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int8_t* __restrict__ mask,
-                         const int32_t* __restrict__ k_hi,
-                         const int64_t* __restrict__ seed, O* __restrict__ dq,
-                         Args a, uint32_t threshold, float inv_keep,
-                         int dropout, int head_dim) {
+__device__ __forceinline__ void wide_dq_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int8_t* __restrict__ mask,
+    const int32_t* __restrict__ k_hi, O* __restrict__ dq, const Args& a,
+    const Dropout& drop, int head_dim) {
   using S = DqSmem;
   constexpr int LDC = S::LDC, LDV = S::LDV, LDM = S::LDM;
   constexpr int NS = kBN / 8, NO = kFwdDV / 8;
@@ -1019,7 +1033,6 @@ __global__ void __launch_bounds__(kNT)
   T* sKs = sV + 2 * kBN * LDC;          // [2][BN][LDV]: K's slice
   int8_t* sM = reinterpret_cast<int8_t*>(sKs + 2 * kBN * LDV);
 
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
   const Wide w = wide_of(head_dim, kFwdDV, kDqDC);
   const int qt = blockIdx.x / w.nsl, sl = blockIdx.x - qt * w.nsl;
   const int c0 = sl * kFwdDV, cols = min(kFwdDV, w.d - c0);
@@ -1168,26 +1181,21 @@ struct DkvShape {
   }
 };
 
-// dK and dV of one block: key rows [k0, k0 + 64), columns [c0, c0 + cols)
-// of slice blockIdx.x % nsl, over the q tiles from q_lo.  Per q tile, S^T
-// and dP^T accumulate over the chunks of K, Q, V and dO, key-major as in
-// flash_attention.cu's dk/dv; then p from the staged LSE, the keep bits
-// (the transposed layout's shared counters), and dV += (keep P / (1 -
-// r))^T dO[:, slice], dK += dS^T Q[:, slice], the A operands rounded to T.
-// Warp w holds keys 16 (w / DS) .. + 15, queries (w % DS) 64 / DS .. of a
-// q tile and columns (w % DS) DV / DS .. of the slice.
+// dK and dV of one block of the chunked body: key rows [k0, k0 + 64),
+// columns [c0, c0 + cols) of slice blockIdx.x % nsl, over the q tiles from
+// q_lo.  Per q tile, S^T and dP^T accumulate over the chunks of K, Q, V and
+// dO, key-major as in flash_attention.cu's dk/dv; then p from the staged
+// LSE, the keep bits (the transposed layout's shared counters), and dV +=
+// (keep P / (1 - r))^T dO[:, slice], dK += dS^T Q[:, slice], the A operands
+// rounded to T.  Warp w holds keys 16 (w / DS) .. + 15, queries (w % DS) 64
+// / DS .. of a q tile and columns (w % DS) DV / DS .. of the slice.
 template <typename T, typename O, int DS>
-__global__ void __launch_bounds__(kNT * DS)
-    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const int8_t* __restrict__ mask,
-                          const int32_t* __restrict__ q_lo,
-                          const int64_t* __restrict__ seed,
-                          O* __restrict__ dk, O* __restrict__ dv, Args a,
-                          uint32_t threshold, float inv_keep, int dropout,
-                          int head_dim) {
+__device__ __forceinline__ void wide_dkv_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int8_t* __restrict__ mask,
+    const int32_t* __restrict__ q_lo, O* __restrict__ dk,
+    O* __restrict__ dv, const Args& a, const Dropout& drop, int head_dim) {
   using S = DkvShape<DS>;
   constexpr int DV = S::DV, NT = S::NT;
   constexpr int LDC = S::LDC, LDS = S::LDS, LDP = S::LDP, LDM = S::LDM;
@@ -1206,7 +1214,6 @@ __global__ void __launch_bounds__(kNT * DS)
   float* sD = sL + 2 * kBN;                              // [2][BN] each
   int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * kBN);  // [2][BN][LDM]
 
-  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
   const Wide w = wide_of(head_dim, DV);
   const int kt = blockIdx.x / w.nsl, sl = blockIdx.x - kt * w.nsl;
   const int c0 = sl * DV, cols = min(DV, w.d - c0);
@@ -1384,6 +1391,497 @@ __global__ void __launch_bounds__(kNT * DS)
       }
     }
   }
+}
+
+// -- the cluster backward (bf16, fp16; head dims up to 1024) ------------------
+//
+// dq and dk/dv as the cluster forward computes the logits: the nsl slice
+// blocks of a row tile of the block's own axis (queries in dq, keys in
+// dk/dv) are one cluster, block r owning columns [128 r, 128 r + cols) of D
+// for every product.  A block is two warpgroups.  Each holds one resident
+// operand's slice as wgmma A fragments, loaded once (dq: Q and dO; dk/dv: K
+// and V; staged through the ring's second stage), and per tile of the other
+// axis TMA brings the two streamed slices (dq: K and V; dk/dv: Q and dO,
+// with the tile's LSE and delta by cp.async) into a two-stage ring.  Per
+// tile:
+//   * warpgroup 0 computes its slice's partial S (dk/dv: S^T) and
+//     warpgroup 1 its partial dP (dP^T), 64 x 64 each on wgmma m64n64k16;
+//   * a reduce-scatter: row group w (warp w of each warpgroup) is owned by
+//     block w % nsl, and each warp stores its 16 rows' partial into the
+//     owner's shared memory, by st.async on the owner's barrier (its own
+//     block's by plain stores).  The owner's eight warps take 8 columns
+//     each and sum the nsl partials of S and of dP in rank order 0 .. nsl -
+//     1 (the plain versions' chunk=128); then p from the LSE, the keep bits,
+//     and dS = p (dP_kept - delta) (dk/dv also keep P / (1 - r)), rounded
+//     to T as half of an A fragment;
+//   * an all-gather: each owner warp stores its halves into every block of
+//     the cluster by st.async, 2 KB a row group and operand (dk/dv's P and
+//     dS halves in one 16-byte store);
+//   * the output products on wgmma m64n128k16 with B the streamed tile
+//     already in shared memory: dq's warpgroup 0 dQ += dS K (its warpgroup
+//     1 idles; split between the two by columns, on m64n64k16, the product
+//     of later tiles came out wrong on the card, on mma.sync it did not:
+//     not understood); dk/dv's warpgroup 0 dV += P_kept^T dO, its
+//     warpgroup 1 dK += dS^T Q.
+// Every block of a cluster so uses bitwise the same P and dS: one owner
+// sums each row group's partials, in a fixed order.  Where two exchange
+// buffers fit a block (all but dk/dv at 8 slices), tile i + 1's partials
+// leave while tile i's fragments travel; with one, once they have come.  No
+// buffer is written while it is read: a block sends tile i + 2's partials
+// (one buffer: i + 1's) only after it holds tile i's fragments, which every
+// owner sends only after reading tile i's partials.  A barrier's phase is
+// armed with the bytes it awaits by its own block's thread 0, after its
+// last phase completed; bytes may land before the arming.  A tile's slices
+// are issued into the ring two tiles ahead, once its stage is free, by
+// thread 128 (thread 0 arms the barriers at that point: the issuing thread
+// waits its issue out).  No cluster barrier closes the block: every store
+// into its shared memory completes on a phase it has waited for.
+
+constexpr int kBwdClusterMaxSlices = kClusterMaxSlices;
+constexpr int kBwdNT = 2 * kNT;  // two warpgroups
+constexpr size_t kMaxSmem = 232448;  // a block's most dynamic shared memory
+
+struct BwdSmem {
+  static constexpr int LDM = kBN + 16;
+  // sA[2][kTile], sB[2][kTile] (the streamed slices, 16-bit; the resident
+  // ones are staged in stage 1 first); sIn[nb][owned][nsl][2][16 x 64]
+  // (float32 partial S and dP of the owned row groups, by buffer and
+  // sender); sPin[nb][4][4][32][nf] (every row group's fragments by k16
+  // step and lane, uint4: dS, or dk/dv's P and dS by halves); sL[2][64],
+  // sD[2][64] (dk/dv: the q tile's LSE and delta); sM[2][64][LDM]; eight
+  // mbarriers; up to 1024 bytes to align the tiles to the swizzle's atoms.
+  // nb = 2 (pipelined) where that fits.
+  static constexpr __host__ __device__ size_t bytes(int nsl, int nf,
+                                                    int nb) {
+    return 1024 + 2 * 4 * kTile +
+           nb * (ClusterSmem::owned(nsl) * nsl * 2 * kBN * 16 * 4 +
+                 nf * 4 * 4 * 32 * 16) +
+           2 * 2 * kBN * 4 + 2 * kBM * LDM + 8 * 8;
+  }
+  static constexpr __host__ __device__ int buffers(int nsl, int nf) {
+    return bytes(nsl, nf, 2) <= kMaxSmem ? 2 : 1;
+  }
+};
+
+// One block of the cluster backward: rows [r0, r0 + 64) of its own axis
+// (DKV: keys, out0 dK and out1 dV; else queries, out0 dQ) at columns [c0,
+// c0 + cols) of slice r, the block's rank, over the tiles of the other axis
+// that `table` gives (k_hi or q_lo).  Arguments as the chunked bodies'.
+template <typename T, typename O, bool DKV>
+__device__ __forceinline__ void cluster_backward_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int8_t* __restrict__ mask,
+    const int32_t* __restrict__ table, O* __restrict__ out0,
+    O* __restrict__ out1, const Args& a, const Dropout& drop, int head_dim,
+    const TileMaps& maps) {
+  constexpr int LDM = BwdSmem::LDM;
+  constexpr int NS = kBN / 8, NQ = kFwdDV / 16;
+  constexpr int NF = DKV ? 2 : 1;  // fragment operands
+  constexpr int NO = kFwdDV / 8;   // n8 tiles of an output slice
+  constexpr uint32_t kPartBytes = 2 * 16 * kBN * 4;  // S and dP, one sender
+  constexpr uint32_t kFragBytes = NF * 4 * 4 * 32 * 16;
+  const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
+  const int owned = ClusterSmem::owned(nsl);
+  const bool pipe = BwdSmem::buffers(nsl, NF) == 2;
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_addr(smem4);
+  T* sA = reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(smem4) +
+                               (((raw + 1023u) & ~1023u) - raw));
+  T* sB = sA + 2 * kTile;
+  float4* sIn = reinterpret_cast<float4*>(sB + 2 * kTile);
+  const int in_size = owned * nsl * 2 * NS * 32;  // float4s of a buffer
+  uint4* sPin = reinterpret_cast<uint4*>(sIn + (pipe ? 2 : 1) * in_size);
+  constexpr int kPinSize = NF * 4 * 4 * 32;  // uint4s of a buffer
+  float* sL = reinterpret_cast<float*>(sPin + (pipe ? 2 : 1) * kPinSize);
+  float* sD = sL + 2 * kBN;
+  int8_t* sM = reinterpret_cast<int8_t*>(sD + 2 * kBN);
+  // the partials of buffer u, owned slot s at bars[2 u + s]; the fragments
+  // of buffer u at bars[4 + u]; ring stage s at bars[6 + s]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sM + 2 * kBM * LDM);
+
+  const int rank = cluster_rank();
+  const int tile = blockIdx.x / nsl;
+  const int c0 = rank * kFwdDV, cols = min(kFwdDV, head_dim - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wq = warp & 3, wr = wq * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int own = wq % nsl, slot = wq / nsl;  // this warp's rows' owner
+  const int r0 = tile * kBM, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const size_t row_stride = static_cast<size_t>(a.heads) * head_dim;
+  const size_t at = static_cast<size_t>(b) * a.seq * row_stride +
+                    static_cast<size_t>(h) * head_dim + c0;
+  const size_t stats = static_cast<size_t>(bh) * a.s_pad;
+  const int first = DKV ? table[tile] : 0;  // the first tile of the other axis
+  const int n = DKV ? a.s_pad / kBN - first : table[tile];
+  const float scale2 = a.scale * kLog2e;
+  // tile i's exchange buffer, and the parity of its barriers' phase
+  auto buf = [&](int i) { return pipe ? i & 1 : 0; };
+  auto parity = [&](int i) {
+    return static_cast<uint32_t>(pipe ? (i >> 1) & 1 : i & 1);
+  };
+
+  // both streamed slices of tile i by TMA (rows past S as zeros), by one
+  // thread
+  auto stage_tiles = [&](int i) {
+    const int st = i & 1, o0 = (first + i) * kBN;
+    mbar_expect(bars + 6 + st, 2 * cols * kBN * 2);
+    for (int c = 0; c < cols; c += 64) {
+      tma_box(sA + st * kTile + c * kBN, &maps.a, c0 + c, h, o0, b,
+              bars + 6 + st);
+      tma_box(sB + st * kTile + c * kBN, &maps.b, c0 + c, h, o0, b,
+              bars + 6 + st);
+    }
+  };
+  // tile i's mask (and dk/dv's LSE and delta) by cp.async, by every thread
+  auto stage = [&](int i) {
+    const int st = i & 1, o0 = (first + i) * kBN;
+    if constexpr (DKV) {
+      stage_floats<kBN, kBwdNT>(sL + st * kBN, lse + stats + o0);
+      stage_floats<kBN, kBwdNT>(sD + st * kBN, delta + stats + o0);
+      stage_mask<kBN, kBM, LDM, kBwdNT>(
+          sM + st * kBN * LDM, mask + static_cast<size_t>(o0) * a.s_pad + r0,
+          a.s_pad);
+    } else {
+      stage_mask<kBM, kBN, LDM, kBwdNT>(
+          sM + st * kBM * LDM, mask + static_cast<size_t>(r0) * a.s_pad + o0,
+          a.s_pad);
+    }
+  };
+  // this block's thread 0 arms tile i's phases of its exchange barriers
+  // with the bytes they await (their last phases are done): the partials
+  // of the nsl - 1 other blocks (its own it stores itself)
+  auto arm = [&](int i) {
+    for (int s2 = 0; s2 < owned; ++s2)
+      if (rank + s2 * nsl < 4)
+        mbar_expect(bars + 2 * buf(i) + s2, (nsl - 1) * kPartBytes);
+    mbar_expect(bars + 4 + buf(i), kFragBytes);
+  };
+
+  // barriers: one arrival each (this block's thread 0 arming a phase);
+  // the cluster's barrier's first half says they are set
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    if (n > 0) arm(0);
+  }
+  cluster_arrive();
+  // dq: the owned row groups' LSE (base 2) and delta, from the rows' own
+  // statistics (loaded while the operands stage)
+  float lse2[2][2] = {}, dlt[2][2] = {};
+  bool alive[2][2] = {};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int grp = rank + i * nsl;
+      if (grp >= 4) continue;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const size_t row = stats + r0 + grp * 16 + g + 8 * ii;
+        const float lv = lse[row];
+        alive[i][ii] = lv > 0.25f * kNegInf;
+        lse2[i][ii] = lv * kLog2e;
+        dlt[i][ii] = delta[row];
+      }
+    }
+  }
+  // the resident slices, staged in the ring's stage 1 (warpgroup c's in
+  // sA's or sB's) until they are read into registers
+  uint32_t xa[NQ][4];  // Q or K (warpgroup 0), dO or V (warpgroup 1)
+  if (n > 0) {
+    stage_sw128<T, kBwdNT>(sA + kTile, (DKV ? k : q) + at, r0, a.seq,
+                           row_stride, cols);
+    stage_sw128<T, kBwdNT>(sB + kTile, (DKV ? v : dout) + at, r0, a.seq,
+                           row_stride, cols);
+    if (threadIdx.x == 0) stage_tiles(0);
+    stage(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk)
+      if (kk * 16 < cols)
+        ldsm_x4(xa[kk], (wg ? sB : sA) + kTile +
+                            sw128(wr + l8 * 8 + lr, kk * 16 + l16 * 8));
+    __syncthreads();  // stage 1 read: the copy engine may write it
+    if (threadIdx.x == 0 && n > 1) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      stage_tiles(1);
+    }
+  }
+  // every block's barriers are set before any partial lands
+  cluster_wait();
+
+  // this warp's partial of tile i (S or dP) into its rows' owner's buffer,
+  // slot `rank`: by st.async into another block, by plain stores into this
+  // one (seen by the owner's warps after the next __syncthreads)
+  auto send_partial = [&](int i) {
+    const int st = i & 1;
+    mbar_wait(bars + 6 + st, (i >> 1) & 1);
+    float s[NS][4];
+    partial_logits<T>(s, xa, (wg ? sB : sA) + st * kTile, cols);
+    float4* dst = sIn + buf(i) * in_size +
+                  ((slot * nsl + rank) * 2 + wg) * NS * 32 + lane;
+    if (own == rank) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        dst[j * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    } else {
+      const uint32_t peer = peer_addr(dst, own);
+      const uint32_t bar = peer_addr(bars + 2 * buf(i) + slot, own);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        st_async(peer + j * 32 * 16,
+                 make_float4(s[j][0], s[j][1], s[j][2], s[j][3]), bar);
+    }
+  };
+
+  float acc[NO][4];  // dQ (warpgroup 0); dV (0) or dK (1)
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  if (n > 0) send_partial(0);
+  __syncthreads();  // the block's own partials of tile 0 seen
+
+  // Per tile i: the owners' work on tile i, then, pipelined, tile i + 1's
+  // partials, sent while tile i's fragments travel (with one buffer only
+  // once they have come and sit in registers), then tile i's products
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, o0 = (first + i) * kBN;
+    if (i + 1 < n) {  // the other stage: every warp is done with it
+      stage(i + 1);
+      cp_async_commit();
+    }
+
+    // the owned row groups: warp u takes columns 8 u .. 8 u + 7 (n8 tile u
+    // of the other axis), sums the nsl partials of S and dP in rank order,
+    // forms dS (and P), and stores its halves of the A fragments of k16
+    // step u / 2 into every block of the cluster
+#pragma unroll
+    for (int s2 = 0; s2 < 2; ++s2) {
+      const int grp = rank + s2 * nsl;
+      if (grp >= 4) continue;  // the same for every warp of the block
+      mbar_wait(bars + 2 * buf(i) + s2, parity(i));
+      const float4* src = sIn + buf(i) * in_size +
+                          (s2 * nsl * 2 * NS + warp) * 32 + lane;
+      float sv[4], dv[4];
+#pragma unroll 1
+      for (int rb = 0; rb < nsl; rb += 4) {
+        float4 part[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (rb + u < nsl) {
+            part[u][0] = src[(rb + u) * 2 * NS * 32];
+            part[u][1] = src[((rb + u) * 2 + 1) * NS * 32];
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (rb + u < nsl) {
+            const float4 x = part[u][0], y = part[u][1];
+            if (rb + u == 0) {
+              sv[0] = x.x, sv[1] = x.y, sv[2] = x.z, sv[3] = x.w;
+              dv[0] = y.x, dv[1] = y.y, dv[2] = y.z, dv[3] = y.w;
+            } else {
+              sv[0] += x.x, sv[1] += x.y, sv[2] += x.z, sv[3] += x.w;
+              dv[0] += y.x, dv[1] += y.y, dv[2] += y.z, dv[3] += y.w;
+            }
+          }
+      }
+      // element e: row (of the own axis) grp 16 + g + 8 (e >> 1), column
+      // (of the other) 8 warp + 2 t + (e & 1)
+      float pk[4], ds[4];
+      if constexpr (DKV) {
+        // keys rows, queries columns: the transposed layout's counters, as
+        // the chunked body draws them
+        const int qc = 8 * warp + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(sL + st * kBN + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(sD + st * kBN + qc);
+        const float lq[2] = {lv.x, lv.y}, dlq[2] = {dl.x, dl.y};
+        const int8_t* tM = sM + st * kBN * LDM + grp * 16 + g;
+        uint32_t kb[4] = {0u, 0u, 0u, 0u};
+        if (drop.on) {
+          const int jj = g & 3;
+          const uint32_t key4 =
+              static_cast<uint32_t>(r0 + grp * 16 + g + 8 * (jj >> 1)) >> 2;
+          const uint4 wd = philox4x32_10(
+              make_uint4(key4, static_cast<uint32_t>(o0 + qc + (jj & 1)),
+                         bh + drop.bh0, 0u),
+              drop.k0, drop.k1);
+          const uint32_t words[4] = {wd.x, wd.y, wd.z, wd.w};
+          uint32_t got[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t send = pick4(words, jj ^ r);
+            got[r] = r ? __shfl_xor_sync(0xffffffffu, send, 4 * r) : send;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kb[e] = pick4(got, jj ^ e);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ii = e >> 1, cq = e & 1;
+          const bool on = tM[(qc + cq) * LDM + 8 * ii] != 0 &&
+                          lq[cq] > 0.25f * kNegInf;
+          const float p =
+              on ? ex2_approx(fmaf(sv[e], scale2, -lq[cq] * kLog2e)) : 0.f;
+          float pd = p, g_kept = dv[e];
+          if (drop.on) {
+            const bool keep = kb[e] >= drop.threshold;
+            pd = keep ? p * drop.inv_keep : 0.f;
+            g_kept = keep ? g_kept * drop.inv_keep : 0.f;
+          }
+          pk[e] = pd;                     // keep p / (1 - r), for dV
+          ds[e] = p * (g_kept - dlq[cq]);  // dS, for dK
+        }
+      } else {
+        const int8_t* tM =
+            sM + st * kBM * LDM + (grp * 16 + g) * LDM + 8 * warp + 2 * t;
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const char2 on =
+              *reinterpret_cast<const char2*>(tM + ii * 8 * LDM);
+          pk[2 * ii] = on.x && alive[s2][ii]
+                           ? ex2_approx(fmaf(sv[2 * ii], scale2,
+                                             -lse2[s2][ii]))
+                           : 0.f;
+          pk[2 * ii + 1] = on.y && alive[s2][ii]
+                               ? ex2_approx(fmaf(sv[2 * ii + 1], scale2,
+                                                 -lse2[s2][ii]))
+                               : 0.f;
+        }
+        if (drop.on) {
+          uint32_t kb4[4];
+          row_keep_words(kb4, static_cast<uint32_t>(o0 + 8 * warp + 2 * t),
+                         static_cast<uint32_t>(r0 + grp * 16 + g), bh, drop,
+                         t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dv[e] = kb4[e] >= drop.threshold ? dv[e] * drop.inv_keep : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[e] = pk[e] * (dv[e] - dlt[s2][e >> 1]);
+      }
+      // the halves of fragment (grp, k16 step warp / 2): dS (8 bytes a
+      // lane), or dk/dv's P and dS together (16 bytes); a half is its A
+      // fragment's registers 2 (warp & 1) and 2 (warp & 1) + 1
+      const uint32_t d0 = pack2<T>(ds[0], ds[1]), d1 = pack2<T>(ds[2], ds[3]);
+      const int fi = (grp * 4 + (warp >> 1)) * 32 + lane;
+      uint4* pin = sPin + buf(i) * kPinSize;
+#pragma unroll 1
+      for (int r = 0; r < nsl; ++r) {
+        const uint32_t bar = peer_addr(bars + 4 + buf(i), r);
+        if constexpr (DKV)
+          st_async(peer_addr(pin + 2 * fi + (warp & 1), r),
+                   make_uint4(pack2<T>(pk[0], pk[1]), pack2<T>(pk[2], pk[3]),
+                              d0, d1),
+                   bar);
+        else
+          st_async(peer_addr(reinterpret_cast<uint2*>(pin + fi) + (warp & 1),
+                             r),
+                   make_uint2(d0, d1), bar);
+      }
+    }
+    if (pipe && i + 1 < n) send_partial(i + 1);
+
+    // this warp's rows' fragments, stored here by their owner; the
+    // products with the streamed tile
+    mbar_wait(bars + 4 + buf(i), parity(i));
+    uint32_t pa[kBN / 16][4];
+    {
+      const uint4* pin = sPin + buf(i) * kPinSize;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const int fi = (wq * 4 + kk) * 32 + lane;
+        if constexpr (DKV) {  // P for dV (warpgroup 0), dS for dK (1)
+          const uint2* halves = reinterpret_cast<const uint2*>(pin + 2 * fi);
+          const uint2 x0 = halves[wg], x1 = halves[2 + wg];
+          pa[kk][0] = x0.x, pa[kk][1] = x0.y, pa[kk][2] = x1.x,
+          pa[kk][3] = x1.y;
+        } else {
+          const uint4 x = pin[fi];
+          pa[kk][0] = x.x, pa[kk][1] = x.y, pa[kk][2] = x.z, pa[kk][3] = x.w;
+        }
+      }
+    }
+    if (!pipe && i + 1 < n) send_partial(i + 1);
+    if constexpr (DKV)
+      out_product<T, NO>(acc, pa, (wg ? sA : sB) + st * kTile, cols);
+    else if (wg == 0)
+      out_product<T, NO>(acc, pa, sA + st * kTile, cols);
+    cp_async_wait_all();  // the next tile's mask (and statistics) landed ...
+    __syncthreads();      // ... for every warp, and stage st is free
+    if (threadIdx.x == 0 && i + 1 < n) arm(i + 1);
+    // tile i + 2's streamed slices into stage st
+    if (threadIdx.x == kNT && i + 2 < n) stage_tiles(i + 2);
+  }
+  // no closing cluster barrier: every store into this block's shared
+  // memory completes on a barrier phase it has waited for, and none comes
+  // after its last tile
+
+  // dq: dQ (warpgroup 0); dk/dv: dV (warpgroup 0) or dK (1)
+  if (!DKV && wg) return;
+  O* out = DKV && wg == 0 ? out1 : out0;
+  const float mul = DKV && wg == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = r0 + wr + g + 8 * ii;
+    if (row < a.seq) {
+      O* dst = out + at + static_cast<size_t>(row) * row_stride + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        if (8 * j < cols)
+          store2<T, O>(dst + 8 * j, acc[j][2 * ii] * mul,
+                       acc[j][2 * ii + 1] * mul);
+    }
+  }
+}
+
+// dQ; CLUSTER: the cluster body (two warpgroups), else the chunked one
+// (bwd_plan picks by head dim).
+template <typename T, typename O, bool CLUSTER>
+__global__ void __launch_bounds__(CLUSTER ? kBwdNT : kNT)
+    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int8_t* __restrict__ mask,
+                         const int32_t* __restrict__ k_hi,
+                         const int64_t* __restrict__ seed, O* __restrict__ dq,
+                         Args a, uint32_t threshold, float inv_keep,
+                         int dropout, int head_dim,
+                         const __grid_constant__ TileMaps maps) {
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  if constexpr (CLUSTER)
+    cluster_backward_block<T, O, false>(q, k, v, dout, lse, delta, mask, k_hi,
+                                        dq, nullptr, a, drop, head_dim, maps);
+  else
+    wide_dq_block<T, O>(q, k, v, dout, lse, delta, mask, k_hi, dq, a, drop,
+                        head_dim);
+}
+
+// dK and dV; CLUSTER as dq's.
+template <typename T, typename O, bool CLUSTER>
+__global__ void __launch_bounds__(CLUSTER ? kBwdNT : kNT * kDkvDS)
+    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int8_t* __restrict__ mask,
+                          const int32_t* __restrict__ q_lo,
+                          const int64_t* __restrict__ seed,
+                          O* __restrict__ dk, O* __restrict__ dv, Args a,
+                          uint32_t threshold, float inv_keep, int dropout,
+                          int head_dim,
+                          const __grid_constant__ TileMaps maps) {
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, dropout, a);
+  if constexpr (CLUSTER)
+    cluster_backward_block<T, O, true>(q, k, v, dout, lse, delta, mask, q_lo,
+                                       dk, dv, a, drop, head_dim, maps);
+  else
+    wide_dkv_block<T, O, kDkvDS>(q, k, v, dout, lse, delta, mask, q_lo, dk,
+                                 dv, a, drop, head_dim);
 }
 
 // -- the float32 kernels: CUDA-core bodies ------------------------------------
@@ -1798,19 +2296,38 @@ dim3 grid_of(const Launch& L, int head_dim, int dv) {
 // 256): the cluster body of `cluster` blocks, one a slice, up to
 // kClusterMaxSlices slices; above, the chunked body (cluster 1).
 // ops/flash_attention.py:wide_forward_plan mirrors it.
-struct FwdPlan {
+struct WidePlan {
   int cluster;   // blocks of a cluster (1: the chunked body)
   int last;      // columns of the last slice (64 or kFwdDV)
   int smem;      // dynamic shared bytes of a block
-  int chunk;     // columns of the logits' partial sums, summed in order
+  int chunk;     // columns of the partial sums over D (the logits; dP in
+                 // the backward), summed in order
 };
 
-FwdPlan fwd_plan(int head_dim) {
+WidePlan fwd_plan(int head_dim) {
   const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
   const int last = head_dim - (nsl - 1) * kFwdDV;
   if (nsl <= kClusterMaxSlices)
     return {nsl, last, static_cast<int>(ClusterSmem::bytes(nsl)), kFwdDV};
   return {1, last, static_cast<int>(FwdSmem::bytes<__nv_bfloat16>()), kDC};
+}
+
+// The same for the 16-bit dq (dkv false) and dk/dv: the cluster backward
+// up to kBwdClusterMaxSlices slices, above it the chunked bodies.
+// ops/flash_attention.py:wide_backward_plan mirrors it.
+WidePlan bwd_plan(bool dkv, int head_dim) {
+  const int nsl = (head_dim + kFwdDV - 1) / kFwdDV;
+  const int last = head_dim - (nsl - 1) * kFwdDV;
+  const int nf = dkv ? 2 : 1;
+  if (nsl <= kBwdClusterMaxSlices)
+    return {nsl, last,
+            static_cast<int>(
+                BwdSmem::bytes(nsl, nf, BwdSmem::buffers(nsl, nf))),
+            kFwdDV};
+  if (dkv)
+    return {1, last,
+            static_cast<int>(DkvShape<kDkvDS>::bytes<__nv_bfloat16>()), kDC};
+  return {1, last, static_cast<int>(DqSmem::bytes<__nv_bfloat16>()), kDqDC};
 }
 
 // cuTensorMapEncodeTiled, from the driver (no link against it).
@@ -1834,7 +2351,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (B, S, H, D) 16-bit tensor at p as FwdMaps' boxes: 64 columns of one
+// The (B, S, H, D) 16-bit tensor at p as TileMaps' boxes: 64 columns of one
 // head's 64 rows, in the 128-byte swizzle, rows past S read as zeros.
 int tile_map(CUtensorMap* map, const void* p, bool half, const Launch& L,
              int head_dim) {
@@ -1861,15 +2378,15 @@ int tile_map(CUtensorMap* map, const void* p, bool half, const Launch& L,
 // that no SM can take is the launch's error (cudaErrorLaunchOutOfResources),
 // never a fallback.
 template <typename... P, typename... A>
-int launch_cluster(void (*kern)(P...), dim3 grid, int cluster, size_t smem,
-                   cudaStream_t stream, A... args) {
+int launch_cluster(void (*kern)(P...), dim3 grid, int cluster, int threads,
+                   size_t smem, cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kNT, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1913,23 +2430,23 @@ int fwd(const void* q, const void* k, const void* v, const int8_t* mask,
     }
   } else {
     const dim3 grid = grid_of(L, head_dim, kFwdDV);
-    const FwdPlan p = fwd_plan(head_dim);
-    FwdMaps maps = {};
+    const WidePlan p = fwd_plan(head_dim);
+    TileMaps maps = {};
     if (p.cluster > 1) {
       const size_t smem = ClusterSmem::bytes(p.cluster);
       const bool half = std::is_same<T, __half>::value;
-      if ((err = tile_map(&maps.k, k, half, L, head_dim)) ||
-          (err = tile_map(&maps.v, v, half, L, head_dim)))
+      if ((err = tile_map(&maps.a, k, half, L, head_dim)) ||
+          (err = tile_map(&maps.b, v, half, L, head_dim)))
         return err;
       if constexpr (LSE)
         return launch_cluster(flash_fwd_lse_wide_kernel<T, O, true>, grid,
-                              p.cluster, smem, L.stream, qt, kt, vt, mask,
+                              p.cluster, kNT, smem, L.stream, qt, kt, vt, mask,
                               k_hi, seed, static_cast<O*>(out), lse,
                               args_of(L), L.threshold, L.inv_keep, L.dropout,
                               head_dim, maps);
       else
         return launch_cluster(flash_fwd_wide_kernel<T, true>, grid,
-                              p.cluster, smem, L.stream, qt, kt, vt, mask,
+                              p.cluster, kNT, smem, L.stream, qt, kt, vt, mask,
                               k_hi, static_cast<T*>(out), args_of(L),
                               head_dim, maps);
     }
@@ -1967,14 +2484,28 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         delta, mask, k_hi, seed, static_cast<float*>(dqp), args_of(L),
         L.threshold, L.inv_keep, L.dropout, head_dim);
   } else {
-    auto kern = flash_dq_wide_kernel<T, O>;
+    const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+            *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(dout);
+    const dim3 grid = grid_of(L, head_dim, kFwdDV);
+    const WidePlan p = bwd_plan(false, head_dim);
+    TileMaps maps = {};
+    if (p.cluster > 1) {
+      const bool half = std::is_same<T, __half>::value;
+      if ((err = tile_map(&maps.a, k, half, L, head_dim)) ||
+          (err = tile_map(&maps.b, v, half, L, head_dim)))
+        return err;
+      return launch_cluster(flash_dq_wide_kernel<T, O, true>, grid, p.cluster,
+                            kBwdNT, p.smem, L.stream, qt, kt, vt, ot, lse,
+                            delta, mask, k_hi, seed, static_cast<O*>(dqp),
+                            args_of(L), L.threshold, L.inv_keep, L.dropout,
+                            head_dim, maps);
+    }
+    auto kern = flash_dq_wide_kernel<T, O, false>;
     const size_t smem = DqSmem::bytes<T>();
     if ((err = launch_config(kern, smem))) return err;
-    kern<<<grid_of(L, head_dim, kFwdDV), kNT, smem, L.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        mask, k_hi, seed, static_cast<O*>(dqp), args_of(L), L.threshold,
-        L.inv_keep, L.dropout, head_dim);
+    kern<<<grid, kNT, smem, L.stream>>>(
+        qt, kt, vt, ot, lse, delta, mask, k_hi, seed, static_cast<O*>(dqp),
+        args_of(L), L.threshold, L.inv_keep, L.dropout, head_dim, maps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1996,14 +2527,31 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         L.dropout, head_dim);
   } else {
     using Sh = DkvShape<kDkvDS>;
-    auto kern = flash_dkv_wide_kernel<T, O, kDkvDS>;
+    static_assert(Sh::DV == kFwdDV, "the bodies' slices agree");
+    const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+            *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(dout);
+    const dim3 grid = grid_of(L, head_dim, Sh::DV);
+    const WidePlan p = bwd_plan(true, head_dim);
+    TileMaps maps = {};
+    if (p.cluster > 1) {
+      const bool half = std::is_same<T, __half>::value;
+      if ((err = tile_map(&maps.a, q, half, L, head_dim)) ||
+          (err = tile_map(&maps.b, dout, half, L, head_dim)))
+        return err;
+      return launch_cluster(flash_dkv_wide_kernel<T, O, true>, grid,
+                            p.cluster, kBwdNT, p.smem, L.stream, qt, kt, vt,
+                            ot, lse, delta, mask, q_lo, seed,
+                            static_cast<O*>(dkp), static_cast<O*>(dvp),
+                            args_of(L), L.threshold, L.inv_keep, L.dropout,
+                            head_dim, maps);
+    }
+    auto kern = flash_dkv_wide_kernel<T, O, false>;
     const size_t smem = Sh::bytes<T>();
     if ((err = launch_config(kern, smem))) return err;
-    kern<<<grid_of(L, head_dim, Sh::DV), Sh::NT, smem, L.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        mask, q_lo, seed, static_cast<O*>(dkp), static_cast<O*>(dvp),
-        args_of(L), L.threshold, L.inv_keep, L.dropout, head_dim);
+    kern<<<grid, Sh::NT, smem, L.stream>>>(
+        qt, kt, vt, ot, lse, delta, mask, q_lo, seed, static_cast<O*>(dkp),
+        static_cast<O*>(dvp), args_of(L), L.threshold, L.inv_keep, L.dropout,
+        head_dim, maps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2141,7 +2689,20 @@ int flash_dkv_wide_launch(const void* q, const void* k, const void* v,
 int flash_wide_fwd_plan(int head_dim, int* out) {
   if (!wide_shapes_ok(head_dim, kBM, 1) || head_dim <= 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdPlan p = fwd_plan(head_dim);
+  const WidePlan p = fwd_plan(head_dim);
+  const int v[5] = {p.cluster, kFwdDV, p.last, p.smem, p.chunk};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The 16-bit dq's (dkv 0) or dk/dv's (dkv 1) plan at a head dim, as
+// flash_wide_fwd_plan gives the forwards': blocks of a cluster (1: the
+// chunked body), columns of a slice and of the last slice, dynamic shared
+// bytes of a block, columns of the partial sums of S and dP.
+int flash_wide_bwd_plan(int dkv, int head_dim, int* out) {
+  if (!wide_shapes_ok(head_dim, kBM, 1) || head_dim <= 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WidePlan p = bwd_plan(dkv != 0, head_dim);
   const int v[5] = {p.cluster, kFwdDV, p.last, p.smem, p.chunk};
   for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;

@@ -91,7 +91,7 @@ __all__ = ["flash_attention", "make_attention_fn", "flash_fwd", "flash_fwd_op",
            "device_tables", "dropout_threshold", "dropout_keep_mask",
            "KERNEL_TILES", "WIDE_TILES", "WIDE_CHUNK", "WIDE_CHUNKS",
            "WIDE_SLICES", "WIDE_CLUSTER_MAX",
-           "wide_forward_plan",
+           "wide_forward_plan", "wide_backward_plan",
            "compiled_head_dim", "is_wide", "kernel_tiles", "run_tiles",
            "at_compiled_dim", "flash_fwd_wide", "flash_fwd_lse_wide",
            "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_reference",
@@ -108,12 +108,16 @@ KERNEL_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (32, 32)}
 # of a slice a block owns (16-bit; the float32 kernels cut chunks and
 # slices of 64).  The forwards' chunk is their cluster body's, whose logits
 # are the slices' partials summed in order; above WIDE_CLUSTER_MAX slices
-# they run their chunked body (wide_forward_plan)
+# they run their chunked body (wide_forward_plan).  dq's and dk/dv's are
+# their chunked bodies' (above WIDE_CLUSTER_MAX slices); up to it they run
+# the cluster body, whose sums are the slices' partials like the forwards'
+# (wide_backward_plan)
 WIDE_TILES = (64, 64)
 WIDE_CHUNK = 64
 WIDE_CHUNKS = {"fwd": 128, "dq": 32, "dkv": 64}
 WIDE_SLICES = {"fwd": 128, "dq": 128, "dkv": 128}
 WIDE_CLUSTER_MAX = 8    # blocks of a cluster: the portable most
+WIDE_MAX_SMEM = 232448  # dynamic shared bytes a block may have (227 KB)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -248,6 +252,47 @@ def wide_forward_plan(head_dim: int) -> dict:
     return dict(body="chunked", cluster=1,
                 smem=2 * 2 * (128 * 72 + 64 * 136) + 2 * 64 * 80,
                 chunk=WIDE_CHUNK, **plan)
+
+
+def wide_backward_plan(kind: str, head_dim: int) -> dict:
+    """How the 16-bit wide ``kind`` ("dq" or "dkv") runs ``head_dim`` (at
+    :func:`compiled_head_dim`), as ``csrc/flash_attention_wide.cu:bwd_plan``
+    launches it, in :func:`wide_forward_plan`'s keys: "cluster" (the slice
+    blocks of a row tile one cluster, exchanging partial S and dP), or
+    "chunked" (each slice block computing all of them), with ``chunk`` the
+    columns of the partial sums of S and dP, summed in order, and
+    ``buffers`` the cluster body's exchange buffers (2: the next tile's
+    partials sent while this tile's fragments travel, where two fit)."""
+    if kind not in ("dq", "dkv"):
+        raise ValueError(f"kind {kind!r}: 'dq' or 'dkv'")
+    d = compiled_head_dim(head_dim)
+    if not is_wide(d):
+        raise ValueError(f"head dim {head_dim} runs on the narrow kernels")
+    width = WIDE_SLICES[kind]
+    nsl = -(-d // width)
+    plan = dict(slice=width, last_slice=d - (nsl - 1) * width)
+    if nsl <= WIDE_CLUSTER_MAX:
+        # BwdSmem: the two streamed rings; by buffer (two, pipelined, where
+        # they fit a block) the owned row groups' partial S and dP from
+        # every block and every group's fragments (dS; dk/dv P too); the q
+        # tile's LSE and delta, the mask ring, eight barriers and the
+        # swizzle's alignment
+        owned, frags = -(-4 // nsl), 2 if kind == "dkv" else 1
+        smem = lambda nb: (1024 + 4 * 64 * 128 * 2
+                           + nb * (owned * nsl * 2 * 64 * 16 * 4
+                                   + frags * 4 * 4 * 32 * 16)
+                           + 2 * 2 * 64 * 4 + 2 * 64 * 80 + 8 * 8)
+        buffers = 2 if smem(2) <= WIDE_MAX_SMEM else 1
+        return dict(body="cluster", cluster=nsl, smem=smem(buffers),
+                    chunk=width, buffers=buffers, **plan)
+    # DqSmem: the Q, dO, K and V chunk rings, the K slice and mask rings;
+    # DkvShape: the K, V, Q and dO chunk rings, the Q and dO slice rings,
+    # P^T and dS^T, the LSE and delta rings, the mask ring
+    smem = (2 * 2 * (256 * 40 + 64 * 136) + 2 * 64 * 80 if kind == "dq" else
+            2 * 2 * (256 * 72 + 2 * 64 * 136 + 64 * 72) + 4 * 4 * 64
+            + 2 * 64 * 80)
+    return dict(body="chunked", cluster=1, smem=smem,
+                chunk=WIDE_CHUNKS[kind], buffers=1, **plan)
 
 
 def kernel_tiles(head_dim: int) -> Optional[Tuple[int, int]]:
@@ -603,13 +648,13 @@ def flash_dkv_reference(q, k, v, do, lse, delta, mask_i8, q_lo, seed=None,
 def _wide_kw(kind, q):
     """The wide kernel's cut of D for a plain version on q's dtype and head
     dim: its reduction chunks and output slices (64 columns each in
-    float32; the 16-bit forwards' by :func:`wide_forward_plan`)."""
+    float32; in 16 bits by :func:`wide_forward_plan` and
+    :func:`wide_backward_plan`)."""
     if q.dtype == torch.float32:
         return dict(chunk=64, slice_width=64)
-    if kind == "fwd":
-        plan = wide_forward_plan(q.shape[-1])
-        return dict(chunk=plan["chunk"], slice_width=plan["slice"])
-    return dict(chunk=WIDE_CHUNKS[kind], slice_width=WIDE_SLICES[kind])
+    plan = (wide_forward_plan(q.shape[-1]) if kind == "fwd" else
+            wide_backward_plan(kind, q.shape[-1]))
+    return dict(chunk=plan["chunk"], slice_width=plan["slice"])
 
 
 def flash_fwd_wide_reference(q, k, v, mask_i8, k_hi, **kw):

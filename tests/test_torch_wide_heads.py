@@ -2,9 +2,10 @@
 versions of the wide kernels (``flash_*_wide_reference``: logits summed
 over D in chunks of 64 columns, outputs in slices) at D = 320, 512 and 300
 against the JAX package's kernels in interpret mode (forward, LSE and
-gradients, under the octo and a causal mask), and the 16-bit forwards'
-order (the clusters' 128-column partial logits summed in rank order) at D
-= 320-768; the mirror of the forwards' launch plan; the chunked, slice-split
+gradients, under the octo and a causal mask), and the 16-bit order of the
+cluster bodies' sums (the 128-column partial logits, and dP, summed in rank
+order) at D = 320-768, forward and backward; the mirror of the forwards'
+and the backward's launch plans; the chunked, slice-split
 plain versions against the unsplit ones, with dropout and the b0 / h0
 offsets, and the padding path the card runs for D = 300; the selection of
 the flash path at every head dim and every configured tile, and the
@@ -162,9 +163,92 @@ def test_wide_forward_plan(d):
     assert tfa._wide_kw("fwd", x) == dict(chunk=plan["chunk"],
                                           slice_width=128)
     assert tfa._wide_kw("fwd", x.float()) == dict(chunk=64, slice_width=64)
-    assert tfa._wide_kw("dq", x) == dict(chunk=32, slice_width=128)
+    assert tfa._wide_kw("dq", x) == dict(
+        chunk=128 if d <= 1024 else 32, slice_width=128)
     with pytest.raises(ValueError, match="narrow"):
         tfa.wide_forward_plan(256)
+
+
+@pytest.mark.parametrize("d", [320, 512, 576, 768])
+def test_cluster_backward_sum_order_matches_jax_kernel(d):
+    """The 16-bit wide dq's and dk/dv's order of the sums over D (the
+    slices' partial S and dP over 128 columns, summed in rank order, as the
+    cluster backward's owners sum them; odd-slice clusters at 320 and 576,
+    six slices at 768), computed in float32, against the JAX backward in
+    interpret mode on the octo mask: dq, dk and dv to rtol 2e-4 / atol
+    2e-5."""
+    bq, bk = tfa.WIDE_TILES
+    mask = _mask("octo")
+    q, k, v, do = _qkv(mask.shape[0], d, seed=d + 2)
+    padded, k_hi, q_lo = tfa.mask_tables(mask, bq, bk)
+    out_j, lse_j = jfa.flash_fwd_lse(q, k, v, padded, k_hi, block_q=bq,
+                                     block_k=bk, interpret=True)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    lse = torch.tensor(np.asarray(lse_j))
+    delta = tfa.attention_delta(tdo, torch.tensor(np.asarray(out_j)),
+                                padded.shape[0])
+    dq_j, dk_j, dv_j = jfa.flash_bwd(q, k, v, do, lse_j,
+                                     jnp.asarray(delta.numpy()), padded,
+                                     k_hi, q_lo, block_q=bq, block_k=bk,
+                                     interpret=True)
+    stats = (lse, delta, torch.tensor(padded))
+    cut = lambda kind: dict(
+        block_q=bq, block_k=bk,
+        chunk=tfa.wide_backward_plan(kind, d)["chunk"],
+        slice_width=tfa.wide_backward_plan(kind, d)["slice"])
+    dq = tfa.flash_dq_reference(tq, tk, tv, tdo, *stats, torch.tensor(k_hi),
+                                **cut("dq"))
+    dk, dv = tfa.flash_dkv_reference(tq, tk, tv, tdo, *stats,
+                                     torch.tensor(q_lo), **cut("dkv"))
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        _close(got, want, GRAD_RTOL, GRAD_ATOL)
+
+
+# (kind, head dim) -> (body, blocks of a cluster, columns of the last
+# slice, dynamic shared bytes of a block, exchange buffers:
+# csrc/flash_attention_wide.cu's BwdSmem at 3, 4, 5, 6 and 8 blocks with one
+# operand of fragments (dq) and two (dk/dv), two buffers where they fit in
+# 227 KB (all but dk/dv at 8 blocks), DqSmem and DkvShape<2>)
+BWD_PLANS = {
+    **{("dq", d): plan for d, plan in {
+        300: ("cluster", 3, 64, 192576, 2), 320: ("cluster", 3, 64, 192576, 2),
+        512: ("cluster", 4, 128, 159808, 2),
+        576: ("cluster", 5, 64, 176192, 2),
+        768: ("cluster", 6, 128, 192576, 2),
+        1024: ("cluster", 8, 128, 225344, 2),
+        1152: ("chunked", 1, 128, 86016, 1)}.items()},
+    **{("dkv", d): plan for d, plan in {
+        300: ("cluster", 3, 64, 208960, 2), 320: ("cluster", 3, 64, 208960, 2),
+        512: ("cluster", 4, 128, 176192, 2),
+        576: ("cluster", 5, 64, 192576, 2),
+        768: ("cluster", 6, 128, 208960, 2),
+        1024: ("cluster", 8, 128, 159808, 1),
+        1152: ("chunked", 1, 128, 173056, 1)}.items()}}
+
+
+@pytest.mark.parametrize("kind,d", sorted(BWD_PLANS))
+def test_wide_backward_plan(kind, d):
+    """The mirror of dq's and dk/dv's launch plans: up to 8 slices of 128
+    columns the slice blocks of a row tile are one cluster summing the
+    partial S and dP of 128 columns (two exchange buffers where they fit a
+    block), above it the chunked bodies (chunks of 32 in dq, 64 in dk/dv);
+    the 16-bit plain versions cut D as the body does, the float32 ones in
+    64 columns whatever the body."""
+    plan = tfa.wide_backward_plan(kind, d)
+    assert (plan["body"], plan["cluster"], plan["last_slice"], plan["smem"],
+            plan["buffers"]) == BWD_PLANS[kind, d]
+    assert plan["smem"] <= tfa.WIDE_MAX_SMEM
+    assert plan["slice"] == 128
+    assert plan["chunk"] == (128 if plan["body"] == "cluster" else
+                             tfa.WIDE_CHUNKS[kind])
+    x = torch.zeros(1, 1, 1, d, dtype=torch.float16)
+    assert tfa._wide_kw(kind, x) == dict(chunk=plan["chunk"],
+                                         slice_width=128)
+    assert tfa._wide_kw(kind, x.float()) == dict(chunk=64, slice_width=64)
+    with pytest.raises(ValueError, match="narrow"):
+        tfa.wide_backward_plan(kind, 256)
+    with pytest.raises(ValueError, match="kind"):
+        tfa.wide_backward_plan("fwd", d)
 
 
 def _wide_case(d, dtype, b=2, h=3):
