@@ -645,9 +645,11 @@ def kernel_phase(head):
 # (T, H, A) the wide kernel is held at, each at B = 1, 8 and 37 (and 64 at
 # octo_base_chunk28's): a 28-wide action chunk (Octo's 4 x 7), a 3072-wide
 # denoiser, 100 steps in float32 (past one block's shared memory), ACT's
-# 1400-wide chunk (100 x 14), and octo_base_chunk28's sampler
+# 1400-wide chunk (100 x 14), octo_base_chunk28's sampler, and Octo's 7-dim
+# action alone (A * 4 bytes of noise a row off 16: in DDPM the ring's
+# stages are copied by every thread, not in bulk)
 WIDE_SHAPES = ((32, 768, 28), (32, 3072, 8), (100, 768, 8), (16, 768, 1400),
-               (100, 3072, 28))
+               (100, 3072, 28), (32, 768, 7))
 CHUNK28 = (100, 3072, 28)
 WIDE_BATCHES = (1, 8, 37)
 CHUNK28_BATCHES = (1, 8, 64)     # phase 32's serving batches
@@ -829,6 +831,23 @@ def wide_kernel_phase(register_head):
                     != tds.register_smem_bytes(t, h, a, e)):
                 fail(f"register_smem_bytes({t}, {h}, {a}, {e}) disagrees "
                      f"with the kernel's")
+    # the wide kernel's plan against its mirror at every shape held below
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wlib = tds._library("ddpm_sampler_wide")
+    plans = [tds.wide_plan(wlib, t, batch, h, a, elem, mode, sms)
+             for t, h, a in WIDE_SHAPES for batch in WIDE_BATCHES + (64,)
+             for elem, mode in ((4, 0), (2, 0), (2, 1))]
+    mirror = [tds.wide_sampler_plan(t, batch, h, a, elem, mode, sms)
+              for t, h, a in WIDE_SHAPES for batch in WIDE_BATCHES + (64,)
+              for elem, mode in ((4, 0), (2, 0), (2, 1))]
+    for got, want in zip(plans, mirror):
+        if got != want:
+            fail(f"wide_sampler_plan gives {want}, the kernel's plan {got}")
+    log(f"  wide sampler plans, C = Python at {len(plans)} shapes; st.async "
+        f"exchange at {sum(q['expect_bytes'] > 0 for q in plans)}, "
+        f"everything in shared memory at "
+        f"{sum(q['flags'] == 63 for q in plans)}, bulk ring copies at "
+        f"{sum(q['bulk'] for q in plans)}")
     clip = register_head.cfg.clip_value
     held = {}
     for t, h, a in WIDE_SHAPES:
@@ -895,10 +914,9 @@ def wide_kernel_phase(register_head):
         fail("the wide kernel's graph replay differs from its eager call")
     log("  wide kernel at octo_base_chunk28 bf16: rows 0-7 alone, in a batch "
         "of 8 and of 37 and in a graph replay bit for bit")
+    unaligned = unaligned_ring_check(head, clip)
 
     timings = {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wlib = tds._library("ddpm_sampler_wide")
     for mode, coeffs in (("ddpm", head.schedule(None)[1]),
                          ("ddim_raw", head.schedule(DDIM_STEPS)[1])):
         t = coeffs.shape[0]
@@ -947,7 +965,63 @@ def wide_kernel_phase(register_head):
     return dict(held=held, largest_loop_units=max(errors.values()),
                 f32_max_abs_err=max(v["float32"][3] for v in held.values()),
                 against_register=max(against_register.values()),
-                timings=timings, versus_register=versus)
+                unaligned=unaligned, timings=timings, versus_register=versus)
+
+
+def off_by_one(t):
+    """``t``'s values in a contiguous view at storage offset 1 of a buffer
+    one element longer: its data one element (2 or 4 bytes) off 16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def unaligned_ring_check(head, clip):
+    """The wide kernel's ring copied by every thread (cp.async in 4-byte
+    pieces, or element by element) where the contexts and the noise lie
+    off 16 bytes, as views at storage offset 1: bit for bit with the same
+    call on aligned copies (the bulk copies, which hold_wide held against
+    the plain version), at octo_base_chunk28's shape, float32 and bf16,
+    DDPM and DDIM, B = 1 and 8; the distance to the plain version is
+    logged."""
+    from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
+        ddpm_sample_reference, ddpm_sampler)
+    wide = lambda *a, **k: ddpm_sampler(*a, **k, _variant="wide")
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for mode, coeffs in (("ddpm", head.schedule(None)[1]),
+                             ("ddim_raw", head.schedule(DDIM_STEPS)[1])):
+            t = coeffs.shape[0]
+            for batch in (1, 8):
+                x = sampler_inputs(head, batch, CHUNK28[0], torch.float32,
+                                   seed=300 + batch)
+                x = dict(x, contexts=x["contexts"][:t].to(dt).contiguous(),
+                         noise=x["noise"][:t].contiguous())
+                y = dict(x, contexts=off_by_one(x["contexts"]),
+                         noise=off_by_one(x["noise"]))
+                if not (y["contexts"].data_ptr() % 16
+                        and y["noise"].data_ptr() % 16):
+                    fail("off_by_one gave a 16-byte aligned view")
+                before = ddpm_sampler.by_variant["wide"].launches
+                aligned = run_sampler(wide, x, coeffs, clip, mode)
+                got = run_sampler(wide, y, coeffs, clip, mode)
+                if ddpm_sampler.by_variant["wide"].launches != before + 2:
+                    fail("the unaligned ring check did not launch the wide "
+                         "kernel twice")
+                plain = run_sampler(ddpm_sample_reference, x, coeffs, clip,
+                                    mode)
+                units = gate_units(got, plain, dt)
+                same = torch.equal(got, aligned)
+                label = f"{str(dt)[6:]} {mode} B={batch}"
+                out[label] = units
+                log(f"  wide T={t} H={CHUNK28[1]} A={CHUNK28[2]} {label}, "
+                    f"contexts and noise off 16 bytes (per-thread ring "
+                    f"copies): == the aligned call bit for bit: {same}; "
+                    f"{units:.3f} gates from the plain version")
+                if not same:
+                    fail(f"wide kernel with unaligned contexts {label}")
+    return out
 
 
 # -- phase 2b: flash attention and max-pool backward kernels -----------------
@@ -1669,10 +1743,11 @@ POOL_WIDE_WINDOWS = ((9, 9), (3, 12), (16, 16))
 
 def pool_windows_check(pool, n):
     """pool_bwd at windows above 8 a side against its plain version, bit
-    for bit, on the embedder's plane (N, 64, 23, 23) of tie-heavy bf16
-    data with a NaN window, x and g both NCHW and both channels_last; then
-    each window's bf16 device time on the main path's layout beside its
-    plain version, its bound and the autograd backward of F.max_pool2d."""
+    for bit, on the embedder's plane (N, 64, 23, 23) of tie-heavy data with
+    a NaN window, in float32, bf16 and fp16, x and g both NCHW and both
+    channels_last; then each window's bf16 device time on the main path's
+    layout beside its plain version, its bound and the autograd backward of
+    F.max_pool2d."""
     import torch.nn.functional as F
     fmt = {"channels_last": torch.channels_last,
            "nchw": torch.contiguous_format}
@@ -1686,18 +1761,19 @@ def pool_windows_check(pool, n):
         oh, ow = 23 - window[0] + 1, 23 - window[1] + 1
         gy32 = torch.randint(1, 17, (n, 64, oh, ow), generator=g,
                              device="cuda").float()
-        for layout in ("nchw", "channels_last"):
-            x = base.to(dtype).contiguous(memory_format=fmt[layout])
-            gy = gy32.to(dtype).contiguous(memory_format=fmt[layout])
-            dx = pool.pool_bwd(x, gy, window)
-            ref = pool.pool_bwd_reference(x, gy, window)
-            torch.cuda.synchronize()
-            same = torch.equal(dx, ref) and dx.stride() == x.stride()
-            log(f"  pool_bwd window {window} bf16 N={n} C=64 23x23, x and g "
-                f"{layout}: kernel == plain bit for bit, dx in x's layout: "
-                f"{same}")
-            if not same:
-                fail(f"pool_bwd window {window} {layout}")
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for layout in ("nchw", "channels_last"):
+                x = base.to(dt).contiguous(memory_format=fmt[layout])
+                gy = gy32.to(dt).contiguous(memory_format=fmt[layout])
+                dx = pool.pool_bwd(x, gy, window)
+                ref = pool.pool_bwd_reference(x, gy, window)
+                torch.cuda.synchronize()
+                same = torch.equal(dx, ref) and dx.stride() == x.stride()
+                log(f"  pool_bwd window {window} {str(dt)[6:]} N={n} C=64 "
+                    f"23x23, x and g {layout}: kernel == plain bit for bit, "
+                    f"dx in x's layout: {same}")
+                if not same:
+                    fail(f"pool_bwd window {window} {dt} {layout}")
         xl, gl = POOL_LAYOUTS[0]
         x = base.to(dtype).contiguous(memory_format=fmt[xl])
         gy = gy32.to(dtype).contiguous(memory_format=fmt[gl])
@@ -1721,6 +1797,73 @@ def pool_windows_check(pool, n):
             f"{bnd:.5f} ms ({by}), autograd backward of F.max_pool2d "
             f"{lib:.4f} ms ({lib_names[0]})")
     return rows
+
+
+# (side, window): the largest square planes the pool backward's wide body
+# takes at 9x9 and 16x16 (past what its row arrays fit beside: its direct
+# search), and the largest that takes its separable search at 9x9
+POOL_LARGE_PLANES = ((112, (9, 9)), (144, (9, 9)), (148, (16, 16)))
+
+
+def pool_planes_check(pool):
+    """The pool backward's plan mirror (ops/pool.py:kernel_plan) against
+    the library's own cut at every square plane from the window up to past
+    the largest that fits, and a band of rectangles, at windows 3x3 to
+    16x16, 3 and 64 channels, three dtypes; then the kernel bit for bit
+    against its plain version at POOL_LARGE_PLANES (N=2, C=64, tie-heavy
+    data with a NaN window, float32, bf16 and fp16, both layouts): the wide
+    body's direct search at the largest square planes it takes at 9x9 and
+    16x16, and its separable search at the largest at 9x9."""
+    fmt = {"channels_last": torch.channels_last,
+           "nchw": torch.contiguous_format}
+    shapes = 0
+    for window in ((3, 3), (5, 7), (8, 8), (9, 9), (3, 12), (16, 16),
+                   (23, 1)):
+        sides = range(max(window), 200, 3)
+        planes = ([(s, s) for s in sides]
+                  + [(s, 2 * s) for s in sides if 2 * s >= window[1]]
+                  + [(2 * s, s) for s in sides if s >= window[1]])
+        for c in (3, 64):
+            for h, w in planes:
+                for dt in (torch.float32, torch.bfloat16, torch.float16):
+                    want = pool.kernel_plan(c, h, w, window, dt)
+                    got = pool.library_plan(c, h, w, window, dt)
+                    if got != want:
+                        fail(f"pool kernel_plan({c}, {h}, {w}, {window}, "
+                             f"{dt}) gives {want}, the library {got}")
+                    shapes += 1
+    log(f"  pool_bwd plans, C = Python at {shapes} shapes")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    held = {}
+    for side, window in POOL_LARGE_PLANES:
+        oh, ow = side - window[0] + 1, side - window[1] + 1
+        base = (torch.randn(2, 64, side, side, generator=g, device="cuda")
+                * 2).round() / 2
+        base[1, 5, side // 2, side // 3] = float("nan")
+        gy32 = torch.randint(1, 17, (2, 64, oh, ow), generator=g,
+                             device="cuda").float()
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            plan = pool.kernel_plan(64, side, side, window, dt)
+            search = "separable" if plan["rows"] else "direct"
+            for layout in ("nchw", "channels_last"):
+                x = base.to(dt).contiguous(memory_format=fmt[layout])
+                gy = gy32.to(dt).contiguous(memory_format=fmt[layout])
+                dx = pool.pool_bwd(x, gy, window)
+                ref = pool.pool_bwd_reference(x, gy, window)
+                torch.cuda.synchronize()
+                same = torch.equal(dx, ref) and dx.stride() == x.stride()
+                log(f"  pool_bwd {side}x{side} window {window} "
+                    f"{str(dt)[6:]} {layout}, {search} search, cb "
+                    f"{plan['cb']}, {plan['smem_bytes']} B: kernel == plain "
+                    f"bit for bit, dx in x's layout: {same}")
+                if not same:
+                    fail(f"pool_bwd {side}x{side} window {window} {dt} "
+                         f"{layout}")
+            held[f"{side}x{side} {window[0]}x{window[1]} {str(dt)[6:]}"] = (
+                search)
+    if set(held.values()) != {"separable", "direct"}:
+        fail(f"the large planes did not reach both searches: {held}")
+    return dict(plans=shapes, large_planes=held)
 
 
 def check_pool_layout(pool, label):
@@ -5543,6 +5686,7 @@ def main():
     pad_cost = padding_cost(fa)
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
     pool_row["windows_above_8"] = pool_windows_check(pool, TRAIN_BATCH * 50)
+    pool_row["planes"] = pool_planes_check(pool)
     wide_ring = wide_ring_check(fa)
     auto_gate_check(fa)
 
@@ -5976,6 +6120,7 @@ def main():
                     "wide_ptxas": wide_ptx, "wide_forward": wide_fwd,
                     "wide_backward": wide_bwd,
                     "pool_windows": pool_row["windows_above_8"],
+                    "pool_planes": pool_row["planes"],
                     "card": card}))
     log(json.dumps({"wide_sampler": {k: v for k, v in wide.items()
                                      if k != "held"},

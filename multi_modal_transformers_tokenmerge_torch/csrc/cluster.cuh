@@ -1,6 +1,7 @@
 // Thread block clusters (sm_90): the cluster's barrier, another block's
 // shared memory and barriers signalled across blocks.  ddpm_sampler_wide.cu
-// (partial sums of the hidden units) and flash_attention_wide.cu (partial
+// (partial sums of the hidden units; its ring's stages by bulk copies) and
+// flash_attention_wide.cu (partial
 // logits and probabilities of the forward's slices, partial S and dP and
 // the backward's dS and P fragments) exchange their partials through them.
 
@@ -87,7 +88,7 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
   return out;
 }
 
-// 16 (8) bytes into a peer's shared memory at `dst`, completing as many
+// 16 (8, 4) bytes into a peer's shared memory at `dst`, completing as many
 // bytes of the phase of its barrier `bar` (both peer_addr addresses).
 __device__ __forceinline__ void st_async(uint32_t dst, uint4 v,
                                          uint32_t bar) {
@@ -105,6 +106,14 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint2 v,
       "r"(v.x), "r"(v.y), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void st_async(uint32_t dst, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "f"(v), "r"(bar)
+      : "memory");
+}
 __device__ __forceinline__ void st_async(uint32_t dst, float2 v,
                                          uint32_t bar) {
   asm volatile(
@@ -119,6 +128,18 @@ __device__ __forceinline__ void st_async(uint32_t dst, float4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
       "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory at `src` into this block's
+// shared memory at `dst` (both 16-byte aligned), completing as many bytes
+// of the phase of this block's barrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(cta_addr(dst)),
+      "l"(src), "r"(bytes), "r"(cta_addr(bar))
       : "memory");
 }
 

@@ -24,39 +24,61 @@
 //   c owns units [c U, (c + 1) U), U a multiple of 8, and keeps its slice
 //   of Wn and Wo (2 A U elements) and of bn in shared memory for the whole
 //   loop.  Each step it computes h for its units and the partial eps sums
-//   of all A actions over them, and stores them into slot c of every
-//   block's shared memory (distributed shared memory: stores, so no remote
-//   latency sits on the step's path).  After one cluster barrier every
-//   block adds the C slots in rank order and updates the whole sample
-//   itself, so the next step needs no second exchange.  The slots are
-//   double-buffered by t & 1, so one cluster barrier a step suffices.  C
-//   is set by H, A and the dtype alone.
+//   of all A actions over them, and stores them by st.async into slot c of
+//   every block's shared memory, the bytes completing on that block's
+//   mbarrier; each block waits on its own barrier until its C slots have
+//   landed (no cluster barrier on the step's path), adds them in rank
+//   order and updates the whole sample itself, so the next step needs no
+//   second exchange.  The slots and barriers are double-buffered by the
+//   step's parity: a block sends step t + 1's sums only once it holds all
+//   of step t's, and each of those was sent after its sender had read
+//   step t - 1's buffer, the one step t + 1 reuses.  C is set by H, A and
+//   the dtype alone.  One cluster barrier after the barriers are set up,
+//   one as a block ends a row group.
 // - A block takes ROWS batch rows (1, 2, 4 or 8, a template argument, so
 //   the products' inner loops carry no per-row test), so that one read of
 //   its weights serves them all; ROWS is set by the batch and the card's
 //   SM count.  Each row's sums run in an order set by (H, A, dtype) alone,
-//   so a row's result does not depend on the batch or its blocking.
-// - Contexts and noise stream through a ring of 4 shared memory stages
-//   (cp.async, 16-byte chunks where source and stage share their
-//   alignment), 3 steps ahead of the loop: shared memory does not grow
-//   with T.  A step's coefficients are loaded into registers as it starts
-//   and used after both products.
+//   so a row's result does not depend on the batch or its blocking: the
+//   order of a 256-thread split (kOrderThreads), as in the body before
+//   this one, whose results this kernel gives bit for bit.
+// - 384 threads a block, so that the first product's 384 units a block at
+//   octo_base_chunk28 (H=3072 over 8 blocks) take one pass, not two.
+// - Contexts and noise stream through a ring of 4 shared memory stages, 3
+//   steps ahead of the loop, so that shared memory does not grow with T.
+//   Where every row a stage copies starts and ends on 16 bytes (H elem and,
+//   in DDPM, 4 A multiples of 16), one thread copies a stage by
+//   cp.async.bulk, its bytes completing on the stage's own barrier, which
+//   the step waits on; elsewhere every thread issues 16- or 4-byte
+//   cp.async copies (at octo_base_chunk28 those add half a microsecond to
+//   a 2.2 us step: sampler_wide_probe.py, no_bulk).  A step's coefficients
+//   are loaded into registers as it starts and used after both products.
 // - Both products split their sums over g lanes of a warp (g a power of
 //   two, g = 1 for a wide output) and add them with shuffles, so a narrow
 //   output (A = 1) or a narrow slice (U = 8) still keeps the block busy.
-// - Three barriers a step: after the first product, the cluster barrier
-//   after the second, and one after the update.  The step's code is kept
-//   small (copy loops rolled).  A first version, with a row test in every
-//   product term, remote loads of the partial sums, the coefficients in
-//   the ring and its copy loops unrolled (about 50 KB of code in a step),
-//   took 25 us a step at octo_base_chunk28 (sampler_wide_probe.py).
+//   Each lane's terms are laid out in a row and read as 16-byte vectors:
+//   Wn's rows, the sample's rows, and, lane-major, the hidden layer and
+//   Wo's rows (unit k = l + g m of lane l at position m of its segment),
+//   each segment an odd number of vectors long so that the lanes of a
+//   quarter warp read distinct banks (Wo's plain rows, 768 bytes apart,
+//   would put a warp's four lane groups on the same banks).
+// - Two block barriers a step: after the first product and after the
+//   update.  The step's code is kept small (copy loops rolled).  A first
+//   version, with a row test in every product term, remote loads of the
+//   partial sums, the coefficients in the ring and its copy loops unrolled
+//   (about 50 KB of code in a step), took 25 us a step at
+//   octo_base_chunk28; the next (256 threads, a cluster barrier a step,
+//   2-byte weight loads) 5.1 us (sampler_wide_probe.py times it beside
+//   this one).
 // - Any shape: whatever does not fit in shared memory (in the order
 //   partial sums, sample, hidden layer, biases, ring, weights) lives in
 //   device memory instead: the weights and biases are read through L2, the
 //   ring is skipped (each step reads its contexts and noise directly), and
 //   the partial sums, the sample and the hidden layer move to a scratch
-//   buffer the wrapper allocates, partial sums read with ld.global.cg.
-//
+//   buffer the wrapper allocates, partial sums stored there and read with
+//   ld.global.cg behind a cluster barrier a step (release / acquire at
+//   cluster scope).
+
 // Plain-C interface, loaded with ctypes: ddpm_sampler_wide_launch returns
 // the cudaError_t of the launch (0 = success) and does not synchronise;
 // ddpm_sampler_wide_plan reports the blocking and the scratch it needs.
@@ -71,7 +93,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // threads of a block
+constexpr int kThreads = 384;      // threads of a block
+// The threads the sum orders are cut for: the cluster size and the lanes
+// sharing a sum follow a 256-thread split of the products, so that a
+// shape's sums run in the order the first version of this kernel ran them
+// (its results, bit for bit) while 384 threads run them.
+constexpr int kOrderThreads = 256;
 constexpr int kMaxRows = 8;        // batch rows a block takes at most
 constexpr int kMaxCluster = 8;     // blocks of a cluster (the portable most)
 constexpr int kStages = 4;         // ring stages: 3 steps in flight
@@ -109,6 +136,46 @@ template <> struct Cvt<__half> {
   }
 };
 
+// A 16-byte vector of T, as floats.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 v, float* f) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(uint4 v, float* f) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Vec<__half> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(uint4 v, float* f) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float lane4(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
 // round a float32 value to the compute dtype and back
 template <typename T>
 __device__ __forceinline__ float rnd(float x) {
@@ -131,18 +198,37 @@ struct Plan {
   int lg1, lg2;    // log2 of the lanes sharing one sum, first / second
   int flags;       // Placed: the buffers in shared memory
   int smem;        // dynamic shared memory of a block, bytes
-  // byte offsets in shared memory
+  // byte offsets in shared memory (the exchange's two barriers at off_part,
+  // its partial sums 16 bytes on)
   int off_part, off_state, off_hidden, off_bias, off_ring, off_wn, off_wo;
   int stage_bytes, stage_noise;   // a ring stage: contexts, then noise
+  int bulk;        // 1: the ring's stages copied by cp.async.bulk (below)
+  int expect;      // bytes a barrier phase awaits (0: no st.async exchange)
+  // element strides: a sample row (A rounded up to a 16-byte vector of T's
+  // elements, 4 or 8 floats: the first product's vector reads); a Wn row in
+  // shared memory; a lane's segment of the hidden layer (floats, whole
+  // vectors of T's elements: the second product's reads) and of a Wo row
+  // (elements) in the second product's lane-major layout
+  int xs_rs, wn_rs, hs_seg, wo_seg;
   // float offsets in a block's scratch, and its floats
   long long scr_part, scr_state, scr_hidden, scr_block;
 };
 
+// n elements of `per` a 16-byte vector, padded to an odd number of vectors:
+// segments that far apart put the 8 threads of a quarter warp reading one
+// vector each on distinct banks
+long long odd_vectors(long long n, long long per) {
+  long long v = ceil_div(n, per);
+  if (v % 2 == 0) ++v;
+  return v * per;
+}
+
 // log2 of the lanes sharing one sum of k terms for n outputs: the largest
-// power of two g <= 32 with g * n <= kThreads and g <= k
+// power of two g <= 32 with g * n <= kOrderThreads and g <= k
 int lanes_log2(long long n, long long k) {
   int lg = 0;
-  while (lg < 5 && (2LL << lg) * n <= kThreads && (2LL << lg) <= k) ++lg;
+  while (lg < 5 && (2LL << lg) * n <= kOrderThreads && (2LL << lg) <= k)
+    ++lg;
   return lg;
 }
 
@@ -151,7 +237,7 @@ Plan make_plan(int steps, int batch, int hidden, int adim, int elem,
   Plan p = {};
   const long long H = hidden, A = adim;
   const long long wbytes = 2 * H * A * elem;
-  long long c = ceil_div(H, kThreads);
+  long long c = ceil_div(H, kOrderThreads);
   if (ceil_div(wbytes, kWeightShare) > c) c = ceil_div(wbytes, kWeightShare);
   if (c > kMaxCluster) c = kMaxCluster;
   p.units = int(ceil_div(ceil_div(H, c), 8) * 8);
@@ -166,6 +252,13 @@ Plan make_plan(int steps, int batch, int hidden, int adim, int elem,
   p.grid_y = p.groups < kMaxGridY ? p.groups : kMaxGridY;
 
   const long long R = p.rows, U = p.units;
+  const long long g2 = 1LL << p.lg2, vec = 16 / elem;
+  p.xs_rs = int(ceil_div(A, vec) * vec);
+  p.wn_rs = int(odd_vectors(A, vec));
+  p.hs_seg = int(odd_vectors(ceil_div(ceil_div(U, g2), vec) * vec, 4));
+  p.wo_seg = int(odd_vectors(ceil_div(U, g2), vec));
+  const long long hs_rs = g2 * p.hs_seg;   // a row of the hidden layer
+  const long long wn_bytes = align16(U * p.wn_rs * elem);
   p.stage_noise = int(align16(R * U * elem));
   const long long stage =
       p.stage_noise + align16(mode == kDDPM ? R * A * 4 : 0);
@@ -177,20 +270,29 @@ Plan make_plan(int steps, int batch, int hidden, int adim, int elem,
     p.flags |= flag;
     return true;
   };
-  place(kPart, 2 * p.clusters * R * A * 4, &p.off_part);
-  place(kState, 2 * R * A * 4, &p.off_state);
-  place(kHidden, R * U * 4, &p.off_hidden);
+  place(kPart, 16 + 2 * p.clusters * R * A * 4, &p.off_part);
+  place(kState, 2 * R * p.xs_rs * 4, &p.off_state);
+  place(kHidden, R * hs_rs * 4, &p.off_hidden);
   place(kBias, (U + A) * 4, &p.off_bias);
-  if (stage <= kSmemBudget && place(kRing, kStages * stage, &p.off_ring))
+  // the ring: its stages' barriers (kStages x 8 bytes), then the stages
+  if (stage <= kSmemBudget && place(kRing, 32 + kStages * stage, &p.off_ring))
     p.stage_bytes = int(stage);
-  if (place(kWeights, align16(U * A * elem) + A * U * elem, &p.off_wn))
-    p.off_wo = int(p.off_wn + align16(U * A * elem));
+  // one thread copies a stage by cp.async.bulk where every row it copies
+  // starts and ends on 16 bytes (given 16-byte aligned tensors)
+  p.bulk = (p.flags & kRing) && (H * elem) % 16 == 0 &&
+           (mode != kDDPM || (A * 4) % 16 == 0);
+  if (place(kWeights, wn_bytes + A * g2 * p.wo_seg * elem, &p.off_wn))
+    p.off_wo = int(p.off_wn + wn_bytes);
   p.smem = int(used);
+  // partial sums in shared memory and more than one block: each phase of a
+  // barrier awaits every block's slot
+  if ((p.flags & kPart) && p.clusters > 1)
+    p.expect = int(p.clusters * R * A * 4);
 
   long long scr = 0;
   if (!(p.flags & kPart)) { p.scr_part = scr; scr += 2 * p.clusters * R * A; }
-  if (!(p.flags & kState)) { p.scr_state = scr; scr += 2 * R * A; }
-  if (!(p.flags & kHidden)) { p.scr_hidden = scr; scr += R * U; }
+  if (!(p.flags & kState)) { p.scr_state = scr; scr += 2 * R * p.xs_rs; }
+  if (!(p.flags & kHidden)) { p.scr_hidden = scr; scr += R * hs_rs; }
   p.scr_block = scr;
   return p;
 }
@@ -268,47 +370,86 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
   const bool hidden_s = FAST || (p.flags & kHidden);
   const bool bias_s = FAST || (p.flags & kBias);
   const bool ring = FAST || (p.flags & kRing);
+  // the ring's stages, kStages x stage_bytes, after a barrier each; copied
+  // by one thread, its bytes completing on the stage's barrier, or (bulk
+  // 0) by every thread's cp.async
+  uint64_t* stage_bars = reinterpret_cast<uint64_t*>(smem + p.off_ring);
+  unsigned char* stages = smem + p.off_ring + 32;
+  const bool bulk = ring && p.bulk;
   const bool wres = FAST || (p.flags & kWeights);
+  // the partial sums travel by st.async, each block waiting on its own
+  // barrier for its C slots; otherwise (one block, or the sums in device
+  // memory) by stores and a barrier of the block or the cluster
+  const bool exchange = p.expect > 0;
 
   float* scr = scratch + (size_t(blockIdx.y) * C + c) * size_t(p.scr_block);
-  // partial sums [2][C][ROWS][A]: block k writes slot k of every block's
-  float* part = part_s ? reinterpret_cast<float*>(smem + p.off_part)
+  // two barriers (one a buffer), then the partial sums [2][C][ROWS][A]:
+  // block k writes slot k of every block's
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.off_part);
+  float* part = part_s ? reinterpret_cast<float*>(smem + p.off_part + 16)
                        : scr + p.scr_part;
   float* state = state_s ? reinterpret_cast<float*>(smem + p.off_state)
                          : scr + p.scr_state;
-  float* xf = state;                        // [ROWS][A] float32 sample
-  float* xr = state + size_t(ROWS) * A;     // [ROWS][A] its rounding
+  const int xs_rs = p.xs_rs;
+  float* xf = state;                         // [ROWS][xs_rs] the sample
+  float* xr = state + size_t(ROWS) * xs_rs;  // [ROWS][xs_rs] its rounding
+  // the hidden layer, [ROWS][g2][hs_seg]: unit k = l + g2 m at l hs_seg + m,
+  // so that lane l of a second-product group reads its terms in a row
   float* hs = hidden_s ? reinterpret_cast<float*>(smem + p.off_hidden)
-                       : scr + p.scr_hidden;   // [ROWS][U]
+                       : scr + p.scr_hidden;
   float* bn_s = reinterpret_cast<float*>(smem + p.off_bias);    // [U]
   float* bo_s = bn_s + U;                                       // [A]
-  // the block's weights: Wn rows j0 .. j0 + units, row stride A; Wo columns
-  // j0 .. j0 + units of each action's row, row stride wo_rs
+  // the block's weights: Wn rows j0 .. j0 + units, wn_rs apart (padded in
+  // shared memory); Wo's columns j0 .. j0 + units of each action's row, in
+  // shared memory lane-major as the hidden layer, [A][g2][wo_seg]
   const T* wn_p = wres ? reinterpret_cast<const T*>(smem + p.off_wn)
                        : wn + size_t(j0) * A;
-  const T* wo_p = wres ? reinterpret_cast<const T*>(smem + p.off_wo)
-                       : wo + j0;
-  const size_t wo_rs = wres ? size_t(U) : size_t(hidden);
+  const size_t wn_rs = wres ? size_t(p.wn_rs) : size_t(A);
+  const T* wo_s = reinterpret_cast<const T*>(smem + p.off_wo);
   const size_t slot = size_t(ROWS) * A;     // one block's partial sums
   const size_t half = size_t(C) * slot;     // one of the two buffers
 
+  const int lg1 = p.lg1, lg2 = p.lg2;
+  const int g1 = 1 << lg1, g2 = 1 << lg2;
+  const int hs_seg = p.hs_seg, hs_rs = g2 * hs_seg, wo_seg = p.wo_seg;
   if (wres) {
-    T* wn_s = reinterpret_cast<T*>(smem + p.off_wn);
-    T* wo_s = reinterpret_cast<T*>(smem + p.off_wo);
-    copy_span(wn_s, wn + size_t(j0) * A, units * A, tid);
+    T* wn_w = reinterpret_cast<T*>(smem + p.off_wn);
+    T* wo_w = reinterpret_cast<T*>(smem + p.off_wo);
 #pragma unroll 1
-    for (int a = 0; a < A; ++a)
-      copy_span(wo_s + size_t(a) * U, wo + size_t(a) * hidden + j0, units,
-                tid);
+    for (int i = tid; i < units * A; i += kThreads) {
+      const int n = i / A, k = i - n * A;
+      wn_w[size_t(n) * wn_rs + k] = wn[size_t(j0) * A + i];
+    }
+#pragma unroll 1
+    for (int i = tid; i < A * units; i += kThreads) {
+      const int a = i / units, k = i - a * units;
+      wo_w[(size_t(a) * g2 + (k & (g2 - 1))) * wo_seg + (k >> lg2)] =
+          wo[size_t(a) * hidden + j0 + k];
+    }
   }
   if (bias_s) {
     for (int n = tid; n < units; n += kThreads)
       bn_s[n] = Cvt<T>::to_f(bn[j0 + n]);
     for (int a = tid; a < A; a += kThreads) bo_s[a] = Cvt<T>::to_f(bo[a]);
   }
+  // the barriers, initialised before any block of the cluster stores or
+  // any copy completes on them
+  if (tid == 0) {
+    if (exchange) {
+      mbar_init(bars, 1);
+      mbar_init(bars + 1, 1);
+    }
+    if (bulk)
+      for (int i = 0; i < kStages; ++i) mbar_init(stage_bars + i, 1);
+    mbar_init_fence();
+  }
+  if (exchange)
+    cluster_barrier();
+  else
+    __syncthreads();
+  uint32_t stage_phase = 0u;   // bit i: the parity stage i awaits next
 
-  const int lg1 = p.lg1, lg2 = p.lg2;
-  const int g1 = 1 << lg1, g2 = 1 << lg2;
+  int seq = 0;   // the steps run so far, over row groups: barrier phases
 #pragma unroll 1
   for (int grp = blockIdx.y; grp < p.groups; grp += gridDim.y) {
     const int r0 = grp * ROWS;
@@ -318,7 +459,24 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
     // stage s of the ring: its rows' contexts and noise
     const auto issue = [&](int s) {
       if (!ring || s >= steps) return;
-      unsigned char* st = smem + p.off_ring + (s % kStages) * p.stage_bytes;
+      unsigned char* st = stages + (s % kStages) * p.stage_bytes;
+      if (bulk) {
+        if (tid == 0) {
+          uint64_t* bar = stage_bars + s % kStages;
+          mbar_expect(bar, uint32_t(rows * units * sizeof(T) +
+                                    (MODE == kDDPM ? pairs * 4 : 0)));
+#pragma unroll 1
+          for (int r = 0; r < rows; ++r)
+            bulk_copy(st + size_t(r) * U * sizeof(T),
+                      ctx + (size_t(s) * batch + r0 + r) * hidden + j0,
+                      uint32_t(units * sizeof(T)), bar);
+          if (MODE == kDDPM)
+            bulk_copy(st + p.stage_noise,
+                      noise + (size_t(s) * batch + r0) * A,
+                      uint32_t(pairs * 4), bar);
+        }
+        return;
+      }
 #pragma unroll 1
       for (int r = 0; r < rows; ++r)
         copy_span(reinterpret_cast<T*>(st) + size_t(r) * U,
@@ -329,33 +487,40 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
                   noise + (size_t(s) * batch + r0) * A, pairs, tid);
     };
     for (int i = tid; i < ROWS * A; i += kThreads) {
+      const int r = i / A, at = r * xs_rs + (i - r * A);
       const float x = i < pairs ? noisy[size_t(r0) * A + i] : 0.f;
-      xf[i] = x;
-      xr[i] = rnd<T>(x);
+      xf[at] = x;
+      xr[at] = rnd<T>(x);
     }
+    // the first kStages - 1 steps' stages
 #pragma unroll 1
-    for (int s = 0; s < kStages - 1; ++s) {
-      issue(s);
-      __pipeline_commit();
-    }
-    __pipeline_wait_prior(kStages - 2);
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
     __syncthreads();
 
 #pragma unroll 1
-    for (int t = 0; t < steps; ++t) {
+    for (int t = 0; t < steps; ++t, ++seq) {
       issue(t + kStages - 1);
       __pipeline_commit();
+      const int bi = seq & 1;   // this step's buffer and barrier
+      if (exchange && tid == 0) mbar_expect(bars + bi, uint32_t(p.expect));
       // this step's coefficients, read now and used after both products
       const float* cf = coeffs + size_t(t) * ncoef;
       const float c0 = __ldg(cf), c1 = __ldg(cf + 1), c2 = __ldg(cf + 2);
       const float c3 = MODE == kDDPM ? 0.f : __ldg(cf + ncoef - 1);
-      const unsigned char* st =
-          smem + p.off_ring + (t % kStages) * p.stage_bytes;
+      const unsigned char* st = stages + (t % kStages) * p.stage_bytes;
+      if (bulk) {   // this step's stage has landed
+        const int slot = t % kStages;
+        mbar_wait(stage_bars + slot, (stage_phase >> slot) & 1);
+        stage_phase ^= 1u << slot;
+      }
       const T* ctx_t = ring ? reinterpret_cast<const T*>(st)
                             : ctx + (size_t(t) * batch + r0) * hidden + j0;
       const size_t ctx_rs = ring ? size_t(U) : size_t(hidden);
 
-      // h[r][n] = relu(cd(cd(cd(x[r] . Wn[n]) + bn[n]) + ctx[t][r][n]))
+      // h[r][n] = relu(cd(cd(cd(x[r] . Wn[n]) + bn[n]) + ctx[t][r][n])),
+      // each sum in k order (lane l of g1 taking k = l, l + g1, ...)
 #pragma unroll 1
       for (int n0 = 0; n0 < units; n0 += kThreads >> lg1) {
         const int n = n0 + (tid >> lg1);
@@ -363,52 +528,118 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
         if (n < units) {
-          const T* w = wn_p + size_t(n) * A;
-#pragma unroll 4
-          for (int k = tid & (g1 - 1); k < A; k += g1) {
-            const float wv = Cvt<T>::to_f(w[k]);
+          const T* w = wn_p + size_t(n) * wn_rs;
+          if (FAST && g1 == 1) {
+            // 16-byte vectors of the padded row and of the sample rows
+#pragma unroll 1
+            for (int k0 = 0; k0 < A; k0 += Vec<T>::N) {
+              float wf[Vec<T>::N];
+              Vec<T>::unpack(*reinterpret_cast<const uint4*>(w + k0), wf);
 #pragma unroll
-            for (int r = 0; r < ROWS; ++r)
-              acc[r] = fmaf(xr[r * A + k], wv, acc[r]);
+              for (int kk = 0; kk < Vec<T>::N; kk += 4) {
+                float4 xv[ROWS];
+#pragma unroll
+                for (int r = 0; r < ROWS; ++r)
+                  xv[r] = *reinterpret_cast<const float4*>(
+                      xr + r * xs_rs + k0 + kk);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  if (k0 + kk + j < A) {
+#pragma unroll
+                    for (int r = 0; r < ROWS; ++r)
+                      acc[r] = fmaf(lane4(xv[r], j), wf[kk + j], acc[r]);
+                  }
+                }
+              }
+            }
+          } else {
+#pragma unroll 4
+            for (int k = tid & (g1 - 1); k < A; k += g1) {
+              const float wv = Cvt<T>::to_f(w[k]);
+#pragma unroll
+              for (int r = 0; r < ROWS; ++r)
+                acc[r] = fmaf(xr[r * xs_rs + k], wv, acc[r]);
+            }
           }
         }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[r] = lane_sum(acc[r], lg1);
         if ((tid & (g1 - 1)) == 0 && n < units) {
           const float b = bias_s ? bn_s[n] : Cvt<T>::to_f(bn[j0 + n]);
+          float* hn = hs + (n & (g2 - 1)) * hs_seg + (n >> lg2);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const float h = rnd<T>(rnd<T>(acc[r]) + b);
             const float cv = r < rows ? Cvt<T>::to_f(ctx_t[r * ctx_rs + n])
                                       : 0.f;
-            hs[r * U + n] = fmaxf(rnd<T>(h + cv), 0.f);
+            hn[r * hs_rs] = fmaxf(rnd<T>(h + cv), 0.f);
           }
         }
       }
       __syncthreads();
 
       // the block's partial eps[r][a] = sum over its units of h . Wo[a],
-      // written into slot c of every block of the cluster
-      const size_t buf = (t & 1) * half + size_t(c) * slot;
+      // lane l of g2 taking units l, l + g2, ... in order, into slot c of
+      // every block of the cluster (every lane of a group holds the sum:
+      // lane l sends to blocks l, l + g2, ...)
+      const size_t buf = bi * half + size_t(c) * slot;
 #pragma unroll 1
       for (int a0 = 0; a0 < A; a0 += kThreads >> lg2) {
-        const int a = a0 + (tid >> lg2);
+        const int a = a0 + (tid >> lg2), lane = tid & (g2 - 1);
         float acc[ROWS];
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
         if (a < A) {
-          const T* w = wo_p + size_t(a) * wo_rs;
-#pragma unroll 4
-          for (int k = tid & (g2 - 1); k < units; k += g2) {
-            const float wv = Cvt<T>::to_f(w[k]);
+          const int cnt = lane < units ? ((units - 1 - lane) >> lg2) + 1 : 0;
+          const float* hl = hs + lane * hs_seg;
+          if (FAST) {
+            const T* wl = wo_s + (size_t(a) * g2 + lane) * wo_seg;
+#pragma unroll 1
+            for (int m0 = 0; m0 < cnt; m0 += Vec<T>::N) {
+              float wf[Vec<T>::N];
+              Vec<T>::unpack(*reinterpret_cast<const uint4*>(wl + m0), wf);
 #pragma unroll
-            for (int r = 0; r < ROWS; ++r)
-              acc[r] = fmaf(hs[r * U + k], wv, acc[r]);
+              for (int kk = 0; kk < Vec<T>::N; kk += 4) {
+                float4 hv[ROWS];
+#pragma unroll
+                for (int r = 0; r < ROWS; ++r)
+                  hv[r] = *reinterpret_cast<const float4*>(
+                      hl + r * hs_rs + m0 + kk);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  if (m0 + kk + j < cnt) {
+#pragma unroll
+                    for (int r = 0; r < ROWS; ++r)
+                      acc[r] = fmaf(lane4(hv[r], j), wf[kk + j], acc[r]);
+                  }
+                }
+              }
+            }
+          } else {
+            // Wo lane-major in shared memory, or its row in device memory
+            const T* wl = wres ? wo_s + (size_t(a) * g2 + lane) * wo_seg
+                               : wo + size_t(a) * hidden + j0 + lane;
+            const int ws = wres ? 1 : g2;
+#pragma unroll 4
+            for (int m = 0; m < cnt; ++m) {
+              const float wv = Cvt<T>::to_f(wl[m * ws]);
+#pragma unroll
+              for (int r = 0; r < ROWS; ++r)
+                acc[r] = fmaf(hl[r * hs_rs + m], wv, acc[r]);
+            }
           }
         }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[r] = lane_sum(acc[r], lg2);
-        if ((tid & (g2 - 1)) == 0 && a < A) {
+        if (a < A && exchange) {
+#pragma unroll 1
+          for (int k = lane; k < C; k += g2) {
+            const uint32_t bar = peer_addr(bars + bi, k);
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r)
+              st_async(peer_addr(part + buf + r * A + a, k), acc[r], bar);
+          }
+        } else if (a < A && lane == 0) {
 #pragma unroll 1
           for (int k = 0; k < C; ++k) {
             float* dst = part_s ? peer_shared(part, k)
@@ -419,7 +650,9 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
           }
         }
       }
-      if (C > 1)
+      if (exchange)
+        mbar_wait(bars + bi, (seq >> 1) & 1);
+      else if (C > 1)
         cluster_barrier();
       else
         __syncthreads();
@@ -429,17 +662,18 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
           MODE != kDDPM ? nullptr
           : ring ? reinterpret_cast<const float*>(st + p.stage_noise)
                  : noise + (size_t(t) * batch + r0) * A;
-      const float* pr = part + (t & 1) * half;
+      const float* pr = part + bi * half;
 #pragma unroll 1
       for (int i = tid; i < pairs; i += kThreads) {
         float e = 0.f;
-#pragma unroll 1
-        for (int k = 0; k < C; ++k)
-          e += part_s ? pr[k * slot + i] : __ldcg(pr + k * slot + i);
-        const int a = i % A;
+#pragma unroll
+        for (int k = 0; k < kMaxCluster; ++k)
+          if (k < C)
+            e += part_s ? pr[k * slot + i] : __ldcg(pr + k * slot + i);
+        const int r = i / A, a = i - r * A, at = r * xs_rs + a;
         const float b = bias_s ? bo_s[a] : Cvt<T>::to_f(bo[a]);
         float eps = rnd<T>(rnd<T>(e) + b);
-        const float x = xf[i];
+        const float x = xf[at];
         float nx;
         if (MODE == kDDPM) {
           nx = c0 * (x - c1 * eps) + c2 * nz[i];
@@ -450,8 +684,8 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
           nx = c2 * x0 + c3 * eps;
         }
         nx = fminf(fmaxf(nx, -clip_value), clip_value);
-        xf[i] = nx;
-        xr[i] = rnd<T>(nx);
+        xf[at] = nx;
+        xr[at] = rnd<T>(nx);
       }
       __pipeline_wait_prior(kStages - 2);
       __syncthreads();
@@ -459,9 +693,9 @@ ddpm_sampler_wide_kernel(const float* __restrict__ noisy,   // (B, A)
 
     if (c == 0)
       for (int i = tid; i < pairs; i += kThreads)
-        out[size_t(r0) * A + i] = xf[i];
+        out[size_t(r0) * A + i] = xf[(i / A) * xs_rs + i % A];
     // every block has read the last step's partial sums before any starts
-    // the next row group (writing into the others) or leaves
+    // the next row group (storing into the others) or leaves
     if (C > 1) cluster_barrier();
   }
 }
@@ -568,20 +802,25 @@ bool valid(int steps, int batch, int hidden, int adim, int elem, int mode,
 
 extern "C" {
 
-// The launch's cut, into out[0 .. 10]: clusters, units, rows, groups,
+// The launch's cut, into out[0 .. 15]: clusters, units, rows, groups,
 // grid_y, g1, g2, flags, shared memory bytes, scratch floats (all blocks),
-// blocks.  elem = compute dtype size; sms = the card's SM count.  Returns
-// a cudaError_t (cudaErrorInvalidValue for a shape it cannot take).
+// blocks, the bytes a barrier phase awaits (0: no st.async exchange),
+// threads a block, bulk (1: the ring's stages by cp.async.bulk, given
+// 16-byte aligned tensors), the floats of a sample row and of a lane's
+// segment of the hidden layer.  elem = compute dtype size; sms = the card's
+// SM count.  Returns a cudaError_t (cudaErrorInvalidValue for a shape it
+// cannot take).
 int ddpm_sampler_wide_plan(int steps, int batch, int hidden, int adim,
                            int elem, int mode, int sms, long long* out) {
   if (!valid(steps, batch, hidden, adim, elem, mode, sms))
     return int(cudaErrorInvalidValue);
   const Plan p = make_plan(steps, batch, hidden, adim, elem, mode, sms);
   const long long blocks = (long long)p.clusters * p.grid_y;
-  const long long v[11] = {p.clusters, p.units, p.rows, p.groups, p.grid_y,
+  const long long v[16] = {p.clusters, p.units, p.rows, p.groups, p.grid_y,
                            1 << p.lg1, 1 << p.lg2, p.flags, p.smem,
-                           blocks * p.scr_block, blocks};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
+                           blocks * p.scr_block, blocks, p.expect, kThreads,
+                           p.bulk, p.xs_rs, p.hs_seg};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -599,9 +838,13 @@ int ddpm_sampler_wide_launch(const void* noisy, const void* ctx,
   if (dtype < 0 || dtype > 2 ||
       !valid(steps, batch, hidden, adim, elem, mode, sms))
     return int(cudaErrorInvalidValue);
-  const Plan p = make_plan(steps, batch, hidden, adim, elem, mode, sms);
+  Plan p = make_plan(steps, batch, hidden, adim, elem, mode, sms);
   if (p.scr_block > 0 && scratch == nullptr)
     return int(cudaErrorInvalidValue);
+  // a bulk copy needs its source on 16 bytes too
+  if ((reinterpret_cast<uintptr_t>(ctx) & 15) ||
+      (mode == kDDPM && (reinterpret_cast<uintptr_t>(noise) & 15)))
+    p.bulk = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -12,8 +12,10 @@ of a ``num_blocks == 1`` denoiser in one launch:
   and T·H contexts that fit one block's shared memory (octo_base's shape);
 - the wide kernel, ``csrc/ddpm_sampler_wide.cu``: a cluster of up to 8
   blocks splits the hidden units, each block's slice of the weights in
-  shared memory, up to 8 batch rows a block, the contexts and noise
-  streamed through a ring of shared-memory stages; it takes every shape.
+  shared memory, up to 8 batch rows a block, the partial sums exchanged by
+  ``st.async`` on each block's mbarrier, the contexts and noise streamed
+  through a ring of shared-memory stages; it takes every shape
+  (:func:`wide_sampler_plan` mirrors how it cuts one).
 
 :func:`sampler_variant` chooses between them from the shape alone; each
 source note says what bounds its kernel and how the design answers.
@@ -43,7 +45,7 @@ from ..core.hw import on_cuda
 
 __all__ = ["ddpm_sampler", "ddpm_sampler_op", "ddpm_sample_reference",
            "sampler_variant", "register_max_hidden", "REGISTER_MAX_ACTION_DIM",
-           "VARIANTS"]
+           "VARIANTS", "wide_sampler_plan"]
 
 VARIANTS = ("register", "wide")
 REGISTER_MAX_ACTION_DIM = 16   # kMaxA in csrc/ddpm_sampler.cu
@@ -197,7 +199,105 @@ def _launch(noisy, contexts, noise, coeffs, wn, bn, wo, bo, clip_value,
 
 
 _PLAN_KEYS = ("clusters", "units", "rows", "groups", "grid_y", "g1", "g2",
-              "flags", "smem_bytes", "scratch_floats", "blocks")
+              "flags", "smem_bytes", "scratch_floats", "blocks",
+              "expect_bytes", "threads", "bulk", "xs_rs", "hs_seg")
+
+# csrc/ddpm_sampler_wide.cu's constants
+_WIDE_THREADS = 384          # kThreads
+_WIDE_ORDER_THREADS = 256    # kOrderThreads: the sum orders' split
+_WIDE_MAX_ROWS = 8
+_WIDE_MAX_CLUSTER = 8
+_WIDE_STAGES = 4
+_WIDE_WEIGHT_SHARE = 160 * 1024
+_WIDE_MAX_GRID_Y = 65535
+
+
+def wide_sampler_plan(steps: int, batch: int, hidden: int, adim: int,
+                      elem: int, mode: int, sms: int) -> dict:
+    """How the wide kernel cuts a launch, as ``make_plan`` in
+    ``csrc/ddpm_sampler_wide.cu`` does, from the shape alone (``elem`` the
+    compute dtype's bytes, ``mode`` 0 DDPM / 1-2 DDIM, ``sms`` the card's
+    SM count), in :func:`wide_plan`'s keys: C blocks a cluster of U hidden
+    units each; rows a block; the lanes sharing a sum in each product (a
+    256-thread split: the sum orders); the buffers placed in shared memory
+    in the order partial sums (after the exchange's two barriers), sample
+    (rows of ``xs_rs`` floats: A rounded up to a 16-byte vector of the
+    compute dtype's elements, 4 or 8, which the first product reads),
+    hidden layer (lane-major: g2 segments of ``hs_seg`` floats, units / g2
+    rounded up to such a vector, then to an odd count of 16-byte vectors,
+    each read by the second product in vectors), biases, a
+    ring of 4 stages (after their 4 barriers), weights (Wn rows and Wo's
+    lane segments padded the same way); the bytes a barrier phase awaits
+    (C slots of rows x A float32 sums, where the sums sit in shared memory
+    and C > 1, else 0: a cluster or block barrier); ``bulk``, 1 where every
+    row a ring stage copies starts and ends on 16 bytes, so that one thread
+    copies a stage by cp.async.bulk (a launch whose contexts or noise are
+    not 16-byte aligned copies per thread instead); the scratch floats of
+    what does not fit."""
+    cdiv = lambda a, b: -(-a // b)
+    a16 = lambda n: (n + 15) & ~15
+    h, a = hidden, adim
+    c = max(cdiv(h, _WIDE_ORDER_THREADS), cdiv(2 * h * a * elem,
+                                                _WIDE_WEIGHT_SHARE))
+    c = min(c, _WIDE_MAX_CLUSTER)
+    units = cdiv(cdiv(h, c), 8) * 8
+    clusters = cdiv(h, units)
+
+    def lanes_log2(n, k):
+        lg = 0
+        while (lg < 5 and (2 << lg) * n <= _WIDE_ORDER_THREADS
+               and (2 << lg) <= k):
+            lg += 1
+        return lg
+
+    slots = max(sms // clusters, 1)
+    rows = 1
+    while rows < _WIDE_MAX_ROWS and rows < cdiv(batch, slots):
+        rows *= 2
+    groups = cdiv(batch, rows)
+    grid_y = min(groups, _WIDE_MAX_GRID_Y)
+    lg1, lg2 = lanes_log2(units, a), lanes_log2(a, units)
+    g2, vec = 1 << lg2, 16 // elem
+
+    def odd_vectors(n, per):   # padded to an odd count of 16-byte vectors
+        v = cdiv(n, per)
+        return (v + 1 - v % 2) * per
+
+    xs_rs = cdiv(a, vec) * vec                     # a sample row
+    hs_seg = odd_vectors(cdiv(cdiv(units, g2), vec) * vec, 4)
+    hs_rs = g2 * hs_seg                            # a hidden-layer row
+    wn_bytes = a16(units * odd_vectors(a, vec) * elem)
+    wo_bytes = a * g2 * odd_vectors(cdiv(units, g2), vec) * elem
+    stage = a16(rows * units * elem) + a16(rows * a * 4 if mode == 0 else 0)
+    used, flags = 0, 0
+
+    def place(flag, nbytes):
+        nonlocal used, flags
+        if used + a16(nbytes) > _MAX_SMEM_BYTES:
+            return False
+        used += a16(nbytes)
+        flags |= flag
+        return True
+
+    place(1, 16 + 2 * clusters * rows * a * 4)
+    place(2, 2 * rows * xs_rs * 4)
+    place(4, rows * hs_rs * 4)
+    place(8, (units + a) * 4)
+    if stage <= _MAX_SMEM_BYTES:
+        place(16, 32 + _WIDE_STAGES * stage)   # the stages' barriers first
+    place(32, wn_bytes + wo_bytes)
+    scratch = ((0 if flags & 1 else 2 * clusters * rows * a)
+               + (0 if flags & 2 else 2 * rows * xs_rs)
+               + (0 if flags & 4 else rows * hs_rs))
+    blocks = clusters * grid_y
+    expect = clusters * rows * a * 4 if flags & 1 and clusters > 1 else 0
+    bulk = int(bool(flags & 16) and h * elem % 16 == 0
+               and (mode != 0 or a * 4 % 16 == 0))
+    return dict(clusters=clusters, units=units, rows=rows, groups=groups,
+                grid_y=grid_y, g1=1 << lg1, g2=g2, flags=flags,
+                smem_bytes=used, scratch_floats=blocks * scratch,
+                blocks=blocks, expect_bytes=expect, threads=_WIDE_THREADS,
+                bulk=bulk, xs_rs=xs_rs, hs_seg=hs_seg)
 
 
 def wide_plan(lib, steps, batch, hidden, adim, elem, mode, sms) -> dict:
@@ -205,7 +305,11 @@ def wide_plan(lib, steps, batch, hidden, adim, elem, mode, sms) -> dict:
     blocks a cluster, hidden units and batch rows a block, row groups, the
     lanes sharing a sum in each product, the buffers in shared memory
     (bit flags: partial sums 1, sample 2, hidden layer 4, biases 8, ring
-    16, weights 32), its bytes, and the scratch floats it needs."""
+    16, weights 32), its bytes, the scratch floats it needs, the bytes a
+    barrier phase of the exchange awaits, the threads of a block,
+    whether one thread copies the ring's stages in bulk, and the floats of
+    a sample row and of a lane's segment of the hidden layer;
+    :func:`wide_sampler_plan` mirrors it."""
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     rc = lib.ddpm_sampler_wide_plan(steps, batch, hidden, adim, elem, mode,
                                     sms, out)

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from .. import _build
 from ..core.hw import on_cuda
 
-__all__ = ["kernel_layout", "max_pool_hwcn", "max_pool_nchw", "pool_bwd",
-           "pool_bwd_reference"]
+__all__ = ["kernel_layout", "kernel_plan", "max_pool_hwcn", "max_pool_nchw",
+           "pool_bwd", "pool_bwd_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -85,10 +85,67 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pool_bwd_launch.argtypes = [vp] * 3 + [ci] * 9 + [vp]
         lib.pool_bwd_launch.restype = ci
+        lib.pool_bwd_plan.argtypes = [ci] * 6 + [vp]
+        lib.pool_bwd_plan.restype = ci
         lib.pool_bwd_error_string.argtypes = [ci]
         lib.pool_bwd_error_string.restype = ctypes.c_char_p
         lib._signatures_set = True
     return lib
+
+
+# csrc/pool_bwd.cu's cut of a launch: a block's channels at one pixel, the
+# card's shared memory a block, the register body's largest window side
+_CHUNK_BYTES = 32
+_SMEM_MAX = 227 * 1024
+_MAX_WINDOW = 8
+
+
+def _smem_bytes(h, w, oh, ow, cb, elem, rows):
+    a16 = lambda n: (n + 15) & ~15
+    at = cb * elem
+    return (a16(h * w * at) + 2 * a16(oh * ow * at)
+            + (2 * h * ow * at if rows else 0))
+
+
+def kernel_plan(c: int, h: int, w: int, window: Tuple[int, int],
+                dtype: torch.dtype):
+    """How the kernel cuts a launch on c channels of an h x w plane, as
+    ``plan_chunk`` in ``csrc/pool_bwd.cu`` does: ``wide`` (the second body,
+    windows above 8 a side), ``rows`` (its separable search, whose row
+    maxima and their columns take 2 h ow positions beside the plane; else
+    it reads each window whole in the register body's footprint), ``cb``
+    (the channels a block: 32 bytes of them, halved to one lane group until
+    the block's shared memory fits) and ``smem_bytes``.  None where not even
+    one lane group fits: the launch refuses the shape."""
+    wh, ww = window
+    elem = torch.empty((), dtype=dtype).element_size()
+    lanes = 1 if elem == 4 else 2
+    oh, ow = h - wh + 1, w - ww + 1
+    need = -(-c // lanes) * lanes
+    wide = wh > _MAX_WINDOW or ww > _MAX_WINDOW
+    for rows in ((True, False) if wide else (False,)):
+        cb = min(_CHUNK_BYTES // elem, need)
+        smem = _smem_bytes(h, w, oh, ow, cb, elem, rows)
+        while smem > _SMEM_MAX and cb > lanes:
+            cb = (cb // 2 + lanes - 1) // lanes * lanes
+            smem = _smem_bytes(h, w, oh, ow, cb, elem, rows)
+        if smem <= _SMEM_MAX:
+            return dict(wide=wide, rows=rows, cb=cb, smem_bytes=smem)
+    return None
+
+
+def library_plan(c: int, h: int, w: int, window: Tuple[int, int],
+                 dtype: torch.dtype):
+    """The kernel library's own cut (``pool_bwd_plan``), in
+    :func:`kernel_plan`'s keys, or None where it refuses the shape.  Needs
+    the built library (the card's machine)."""
+    out = (ctypes.c_longlong * 4)()
+    rc = _library().pool_bwd_plan(c, h, w, *window, _DTYPE_CODES[dtype],
+                                  out)
+    if rc != 0:
+        return None
+    return dict(wide=bool(out[0]), rows=bool(out[1]), cb=int(out[2]),
+                smem_bytes=int(out[3]))
 
 
 def pool_bwd(x: torch.Tensor, g: torch.Tensor,
@@ -109,9 +166,9 @@ def pool_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
         raise ValueError(f"pool_bwd: dtypes {x.dtype}/{g.dtype}; the kernel "
                          f"takes one of {sorted(map(str, _DTYPE_CODES))}")
-    if not (1 <= wh <= h and 1 <= ww <= w and wh * ww < 0xFFFF):
+    if not (1 <= wh <= h and 1 <= ww <= w):
         raise ValueError(f"pool_bwd: window {(wh, ww)} does not fit the "
-                         f"{h}x{w} plane (or has 65535 slots or more)")
+                         f"{h}x{w} plane")
     if not on_cuda(x, g):
         raise RuntimeError("pool_bwd: the kernel needs both tensors on one "
                            f"sm_90 CUDA device; got {x.device}, {g.device}")

@@ -1,6 +1,6 @@
 """Probe of the max-pool backward and the DDPM sampler on one H100.
 
-    python3 pool_sampler_probe.py [pool] [sampler]     (default: both)
+    python3 pool_sampler_probe.py [pool] [pool_wide] [sampler]   (default: all)
 
 Builds the shipped ``csrc/pool_bwd.cu`` and ``csrc/ddpm_sampler.cu``, the
 bodies they replaced (the first versions of both, carried below as
@@ -22,6 +22,22 @@ variants, variants reversed, shipped) at the main paths' shapes:
     wrapper        the shipped wrapper on the main path's layout
     library, library_nchw   torch's backward of F.max_pool2d on the main
                    path's layout / on NCHW
+  pool_bwd at windows above 8 a side (its wide body), bf16, the same
+  plane and layout, windows 9x9, 3x12 and 16x16:
+    shipped        the separable body: row pass, column pass, gather
+    slot_body      the body it replaced (carried below as SLOT_BODY): each
+                   window read whole twice, each pixel testing every slot
+    direct_rows    the row pass reading each row window whole, in place of
+                   the prefix and suffix maxima
+    direct         the search the body takes where its row arrays do not
+                   fit beside the plane: no row pass, each window read
+                   whole in the column pass
+    rows_only, rows_cols   staging, the row pass (and the column pass) and
+                   the store: the passes' times by difference (timed only)
+    col_vanherk    the column pass by prefix and suffix maxima down each
+                   output column, as the row pass, in place of reading each
+                   window's row maxima
+    library        torch's backward of F.max_pool2d, every kernel of a call
   ddpm_sampler, bf16 DDPM, octo_base serving (T=32, H=768, A=8), B=1, 8, 37:
     first          the first sampler kernel
     block128, block384, block768   blocks of that many threads (six,
@@ -63,6 +79,111 @@ import chip_smoke as cs
 
 POOL_SHAPE = (cs.TRAIN_BATCH * 50, 64, 23, 23)
 SAMPLER_BATCHES = (1, 8, 37)
+POOL_WIDE_WINDOWS = cs.POOL_WIDE_WINDOWS
+
+# The wide body's variants: (old, new) texts, or (start, end, new), the text
+# from start up to end replaced.
+_DIRECT_ROWS = """  // Row pass, direct: each output's row window read whole
+  for (int item = tid; item < h * ow * groups; item += nthreads) {
+    const int p = XNHWC ? item % groups : item / how;
+    const int u = XNHWC ? item / groups : item - p * how;
+    const int i = u / ow, o = u - i * ow, c = p * L::N;
+    uint32_t m = load<T, XNHWC>(xs, i * w + o, c, cb, hw);
+    uint32_t col = splat(o);
+    for (int k = o + 1; k < o + ww; ++k) {
+      const uint32_t v = load<T, XNHWC>(xs, i * w + k, c, cb, hw);
+      const uint32_t take = L::gt(v, m) | (~L::eq(v, v) & L::eq(m, m));
+      m = L::max(m, v);
+      col = (take & splat(k)) | (~take & col);
+    }
+    store<T, XNHWC>(rmax, u, c, cb, how, m);
+    store<T, XNHWC>(rcol, u, c, cb, how, col);
+  }
+  __syncthreads();
+
+"""
+_COL_VANHERK = """  // Column pass, prefix and suffix maxima down each output column
+  {
+    const int nbc = (oh + wh - 1) / wh;
+    T* cmax = xs;   // the suffix maxima, in x's place
+    for (int item = tid; item < ow * nbc * groups; item += nthreads) {
+      const int p = XNHWC ? item % groups : item / (ow * nbc);
+      const int u = XNHWC ? item / groups : item - p * (ow * nbc);
+      const int b = u / ow, oj = u - b * ow;
+      const int o0 = b * wh, o1 = min(o0 + wh, oh), c = p * L::N;
+      const auto finish = [&](int o, uint32_t m, uint32_t r) {
+        uint32_t pix = 0u;
+#pragma unroll
+        for (int l = 0; l < L::N; ++l) {
+          const int rl =
+              static_cast<int>(L::N == 1 ? r : (r >> (16 * l)) & 0xffffu);
+          const int cl = rc_l[lane_at<XNHWC>(rl * ow + oj, c + l, how, cb)];
+          pix |= static_cast<uint32_t>(rl * w + cl) << (16 * l);
+        }
+        store<T, XNHWC>(wpix, o * ow + oj, c, cb, ohw, pix);
+        const uint32_t nan = ~L::eq(m, m);
+        if (nan)
+          store<T, GNHWC>(gs, o * ow + oj, c, cb, ohw,
+                          load<T, GNHWC>(gs, o * ow + oj, c, cb, ohw) & ~nan);
+      };
+      int k = o0 + wh - 1;
+      uint32_t sm = load<T, XNHWC>(rmax, k * ow + oj, c, cb, how);
+      uint32_t sr = splat(k);
+      for (;;) {
+        if (k < o1 && k > o0) {
+          store<T, XNHWC>(cmax, k * ow + oj, c, cb, ohw, sm);
+          store<T, XNHWC>(wpix, k * ow + oj, c, cb, ohw, sr);
+        }
+        if (--k < o0) break;
+        const uint32_t v = load<T, XNHWC>(rmax, k * ow + oj, c, cb, how);
+        const uint32_t take = L::ge(v, sm) | ~L::eq(v, v);
+        sm = L::max(sm, v);
+        sr = (take & splat(k)) | (~take & sr);
+      }
+      finish(o0, sm, sr);
+      uint32_t pm = 0u, pr = 0u;
+      for (int o = o0 + 1; o < o1; ++o) {
+        const int kk = o + wh - 1;
+        const uint32_t v = load<T, XNHWC>(rmax, kk * ow + oj, c, cb, how);
+        const uint32_t take =
+            o == o0 + 1 ? ~0u : L::gt(v, pm) | (~L::eq(v, v) & L::eq(pm, pm));
+        pm = o == o0 + 1 ? v : L::max(pm, v);
+        pr = (take & splat(kk)) | (~take & pr);
+        const uint32_t sv = load<T, XNHWC>(cmax, o * ow + oj, c, cb, ohw);
+        const uint32_t above = L::ge(sv, pm) | ~L::eq(sv, sv);
+        const uint32_t r =
+            (above & load<T, XNHWC>(wpix, o * ow + oj, c, cb, ohw)) |
+            (~above & pr);
+        finish(o, L::max(sv, pm), r);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < int(align16(size_t(hw) * at) / 16); i += nthreads)
+    reinterpret_cast<uint4*>(xs)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+"""
+_NO_COLUMNS = ("item < ohw * groups; item", "item < 0; item")
+_NO_GATHER = ("item < ow * cb; item", "item < 0; item")
+POOL_WIDE_PATCHES = {
+    "slot_body": [("// Any window (the body above takes up to kMaxWindow a "
+                   "side): the same\n// staging, then a separable",
+                   "// A block's chunk of channels (cb, a multiple of", None),
+                  ("(rows ? 2 * size_t(h) * ow * at : 0)", "0"),
+                  ("  if (wide) threads = kWideThreads;",
+                   "  if (wide) threads = kMaxThreads;")],
+    "direct_rows": [("  // Row pass.  Unit (row i, block b",
+                     "  // Column pass:", _DIRECT_ROWS)],
+    "direct": [("  const bool rows = smem_bytes(h, w, oh, ow, cb, sizeof(T), "
+                "true) <= kSmemMax;", "  const bool rows = false;")],
+    "rows_only": [_NO_COLUMNS, _NO_GATHER],
+    "rows_cols": [_NO_GATHER],
+    "col_vanherk": [("  // Column pass: the window's winning row, top to",
+                     "  // Gather: thread (lane q, window column oj)",
+                     _COL_VANHERK)],
+}
+POOL_WIDE_TIMED_ONLY = ("rows_only", "rows_cols")
 
 # name -> [(text of the shipped source, its replacement)], each text found
 # exactly once
@@ -658,11 +779,20 @@ const char* ddpm_sampler_error_string(int err) {
 
 
 def patched(src, patches):
-    for old, new in patches:
-        if src.count(old) != 1:
-            raise SystemExit(f"patch text found {src.count(old)} times: "
-                             f"{old[:60]!r}")
-        src = src.replace(old, new)
+    """``src`` with each (old, new) text replaced, or with each (start, end,
+    new) the text from start up to end (new None: SLOT_BODY); every old,
+    start and end found exactly once."""
+    for patch in patches:
+        for text in patch[:-1]:
+            if src.count(text) != 1:
+                raise SystemExit(f"patch text found {src.count(text)} "
+                                 f"times: {text[:60]!r}")
+        if len(patch) == 2:
+            src = src.replace(*patch)
+        else:
+            start, end, new = patch
+            i, j = src.index(start), src.index(end)
+            src = src[:i] + (SLOT_BODY if new is None else new) + src[j:]
     return src
 
 
@@ -698,7 +828,7 @@ def checked(rc, what):
         raise SystemExit(f"{what} launch failed: {rc}")
 
 
-def pool_call(lib, x, g, x_nhwc, g_nhwc, dx, first=False):
+def pool_call(lib, x, g, x_nhwc, g_nhwc, dx, first=False, window=(3, 3)):
     """One launch of a pool library on x, g into dx (no wrapper)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     n, c, h, w = x.shape
@@ -710,7 +840,7 @@ def pool_call(lib, x, g, x_nhwc, g_nhwc, dx, first=False):
             stream()), "pool")
     lib.pool_bwd_launch.argtypes = [vp] * 3 + [ci] * 9 + [vp]
     return lambda: checked(lib.pool_bwd_launch(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c, h, w, 3, 3,
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c, h, w, *window,
         int(x_nhwc), int(g_nhwc), 1, stream()), "pool")
 
 
@@ -790,9 +920,10 @@ def main():
         cs.log("no CUDA device: pool_sampler_probe.py runs on the card only")
         return 2
     from multi_modal_transformers_tokenmerge_torch import _build
-    parts = set(sys.argv[1:]) or {"pool", "sampler"}
-    if parts - {"pool", "sampler"}:
-        raise SystemExit(f"unknown parts {sorted(parts)}: pool, sampler")
+    parts = set(sys.argv[1:]) or {"pool", "pool_wide", "sampler"}
+    if parts - {"pool", "pool_wide", "sampler"}:
+        raise SystemExit(f"unknown parts {sorted(parts)}: pool, pool_wide, "
+                         f"sampler")
     card = cs.card_line()
     cs.log(card)
     cs.profile_session(lambda: None)
@@ -805,6 +936,12 @@ def main():
             **{k: patched(pool_src, p) for k, p in POOL_PATCHES.items()}},
             "pool_bwd")
         readings.update(time_pool(pool_libs))
+    if "pool_wide" in parts:
+        pool_src = _build.sources()["pool_bwd"].read_text()
+        wide_libs = build(_build, {"shipped": pool_src, **{
+            k: patched(pool_src, p) for k, p in POOL_WIDE_PATCHES.items()}},
+            "pool_bwd_wide")
+        readings.update(time_pool_wide(wide_libs))
     if "sampler" in parts:
         samp_src = _build.sources()["ddpm_sampler"].read_text()
         samp_libs = build(_build, {
@@ -835,6 +972,45 @@ def time_pool(pool_libs):
             row[f"{name}_bit_for_bit"] = bool(torch.equal(dx, want))
     cs.log(f"  pool_bwd us: {row}")
     return {"pool_bwd bf16 N=1600 C=64 23x23": row}
+
+
+def time_pool_wide(libs):
+    """The wide body's variants at each window of POOL_WIDE_WINDOWS on the
+    main path's layout, in turns, each that computes the backward held bit
+    for bit against the plain version."""
+    import torch.nn.functional as F
+    from multi_modal_transformers_tokenmerge_torch.ops import pool
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    base = (torch.randn(*POOL_SHAPE, generator=gen, device="cuda") * 2
+            ).round() / 2
+    base[0, 0, 11, 11] = float("nan")
+    x = base.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    n, c, h, w = POOL_SHAPE
+    readings = {}
+    for window in POOL_WIDE_WINDOWS:
+        oh, ow = h - window[0] + 1, w - window[1] + 1
+        g = torch.randn(n, c, oh, ow, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        cases = {}
+        for name, lib in libs.items():
+            dx = torch.empty_like(x)
+            cases[name] = ("kernel", pool_call(lib, x, g, True, False, dx,
+                                               window=window), dx)
+        xg = x.detach().requires_grad_(True)
+        y = F.max_pool2d(xg, window, 1)
+        cases["library"] = ("total", lambda y=y, xg=xg, g=g: torch.autograd
+                            .grad(y, xg, g, retain_graph=True), None)
+        row = in_turns(cases, "pool_bwd_wide_kernel")
+        want = pool.pool_bwd_reference(x, g, window)
+        for name, (kind, call, dx) in cases.items():
+            if dx is not None and name not in POOL_WIDE_TIMED_ONLY:
+                call()
+                torch.cuda.synchronize()
+                row[f"{name}_bit_for_bit"] = bool(torch.equal(dx, want))
+        label = f"pool_bwd_wide bf16 N=1600 C=64 23x23 window {window}"
+        cs.log(f"  {label} us: {row}")
+        readings[label] = row
+    return readings
 
 
 def time_sampler(samp_libs):
@@ -872,6 +1048,130 @@ def time_sampler(samp_libs):
         readings[f"ddpm_sampler bf16 DDPM T=32 H=768 A=8 B={batch}"] = row
         cs.log(f"  ddpm_sampler B={batch} us: {row}")
     return readings
+
+
+# The wide body the separable one replaced (csrc/pool_bwd.cu's
+# pool_bwd_wide_kernel and its slot codes as they were).
+SLOT_BODY = """// The winning slot of a window as an integer in each lane (16 bits a lane
+// in 16-bit dtypes, 0xffff for none; 32 in float32, ~0 for none), and the
+// lane mask of two codes' equal lanes.
+template <typename T>
+struct Slots {
+  static __device__ __forceinline__ uint32_t splat(int k) {
+    return (static_cast<uint32_t>(k) & 0xffffu) * 0x10001u;
+  }
+  static __device__ __forceinline__ uint32_t eq(uint32_t a, uint32_t b) {
+    return __vcmpeq2(a, b);
+  }
+};
+template <>
+struct Slots<float> {
+  static __device__ __forceinline__ uint32_t splat(int k) {
+    return static_cast<uint32_t>(k);
+  }
+  static __device__ __forceinline__ uint32_t eq(uint32_t a, uint32_t b) {
+    return a == b ? 0xffffffffu : 0u;
+  }
+};
+
+// Any window (the body above takes up to kMaxWindow a side): the same
+// staging, winners and gather, each window read from shared memory.
+template <typename T, bool XNHWC, bool GNHWC>
+__global__ void __launch_bounds__(kMaxThreads)
+    pool_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         T* __restrict__ dx, int chans, int h, int w, int wh,
+                         int ww, int cb) {
+  using L = Lanes<T>;
+  using K = Slots<T>;
+  const int oh = h - wh + 1, ow = w - ww + 1;
+  const int hw = h * w, ohw = oh * ow;
+  const int chunks = (chans + cb - 1) / cb;
+  const int img = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x - img * chunks) * cb;
+  const int cv = min(cb, chans - c0);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // x, then dx
+  T* gs = reinterpret_cast<T*>(smem + align16(size_t(hw) * cb * sizeof(T)));
+  T* cs = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(gs) +
+                               align16(size_t(ohw) * cb * sizeof(T)));
+  const size_t xoff = XNHWC ? size_t(img) * hw * chans + c0
+                            : (size_t(img) * chans + c0) * hw;
+  const size_t goff = GNHWC ? size_t(img) * ohw * chans + c0
+                            : (size_t(img) * chans + c0) * ohw;
+  if constexpr (XNHWC)
+    copy_rows<T, true>(xs, x + xoff, nullptr, hw, cv, chans, cb, tid,
+                       nthreads);
+  else
+    copy_rows<T, true>(xs, x + xoff, nullptr, 1, cv * hw, 0, 0, tid,
+                       nthreads);
+  if constexpr (GNHWC)
+    copy_rows<T, true>(gs, g + goff, nullptr, ohw, cv, chans, cb, tid,
+                       nthreads);
+  else
+    copy_rows<T, true>(gs, g + goff, nullptr, 1, cv * ohw, 0, 0, tid,
+                       nthreads);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const int groups = cb / L::N;
+  const uint32_t none = K::splat(-1);
+  // Winners: the window's max (max.NaN: a NaN window matches nothing), then
+  // its first slot in raster order holding it.
+  for (int item = tid; item < ohw * groups; item += nthreads) {
+    const int p = XNHWC ? item % groups : item / ohw;
+    const int o = XNHWC ? item / groups : item % ohw;
+    const int oi = o / ow, oj = o - oi * ow, c = p * L::N;
+    uint32_t wm = load<T, XNHWC>(xs, oi * w + oj, c, cb, hw);
+    for (int di = 0; di < wh; ++di)
+      for (int dj = 0; dj < ww; ++dj)
+        wm = L::max(wm, load<T, XNHWC>(xs, (oi + di) * w + oj + dj, c, cb,
+                                       hw));
+    uint32_t code = none;
+    for (int slot = wh * ww - 1; slot >= 0; --slot) {
+      const int di = slot / ww, dj = slot - di * ww;
+      const uint32_t e =
+          L::eq(load<T, XNHWC>(xs, (oi + di) * w + oj + dj, c, cb, hw), wm);
+      code = (e & K::splat(slot)) | (~e & code);
+    }
+    store<T, XNHWC>(cs, o, c, cb, ohw, code);
+  }
+  __syncthreads();
+
+  // Gather: dx(i, j) adds g of every window it won, in slot order.
+  for (int item = tid; item < hw * groups; item += nthreads) {
+    const int p = XNHWC ? item % groups : item / hw;
+    const int e = XNHWC ? item / groups : item % hw;
+    const int i = e / w, j = e - i * w, c = p * L::N;
+    uint32_t acc = 0u;
+    for (int di = 0; di < wh; ++di) {
+      const int oi = i - di;
+      if (oi < 0 || oi >= oh) continue;
+      for (int dj = 0; dj < ww; ++dj) {
+        const int oj = j - dj;
+        if (oj < 0 || oj >= ow) continue;
+        const uint32_t won = K::eq(load<T, XNHWC>(cs, oi * ow + oj, c, cb, ohw),
+                                   K::splat(di * ww + dj));
+        acc = L::add(acc, load<T, GNHWC>(gs, oi * ow + oj, c, cb, ohw) & won);
+      }
+    }
+    // every thread has read its x values in the winner pass: dx may take
+    // x's place
+    store<T, XNHWC>(xs, e, c, cb, hw, acc);
+  }
+  __syncthreads();
+
+  if constexpr (XNHWC)
+    copy_rows<T, false>(xs, nullptr, dx + xoff, hw, cv, chans, cb, tid,
+                        nthreads);
+  else
+    copy_rows<T, false>(xs, nullptr, dx + xoff, 1, cv * hw, 0, 0, tid,
+                        nthreads);
+}
+
+"""
 
 
 if __name__ == "__main__":

@@ -238,3 +238,232 @@ def test_embedder_routes_pool_vjp(pool_vjp, monkeypatch):
     assert len(calls) == (pool_vjp == "pallas")
     with pytest.raises(ValueError):
         ResNetV2Embedder(cfg.replace(pool_vjp="tpu"), 32, 3)
+
+
+# -- the wide body's separable winner search, emulated ------------------------
+
+def _round_bf16(a):
+    """float32 values rounded to bfloat16 (nearest, ties to even), as
+    float32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _separable_pool_bwd(x, g, window, dtype):
+    """csrc/pool_bwd.cu:pool_bwd_wide_kernel's algorithm in numpy, every
+    lane (plane) at once: x (P, H, W), g (P, OH, OW) float32 holding values
+    of ``dtype``.  A NaN counts as greater than every number and equal
+    values as one, ties to the first.  Row pass: each row window's max and
+    the column of its first maximum from suffix maxima over blocks of ww
+    columns and prefix maxima over the next block; column pass: a window's
+    first row holding the max of its rows' maxima, a NaN window's cotangent
+    set to +0; gather: window rows from the bottom, each run of adjacent
+    windows won by one pixel adding its cotangents right to left into that
+    pixel's dx, each add rounded in ``dtype``.  Returns dx, the row pass's
+    columns, the winning rows and each window's winning pixel."""
+    wh, ww = window
+    p, h, w = x.shape
+    oh, ow = h - wh + 1, w - ww + 1
+    nan = np.isnan
+    ge = lambda a, b: (a >= b) | nan(a)             # a first on a tie
+    gt = lambda a, b: (a > b) | (nan(a) & ~nan(b))  # a strictly after
+    rmax = np.zeros((p, h, ow), np.float32)
+    rcol = np.zeros((p, h, ow), np.int64)
+    for i in range(h):
+        for o0 in range(0, ow, ww):
+            o1 = min(o0 + ww, ow)
+            s = x[:, i, o0 + ww - 1].copy()
+            sc = np.full(p, o0 + ww - 1)
+            for k in range(o0 + ww - 2, o0 - 1, -1):
+                if o0 < k + 1 < o1:
+                    rmax[:, i, k + 1], rcol[:, i, k + 1] = s, sc
+                v = x[:, i, k]
+                sc = np.where(ge(v, s), k, sc)
+                s = np.maximum(s, v)         # NaN wins, as max.NaN
+            rmax[:, i, o0], rcol[:, i, o0] = s, sc
+            pm = pc = None
+            for o in range(o0 + 1, o1):
+                kk = o + ww - 1
+                v = x[:, i, kk]
+                if pm is None:
+                    pm, pc = v.copy(), np.full(p, kk)
+                else:
+                    pc = np.where(gt(v, pm), kk, pc)
+                    pm = np.maximum(pm, v)
+                sv = rmax[:, i, o]
+                rcol[:, i, o] = np.where(ge(sv, pm), rcol[:, i, o], pc)
+                rmax[:, i, o] = np.maximum(sv, pm)
+    wrow = np.zeros((p, oh, ow), np.int64)
+    g = g.copy()
+    for oi in range(oh):
+        m = rmax[:, oi].copy()
+        r = np.full((p, ow), oi)
+        for di in range(1, wh):
+            v = rmax[:, oi + di]
+            r = np.where(gt(v, m), oi + di, r)
+            m = np.maximum(m, v)
+        wrow[:, oi] = r
+        g[:, oi] = np.where(nan(m), np.float32(0), g[:, oi])
+    rnd = _round_bf16 if dtype == "bfloat16" else (lambda a: a)
+    dx = np.zeros_like(x)
+    winner = np.zeros((p, oh, ow), np.int64)
+    for q in range(p):
+        for oi in range(oh):
+            for oj in range(ow):
+                r = wrow[q, oi, oj]
+                winner[q, oi, oj] = r * w + rcol[q, r, oj]
+    flat = dx.reshape(p, h * w)
+    for oi in range(oh - 1, -1, -1):
+        for q in range(p):
+            for oj in range(ow):
+                pix = winner[q, oi, oj]
+                if oj + 1 < ow and winner[q, oi, oj + 1] == pix:
+                    continue          # not its run's rightmost window
+                acc = flat[q, pix]
+                o = oj
+                while o >= 0 and (o == oj or winner[q, oi, o] == pix):
+                    acc = rnd(np.array([acc + g[q, oi, o]], np.float32))[0]
+                    o -= 1
+                flat[q, pix] = acc
+    return dx, rcol, wrow, winner
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("window", [(9, 9), (3, 12), (16, 16), (23, 1)])
+def test_separable_winner_rule_is_the_plain_versions(window, dtype):
+    """The wide body's algorithm (emulated) against pool_bwd_reference,
+    exactly, on a 23x23 plane of tie-heavy half-integer x with a NaN and
+    rounding cotangents (sums that round, so the visiting order shows):
+    row pass first-max column then first row, the gather's order and
+    rounding; and the orders the gather relies on."""
+    h = w = 23
+    wh, ww = window
+    rng = np.random.default_rng(wh * 100 + ww)
+    n, c = 2, 3
+    x = (np.round(rng.normal(size=(n, c, h, w)) * 2.0) / 2.0).astype(
+        np.float32)
+    x[1, 2, 11, 11] = np.nan
+    g = rng.normal(size=(n, c, h - wh + 1, w - ww + 1)).astype(np.float32)
+    if dtype == "bfloat16":
+        g = _round_bf16(g)
+    tdt = getattr(torch, dtype)
+    want = tpool.pool_bwd_reference(torch.tensor(x).to(tdt),
+                                    torch.tensor(g).to(tdt), window)
+    got, rcol, wrow, winner = _separable_pool_bwd(
+        x.reshape(n * c, h, w), g.reshape(n * c, h - wh + 1, w - ww + 1),
+        window, dtype)
+    np.testing.assert_array_equal(got.reshape(n, c, h, w),
+                                  want.float().numpy())
+    # the first maximum moves right with the window and down with it, and
+    # the windows of a window row that one pixel won are adjacent
+    assert (np.diff(rcol, axis=2) >= 0).all()
+    assert (np.diff(wrow, axis=1) >= 0).all()
+    for row in winner.reshape(-1, winner.shape[-1]):
+        starts = np.r_[True, row[1:] != row[:-1]]
+        assert len(np.unique(row)) == starts.sum()
+    # the NaN is its windows' first maximum, in its row and its column
+    lo = max(0, 11 - ww + 1)
+    assert (rcol[5, 11, lo:12] == 11).all()
+    # ties: windows whose max stands at more than one position
+    planes = x.reshape(n * c, h, w)
+    ties = sum(
+        int(np.sum(win == np.nanmax(win)) > 1)
+        for q in range(n * c) for oi in range(h - wh + 1)
+        for oj in range(w - ww + 1)
+        for win in [planes[q, oi:oi + wh, oj:oj + ww]]
+        if not np.isnan(win).any())
+    assert ties > 0
+
+
+def _direct_winners(x, window):
+    """Each window's winning pixel from its pixels in raster order, a pixel
+    replacing the running one only where it is greater (a NaN greater than
+    every number, the first NaN kept): the wide body's search where its
+    row arrays do not fit.  x (P, H, W) -> (P, OH, OW) pixel indices."""
+    wh, ww = window
+    p, h, w = x.shape
+    oh, ow = h - wh + 1, w - ww + 1
+    nan = np.isnan
+    m = x[:, :oh, :ow].copy()
+    pix = np.broadcast_to(np.arange(oh)[:, None] * w + np.arange(ow),
+                          (p, oh, ow)).copy()
+    for di in range(wh):
+        for dj in range(1 if di == 0 else 0, ww):
+            v = x[:, di:di + oh, dj:dj + ow]
+            take = (v > m) | (nan(v) & ~nan(m))
+            pix = np.where(take, (np.arange(oh)[:, None] + di) * w
+                           + np.arange(ow) + dj, pix)
+            m = np.maximum(m, v)
+    return pix
+
+
+@pytest.mark.parametrize("window", [(9, 9), (3, 12), (16, 16), (23, 1)])
+def test_direct_search_names_the_separable_winners(window):
+    """The wide body's two searches name the same winner in every window:
+    the separable one (row pass, column pass; emulated above) and the one
+    reading each window whole, on tie-heavy data with NaNs."""
+    h = w = 23
+    rng = np.random.default_rng(7 * window[0] + window[1])
+    x = (np.round(rng.normal(size=(6, h, w)) * 2.0) / 2.0).astype(np.float32)
+    x[1, 11, 11] = x[4, 3, 20] = x[4, 17, 2] = np.nan
+    g = np.zeros((6, h - window[0] + 1, w - window[1] + 1), np.float32)
+    winner = _separable_pool_bwd(x, g, window, "float32")[3]
+    np.testing.assert_array_equal(_direct_winners(x, window), winner)
+
+
+def _slot_body_smem(c, h, w, window, elem):
+    """The shared memory the wide body took at its least chunk before the
+    row arrays (x, g and one array of winners at one lane group a
+    position), or None where the chunk the launch settled on did not fit:
+    the planes that body took."""
+    wh, ww = window
+    lanes = 1 if elem == 4 else 2
+    a16 = lambda n: (n + 15) & ~15
+    need = -(-c // lanes) * lanes
+    cb = min(32 // elem, need)
+    size = lambda cb: (a16(h * w * cb * elem)
+                       + 2 * a16((h - wh + 1) * (w - ww + 1) * cb * elem))
+    while size(cb) > 227 * 1024 and cb > lanes:
+        cb = (cb // 2 + lanes - 1) // lanes * lanes
+    return size(cb) if size(cb) <= 227 * 1024 else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("window", [(9, 9), (3, 12), (16, 16), (23, 1),
+                                    (9, 40)])
+def test_wide_plan_takes_every_plane_the_slot_body_took(window, dtype):
+    """kernel_plan (the mirror of the launch's plan_chunk; phase 2 holds it
+    against the library's) refuses no plane the wide body took before its
+    row arrays: every square and a band of rectangles up to past the
+    largest, at 3 and 64 channels.  The separable search is taken where
+    its arrays fit; elsewhere the direct search, in that body's footprint
+    and never more shared memory than it; the 23x23 plane of the main path
+    keeps the separable search at 32 bytes of channels."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    wh, ww = window
+    planes = [(s, s) for s in range(max(wh, ww), 200)]
+    planes += [(s, 2 * s) for s in range(max(wh, ww // 2 + 1), 140, 3)]
+    planes += [(2 * s, s) for s in range(max(wh // 2 + 1, ww), 140, 3)]
+    took = kept = direct = 0
+    for c in (3, 64):
+        for h, w in planes:
+            if h < wh or w < ww:
+                continue
+            old = _slot_body_smem(c, h, w, window, elem)
+            plan = tpool.kernel_plan(c, h, w, window, dtype)
+            if old is None:
+                continue
+            took += 1
+            assert plan is not None, (c, h, w)
+            assert plan["wide"] and plan["smem_bytes"] <= 227 * 1024
+            if plan["rows"]:
+                kept += 1
+            else:
+                direct += 1
+                assert plan["smem_bytes"] == old
+    assert took > 100 and kept > 0 and direct > 0
+    main = tpool.kernel_plan(64, 23, 23, window, dtype) if ww <= 23 else None
+    if main is not None:
+        assert main["rows"] and main["cb"] == 32 // elem

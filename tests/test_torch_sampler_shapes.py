@@ -201,3 +201,101 @@ def test_what_jax_refuses_is_still_refused(faked_card):
     bad[4] = torch.empty(768, 27, device="meta")
     with pytest.raises(ValueError, match="wn: shape"):
         tds.ddpm_sampler(*bad, **kw)
+
+
+# -- the wide kernel's plan, mirrored -----------------------------------------
+
+def _chip_smoke_wide_shapes():
+    """chip_smoke.py's WIDE_SHAPES, the (T, H, A) the card holds the wide
+    kernel at (the module imports torch and numpy only)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.WIDE_SHAPES
+
+
+WIDE_PLAN_CASES = [(t, b, h, a) for t, h, a in _chip_smoke_wide_shapes()
+                   for b in (1, 8, 37, 64)]
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("t,b,h,a", WIDE_PLAN_CASES)
+def test_wide_plan_cuts_every_shape(t, b, h, a, dtype, mode):
+    """The mirror of the wide kernel's plan (phase 2 holds it against the
+    kernel's own) at every shape the card holds the kernel at: a block's
+    shared memory within the card's, every hidden unit owned by exactly one
+    block, a cluster within the portable 8, a block's rows a power of two
+    covering the batch, and each barrier phase awaiting exactly the bytes
+    its C senders store (rows x A float32 sums each)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    p = tds.wide_sampler_plan(t, b, h, a, elem, mode, 132)
+    assert p["smem_bytes"] <= 232448 and p["threads"] == 384
+    assert 1 <= p["clusters"] <= 8 and p["units"] % 8 == 0
+    assert p["units"] * (p["clusters"] - 1) < h <= p["units"] * p["clusters"]
+    owner = np.repeat(np.arange(p["clusters"]), p["units"])[:h]
+    assert np.array_equal(np.bincount(owner, minlength=p["clusters"]) > 0,
+                          np.ones(p["clusters"], bool))
+    assert p["rows"] in (1, 2, 4, 8) and p["groups"] * p["rows"] >= b
+    assert (p["groups"] - 1) * p["rows"] < b
+    assert p["blocks"] == p["clusters"] * p["grid_y"]
+    sums_in_smem = bool(p["flags"] & 1)
+    sent = p["clusters"] * p["rows"] * a * 4   # C senders' slots
+    assert p["expect_bytes"] == (sent if sums_in_smem and p["clusters"] > 1
+                                 else 0)
+    assert p["expect_bytes"] < 2 ** 20          # an mbarrier's tx count
+    if not sums_in_smem:
+        assert p["scratch_floats"] >= p["blocks"] * 2 * p["clusters"] * \
+            p["rows"] * a
+    # the vector loads of both products stay inside their own rows: a
+    # sample row and a lane's hidden-layer segment are whole 16-byte
+    # vectors of the compute dtype's elements (4 or 8 floats), the segment
+    # an odd count of 4-float vectors (distinct banks)
+    vec = 16 // elem
+    assert p["xs_rs"] % vec == 0 and a <= p["xs_rs"] < a + vec
+    per_lane = -(-p["units"] // p["g2"])
+    assert p["hs_seg"] % vec in (0, 4) and (p["hs_seg"] // 4) % 2 == 1
+    assert p["hs_seg"] >= -(-per_lane // vec) * vec
+    # one thread copies a ring stage in bulk where every row it copies
+    # (H contexts, and in DDPM A noise floats) is a multiple of 16 bytes
+    assert p["bulk"] == int(bool(p["flags"] & 16) and h * elem % 16 == 0
+                            and (mode != 0 or a * 4 % 16 == 0))
+
+
+def test_wide_plan_at_octo_base_chunk28():
+    """octo_base_chunk28's sampler (bf16 DDPM, T=100, H=3072, A=28): 8
+    blocks of 384 units, one pass of 384 threads each, every buffer in
+    shared memory (the 4-stage ring included, its stages copied in bulk),
+    one row a block at B=1 and 8 and four at B=64; the partial sums
+    exchanged by st.async (896 bytes a phase at one row)."""
+    for b, rows in ((1, 1), (8, 1), (64, 4)):
+        p = tds.wide_sampler_plan(100, b, 3072, 28, 2, 0, 132)
+        assert (p["clusters"], p["units"], p["rows"]) == (8, 384, rows)
+        assert p["flags"] == 63 and p["expect_bytes"] == 8 * rows * 28 * 4
+        assert p["bulk"] == 1
+        assert p["g1"] == 1 and p["g2"] == 8
+
+
+def test_wide_plan_keeps_the_sum_orders():
+    """A row's sums run in an order set by (H, A, dtype) alone: the fields
+    that fix it (the cluster's blocks, the units a block, the lanes of a
+    sum in each product) are the same at every step count, batch and mode
+    of a shape, so a row's result does not depend on its batch (phase 2
+    holds that on the card).  At H = 3072 (A = 8, 28) the lanes still
+    follow the 256-thread split (at most 256 / A lanes a second-product
+    sum) although a block runs 384 threads."""
+    orders = {}
+    for t, b, h, a in WIDE_PLAN_CASES:
+        for elem in (2, 4):
+            for mode in (0, 1, 2):
+                for batch in (b, 3, 129):
+                    p = tds.wide_sampler_plan(t, batch, h, a, elem, mode, 132)
+                    key = (p["clusters"], p["units"], p["g1"], p["g2"])
+                    orders.setdefault((h, a, elem), set()).add(key)
+    assert all(len(v) == 1 for v in orders.values()), orders
+    assert orders[(3072, 28, 2)] == {(8, 384, 1, 8)}
+    assert orders[(3072, 8, 2)] == {(8, 384, 1, 32)}
