@@ -46,6 +46,7 @@ from ..modules.attention import MLPBlock
 from ..modules.layers import Dense, dropout, init_truncated
 from ..ops.ddpm_sampler import ddpm_sampler_op
 from ..core.global_batch import draw_global
+from ..utils.profiling import section
 
 __all__ = ["DiffusionActionHead", "OctoDenoise", "FourierFeatures",
            "cosine_beta_schedule", "ddim_schedule"]
@@ -280,39 +281,41 @@ class DiffusionActionHead(nn.Module):
         ``noisy`` (B, A) is the initial sample and ``noise`` (T, B, A) the
         per-step DDPM noise; whichever is absent is drawn from
         ``generator`` on the readouts' device."""
-        cfg = self.cfg
-        b = readouts.shape[0]
-        a = cfg.action_space_dim
-        device = readouts.device
-        ddim_steps = ddim_steps if ddim_steps is not None else cfg.ddim_steps
-        times, coeffs = self.schedule(ddim_steps)
-        steps = times.shape[0]
-        # a data-parallel engine draws the global batch's
-        if noisy is None:
-            noisy = draw_global(lambda s: torch.randn(
-                s, generator=generator, device=device), (b, a))
-        noisy = noisy.to(device=device, dtype=torch.float32)
-        if ddim_steps is None and noise is None:
-            if cfg.sampler_rng_mode == "reference":
-                noise = noisy.expand(steps, b, a)
-            else:
-                noise = draw_global(lambda s: torch.randn(
-                    s, generator=generator, device=device), (steps, b, a),
-                    dim=1)
-        if noise is not None:
-            noise = noise.to(device=device, dtype=torch.float32)
+        with section("model.head"):
+            cfg = self.cfg
+            b = readouts.shape[0]
+            a = cfg.action_space_dim
+            device = readouts.device
+            if ddim_steps is None:
+                ddim_steps = cfg.ddim_steps
+            times, coeffs = self.schedule(ddim_steps)
+            steps = times.shape[0]
+            # a data-parallel engine draws the global batch's
+            if noisy is None:
+                noisy = draw_global(lambda s: torch.randn(
+                    s, generator=generator, device=device), (b, a))
+            noisy = noisy.to(device=device, dtype=torch.float32)
+            if ddim_steps is None and noise is None:
+                if cfg.sampler_rng_mode == "reference":
+                    noise = noisy.expand(steps, b, a)
+                else:
+                    noise = draw_global(lambda s: torch.randn(
+                        s, generator=generator, device=device), (steps, b, a),
+                        dim=1)
+            if noise is not None:
+                noise = noise.to(device=device, dtype=torch.float32)
 
-        contexts = self.denoiser.contexts(times, readouts.mean(dim=-2))
-        d = self.denoiser
-        if d.num_blocks > 1:
-            return self._reverse_loop(noisy, contexts, noise, coeffs,
-                                      ddim_steps is not None)
-        return ddpm_sampler_op(
-            noisy, contexts, None if ddim_steps is not None else noise,
-            coeffs, d.noisy_proj.weight, d.noisy_proj.bias,
-            d.first_out.weight, d.first_out.bias, cfg.clip_value,
-            ddim_steps is not None,
-            ddim_steps is not None and cfg.ddim_eps_mode == "recompute")
+            contexts = self.denoiser.contexts(times, readouts.mean(dim=-2))
+            d = self.denoiser
+            if d.num_blocks > 1:
+                return self._reverse_loop(noisy, contexts, noise, coeffs,
+                                          ddim_steps is not None)
+            return ddpm_sampler_op(
+                noisy, contexts, None if ddim_steps is not None else noise,
+                coeffs, d.noisy_proj.weight, d.noisy_proj.bias,
+                d.first_out.weight, d.first_out.bias, cfg.clip_value,
+                ddim_steps is not None,
+                ddim_steps is not None and cfg.ddim_eps_mode == "recompute")
 
     def _reverse_loop(self, noisy, contexts, noise, coeffs, ddim: bool):
         """The reverse process of a multi-block denoiser, step by step (the

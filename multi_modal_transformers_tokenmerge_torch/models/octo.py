@@ -43,6 +43,7 @@ from ..modules.readout import ReadoutTokens
 from ..modules.text import build_text_encoder
 from ..modules.tome_stack import CompressedTransformerStack
 from ..sequence.layout import SequenceLayout
+from ..utils.profiling import section
 
 __all__ = ["Octo", "TokenEmbeddings"]
 
@@ -138,7 +139,8 @@ class Octo(nn.Module):
 
     def encode_text(self, text_tokens: torch.Tensor) -> torch.Tensor:
         """(B, T) ids -> (B, T, E) text embeddings."""
-        return self.text_encoder(text_tokens)
+        with section("model.text"):
+            return self.text_encoder(text_tokens)
 
     def generate_readouts(self, text_tokens, images, train: bool = False,
                           *, rngs: Optional[Mapping] = None,
@@ -152,9 +154,10 @@ class Octo(nn.Module):
                                     rngs: Optional[Mapping] = None,
                                     positions=None):
         rngs = rngs or {}
-        image_embeddings = self.image_encoder(
-            images, train, positions,
-            rngs.get(self.config.images.rng_collection))
+        with section("model.image"):
+            image_embeddings = self.image_encoder(
+                images, train, positions,
+                rngs.get(self.config.images.rng_collection))
         return self.generate_readouts_with_modalities(
             text_embeddings, image_embeddings, train, rngs=rngs)
 
@@ -163,15 +166,17 @@ class Octo(nn.Module):
                                           train: bool = False, *,
                                           rngs: Optional[Mapping] = None):
         """Both modality streams given -> (B, R, E) readout embeddings."""
-        readouts = self.readout_encoder(image_embeddings.shape[0])
-        x = self.assemble_embeddings(TokenEmbeddings(
-            text=text_embeddings, images=image_embeddings, readouts=readouts))
-        rng = (rngs or {}).get("dropout")
-        if self.use_compression:
-            x = self.transformer(x, train, rng)
-        else:
-            x = self.transformer(x, self.attention_mask, train, rng)
-        return x.index_select(1, self.readout_index)
+        with section("model.stack"):
+            readouts = self.readout_encoder(image_embeddings.shape[0])
+            x = self.assemble_embeddings(TokenEmbeddings(
+                text=text_embeddings, images=image_embeddings,
+                readouts=readouts))
+            rng = (rngs or {}).get("dropout")
+            if self.use_compression:
+                x = self.transformer(x, train, rng)
+            else:
+                x = self.transformer(x, self.attention_mask, train, rng)
+            return x.index_select(1, self.readout_index)
 
     def assemble_embeddings(self, embeddings: TokenEmbeddings):
         """Interleave the modality streams: one concat, one gather."""

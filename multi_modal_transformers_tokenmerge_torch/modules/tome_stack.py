@@ -48,6 +48,7 @@ from ..ops.tome import bipartite_soft_matching, merge_wavg
 from ..sequence.dsl import KIND_TEXT
 from ..sequence.layout import SequenceLayout
 from ..core.tensor_parallel import from_model, to_model
+from ..utils.profiling import section
 from .attention import (AddPositionEmbedding, EncoderBlock,
                         MultiHeadAttention, call_block, layer_norm_dim,
                         make_mlp, masked_attention, mlp_branch,
@@ -62,19 +63,20 @@ def _merge_sets(x, size, metric, layout: SequenceLayout, layer: int):
     """Per-set ToMe merge of the residual stream with the 'stable' match
     ordering.  x (B, S_l, E), size (B, S_l, 1), metric (B, S_l, D) ->
     (B, S_{l+1}, E), (B, S_{l+1}, 1)."""
-    xs, sizes = [], []
-    for (start, n), n_next in zip(layout.set_slices(layer),
-                                  layout.set_counts_at_layer(layer + 1)):
-        x_i = x[:, start:start + n]
-        s_i = size[:, start:start + n]
-        r = n - n_next
-        if r > 0:
-            plan = bipartite_soft_matching(metric[:, start:start + n], r,
-                                           ordering="stable")
-            x_i, s_i = merge_wavg(plan, x_i, s_i)
-        xs.append(x_i)
-        sizes.append(s_i)
-    return torch.cat(xs, dim=1), torch.cat(sizes, dim=1)
+    with section("model.merge"):
+        xs, sizes = [], []
+        for (start, n), n_next in zip(layout.set_slices(layer),
+                                      layout.set_counts_at_layer(layer + 1)):
+            x_i = x[:, start:start + n]
+            s_i = size[:, start:start + n]
+            r = n - n_next
+            if r > 0:
+                plan = bipartite_soft_matching(metric[:, start:start + n], r,
+                                               ordering="stable")
+                x_i, s_i = merge_wavg(plan, x_i, s_i)
+            xs.append(x_i)
+            sizes.append(s_i)
+        return torch.cat(xs, dim=1), torch.cat(sizes, dim=1)
 
 
 def _prune_sets(x, size, importance, layout: SequenceLayout, layer: int):

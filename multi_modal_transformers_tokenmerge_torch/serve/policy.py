@@ -34,6 +34,22 @@ diffusion head's draws are made for the global batch from the engine's
 generator and cut to the rank's rows (``core.global_batch.
 data_parallel``), so the actions equal an un-meshed engine's; at a data
 size of one nothing is cut or gathered.
+
+Tracing (``utils.profiling``; on only while a profiler session records).
+Each call is one ``engine.call`` span, carrying the engine's call ordinal
+in its arguments.  Under it a graph replay is ``engine.stage_in`` (the
+frames to the card, the row cut, the copies into the graph's buffers),
+``engine.launch`` (``graph.replay()`` alone) and ``engine.stage_out`` (the
+copy of the output, the gather); an eager or artifact call is
+``engine.eager`` instead.  :meth:`PolicyEngine.compile` is
+``engine.compile``, with ``engine.serving_copy``, one ``engine.capture``
+per path (its eager run and its capture) and ``engine.compile_replay``
+under it.  Set-up never falls inside a benchmark's traced window, so no
+metric reads the compile spans: they show the operator who traces
+``compile()`` with ``utils.profiling.trace`` where set-up goes.  Each
+capture records its graph's node plan (``utils.profiling.node_plan``);
+``REGISTRY.counters`` counts calls by route (``engine.replays``,
+``engine.eager_calls``).
 """
 
 from __future__ import annotations
@@ -51,6 +67,8 @@ from ..models.octo import Octo
 from ..core.global_batch import data_parallel, draw_global
 from ..parallel.mesh import DATA_AXIS, data_info
 from ..utils.debug import jit_enabled
+from ..utils.profiling import (REGISTRY, capture_counter, node_plan, section,
+                               span)
 from .export import (CACHED_PREDICT_METHODS as _CACHED_METHODS, draw_shapes,
                      load_policy, parameters_of)
 from .quantize import (image_embed_int8, image_embed_w8, quantize_image_tower,
@@ -151,6 +169,7 @@ class PolicyEngine:
         self._stream = None
         # set by load_artifact(): path -> loaded program
         self._artifacts = {}
+        self._calls = 0
 
     # -- instruction caching ---------------------------------------------
 
@@ -308,7 +327,12 @@ class PolicyEngine:
         eagerly (``disable_jit`` or NaN checks), and a call made in that
         mode runs eagerly even where graphs were captured.  Neither the
         warm-up nor the capture consumes the engine's noise stream."""
-        self._serve_model = serving_copy(self.model)
+        with span("engine.compile"):
+            return self._compile(text_shape, image_shape, warmup)
+
+    def _compile(self, text_shape, image_shape, warmup):
+        with span("engine.serving_copy"):
+            self._serve_model = serving_copy(self.model)
         self._graphs = {}
         b = self._local_batch
         text_shape, image_shape = tuple(text_shape), tuple(image_shape)
@@ -324,13 +348,15 @@ class PolicyEngine:
         capture = self.device.type == "cuda" and jit_enabled()
         for path, text in paths:
             if capture:
-                self._capture(path, text, images)
+                with span("engine.capture", path):
+                    self._capture(path, text, images)
             elif warmup:
                 self._predict(path, text, images, None, None)
         if capture and warmup:
-            for path, text in paths:
-                self._replay(path, text, images)
-            torch.cuda.synchronize(self.device)
+            with span("engine.compile_replay"):
+                for path, text in paths:
+                    self._stage(path, text, images)[0].replay()
+                torch.cuda.synchronize(self.device)
         self._generator.set_state(saved)
         return self
 
@@ -372,8 +398,9 @@ class PolicyEngine:
         cfg = self.model.config
         embed = image_embed_w8 if self.image_tower == "w8" \
             else image_embed_int8
-        image_embeddings = embed(self._image_qp, images, cfg.images,
-                                 dtype=cfg.compute_dtype)
+        with section("model.image"):
+            image_embeddings = embed(self._image_qp, images, cfg.images,
+                                     dtype=cfg.compute_dtype)
         if self.head == "diffusion":
             return model.predict_diffusion_action_with_modalities(
                 text_embeddings, image_embeddings, **sample_kw)
@@ -394,11 +421,15 @@ class PolicyEngine:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
+        count = capture_counter(stream)
         with torch.cuda.graph(graph, stream=stream):
-            out = self._predict(path, *static, None, None)
+            with node_plan(path, count):
+                out = self._predict(path, *static, None, None)
         self._graphs[path] = (graph, static, out)
 
-    def _replay(self, path, text, images):
+    def _stage(self, path, text, images):
+        """Copy the inputs into the ``path`` graph's buffers: (its graph,
+        its output buffer)."""
         graph, (s_text, s_images), out = self._graphs[path]
         if tuple(text.shape) != tuple(s_text.shape) or \
                 tuple(images.shape) != tuple(s_images.shape):
@@ -408,8 +439,7 @@ class PolicyEngine:
                 f"{tuple(text.shape)} and {tuple(images.shape)}")
         s_text.copy_(text)
         s_images.copy_(images)
-        graph.replay()
-        return out.clone()
+        return graph, out
 
     # -- serving -----------------------------------------------------------
 
@@ -429,17 +459,47 @@ class PolicyEngine:
         loaded artifact hands them to the program."""
         if text_tokens is not None and text_embeddings is not None:
             raise ValueError("pass text_tokens or text_embeddings, not both")
+        path = "full" if text_tokens is not None else "cached"
+        replay = (path not in self._artifacts and path in self._graphs
+                  and noisy is None and noise is None and jit_enabled())
+        REGISTRY.counters["engine.replays" if replay
+                          else "engine.eager_calls"] += 1
+        self._calls += 1
+        with span("engine.call", self._calls):
+            if replay:
+                with span("engine.stage_in"):
+                    graph, out = self._stage(path, *self._inputs(
+                        images, text_tokens, text_embeddings))
+                with span("engine.launch"):
+                    graph.replay()
+                with span("engine.stage_out"):
+                    return self._gather(out.clone())
+            with span("engine.eager"):
+                text, images = self._inputs(images, text_tokens,
+                                            text_embeddings)
+                if self._data_size > 1:
+                    noisy = None if noisy is None else self._rows(
+                        torch.as_tensor(noisy, device=self.device))
+                    noise = None if noise is None else self._rows(
+                        torch.as_tensor(noise, device=self.device), "noise")
+                if path in self._artifacts:
+                    out = self._run_artifact(path, text, images, noisy, noise)
+                else:
+                    out = self._predict(path, text, images, noisy, noise)
+                return self._gather(out)
+
+    def _inputs(self, images, text_tokens, text_embeddings):
+        """(text, images) of a call on the engine's device, this rank's
+        rows."""
         images = torch.as_tensor(images, device=self.device)
         if images.shape[0] != self.batch_size:
             raise ValueError(f"got {images.shape[0]} images for batch_size "
                              f"{self.batch_size}")
         if text_tokens is not None:
-            path = "full"
             text = torch.tensor(np.ascontiguousarray(
                 self._batch_ids(text_tokens)), dtype=torch.long,
                 device=self.device)
         else:
-            path = "cached"
             text = (self._text_embeddings if text_embeddings is None
                     else torch.as_tensor(text_embeddings, device=self.device))
             if text is None:
@@ -448,15 +508,4 @@ class PolicyEngine:
                     "or pass text_tokens / text_embeddings")
         if self._data_size > 1:
             text, images = self._rows(text), self._rows(images)
-            noisy = None if noisy is None else self._rows(
-                torch.as_tensor(noisy, device=self.device))
-            noise = None if noise is None else self._rows(
-                torch.as_tensor(noise, device=self.device), "noise")
-        if path in self._artifacts:
-            out = self._run_artifact(path, text, images, noisy, noise)
-        elif (path in self._graphs and noisy is None and noise is None
-                and jit_enabled()):
-            out = self._replay(path, text, images)
-        else:
-            out = self._predict(path, text, images, noisy, noise)
-        return self._gather(out)
+        return text, images
