@@ -47,9 +47,16 @@ Phases, each of which must pass (any failure exits non-zero):
    the embedder hands it (x channels_last, g NCHW; checked again after
    phases 6 and 12), on NCHW and on channels_last, one call on the main
    path's layout running the kernel and no copy kernel), time kernel,
-   plain version and the PyTorch library call computing the same function,
-   and check that attention_impl='auto' takes the flash kernel at 1024
-   tokens and not at 74;
+   plain version and the PyTorch library call computing the same function;
+   the image tower's GroupNorm -> GELU pair (group_norm_gelu) at
+   chunk28's B=1 and B=64 maps and octo_deep's B=8 map, bf16
+   channels_last, both statistics scopes, against its plain version to a
+   bf16 ulp of the normalised value, its training route's gradients at
+   octo_base training's map against the plain chain's, each kernel timed
+   at B=64 beside the plain chain, F.group_norm and the bytes bound (every
+   replay profiled later counts the pair: one for each residual block a
+   tower); and check that attention_impl='auto' takes the flash kernel at
+   1024 tokens and not at 74;
 3. serving: the full-width octo_base policy in bfloat16 (random weights
    from a seed) served through PolicyEngine with a cached instruction, at
    batch 1 and batch 8, counting every kernel launch of that run;
@@ -1866,6 +1873,226 @@ def pool_planes_check(pool):
     return dict(plans=shapes, large_planes=held)
 
 
+# the image tower's GroupNorm -> GELU maps on the main paths: chunk28 at
+# B=1 and B=64 (50 patches a robot), octo_deep at B=8 (200 patches)
+GN_SHAPES = (((50, 64, 21, 21), 50), ((3200, 64, 21, 21), 50),
+             ((1600, 64, 7, 7), 200))
+GN_GROUPS, GN_EPS = 32, 1e-6
+# the kernels' names, each counted by replay_profile; the main paths hand
+# the kernels channels_last maps, so the NCHW pair must not run there
+GN_KERNELS = ("gn_stats_nhwc", "gn_apply_gelu_nhwc", "gn_stats_nchw",
+              "gn_apply_gelu_nchw")
+
+
+# the quantized towers' norms are serve.quantize's plain chain
+NO_NORM_KERNELS = {"gn_stats_nhwc": 0, "gn_apply_gelu_nhwc": 0}
+
+
+def norm_kernels(cfg):
+    """Launches a call of the GroupNorm kernels where the image tower runs
+    once: a statistics and an apply kernel (channels_last) for each
+    residual block's norm."""
+    n = cfg.images.resnet.num_blocks
+    return {"gn_stats_nhwc": n, "gn_apply_gelu_nhwc": n}
+
+
+def gn_inputs(shape, seed):
+    """A bf16 channels_last map shaped like the tower's (per-channel offsets
+    and scales) and float32 weight and bias away from their start."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    off = torch.rand(c, generator=g, device="cuda")[:, None, None] * 0.8
+    scale = torch.rand(c, generator=g, device="cuda")[:, None, None] + 0.5
+    x = (torch.randn(shape, generator=g, device="cuda") * scale + off).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.2
+    return x, w, b
+
+
+def group_norm_check(gn, it, shape, ppe):
+    """The wrapper (as the embedder's custom op calls it) against the plain
+    version at one map, bf16 channels_last: y equals the kernels' own y
+    with their statistics; mean within 1e-5 of the group's RMS and variance
+    within 1e-5 relative of the plain chain's; y bit for bit the plain
+    chain's elementwise steps on the kernels' statistics; each normalised
+    value z within one bf16 ulp of the plain chain's (2^-18 below 2^-10,
+    where statistics apart in their last float32 bits move z by more).
+    Returns the share of y and of z that differ from the plain chain."""
+    import torch.nn.functional as F
+    x, w, b = gn_inputs(shape, seed=shape[0] + ppe)
+    bf = torch.bfloat16
+    with torch.inference_mode():
+        y = gn.group_norm_gelu(x, w, b, GN_GROUPS, GN_EPS, ppe, bf)
+        y2, stats = gn._launch(x, w, b, GN_GROUPS, GN_EPS, ppe, bf,
+                               with_stats=True)
+        want = gn.group_norm_gelu_reference(x, w, b, GN_GROUPS, GN_EPS, ppe,
+                                            bf)
+        n, c, h, wd = shape
+        f = x.float().reshape(n // ppe, ppe, GN_GROUPS, c // GN_GROUPS, h,
+                              wd)
+        rmu = f.mean((1, 3, 4, 5))
+        rvar = ((f * f).mean((1, 3, 4, 5)) - rmu * rmu).clamp_min(0.0)
+        mu, var = stats.unbind(-1)
+        cpg = c // GN_GROUPS
+        per_channel = lambda t: t.repeat_interleave(cpg, 1).repeat_interleave(
+            ppe, 0)[:, :, None, None]
+        z = ((x.float() - per_channel(mu)) * torch.rsqrt(per_channel(var)
+                                                          + GN_EPS)
+             * w[:, None, None] + b[:, None, None]).to(bf)
+        z_plain = (it.group_norm_stats(x.float(), GN_GROUPS, GN_EPS, "image",
+                                       ppe)
+                   * w[:, None, None] + b[:, None, None]).to(bf)
+        same_y = torch.equal(y, y2)
+        elementwise = torch.equal(y, F.gelu(z, approximate="tanh"))
+        rms = (rvar + rmu * rmu).sqrt()
+        mu_err = float(((mu - rmu).abs() / rms).max())
+        var_err = float(((var - rvar).abs() / rvar).max())
+        mag = torch.maximum(z.abs(), z_plain.abs()).float()
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                         - 7).clamp_min(2.0 ** -18)
+        z_units = float(((z.float() - z_plain.float()).abs() / ulp).max())
+        y_share = float((y != want).float().mean())
+        z_share = float((z != z_plain).float().mean())
+        layout_kept = y.is_contiguous(memory_format=torch.channels_last)
+    scope = "image" if ppe > 1 else "patch"
+    log(f"  group_norm_gelu bf16 {shape} channels_last, {ppe} patches an "
+        f"element ({scope} scope): wrapper == kernels {same_y}, y == the "
+        f"plain elementwise steps on the kernels' statistics {elementwise}, "
+        f"mean {mu_err:.2e} of the RMS, variance {var_err:.2e} relative, z "
+        f"within {z_units:.3f} of its tolerance; {y_share:.2e} of y and "
+        f"{z_share:.2e} of z differ from the plain chain; y channels_last "
+        f"{layout_kept}")
+    if not (same_y and elementwise and layout_kept and mu_err <= 1e-5
+            and var_err <= 1e-5 and z_units <= 1.0):
+        fail(f"group_norm_gelu at {shape}, {ppe} patches an element")
+    return {"y_share_differs": y_share, "z_share_differs": z_share,
+            "mean_err_of_rms": mu_err, "var_rel_err": var_err,
+            "z_err_of_tol": z_units}
+
+
+def group_norm_grad_check(gn, ppe=50):
+    """The training route (GroupNormGelu: the kernels forward, plain PyTorch
+    backward) at octo_base training's map, bf16 channels_last: the
+    gradients of x, weight and bias no further from the plain chain in
+    float64 than twice the plain chain's own autograd gradients (relative
+    norm); the device time of a forward and backward of each."""
+    import torch.nn.functional as F
+    from multi_modal_transformers_tokenmerge_torch.modules.image_tokenizer \
+        import group_norm_stats
+    shape = (TRAIN_BATCH * 50, 64, 21, 21)
+    x, w, b = gn_inputs(shape, seed=21)
+    gy = torch.randn(shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(23), device="cuda").to(torch.bfloat16)
+    args = (GN_GROUPS, GN_EPS, ppe)
+
+    def chain(x, w, b, dtype, acc):
+        f = group_norm_stats(x.to(acc), GN_GROUPS, GN_EPS, "image", ppe)
+        f = f * w.to(acc)[:, None, None] + b.to(acc)[:, None, None]
+        return F.gelu(f.to(dtype), approximate="tanh")
+
+    def grads(route, x, w, b, gy, dtype, acc=torch.float32):
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+        y = (gn.GroupNormGelu.apply(*leaves, *args, dtype) if route
+             else chain(*leaves, dtype, acc))
+        return torch.autograd.grad(y, leaves, gy)
+
+    got = grads(True, x, w, b, gy, torch.bfloat16)
+    plain = grads(False, x, w, b, gy, torch.bfloat16)
+    truth = grads(False, x.double(), w.double(), b.double(), gy.double(),
+                  torch.float64, torch.float64)
+    rel = lambda a, t: float((a.double() - t).norm() / t.norm())
+    out = {}
+    for name, a, p_, t in zip(("x", "weight", "bias"), got, plain, truth):
+        out[name] = {"err": rel(a, t), "plain_err": rel(p_, t)}
+    del truth
+    log(f"  GroupNormGelu bf16 {shape} ({ppe} patches an element), "
+        f"gradients against the plain chain in float64 (relative norm): "
+        + ", ".join(f"d{k} {v['err']:.3e} (plain chain {v['plain_err']:.3e})"
+                    for k, v in out.items()))
+    for k, v in out.items():
+        if v["err"] > 2 * v["plain_err"] + 1e-7:
+            fail(f"GroupNormGelu's d{k} is {v['err']:.3e} from the float64 "
+                 f"chain; the plain chain's {v['plain_err']:.3e}")
+    out["fwd_bwd_ms"], out["fwd_bwd_top"] = device_total_ms(
+        lambda: grads(True, x, w, b, gy, torch.bfloat16), iters=10)
+    out["plain_fwd_bwd_ms"], out["plain_fwd_bwd_top"] = device_total_ms(
+        lambda: grads(False, x, w, b, gy, torch.bfloat16), iters=5)
+    log(f"  forward and backward on the device: training route "
+        f"{out['fwd_bwd_ms']:.4f} ms, plain chain "
+        f"{out['plain_fwd_bwd_ms']:.4f} ms")
+    return out
+
+
+def group_norm_check_and_time(gn):
+    """group_norm_gelu (csrc/group_norm_gelu.cu) against its plain version
+    at GN_SHAPES in bf16 channels_last, both statistics scopes
+    (group_norm_check); the training route's gradients
+    (group_norm_grad_check); at chunk28 B=64's map each kernel's device
+    time, the pair's, the wrapper call's, the plain chain's, the library's
+    (F.group_norm on the (E, C, P, H, W) view, which pools an element's
+    patches as the image scope does, then F.gelu) and the bytes bound."""
+    import torch.nn.functional as F
+    from multi_modal_transformers_tokenmerge_torch.modules import (
+        image_tokenizer as it)
+    checks = {f"{shape}_{scope}": group_norm_check(
+                  gn, it, shape, ppe if scope == "image" else 1)
+              for shape, ppe in GN_SHAPES for scope in ("image", "patch")}
+    grad = group_norm_grad_check(gn)
+    shape, ppe = GN_SHAPES[1]
+    x, w, b = gn_inputs(shape, seed=5)
+    bf = torch.bfloat16
+    call = lambda: gn.group_norm_gelu(x, w, b, GN_GROUPS, GN_EPS, ppe, bf)
+    with torch.inference_mode():
+        call()
+        prof, _ = profile_session(call)
+        names = sorted({e.key for e in device_events(prof)})
+        log(f"  one group_norm_gelu call runs: {names}")
+        if len(names) != 2 or not all(
+                any(f"{k}_kernel" in n for n in names)
+                for k in ("gn_stats_nhwc", "gn_apply_gelu_nhwc")):
+            fail(f"a group_norm_gelu call on the main path's layout ran "
+                 f"{names}")
+        stats_ms = device_ms(call, "gn_stats_nhwc_kernel")
+        apply_ms = device_ms(call, "gn_apply_gelu_nhwc_kernel")
+        pair_ms, _ = device_total_ms(call)
+        call_ms = time_ms(call)
+        plain_ms, plain_top = device_total_ms(
+            lambda: gn.group_norm_gelu_reference(x, w, b, GN_GROUPS, GN_EPS,
+                                                 ppe, bf), iters=10)
+        e, c = shape[0] // ppe, shape[1]
+        wb, bb = w.to(bf), b.to(bf)
+        library = lambda: F.gelu(F.group_norm(
+            x.view(e, ppe, c, *shape[2:]).transpose(1, 2), GN_GROUPS, wb,
+            bb, GN_EPS).transpose(1, 2).reshape(shape), approximate="tanh")
+        lib_y = library()
+        want = gn.group_norm_gelu_reference(x, w, b, GN_GROUPS, GN_EPS, ppe,
+                                            bf)
+        lib_rel = float((lib_y.float() - want.float()).norm()
+                        / want.float().norm())
+        lib_ms, lib_top = device_total_ms(library, iters=10)
+    if lib_rel > 1e-2:
+        fail(f"F.group_norm on the (E, C, P, H, W) view is {lib_rel:.2e} "
+             f"from the plain chain: not the same function")
+    nbytes = 3 * x.numel() * x.element_size()
+    # statistics: an add and an FMA; apply: 4 for the norm and affine, some
+    # 10 for the tanh GELU
+    flops = 17 * x.numel()
+    bnd, by = bound(nbytes, flops, torch.float32)
+    log(f"  group_norm_gelu bf16 {shape} channels_last, {ppe} patches an "
+        f"element: gn_stats {stats_ms:.4f} ms + gn_apply_gelu "
+        f"{apply_ms:.4f} ms on the device (the call's device total "
+        f"{pair_ms:.4f} ms, {call_ms:.4f} ms a wrapper call), plain chain "
+        f"{plain_ms:.4f} ms ({plain_top}), F.group_norm on the (E, C, P, H, "
+        f"W) view then F.gelu {lib_ms:.4f} ms ({lib_top}; {lib_rel:.2e} "
+        f"from the plain chain, bf16 weight and bias), bound {bnd:.5f} ms "
+        f"({by}; {nbytes / 1e6:.1f} MB)")
+    return dict(ms=stats_ms + apply_ms, stats_ms=stats_ms, apply_ms=apply_ms,
+                pair_device_ms=pair_ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                library_rel_err=lib_rel, checks=checks, training=grad)
+
+
 def check_pool_layout(pool, label):
     """The layout the main path just handed the pool backward is the one
     phase 2 held and timed (POOL_LAYOUTS[0])."""
@@ -2688,11 +2915,12 @@ def replay_profile(fn, calls, expected, label):
     device records give, per call, each named kernel's launches (which
     must equal ``expected``: kernel -> launches a call, 0 for a kernel it
     does not name; 'ddpm_sampler' is the register sampler kernel here and
-    'ddpm_sampler_wide' the wide one), all launches and the device time.  A session that kept
+    'ddpm_sampler_wide' the wide one; GN_KERNELS the GroupNorm pair, by
+    layout), all launches and the device time.  A session that kept
     too few records of a named kernel is run again (PROFILE_ATTEMPTS)."""
     names = ("ddpm_sampler", "ddpm_sampler_wide", "flash_fwd",
              "flash_fwd_lse", "flash_dq", "flash_dkv", *WIDE_KERNELS,
-             "pool_bwd")
+             "pool_bwd", *GN_KERNELS)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof, _ = profile_session(lambda: [fn() for _ in range(calls)])
         events = device_events(prof)
@@ -2732,9 +2960,13 @@ def compiled_serve_phase(models, cfg, label, expected, requests=None,
     launches and device time a request.  With two models their compiled
     engines are also served in turns (first, second, second, first), and
     the second one's replay is profiled too (its kernels
-    ``second_expected``, by default ``expected``)."""
+    ``second_expected``, by default ``expected``).  Both hold the image
+    tower's GroupNorm kernels at ``norm_kernels(cfg)`` a replay where they
+    do not name them."""
     from multi_modal_transformers_tokenmerge_torch.serve.policy import (
         PolicyEngine as _Engine)
+    second_expected = {**norm_kernels(cfg), **(second_expected or expected)}
+    expected = {**norm_kernels(cfg), **expected}
     engine_kw = engine_kw or {}
     PolicyEngine = lambda *a, **kw: _Engine(*a, **kw, **engine_kw)
     requests = requests or COMPILED_REQUESTS
@@ -2819,7 +3051,7 @@ def compiled_serve_phase(models, cfg, label, expected, requests=None,
                                               requests // 2, g)
             row["in_turns"] = {n: latency(t) for n, t in turns.items()}
             second = replay_profile(lambda: compiled[names[1]](images), 5,
-                                    second_expected or expected,
+                                    second_expected,
                                     f"{label} B={batch} compiled "
                                     f"{names[1]} request")
             row["replay_profile_" + names[1]] = second
@@ -2881,8 +3113,11 @@ def compiled_train_phase(cfg, label, expected, twin=None):
     replay: the kernels, launches and device time a step.  ``twin``:
     (name, config, expected kernels) of a second model whose compiled step
     takes turns with this one's (this, twin, twin, this) and whose replay
-    is profiled beside it."""
+    is profiled beside it.  Each step holds the image tower's GroupNorm
+    kernels at ``norm_kernels`` of its config where ``expected`` does not
+    name them."""
     import itertools
+    expected = {**norm_kernels(cfg), **expected}
     from multi_modal_transformers_tokenmerge_torch.train.loop import fit
     from multi_modal_transformers_tokenmerge_torch.train.steps import (
         make_train_step)
@@ -2955,6 +3190,7 @@ def compiled_train_phase(cfg, label, expected, twin=None):
         f"{ {k: round(v, 4) for k, v in prof['kernel_ms'].items()} }")
     if twin is not None:
         twin_name, twin_cfg, twin_expected = twin
+        twin_expected = {**norm_kernels(twin_cfg), **twin_expected}
         del states["eager"]
         states[twin_name] = _fresh_train_state(twin_cfg)
         steps[twin_name] = make_train_step("diffusion")
@@ -3372,7 +3608,8 @@ def server_phase(model, cfg, counters):
     with PolicyServer(eng, max_wait_ms=SERVER_WAIT_MS) as server:
         server.predict(frames[0])
         prof = replay_profile(lambda: server.predict(frames[1]), 5,
-                              {"ddpm_sampler": 1}, "one server batch")
+                              {"ddpm_sampler": 1, **norm_kernels(cfg)},
+                              "one server batch")
     out["batch_profile"] = prof
     kernels = {k: v for k, v in prof["kernels"].items() if v}
     log(f"  one server batch (one request, padded to {SERVER_BATCH}): "
@@ -3689,7 +3926,7 @@ def quantized_phase(counters):
     for mode in QUANT_MODES:
         out[f"serving_{mode}"] = compiled_serve_phase(
             {f"octo_base_{mode}": model}, cfg, f"octo_base bf16, {mode} "
-            f"towers", {"ddpm_sampler": 1},
+            f"towers", {"ddpm_sampler": 1, **NO_NORM_KERNELS},
             requests=COMPILED_REQUESTS // 4,
             engine_kw=dict(image_tower=mode, text_tower=mode))
 
@@ -4049,20 +4286,24 @@ def raw_kernel_wrappers():
     """The model's paths call the kernel wrappers directly instead of
     through their custom ops (the eager path before the registration)."""
     from multi_modal_transformers_tokenmerge_torch.heads import diffusion
+    from multi_modal_transformers_tokenmerge_torch.modules import (
+        image_tokenizer as it)
     from multi_modal_transformers_tokenmerge_torch.ops import (
-        flash_attention as fa)
+        flash_attention as fa, group_norm as gn)
     from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
         ddpm_sampler)
-    saved = diffusion.ddpm_sampler_op, fa.flash_fwd_op
+    saved = diffusion.ddpm_sampler_op, fa.flash_fwd_op, it.group_norm_gelu_op
     diffusion.ddpm_sampler_op = (
         lambda *a: ddpm_sampler(*a[:8], clip_value=a[8], ddim_x0clip=a[9],
                                 ddim_eps_recompute=a[10]))
     fa.flash_fwd_op = lambda q, k, v, m, t, bq, bk: fa.flash_fwd(
         q, k, v, m, t, block_q=bq, block_k=bk)
+    it.group_norm_gelu_op = gn.group_norm_gelu
     try:
         yield
     finally:
-        diffusion.ddpm_sampler_op, fa.flash_fwd_op = saved
+        (diffusion.ddpm_sampler_op, fa.flash_fwd_op,
+         it.group_norm_gelu_op) = saved
 
 
 def registration_cost(model, cfg, label, requests):
@@ -4133,8 +4374,9 @@ def export_case(model, cfg, label, cached_only, expected):
     params = ex.parameters_of(model)
     gen = torch.Generator(device="cuda").manual_seed(5)
     from multi_modal_transformers_tokenmerge_torch.ops import (
-        ddpm_sampler as sm, flash_attention as fa)
-    counters = {"ddpm_sampler": sm.ddpm_sampler, "flash_fwd": fa.flash_fwd}
+        ddpm_sampler as sm, flash_attention as fa, group_norm as gn)
+    counters = {"ddpm_sampler": sm.ddpm_sampler, "flash_fwd": fa.flash_fwd,
+                "group_norm_gelu": gn.group_norm_gelu}
     diffs = []
     for kind, path in paths.items():
         fn = ex.load_policy(path)
@@ -4195,7 +4437,7 @@ def first_request(how, paths):
 def export_phase():
     """Phase 23: octo_base bf16 exported (full and cached diffusion
     programs) and octo_deep bf16's cached program (flash_fwd through its
-    custom op); bytes, export and load seconds; the loaded engine against
+    custom op; group_norm_gelu in both); bytes, export and load seconds; the loaded engine against
     the eager one; the first requests of a fresh process after
     ``load_artifact`` against those after ``compile()``; the eager
     request's host time through the custom ops and through the bare
@@ -4206,8 +4448,10 @@ def export_phase():
         octo_base)
     cfg = octo_base(dtype="bfloat16")
     model = Octo(cfg, device="cuda", seed=0).eval()
+    norms = cfg.images.resnet.num_blocks
     out = {"octo_base": export_case(model, cfg, "octo_base", False,
-                                    {"ddpm_sampler": 1})}
+                                    {"ddpm_sampler": 1,
+                                     "group_norm_gelu": norms})}
     out["registration_octo_base"] = registration_cost(
         model, cfg, "octo_base bf16", 100)
     paths = out["octo_base"].pop("paths")
@@ -4223,7 +4467,8 @@ def export_phase():
     deep = Octo(dcfg, device="cuda", seed=0).eval()
     out["octo_deep"] = export_case(
         deep, dcfg, "octo_deep", True,
-        {"ddpm_sampler": 1, "flash_fwd": dcfg.transformer.num_blocks})
+        {"ddpm_sampler": 1, "flash_fwd": dcfg.transformer.num_blocks,
+         "group_norm_gelu": dcfg.images.resnet.num_blocks})
     out["octo_deep"].pop("paths")
     out["registration_octo_deep"] = registration_cost(
         deep, dcfg, "octo_deep bf16", 100)
@@ -4911,7 +5156,9 @@ def remat_phase(counters):
             # are read from the device records
             row["replay_profile"] = replay_profile(
                 lambda: steps[name](states[name], *batches[0]), 3,
-                {**want, "pool_bwd": 1}, f"octo_deep remat={remat} captured")
+                {**want, "pool_bwd": 1,
+                 **norm_kernels(remat_config("bfloat16"))},
+                f"octo_deep remat={remat} captured")
             launched = {k: row["replay_profile"]["kernels"][k] for k in flash}
         elif launched != want:
             fail(f"octo_deep remat={remat} eager step launched {launched} "
@@ -5350,7 +5597,8 @@ def sharded_phase(fa, counters):
             f"{mom} (the run-to-run spread of octo_deep's backward sums)")
         out["replay_profile"] = replay_profile(
             lambda: steps["fit_mesh"](states["fit_mesh"], *batches[0]), 3,
-            per_step, "octo_deep sharded at world 1, captured")
+            {**per_step, **norm_kernels(cfg)},
+            "octo_deep sharded at world 1, captured")
         cycle = itertools.cycle(batches)
         ms = {"fit": [], "fit_mesh": []}
         for name in ("fit", "fit_mesh", "fit_mesh", "fit"):
@@ -5603,7 +5851,7 @@ def main():
     from multi_modal_transformers_tokenmerge_torch.models.presets import (
         octo_base, octo_small)
     from multi_modal_transformers_tokenmerge_torch.ops import (
-        flash_attention as fa, pool)
+        flash_attention as fa, group_norm as gn, pool)
     from multi_modal_transformers_tokenmerge_torch.ops.ddpm_sampler import (
         ddpm_sampler)
 
@@ -5687,6 +5935,7 @@ def main():
     pool_row = pool_check_and_time(pool, TRAIN_BATCH * 50)
     pool_row["windows_above_8"] = pool_windows_check(pool, TRAIN_BATCH * 50)
     pool_row["planes"] = pool_planes_check(pool)
+    gn_row = group_norm_check_and_time(gn)
     wide_ring = wide_ring_check(fa)
     auto_gate_check(fa)
 
@@ -5978,6 +6227,36 @@ def main():
         "launches_per_compiled_step_moe": [
             moe[k]["replay_profile"]["kernels"]["pool_bwd"]
             for k in ("training", "deep_training")],
+    })
+    gn_pair = lambda prof: {k: prof["kernels"][k] for k in GN_KERNELS
+                            if prof["kernels"][k]}
+    kernels.append({
+        "name": "group_norm_gelu", "route": "cuda",
+        "source": "multi_modal_transformers_tokenmerge_torch/csrc/"
+                  "group_norm_gelu.cu",
+        "replaces": None,
+        "plain": "multi_modal_transformers_tokenmerge_torch/modules/"
+                 "image_tokenizer.py: PatchGroupNorm.forward, then F.gelu",
+        "launches": gn_pair(chunk28["DDPM"]["compiled_serving"][64][
+            "replay_profile"]),
+        **{k: gn_row[k] for k in (
+            "ms", "stats_ms", "apply_ms", "pair_device_ms", "call_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_rel_err")},
+        "library": "F.group_norm on the (E, C, P, H, W) view, bf16 weight "
+                   "and bias, then F.gelu(approximate='tanh')",
+        "shape": "octo_base_chunk28 serving bf16 B=64: (3200, 64, 21, 21) "
+                 "channels_last, 50 patches an element",
+        "launches_per_compiled_request_chunk28": {
+            b: gn_pair(chunk28["DDPM"]["compiled_serving"][b][
+                "replay_profile"]) for b in CHUNK28_BATCHES},
+        "launches_per_compiled_request_octo_deep": gn_pair(compiled[
+            "octo_deep_serving"][1]["replay_profile"]),
+        "launches_per_compiled_step": gn_pair(compiled[
+            "octo_base_training"]["replay_profile"]),
+        "launches_per_exported_request": exported["octo_base"][
+            "launches_per_request"]["group_norm_gelu"],
+        "checks": gn_row["checks"], "training": gn_row["training"],
     })
     for kernel, line in (("flash_fwd_lse", 328), ("flash_dq", 383),
                          ("flash_dkv", 430)):

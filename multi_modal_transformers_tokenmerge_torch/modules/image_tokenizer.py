@@ -9,7 +9,12 @@ compute the same function, and this module matches both.
   every patch and frame of a batch element, which ``torch.nn.GroupNorm``
   cannot do, so :class:`PatchGroupNorm` computes them itself, in float32,
   with the clamped E[x^2] - mu^2 variance.
-* flax's ``nn.gelu`` is the tanh approximation.
+* flax's ``nn.gelu`` is the tanh approximation.  Each residual block's
+  norm and GELU go through :meth:`PatchGroupNorm.forward_gelu`: on the
+  card one pair of kernels (``ops.group_norm``; where autograd records,
+  with a plain PyTorch backward), on the CPU the plain chain;
+  ``REGISTRY.counters`` counts each route (``image.norm_kernel``,
+  ``image.norm_plain``).
 * ``output_dense`` flattens each patch's feature map in (c, h, w) order;
   ``convert.from_flax`` permutes the flax kernel's (h, w, c) rows to match.
 * ``pool_vjp`` picks the max-pool backward as in the JAX package: 'xla'
@@ -31,7 +36,9 @@ from torch import nn
 from ..core.config import ImageTokenizerConfig, ResNetEmbedderConfig
 from ..ops.image_ops import (eval_position_tokens, patchify,
                              sample_position_tokens)
+from ..ops.group_norm import GroupNormGelu, group_norm_gelu_op
 from ..ops.pool import max_pool_nchw
+from ..utils.profiling import REGISTRY
 from .layers import Conv2d, Dense, Embed
 
 __all__ = ["group_norm_stats", "PatchGroupNorm", "ResNetV2Embedder",
@@ -97,6 +104,24 @@ class PatchGroupNorm(nn.Module):
              + self.bias.float()[:, None, None])
         return f.to(self.dtype)
 
+    def forward_gelu(self, x: torch.Tensor, patches_per_element: int):
+        """:meth:`forward` then the tanh GELU.  CPU tensors take the plain
+        chain; any other device the two kernels of ``ops.group_norm`` (the
+        statistics scope set by the patches an element: 1 for 'patch'):
+        through the custom op outside autograd, through ``GroupNormGelu``,
+        whose backward is plain PyTorch, where autograd records."""
+        if x.device.type == "cpu":
+            REGISTRY.counters["image.norm_plain"] += 1
+            return F.gelu(self(x, patches_per_element), approximate="tanh")
+        REGISTRY.counters["image.norm_kernel"] += 1
+        args = (x, self.weight, self.bias, self.num_groups, self.eps,
+                patches_per_element if self.stats_scope == "image" else 1,
+                self.dtype)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, self.weight, self.bias)):
+            return GroupNormGelu.apply(*args)
+        return group_norm_gelu_op(*args)
+
 
 class ResNetV2Embedder(nn.Module):
     """input conv (VALID, strided) -> max-pool -> num_blocks x (GroupNorm ->
@@ -139,8 +164,7 @@ class ResNetV2Embedder(nn.Module):
                           vjp="pallas" if c.pool_vjp == "pallas" else "xla")
         residual = y
         for i in range(c.num_blocks):
-            y = getattr(self, f"block{i}_norm")(y, g)
-            y = F.gelu(y, approximate="tanh")
+            y = getattr(self, f"block{i}_norm").forward_gelu(y, g)
             y = getattr(self, f"block{i}_conv")(y)
         y = y + residual
         out = self.output_dense(y.reshape(b * g, -1))

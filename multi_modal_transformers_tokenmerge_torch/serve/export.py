@@ -16,9 +16,9 @@ programs are exported non-strict and saved with ``torch.export.save``.
   ``PolicyEngine.load_artifact`` draws them from its generator, in the
   order the head would, so the artifact's actions equal the eager call's.
 * The kernels are ``torch.library`` custom ops (``tokenmerge::ddpm_sampler``,
-  ``tokenmerge::flash_fwd``), which the exported graph names; loading
-  imports this package, which registers them.  There is no fallback: an op
-  that fails to build or launch raises.
+  ``tokenmerge::flash_fwd``, ``tokenmerge::group_norm_gelu``), which the
+  exported graph names; loading imports this package, which registers
+  them.  There is no fallback: an op that fails to build or launch raises.
 * Every table the forward makes lazily (flash masks, DDPM coefficients,
   position and bucket tables) is made by one eager call before the export,
   on the model's device.  Artifacts are device-specific.
@@ -35,6 +35,7 @@ from torch import nn
 # importing the kernels' modules registers their custom ops
 from ..ops import ddpm_sampler as _sampler_ops  # noqa: F401
 from ..ops import flash_attention as _flash_ops  # noqa: F401
+from ..ops import group_norm as _group_norm_ops  # noqa: F401
 
 __all__ = ["export_policy", "export_cached_policy", "load_policy",
            "draw_shapes", "parameters_of", "PREDICT_METHODS",

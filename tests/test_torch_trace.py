@@ -213,7 +213,10 @@ def test_route_counters_and_replay_spans(registry):
     eng, ids, frames = engine("octo_base")
     eng(frames)
     eng(frames, text_tokens=ids)
-    assert registry.counters == {"engine.eager_calls": 2}
+    # every run of the image tower, compile()'s two on the CPU included,
+    # counts its two residual blocks' norms, here on the plain chain
+    assert registry.counters == {"engine.eager_calls": 2,
+                                 "image.norm_plain": 8}
     s_text = eng._text_embeddings.clone()
     s_images = torch.zeros(frames.shape)
     out = torch.zeros(BATCH, 8)
@@ -227,7 +230,8 @@ def test_route_counters_and_replay_spans(registry):
     eng(frames, text_tokens=ids)         # no full graph: eager
     eng(frames, noisy=torch.zeros(BATCH, 8))    # own draws: eager
     assert registry.counters == {"engine.eager_calls": 4,
-                                 "engine.replays": 1}
+                                 "engine.replays": 1,
+                                 "image.norm_plain": 12}
     spans = annotations(prof)
     assert [s[0] for s in spans] == ["engine.call", "engine.stage_in",
                                      "engine.launch", "engine.stage_out"]
