@@ -233,6 +233,18 @@ Phases, each of which must pass (any failure exits non-zero):
     against the CPU; trained at batch 32 (12 of each wide training kernel
     and 1 pool_bwd a step), captured against the eager step, one float32
     step under TRAIN_REF_LIMITS.
+34. octo_moonlight's grouped expert kernels (csrc/grouped_experts.cu)
+    against their plain version at its widths (2048 -> 1408, 64 experts,
+    top 6) at B=8's three stage sizes (1792, 1280, 768 tokens) under
+    uniform, skewed and single-expert routing, a second call bit for bit;
+    each kernel timed at each size beside the plain version,
+    torch._grouped_mm and the bytes bound; a compiled octo_moonlight of 4
+    blocks (3 routed) at B=8 whose profiled replay runs each of the three
+    kernels once a routed layer.
+
+    python3 chip_smoke.py --only grouped_experts
+
+runs phase 1 and phase 34 alone.
 
 Each phase logs its seconds when it ends ("phase N: ... done in X s").
 Prints the card's name and power limit, a JSON ``kernels`` line, and as its
@@ -2093,6 +2105,211 @@ def group_norm_check_and_time(gn):
                 library_rel_err=lib_rel, checks=checks, training=grad)
 
 
+# -- the grouped expert kernels (octo_moonlight's routed layers) ------------
+
+# octo_moonlight's routed layer: hidden, expert width, experts, choices a token
+GE_D, GE_F, GE_E, GE_K = 2048, 1408, 64, 6
+# the tokens a routed layer sees at B=8: 8 x the stack's stages (224, 160, 96)
+GE_TOKENS = (1792, 1280, 768)
+GE_ROUTINGS = ("uniform", "skewed", "single")
+# the kernels' names, each counted by replay_profile (one a routed layer)
+GE_KERNELS = ("expert_gate_up", "expert_down", "expert_combine")
+# relative norm of the kernels' output from the plain version's: both round
+# at the same points (the SwiGLU rows, each weighted row, the sum) from
+# float32 sums of the same bf16 products; they differ where a sum taken in
+# another order lands on the other side of a bf16 rounding, one bf16 ulp
+# (2^-8) of an intermediate, which the next product averages out
+GE_TOL = 2.0 ** -10
+
+
+def ge_case(G, tokens, routing, seed):
+    """grouped_experts' arguments at octo_moonlight's widths.  Routing
+    'uniform' as the benchmark's random weights route (top 6 of the sigmoid
+    scores of a random router); 'skewed' (scores scaled down by up to
+    1000x along the experts: a few take most tokens, most see few or none);
+    'single' (every token the same 6 experts: six with every token, 58
+    with none)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn(tokens, GE_D, generator=g, device="cuda").to(bf)
+    wgu = (torch.randn(GE_E, 2 * GE_F, GE_D, generator=g, device="cuda")
+           / GE_D ** 0.5).to(bf)
+    wd = (torch.randn(GE_E, GE_D, GE_F, generator=g, device="cuda")
+          / GE_F ** 0.5).to(bf)
+    shared = torch.randn(tokens, GE_D, generator=g, device="cuda").to(bf)
+    router = torch.randn(GE_E, GE_D, generator=g, device="cuda") / GE_D ** 0.5
+    scores = torch.sigmoid(x.float() @ router.T)
+    if routing == "skewed":
+        scores = scores * torch.logspace(0, -3, GE_E, device="cuda")
+    weights, experts = G.route(scores, torch.zeros(GE_E, device="cuda"),
+                               GE_K, 2.446)
+    if routing == "single":
+        experts = torch.arange(GE_K, device="cuda").expand(
+            tokens, GE_K).contiguous()
+    return x, wgu, wd, weights, experts, shared
+
+
+def ge_library(G, x, wgu, wd, weights, experts, shared):
+    """The same function through PyTorch's grouped product
+    (``torch._grouped_mm``) on the sorted rows, the SwiGLU and the weighting
+    between, the combine by index_add_: the yardstick of a library call;
+    None where this PyTorch has no such call."""
+    import torch.nn.functional as F
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    lay = G.sort_pairs(experts, GE_E)
+    ends = lay.offsets[1:].contiguous()
+    xs = x[lay.tokens.long()]
+    w = weights.reshape(-1)[lay.order].float()[:, None]
+    tok = lay.tokens.long()
+
+    def run():
+        h = torch._grouped_mm(xs, wgu.transpose(1, 2), offs=ends)
+        h = (F.silu(h[:, :GE_F].float()) * h[:, GE_F:].float()).to(x.dtype)
+        y = torch._grouped_mm(h, wd.transpose(1, 2), offs=ends)
+        return shared.float().index_add_(0, tok, y.float() * w).to(x.dtype)
+    return run
+
+
+def grouped_experts_check_and_time():
+    """grouped_experts (csrc/grouped_experts.cu) against its plain version at
+    octo_moonlight's widths (2048 -> 1408, 64 experts, top 6) at the three
+    stage sizes of B=8 (GE_TOKENS) under uniform, skewed and single-expert
+    routing, to GE_TOL of the output's norm, and a second call equal to the
+    first bit for bit; at each stage size under uniform routing each
+    kernel's device time, the whole call's (sort, tile plan, the three
+    kernels), the plain version's, the library's (torch._grouped_mm) and
+    the products' bound from portbench/counts/moonlight.py's bytes and
+    FLOPs."""
+    from multi_modal_transformers_tokenmerge_torch.ops import (
+        grouped_experts as G)
+    from portbench.counts.moonlight import expert_bytes_flops
+    checks, stages = {}, {}
+    with torch.inference_mode():
+        for tokens in GE_TOKENS:
+            for routing in GE_ROUTINGS:
+                args = ge_case(G, tokens, routing, seed=tokens)
+                got = G.grouped_experts(*args)
+                again = G.grouped_experts(*args)
+                torch.cuda.synchronize()
+                want = G.grouped_experts_reference(*args)
+                err = float((got.float() - want.float()).norm()
+                            / want.float().norm())
+                same = torch.equal(got, again)
+                counts = torch.bincount(args[4].reshape(-1),
+                                        minlength=GE_E)
+                checks[f"{tokens}_{routing}"] = {
+                    "rel_err": err, "repeat_equal": same,
+                    "rows_max": int(counts.max()),
+                    "experts_empty": int((counts == 0).sum())}
+                log(f"  grouped_experts bf16 T={tokens} {routing}: "
+                    f"{err:.3e} of the plain version's norm (limit "
+                    f"{GE_TOL:.3e}), a second call equal {same}; rows an "
+                    f"expert at most {int(counts.max())}, "
+                    f"{int((counts == 0).sum())} experts empty")
+                if not (err <= GE_TOL and same):
+                    fail(f"grouped_experts at T={tokens}, {routing} routing")
+        for tokens in GE_TOKENS:
+            args = ge_case(G, tokens, "uniform", seed=tokens)
+            call = lambda: G.grouped_experts(*args)
+            row = {k: device_ms(call, f"{k}_kernel") for k in GE_KERNELS}
+            row["call_device_ms"], _ = device_total_ms(call)
+            row["plain_ms"], row["plain_top"] = device_total_ms(
+                lambda: G.grouped_experts_reference(*args), iters=5)
+            lib = ge_library(G, *args)
+            if lib is not None:
+                want = G.grouped_experts_reference(*args).float()
+                row["library_rel_err"] = float(
+                    (lib().float() - want).norm() / want.norm())
+                row["library_ms"], row["library_top"] = device_total_ms(
+                    lib, iters=10)
+            counts = expert_bytes_flops((tokens, GE_K, GE_E, GE_D, GE_F),
+                                        "bfloat16")
+            for kind in ("gate_up", "down"):
+                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(
+                    *counts[kind], torch.bfloat16)
+            row["bound_ms"] = row["gate_up_bound_ms"] + row["down_bound_ms"]
+            row["products_ms"] = row["expert_gate_up"] + row["expert_down"]
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["products_ms"]
+            stages[tokens] = row
+            log(f"  grouped_experts bf16 T={tokens} uniform: gate_up "
+                f"{row['expert_gate_up']:.4f} ms, down "
+                f"{row['expert_down']:.4f} ms, combine "
+                f"{row['expert_combine']:.4f} ms on the device (the whole "
+                f"call {row['call_device_ms']:.4f} ms), plain "
+                f"{row['plain_ms']:.4f} ms, torch._grouped_mm "
+                f"{row.get('library_ms', float('nan')):.4f} ms "
+                f"({row.get('library_rel_err', float('nan')):.2e} from the "
+                f"plain version); the products' bound "
+                f"{row['bound_ms']:.4f} ms ({row['gate_up_bound_by']}), "
+                f"{row['roofline_pct']:.1f}% reached")
+    return {"checks": checks, "stages": stages}
+
+
+def moonlight_replay_check():
+    """octo_moonlight at its widths and 4 blocks (1 dense, 3 routed, a merge
+    after 2), served by the compiled engine at B=8: one profiled replay
+    runs each grouped kernel once a routed layer, flash_fwd_lse once a
+    block, the register sampler once and the tower's GroupNorm pair."""
+    from multi_modal_transformers_tokenmerge_torch import load_config
+    from multi_modal_transformers_tokenmerge_torch.models.octo import Octo
+    from multi_modal_transformers_tokenmerge_torch.serve.policy import (
+        PolicyEngine)
+    cfg = load_config("octo_moonlight", ["transformer.num_blocks=4",
+                                         "transformer.tome_merge_every=2"])
+    t = cfg.transformer
+    routed = t.num_blocks - t.first_k_dense_replace
+    model = Octo(cfg, device="cuda", seed=0).eval()
+    g = np.random.default_rng(11)
+    eng = PolicyEngine(model, batch_size=8, seed=1)
+    eng.compile((cfg.text.max_length,),
+                (cfg.num_observation_blocks, *cfg.images.image_size))
+    eng.set_instruction(g.integers(0, cfg.text.vocab_size,
+                                   (cfg.text.max_length,)))
+    images = random_images(cfg, 8, g)
+    expected = {**norm_kernels(cfg), "flash_fwd_lse": t.num_blocks,
+                "ddpm_sampler": 1, **{k: routed for k in GE_KERNELS}}
+    prof = replay_profile(lambda: eng(images), 5, expected,
+                          "octo_moonlight (4 blocks) B=8 compiled request")
+    log(f"  compiled octo_moonlight (4 blocks, {routed} routed) B=8: one "
+        f"replay: {prof['launches']:.0f} launches, device "
+        f"{prof['device_ms']:.4f} ms, kernels "
+        f"{ {k: v for k, v in prof['kernels'].items() if v} }")
+    del eng, model
+    torch.cuda.empty_cache()
+    return prof
+
+
+def grouped_experts_phase():
+    """Phase 34: the kernels line's row of the grouped expert kernels."""
+    phase("phase 34: octo_moonlight's grouped expert kernels")
+    ge = grouped_experts_check_and_time()
+    replay = moonlight_replay_check()
+    first = ge["stages"][GE_TOKENS[0]]
+    return {
+        "name": "grouped_experts", "route": "cuda",
+        "source": "multi_modal_transformers_tokenmerge_torch/csrc/"
+                  "grouped_experts.cu",
+        "replaces": None,
+        "plain": "multi_modal_transformers_tokenmerge_torch/ops/"
+                 "grouped_experts.py: grouped_experts_reference",
+        "launches": {k: replay["kernels"][k] for k in GE_KERNELS},
+        "ms": first["call_device_ms"],
+        **{f"{k}_ms": first[k] for k in GE_KERNELS},
+        **{k: first.get(k) for k in (
+            "plain_ms", "bound_ms", "gate_up_bound_by", "library_ms",
+            "library_rel_err", "roofline_pct")},
+        "library": "torch._grouped_mm for both products on the sorted rows, "
+                   "the SwiGLU and weighting between, index_add_",
+        "shape": f"octo_moonlight serving bf16 B=8, T={GE_TOKENS[0]} "
+                 f"tokens, {GE_D} -> {GE_F}, {GE_E} experts, top {GE_K}, "
+                 f"uniform routing",
+        "stages": ge["stages"], "checks": ge["checks"],
+        "launches_per_compiled_request_octo_moonlight_4_blocks":
+            replay["kernels"],
+    }
+
+
 def check_pool_layout(pool, label):
     """The layout the main path just handed the pool backward is the one
     phase 2 held and timed (POOL_LAYOUTS[0])."""
@@ -2916,11 +3133,12 @@ def replay_profile(fn, calls, expected, label):
     must equal ``expected``: kernel -> launches a call, 0 for a kernel it
     does not name; 'ddpm_sampler' is the register sampler kernel here and
     'ddpm_sampler_wide' the wide one; GN_KERNELS the GroupNorm pair, by
-    layout), all launches and the device time.  A session that kept
-    too few records of a named kernel is run again (PROFILE_ATTEMPTS)."""
+    layout; GE_KERNELS the grouped expert kernels), all launches and the
+    device time.  A session that kept too few records of a named kernel is
+    run again (PROFILE_ATTEMPTS)."""
     names = ("ddpm_sampler", "ddpm_sampler_wide", "flash_fwd",
              "flash_fwd_lse", "flash_dq", "flash_dkv", *WIDE_KERNELS,
-             "pool_bwd", *GN_KERNELS)
+             "pool_bwd", *GN_KERNELS, *GE_KERNELS)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof, _ = profile_session(lambda: [fn() for _ in range(calls)])
         events = device_events(prof)
@@ -5898,6 +6116,14 @@ def main():
                 "pool_bwd": pool.pool_bwd}
     train_kernels = ["flash_fwd", "flash_fwd_lse", "flash_dq", "flash_dkv",
                      "pool_bwd"]
+    if sys.argv[1:] == ["--only", "grouped_experts"]:
+        grouped = grouped_experts_phase()
+        phase(None)
+        log(json.dumps({"kernels": [grouped]}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     cfg = octo_base(dtype="bfloat16")
     t0 = time.perf_counter()
@@ -6103,6 +6329,7 @@ def main():
     chunk28 = chunk28_phase(counters)
     phase("phase 33: octo_deep with 3 heads of 512 (octo_deep_h512)")
     h512 = wide_head_phase(counters)
+    grouped = grouped_experts_phase()
     phase(None)
 
     ms, call_ms, plain, bnd, by = timings[1]
@@ -6443,6 +6670,7 @@ def main():
         "sessions_run_again": _GUARD["retries"],
         "kernel_sessions_run_again": _GUARD["short"]}}))
     log(f"run: {time.perf_counter() - t_start:.1f} s")
+    kernels.append(grouped)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

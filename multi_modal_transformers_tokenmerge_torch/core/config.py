@@ -28,6 +28,7 @@ __all__ = [
     "AttentionConfig",
     "MoEConfig",
     "TransformerConfig",
+    "LatentMoETransformerConfig",
     "ContinuousHeadConfig",
     "CategoricalHeadConfig",
     "DiffusionHeadConfig",
@@ -163,6 +164,40 @@ class TransformerConfig(_Replaceable):
     proportional_attention: bool = False
     remat: bool = False
     final_norm: bool = False
+
+
+@dataclass(frozen=True)
+class LatentMoETransformerConfig(TransformerConfig):
+    """A DeepSeek-V3-style decoder stack (``modules.latent_moe``): pre-
+    RMSNorm blocks of latent attention (MLA, no query compression) with
+    decoupled RoPE, the first ``first_k_dense_replace`` blocks with a dense
+    SwiGLU MLP of width ``mlp_dim``, the rest a dropless routed layer of
+    ``n_routed_experts`` SwiGLU experts of width ``moe_intermediate_size``
+    (sigmoid scores, top ``num_experts_per_tok`` by score plus a selection
+    bias, the chosen scores normalised to sum to one, the published
+    ``norm_topk_prob``, and scaled by ``routed_scaling_factor``) beside
+    ``n_shared_experts`` shared experts, and a final RMSNorm.  Field names
+    follow the published ``config.json``.
+
+    Of the base fields the stack reads ``num_blocks``,
+    ``attention.num_heads``, ``mlp_dim``, ``attention_impl``,
+    ``compression_mode`` ('merge'), ``tome_merge_every`` (blocks a stage)
+    and ``final_norm``; it has no dropout, no biases and no learned
+    position embedding.  A class of its own, so that no field is added to
+    the configurations of the other stacks."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    first_k_dense_replace: int = 1
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
 
 
 @dataclass(frozen=True)

@@ -74,12 +74,25 @@ def _strip_optional(tp):
     return tp
 
 
+def _variant(cls, data: Dict[str, Any]):
+    """``cls``, or the subclass of it whose fields hold the keys of ``data``
+    that ``cls`` lacks (``LatentMoETransformerConfig`` for a transformer
+    group that names its fields)."""
+    extra = set(data) - {f.name for f in dataclasses.fields(cls)}
+    if extra:
+        for sub in cls.__subclasses__():
+            if extra <= {f.name for f in dataclasses.fields(sub)}:
+                return sub
+    return cls
+
+
 def config_from_dict(cls, data: Dict[str, Any]):
     """Recursively build a (frozen) config dataclass from plain dicts."""
     if data is None:
         return None
     if not dataclasses.is_dataclass(cls):
         return data
+    cls = _variant(cls, data)
     kwargs = {}
     hints = typing.get_type_hints(cls)
     field_names = {f.name for f in dataclasses.fields(cls)}

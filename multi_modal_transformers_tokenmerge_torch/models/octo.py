@@ -33,12 +33,14 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..core.config import OctoConfig
+from ..core.config import LatentMoETransformerConfig, OctoConfig
 from ..heads.categorical import CategoricalActionHead, assign_bins
 from ..heads.continuous import ContinuousActionHead
 from ..heads.diffusion import DiffusionActionHead
 from ..modules.attention import TransformerStack, select_attention_fn
 from ..modules.image_tokenizer import ImageTokenizer
+from ..modules.latent_moe import LatentMoEStack
+from ..modules.layers import Dense
 from ..modules.readout import ReadoutTokens
 from ..modules.text import build_text_encoder
 from ..modules.tome_stack import CompressedTransformerStack
@@ -77,10 +79,19 @@ class Octo(nn.Module):
                   device=device)
         e = cfg.token_embedding_dim
         self.text_encoder = build_text_encoder(cfg.text, **kw)
+        # a text tower narrower or wider than the tokens is projected to them
+        self.text_projection = (
+            Dense(cfg.text.embedding_dim, e, **kw)
+            if cfg.text.embedding_dim != e else None)
         self.image_encoder = ImageTokenizer(cfg.images, **kw)
         self.readout_encoder = ReadoutTokens(
             self.layout.modality_tokens("readouts"), e, **kw)
-        if use_compression:
+        if isinstance(cfg.transformer, LatentMoETransformerConfig):
+            self.transformer = LatentMoEStack(cfg.transformer, self.layout,
+                                              e, **kw)
+            readout_layer = self.transformer.final_layer()
+            self.use_compression = True
+        elif use_compression:
             self.transformer = CompressedTransformerStack(
                 cfg.transformer, self.layout, e, **kw)
             readout_layer = self.transformer.final_layer()
@@ -140,7 +151,10 @@ class Octo(nn.Module):
     def encode_text(self, text_tokens: torch.Tensor) -> torch.Tensor:
         """(B, T) ids -> (B, T, E) text embeddings."""
         with section("model.text"):
-            return self.text_encoder(text_tokens)
+            x = self.text_encoder(text_tokens)
+            if self.text_projection is not None:
+                x = self.text_projection(x)
+            return x
 
     def generate_readouts(self, text_tokens, images, train: bool = False,
                           *, rngs: Optional[Mapping] = None,

@@ -16,6 +16,7 @@ from ..core.config import (
     DiffusionHeadConfig,
     HeadsConfig,
     ImageTokenizerConfig,
+    LatentMoETransformerConfig,
     OctoConfig,
     ResNetEmbedderConfig,
     TextEncoderConfig,
@@ -23,7 +24,8 @@ from ..core.config import (
 )
 
 __all__ = ["octo_tiny", "octo_small", "octo_base", "octo_multicam",
-           "octo_base_deep", "octo_deep", "get_preset", "PRESETS"]
+           "octo_base_deep", "octo_deep", "octo_moonlight", "get_preset",
+           "PRESETS"]
 
 
 def octo_tiny(**overrides) -> OctoConfig:
@@ -155,6 +157,34 @@ def octo_deep(**overrides) -> OctoConfig:
     return cfg.replace(**overrides)
 
 
+def octo_moonlight(**overrides) -> OctoConfig:
+    """``octo_deep``'s token layout around Moonlight-16B-A3B's 27 decoder
+    layers at their published widths (huggingface.co/moonshotai/
+    Moonlight-16B-A3B config.json): hidden 2048, latent attention (16 heads,
+    qk 128 + 64 RoPE, v 128, kv_lora_rank 512), a dense SwiGLU first block
+    and 26 layers of 64 routed experts (6 a token) and 2 shared; bfloat16
+    parameters and compute.  The tower, readouts and head input are 2048
+    wide; the diffusion head alone.  ToMe merges follow blocks 9 and 18
+    (224 -> 160 -> 96 tokens)."""
+    deep = octo_deep()
+    cfg = deep.replace(
+        token_embedding_dim=2048,
+        images=deep.images.replace(
+            embedding_dim=2048,
+            resnet=deep.images.resnet.replace(output_features=2048)),
+        transformer=LatentMoETransformerConfig(
+            num_blocks=27,
+            attention=AttentionConfig(num_heads=16, qkv_features=2048,
+                                      dropout_rate=0.0, use_bias=False),
+            mlp_dim=11264, mlp_activation="silu", dropout_rate=0.0,
+            attention_impl="flash", compression_mode="merge",
+            tome_merge_every=9, final_norm=True),
+        heads=HeadsConfig(diffusion=deep.heads.diffusion),
+        dtype="bfloat16", param_dtype="bfloat16",
+    )
+    return cfg.replace(**overrides)
+
+
 PRESETS = {
     "octo_tiny": octo_tiny,
     "octo_small": octo_small,
@@ -162,6 +192,7 @@ PRESETS = {
     "octo_multicam": octo_multicam,
     "octo_base_deep": octo_base_deep,
     "octo_deep": octo_deep,
+    "octo_moonlight": octo_moonlight,
 }
 
 

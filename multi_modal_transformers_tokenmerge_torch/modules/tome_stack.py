@@ -59,24 +59,33 @@ from .moe import sum_aux
 __all__ = ["CompressedEncoderBlock", "CompressedTransformerStack"]
 
 
-def _merge_sets(x, size, metric, layout: SequenceLayout, layer: int):
+def _merge_sets(x, size, metric, layout: SequenceLayout, layer: int,
+                positions=None):
     """Per-set ToMe merge of the residual stream with the 'stable' match
     ordering.  x (B, S_l, E), size (B, S_l, 1), metric (B, S_l, D) ->
-    (B, S_{l+1}, E), (B, S_{l+1}, 1)."""
+    (B, S_{l+1}, E), (B, S_{l+1}, 1); with ``positions`` (B, S_l, 1) float32
+    also those, averaged by the same plan and sizes as x."""
     with section("model.merge"):
-        xs, sizes = [], []
+        xs, sizes, places = [], [], []
         for (start, n), n_next in zip(layout.set_slices(layer),
                                       layout.set_counts_at_layer(layer + 1)):
             x_i = x[:, start:start + n]
             s_i = size[:, start:start + n]
+            p_i = None if positions is None else positions[:, start:start + n]
             r = n - n_next
             if r > 0:
                 plan = bipartite_soft_matching(metric[:, start:start + n], r,
                                                ordering="stable")
+                if p_i is not None:
+                    p_i = merge_wavg(plan, p_i, s_i)[0]
                 x_i, s_i = merge_wavg(plan, x_i, s_i)
             xs.append(x_i)
             sizes.append(s_i)
-        return torch.cat(xs, dim=1), torch.cat(sizes, dim=1)
+            places.append(p_i)
+        merged = torch.cat(xs, dim=1), torch.cat(sizes, dim=1)
+        if positions is None:
+            return merged
+        return (*merged, torch.cat(places, dim=1))
 
 
 def _prune_sets(x, size, importance, layout: SequenceLayout, layer: int):

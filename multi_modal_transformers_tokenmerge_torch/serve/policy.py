@@ -85,8 +85,24 @@ def serving_copy(model: nn.Module) -> nn.Module:
     ``CAST_PARAMS``) is stored in that dtype.  Its outputs equal the
     model's bit for bit: each cast is made once here instead of at every
     call.  Parameters used in float32 (the norms') stay as they are.  The
-    copy is in eval mode and takes no gradient."""
-    out = copy.deepcopy(model).eval().requires_grad_(False)
+    copy is in eval mode and takes no gradient.
+
+    A model whose cast parameters are all stored in the compute dtype
+    already (bfloat16 parameters served in bfloat16) would gain nothing
+    from a copy of its weights: its copy's parameters share the model's
+    storage (new parameters, holding no gradient, over the same data), so
+    serving holds one copy of every weight.  Any other model's copy holds
+    its own, as before."""
+    shared = None
+    if all(getattr(m, name, None) is None or getattr(m, name).dtype == m.dtype
+           for m in model.modules() for name in getattr(m, "CAST_PARAMS", ())):
+        shared = {id(p): nn.Parameter(p.detach(), requires_grad=False)
+                  for p in model.parameters()}
+    out = copy.deepcopy(model, shared).eval().requires_grad_(False)
+    # a memo keeps every copy deepcopy made alive: with one held here the
+    # float32 copies below would outlive their casts, a second copy of the
+    # weights at the peak
+    del shared
     with torch.no_grad():
         for m in out.modules():
             for name in getattr(m, "CAST_PARAMS", ()):

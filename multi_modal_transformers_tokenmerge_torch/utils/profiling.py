@@ -21,7 +21,9 @@ a benchmark's traced run.
   records, so its records share the session's clock with the device's;
   otherwise the shared null context, at the cost of one flag check.
 * :func:`section`: a model section (``model.text``, ``model.image``,
-  ``model.stack``, ``model.merge``, ``model.head``).  On an eager call it
+  ``model.stack``, ``model.merge``, ``model.head``; in the latent-attention
+  stack also ``model.mla``, a block's attention, and ``model.moe``, a
+  routed expert layer, both inside ``model.stack``).  On an eager call it
   is a :func:`span`.  While an engine captures a CUDA graph under
   :func:`node_plan` it records which graph nodes the section added: a
   replay runs none of the model's Python, so its device records are split
@@ -29,7 +31,10 @@ a benchmark's traced run.
 * :data:`REGISTRY`: the process-wide registry of the plans
   (:class:`NodePlan`, one per compiled path, the latest capture of each)
   and of counters (``engine.replays``, ``engine.eager_calls``: the
-  engine's calls by route), which per-layer readers import.
+  engine's calls by route; ``image.norm_kernel`` / ``image.norm_plain``
+  and ``moe.grouped_kernel`` / ``moe.plain``: the route each capture or
+  eager call of a tower norm or a routed layer took), which per-layer
+  readers import.
 """
 
 from __future__ import annotations

@@ -47,10 +47,16 @@ def _yaml_files(root):
     return sorted(p.relative_to(root) for p in Path(root).rglob("*.yaml"))
 
 
+# the port's own presets, which the JAX package does not have
+PORT_ONLY = (Path("octo_moonlight.yaml"), Path("transformer/moonlight.yaml"))
+
+
 def test_yaml_files_are_copies():
-    """Same files, same trees (comments may differ)."""
-    assert _yaml_files(tyl.CONFIG_DIR) == _yaml_files(jyl.CONFIG_DIR)
-    assert len(_yaml_files(tyl.CONFIG_DIR)) == 13
+    """Same files, same trees (comments may differ), besides the port's own
+    presets."""
+    assert _yaml_files(tyl.CONFIG_DIR) == sorted(
+        _yaml_files(jyl.CONFIG_DIR) + list(PORT_ONLY))
+    assert len(_yaml_files(jyl.CONFIG_DIR)) == 13
     for rel in _yaml_files(jyl.CONFIG_DIR):
         with open(Path(tyl.CONFIG_DIR) / rel) as a, \
                 open(Path(jyl.CONFIG_DIR) / rel) as b:
@@ -68,7 +74,7 @@ def test_load_config_matches_jax(name, overrides):
     assert hash(got) == hash(tyl.load_config(name, list(overrides)))
 
 
-@pytest.mark.parametrize("name", ["octo_base", "octo_deep"])
+@pytest.mark.parametrize("name", ["octo_base", "octo_deep", "octo_moonlight"])
 def test_yaml_equals_preset(name):
     assert tyl.load_config(name) == tpre.PRESETS[name]()
     assert tyl.load_config(name, ["dtype=bfloat16"]) == tpre.PRESETS[name](
@@ -208,7 +214,8 @@ def test_cli_info(capsys):
     got, want = json.loads(out_t), json.loads(out_j)
     assert sorted(got) == sorted(want)
     assert got["version"] == want["version"]
-    assert got["presets"] == want["presets"]
+    # the port's own presets besides the JAX package's
+    assert got["presets"] == sorted(want["presets"] + ["octo_moonlight"])
     assert got["backend"] == "cpu" and got["devices"] == ["cpu"]
     assert _run(tcli.main, [])[1] == out_t        # 'info' is the default
 
